@@ -1,0 +1,64 @@
+"""The port's EngineConfig and chunk-size rules equal the JAX package's."""
+
+import itertools
+
+import pytest
+
+from harmonypy_tpu import config as jcfg
+from harmonypy_tpu_torch import config as tcfg
+
+_PROPS = ("fused_estep", "N_pad", "N_local", "N_shard_real", "B1",
+          "n_blocks", "kmeans_hist_len", "harmony_hist_len",
+          "rounds_hist_len", "kmeanspp_trials")
+
+_GRID = list(itertools.product(
+    (1, 128, 3_500, 20_479, 20_480, 30_000, 41_000, 858_000),   # N
+    (0.05, 0.25, 0.3, 1.0),                                     # block_size
+    (None, 128, 1000, 2048)))                                   # chunk_size
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_derived_geometry_matches_jax(fused):
+    for N, bs, cs in _GRID:
+        for K, mi_h, mi_k in ((1, 0, 0), (7, 1, 1), (100, 10, 20)):
+            ch = jcfg.auto_chunk_size(N, bs, cs)
+            kw = dict(N=N, d=29, K=K, B=3, n_devices=1, block_size=bs,
+                      chunk_size=ch, use_fused_xla=fused, defer_r=fused,
+                      max_iter_harmony=mi_h, max_iter_kmeans=mi_k)
+            a, b = jcfg.EngineConfig(**kw), tcfg.EngineConfig(**kw)
+            for p in _PROPS:
+                assert getattr(a, p) == getattr(b, p), (p, kw)
+
+
+def test_chunk_rules_match_jax():
+    for N, bs, cs in _GRID:
+        assert tcfg.auto_chunk_size(N, bs, cs) == jcfg.auto_chunk_size(
+            N, bs, cs), (N, bs, cs)
+        for ch in (128, 1000, 2048):
+            assert tcfg.fused_geometry_ok(N, 1, bs, ch) == \
+                jcfg.fused_geometry_ok(N, 1, bs, ch), (N, bs, ch)
+    assert tcfg._PER_CELL_MAX_N == jcfg._PER_CELL_MAX_N
+    for N in (1, 29, 30, 3_500, 858_000):
+        assert tcfg.default_nclust(N) == jcfg.default_nclust(N)
+
+
+def test_config_fields_match_jax():
+    """The port keeps every field of the JAX config, with the same
+    defaults."""
+    import dataclasses
+    jf = {f.name: f.default for f in dataclasses.fields(jcfg.EngineConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(tcfg.EngineConfig)}
+    assert jf == tf
+
+
+def test_validate_accepts_only_the_ported_path():
+    ok = tcfg.EngineConfig(N=5000, d=4, K=5, B=2, n_devices=1,
+                           use_fused_xla=True, defer_r=True, chunk_size=128)
+    ok.validate()
+    for bad in (dict(defer_r=False), dict(n_devices=2),
+                dict(use_fused_xla=False, use_pallas=True)):
+        cfg = tcfg.EngineConfig(**{**dict(
+            N=5000, d=4, K=5, B=2, n_devices=1, use_fused_xla=True,
+            defer_r=True, chunk_size=128), **bad})
+        with pytest.raises(NotImplementedError):
+            cfg.validate()
