@@ -7,24 +7,39 @@ Builds the hand-written kernels from the checkout, then, printing one JSON
 line per phase:
   1. device   the card (nvidia-smi name and power limit), torch/CUDA
               versions, the kernel build time;
-  2. kernel   the fused E-step kernel against its plain PyTorch version at
-              the full 858,000 x 29 PCs, K=100, B=3, CH=2048 shape (data
-              made from a seed as bench.py makes it): one round and one
-              r-window replay, tolerances below, bitwise repeat, and the
-              replay's per-chunk stats equal to the round's cache bitwise;
+  2. kernel   the deferred-R E-step kernel K1 against its plain PyTorch
+              version at the full 858,000 x 29 PCs, K=100, B=3, CH=2048
+              shape (data made from a seed as bench.py makes it): one round
+              and one r-window replay, tolerances below, bitwise repeat,
+              and the replay's per-chunk stats equal to the round's cache
+              bitwise;
+  2b. kernel2 the stored-R kernel K2 (write_r) on the same round inputs,
+              fp32 and bf16 R: against its plain version, its stats and fp32
+              r equal to K1's round and r window bitwise, its bf16 R equal
+              to K1's r rounded to bf16, the dummy chunk zero, a bitwise
+              repeat, its time and bound;
   3. fit      run_harmony on that data on the card, default parameters (the
               deferred-R fit): wall clock of 3 fits after a warm-up fit,
               peak device memory, k-means
               rounds, objective, and the kernel launch count, which must be
               2 * n_blocks per E-step pass the engine ran;
-  3b. profile one more such fit under torch.profiler: device busy time by
-              kernel, the device's idle share, and the host and device spans
-              of the engine's ranges (harmony::init, ::cluster,
-              ::ridge_replay);
+  3b. fit_stored  the stored-R fits (defer_r=False, in fp32 and with
+              low_memory=True) on that data: the same numbers, K2 launches
+              = 2 * n_blocks * rounds; then the stored fit against the
+              deferred fit of the same seed, every round run, at the JAX
+              package's tolerances for its two paths (tests/test_defer.py:
+              62-76);
+  3c. profile one deferred and one stored fit under torch.profiler: device
+              busy time by kernel, the device's idle share, and the host and
+              device spans of the engine's ranges (harmony::init,
+              ::cluster, ::ridge_replay or ::ridge);
   4. golden   pbmc_3500 with chunk_size=128 on the card: per-PC Pearson r
               against the R package's output >= 0.99;
-  5. kernels  every kernel with its launches on the fit, error against the
-              plain version, time, and bound.
+  4b. golden_default  pbmc_3500 at default settings (the per-cell fit) and
+              with chunk_size=128, defer_r=False (the stored fit, K2): min
+              per-PC r >= 0.99 each;
+  5. kernels  every kernel with its launches on its path's fit, error
+              against the plain version, time, and bound.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero without it; so does a machine without a CUDA card.
 """
@@ -50,6 +65,10 @@ PEAK_BYTES_S = 3.35e12
 # chunks for cache/ybuf/kbuf and ~43k-cell blocks for O/E; r is in [0, 1].
 TOL = dict(O=(1e-5, 1e-3), E=(1e-5, 1e-3), cache=(1e-5, 1e-4),
            ybuf=(1e-5, 1e-4), kbuf=(1e-5, 1e-3), r=(1e-5, 1e-5))
+# A bf16 R is held at one bf16 ulp (bit patterns at most 1 apart): an fp32
+# difference of ~1e-7 at a rounding midpoint moves the stored value by one.
+# The stored fit against the deferred fit: tests/test_defer.py:62-76.
+TOL_FIT = dict(Z_corr=(2e-4, 2e-4), R=(1e-3, 2e-5))
 
 
 def emit(obj):
@@ -105,7 +124,9 @@ def diff(a, b, rtol, atol):
             float((d / (atol + rtol * bb)).max()))
 
 
-def phase_kernel(ht_mods, X, batches):
+def round_inputs(ht_mods, X, batches):
+    """The main path's own inputs of one E-step round at the full shape:
+    init statistics and one round's tables."""
     import numpy as np
     import torch
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
@@ -136,6 +157,28 @@ def phase_kernel(ht_mods, X, batches):
     slots, removal = partition.round_tables(blocks, st.cache, geom)
     args = (slots, removal, ZP3, Y, params.sigma, params.theta, params.Pr_b,
             st.O, st.E)
+    return geom, args
+
+
+def round_bound(geom, r_bytes=0):
+    """Least work of one round: every real cell once; K2 also writes R
+    (r_bytes per element of the (nc1, K, CH) store)."""
+    R = 1 + N_BATCHES + N_PCS
+    flops = N_CELLS * (2 * N_PCS * K + 2 * K * R + 2 * K * N_BATCHES)
+    nbytes = (4 * (N_CELLS * R + (geom.nc_cap + 1) * (K * R + 2))
+              + r_bytes * (geom.nc_cap + 1) * K * geom.CH)
+    bound = dict(flop=flops, bytes=nbytes,
+                 ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3)
+    bound["bound_ms"] = max(bound["ops_ms"], bound["bytes_ms"])
+    bound["bound_by"] = ("operations" if bound["ops_ms"] >= bound["bytes_ms"]
+                         else "bytes")
+    return bound
+
+
+def phase_kernel(ht_mods, geom, args):
+    import torch
+    (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     lo, width = 200, 16
 
     res = {}
@@ -162,13 +205,7 @@ def phase_kernel(ht_mods, X, batches):
     ms = cuda_ms(lambda: fe.fused_estep(*args, False), reps=20)
     plain_ms = cuda_ms(lambda: plain_mod.fused_update_nor(*args, False),
                        reps=5, warmup=1)
-    # Least work one round needs: every real cell once.
-    R = 1 + N_BATCHES + N_PCS
-    flops = N_CELLS * (2 * N_PCS * K + 2 * K * R + 2 * K * N_BATCHES)
-    nbytes = 4 * (N_CELLS * R + (geom.nc_cap + 1) * (K * R + 2))
-    bound = dict(flop=flops, bytes=nbytes,
-                 ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
-                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3)
+    bound = round_bound(geom)
     max_abs = max(v for r in res.values() for v in r["max_abs"].values())
     emit(dict(phase="kernel", shape=dict(N=N_CELLS, d=N_PCS, K=K,
                                          B=N_BATCHES, CH=CHUNK,
@@ -178,9 +215,117 @@ def phase_kernel(ht_mods, X, batches):
               plain_ms_per_round=plain_ms, launches_per_round=2 * geom.nb,
               bound=bound))
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                bound_ms=max(bound["ops_ms"], bound["bytes_ms"]),
-                bound_by=("operations" if bound["ops_ms"] >= bound["bytes_ms"]
-                          else "bytes"))
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 bit patterns between two non-negative bf16
+    tensors."""
+    import torch
+    ia = a.contiguous().view(torch.int16).to(torch.int32)
+    ib = b.contiguous().view(torch.int16).to(torch.int32)
+    return int((ia - ib).abs().max())
+
+
+def phase_kernel2(ht_mods, geom, args):
+    """K2 on the round of phase kernel, fp32 and bf16 R, both objective
+    forms: against its plain version, and bitwise against K1."""
+    import torch
+    (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
+    dev = torch.device("cuda")
+    nc, CH = geom.nc_cap, geom.CH
+    dtypes = dict(float32=torch.float32, bfloat16=torch.bfloat16)
+    width = 16
+    lo = min(200, nc - width)
+
+    def empty(dt):
+        return torch.empty((nc + 1, K, CH), dtype=dt, device=dev)
+
+    def k2(dt, fast):
+        R3 = empty(dt)
+        return fe.fused_estep_r(args[0], args[1], args[2], R3, *args[3:],
+                                fast)
+
+    res, max_abs = {}, 0.0
+    for fast in (False, True):
+        k1 = fe.fused_estep(*args, fast)
+        k1r = fe.fused_estep(*args, fast, lo=0, width=nc)[5]
+        k1w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
+        for name, dt in dtypes.items():
+            kern = k2(dt, fast)
+            plain = plain_mod.fused_update_r(args[0], args[1], args[2],
+                                             empty(dt), *args[3:], fast)
+            torch.cuda.synchronize()
+            names = ("r", "O", "E", "cache", "ybuf", "kbuf")
+            errs = {n: diff(a.float(), b.float(), *TOL[n])
+                    for n, a, b in zip(names, kern, plain)}
+            if dt == torch.bfloat16:
+                ulps = bf16_ulps(kern[0], plain[0])
+                check(ulps <= 1, f"K2 bf16 R vs plain: {ulps} bf16 ulps")
+                errs.pop("r")
+            for n, (_, _, ratio) in errs.items():
+                check(ratio <= 1.0, f"K2 vs plain {n} ({name}, fast_objective"
+                                    f"={fast}) beyond {TOL[n]}: {errs}")
+            again = k2(dt, fast)
+            repeat = all(torch.equal(a, b) for a, b in zip(kern, again))
+            stats_k1 = all(torch.equal(a, b) for a, b in zip(kern[1:], k1))
+            r_k1 = torch.equal(kern[0][:nc], k1r.to(dt))
+            window = (dt != torch.float32
+                      or torch.equal(kern[0][lo: lo + width], k1w))
+            dummy_zero = not bool(kern[0][nc].float().any())
+            for ok, what in ((repeat, "repeat"),
+                             (stats_k1, "stats vs K1's round"),
+                             (r_k1, "R vs K1's r"),
+                             (window, "R vs K1's r window"),
+                             (dummy_zero, "dummy chunk zero")):
+                check(ok, f"K2 {what} not bitwise ({name}, fast_objective="
+                          f"{fast})")
+            max_abs = max(max_abs, *(e[0] for e in errs.values()))
+            if dt == torch.bfloat16:
+                max_abs = max(max_abs, float(
+                    (kern[0].float() - plain[0].float()).abs().max()))
+            res[f"{name},fast_objective={fast}"] = dict(
+                max_abs={n: e[0] for n, e in errs.items()},
+                max_rel={n: e[1] for n, e in errs.items()},
+                repeat_bitwise=repeat, stats_equal_k1_round=stats_k1,
+                r_equals_k1_r=r_k1, r_window_equals_k1=window,
+                dummy_chunk_zero=dummy_zero)
+
+    # K1 and K2 (fp32, bf16) timed in turns, three times over: the spread
+    # within one call, and K2's cost over K1 on the same card.
+    R3s = {name: empty(dt) for name, dt in dtypes.items()}
+    runs = dict(k1=lambda: fe.fused_estep(*args, False),
+                **{name: (lambda R3=R3: fe.fused_estep_r(
+                    args[0], args[1], args[2], R3, *args[3:], False))
+                   for name, R3 in R3s.items()})
+    samples = {n: [] for n in runs}
+    for _ in range(3):
+        for n, fn in runs.items():
+            samples[n].append(cuda_ms(fn, reps=20))
+    times = {n: dict(ms=sorted(v)[1], ms_samples=v) for n, v in samples.items()}
+    for name, R3 in R3s.items():
+        times[name]["plain_ms"] = cuda_ms(lambda: plain_mod.fused_update_r(
+            args[0], args[1], args[2], R3, *args[3:], False), reps=5,
+            warmup=1)
+        times[name]["bound"] = round_bound(geom, r_bytes=R3.element_size())
+    emit(dict(phase="kernel2", tolerance=TOL, bf16_r_tolerance="1 bf16 ulp",
+              results=res, times=times, launches_per_round=2 * geom.nb))
+    t32 = times["float32"]
+    return dict(ms=t32["ms"], plain_ms=t32["plain_ms"], max_abs_err=max_abs,
+                bound_ms=t32["bound"]["bound_ms"],
+                bound_by=t32["bound"]["bound_by"])
+
+
+def timed_fit(ht, fe, X, meta, **kw):
+    """One fit on the card with both launch counts set to 0 just before it:
+    (Harmony, seconds, K1 launches, K2 launches)."""
+    import torch
+    fe.launches = fe.launches_write_r = 0
+    t0 = time.perf_counter()
+    ho = ht.run_harmony(X, meta, ["batch"], device="cuda", verbose=False,
+                        **kw)
+    torch.cuda.synchronize()
+    return ho, time.perf_counter() - t0, fe.launches, fe.launches_write_r
 
 
 def phase_fit(ht, fe, X, batches):
@@ -190,25 +335,18 @@ def phase_fit(ht, fe, X, batches):
     meta = pd.DataFrame({"batch": pd.Categorical.from_codes(
         batches, [f"b{i}" for i in range(N_BATCHES)])})
 
-    def fit():
-        t0 = time.perf_counter()
-        ho = ht.run_harmony(X, meta, ["batch"], device="cuda", verbose=False)
-        torch.cuda.synchronize()
-        return ho, time.perf_counter() - t0
-
-    _, warm_s = fit()
+    _, warm_s, _, _ = timed_fit(ht, fe, X, meta)
     fit_s = []
     for _ in range(3):
         torch.cuda.reset_peak_memory_stats()
-        fe.launches = 0
-        ho, s = fit()
-        launches = fe.launches
+        ho, s, launches, k2 = timed_fit(ht, fe, X, meta)
         fit_s.append(s)
         nb = ho.cfg.n_blocks
         passes = ho.state.n_passes
         check(ho.cfg.defer_r, "default config did not select deferred-R")
         check(launches > 0 and launches == 2 * nb * passes,
               f"launches {launches} != 2 * {nb} blocks * {passes} passes")
+        check(k2 == 0, f"the deferred fit launched K2 {k2} times")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     obj = ho.objective_harmony
     check(obj[-1] < obj[0], f"objective did not decrease: {obj}")
@@ -228,6 +366,68 @@ def phase_fit(ht, fe, X, batches):
     return launches, meta
 
 
+def phase_fit_stored(ht, fe, X, meta):
+    """The stored-R fits: fp32 (defer_r=False) and bf16 (low_memory=True),
+    then the stored fit against the deferred fit with every round run."""
+    import numpy as np
+    import torch
+    out, launches = {}, None
+    for name, kw in (("stored", dict(defer_r=False)),
+                     ("low_memory", dict(defer_r=False, low_memory=True))):
+        _, warm_s, _, _ = timed_fit(ht, fe, X, meta, **kw)
+        fit_s = []
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            ho, s, k1, k2 = timed_fit(ht, fe, X, meta, **kw)
+            fit_s.append(s)
+            rounds = sum(ho.kmeans_rounds)
+            nb = ho.cfg.n_blocks
+            check(not ho.cfg.defer_r and ho.cfg.use_fused_xla,
+                  f"{name}: not the stored fused config")
+            check(k2 > 0 and k2 == 2 * nb * rounds,
+                  f"{name}: K2 launches {k2} != 2 * {nb} * {rounds} rounds")
+            check(k1 == 0, f"{name}: K1 launched {k1} times")
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        obj = ho.objective_harmony
+        check(obj[-1] < obj[0], f"{name}: objective did not decrease: {obj}")
+        Z = ho.Z_corr
+        check(Z.shape == (N_CELLS, N_PCS) and np.all(np.isfinite(Z)),
+              f"{name}: Z_corr not finite / wrong shape")
+        Rm = ho.R
+        row_err = float(np.abs(Rm.sum(axis=1) - 1.0).max())
+        # bf16 storage rounds each r by at most 2^-9 of itself.
+        row_tol = 1e-4 if ho.cfg.r_dtype == "float32" else 2 ** -8
+        check(Rm.shape == (N_CELLS, K) and row_err < row_tol,
+              f"{name}: .R rows do not sum to 1: {row_err}")
+        out[name] = dict(r_dtype=ho.cfg.r_dtype, warmup_fit_s=warm_s,
+                         fit_s=fit_s, peak_mem_gib=peak_gib,
+                         kmeans_rounds=ho.kmeans_rounds,
+                         objective_harmony=obj, k2_launches=k2,
+                         R_row_sum_max_err=row_err)
+        if name == "stored":
+            launches = k2
+
+    every_round = dict(max_iter_harmony=2, epsilon_cluster=0,
+                       epsilon_harmony=-1)
+    st, _, _, _ = timed_fit(ht, fe, X, meta, defer_r=False, **every_round)
+    de, _, _, _ = timed_fit(ht, fe, X, meta, **every_round)
+    check(de.cfg.defer_r and st.kmeans_rounds == de.kmeans_rounds
+          == [20, 20], f"rounds {st.kmeans_rounds} vs {de.kmeans_rounds}")
+    errs = {n: diff(torch.as_tensor(getattr(st, n)),
+                    torch.as_tensor(getattr(de, n)), *TOL_FIT[n])
+            for n in TOL_FIT}
+    for n, (_, _, ratio) in errs.items():
+        check(ratio <= 1.0, f"stored vs deferred {n} beyond {TOL_FIT[n]}: "
+                            f"{errs}")
+    emit(dict(phase="fit_stored", N=N_CELLS, fits=out,
+              stored_vs_deferred=dict(
+                  tolerance=TOL_FIT, kmeans_rounds=st.kmeans_rounds,
+                  max_abs={n: e[0] for n, e in errs.items()},
+                  objective_stored=st.objective_harmony,
+                  objective_deferred=de.objective_harmony)))
+    return launches
+
+
 def _union_us(spans):
     """Total length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -238,7 +438,7 @@ def _union_us(spans):
     return total
 
 
-def phase_profile(ht, X, meta):
+def phase_profile(ht, X, meta, label, **kw):
     """One fit under torch.profiler. Device busy time is the union of the
     device's kernel and copy intervals (the engine's ranges, which the
     profiler mirrors onto the device timeline, are not work and are reported
@@ -251,7 +451,8 @@ def phase_profile(ht, X, meta):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ht.run_harmony(X, meta, ["batch"], device="cuda", verbose=False)
+        ht.run_harmony(X, meta, ["batch"], device="cuda", verbose=False,
+                       **kw)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     host, dev_ranges, work, spans = {}, {}, {}, []
@@ -270,7 +471,7 @@ def phase_profile(ht, X, meta):
     busy_ms = _union_us(spans) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
     top = sorted(work.items(), key=lambda kv: -kv[1][0])[:10]
-    emit(dict(phase="profile", wall_s_profiled=wall_s,
+    emit(dict(phase="profile", fit=label, wall_s_profiled=wall_s,
               device_busy_ms=busy_ms,
               device_idle_share=1.0 - busy_ms / (wall_s * 1e3),
               host_ranges_ms=host, device_ranges_ms=dev_ranges,
@@ -278,9 +479,12 @@ def phase_profile(ht, X, meta):
                           for k, (ms, n) in top]))
 
 
-def phase_golden(ht):
+def golden_fit(ht, **kw):
+    """pbmc_3500 on the card: (Harmony, per-PC Pearson r against the R
+    package's output, fit seconds)."""
     import numpy as np
     import pandas as pd
+    import torch
     d = os.path.join(HERE, "harmonypy_tpu", "data")
     meta = pd.read_csv(os.path.join(d, "pbmc_3500_meta.tsv.gz"), sep="\t")
     pcs = pd.read_csv(os.path.join(d, "pbmc_3500_pcs.tsv.gz"), sep="\t")
@@ -290,14 +494,37 @@ def phase_golden(ht):
         gold = gold.iloc[:, 1:]
     t0 = time.perf_counter()
     ho = ht.run_harmony(pcs, meta, ["donor"], device="cuda", verbose=False,
-                        chunk_size=128)
+                        **kw)
+    torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     Z = ho.Z_corr
     r = [float(np.corrcoef(Z[:, i], gold.iloc[:, i].values)[0, 1])
          for i in range(Z.shape[1])]
+    return ho, r, fit_s
+
+
+def phase_golden(ht):
+    ho, r, fit_s = golden_fit(ht, chunk_size=128)
     check(min(r) >= 0.99, f"golden pbmc min per-PC r {min(r)} < 0.99")
     emit(dict(phase="golden", data="pbmc_3500", chunk_size=128,
               min_pc_r=min(r), fit_s=fit_s, kmeans_rounds=ho.kmeans_rounds))
+
+
+def phase_golden_default(ht):
+    """pbmc_3500 at default settings (the per-cell fit) and as a stored
+    fused fit (chunk_size=128, defer_r=False: K2) on the card."""
+    res = {}
+    for name, kw in (("default", {}),
+                     ("stored_chunk128", dict(chunk_size=128,
+                                              defer_r=False))):
+        ho, r, fit_s = golden_fit(ht, **kw)
+        check(ho.cfg.fused_estep == bool(kw) and not ho.cfg.defer_r,
+              f"golden {name}: unexpected config {ho.cfg}")
+        check(min(r) >= 0.99, f"golden pbmc {name} min per-PC r {min(r)} "
+                              f"< 0.99")
+        res[name] = dict(min_pc_r=min(r), fit_s=fit_s,
+                         kmeans_rounds=ho.kmeans_rounds)
+    emit(dict(phase="golden_default", data="pbmc_3500", results=res))
 
 
 def main() -> int:
@@ -328,19 +555,26 @@ def main() -> int:
               build_s=build_s, ptxas=build.build_log))
 
     X, batches = synthetic()
-    kinfo = phase_kernel((config, engine, layout, partition, fe,
-                          update_r_fused, state), X, batches)
+    mods = (config, engine, layout, partition, fe, update_r_fused, state)
+    geom, args = round_inputs(mods, X, batches)
+    kinfo = phase_kernel(mods, geom, args)
+    k2info = phase_kernel2(mods, geom, args)
+    del args
     launches, meta = phase_fit(ht, fe, X, batches)
-    phase_profile(ht, X, meta)
+    launches_r = phase_fit_stored(ht, fe, X, meta)
+    phase_profile(ht, X, meta, "deferred")
+    phase_profile(ht, X, meta, "stored", defer_r=False)
     phase_golden(ht)
-    emit({"kernels": [dict(
-        name="fused_estep", route="cuda",
-        source="harmonypy_tpu_torch/csrc/fused_estep.cu",
-        replaces="harmonypy_tpu/ops/pallas/update_r_fused.py:117",
-        launches=launches, max_abs_err=kinfo["max_abs_err"],
-        ms=kinfo["ms"], plain_ms=kinfo["plain_ms"],
-        bound_ms=kinfo["bound_ms"], bound_by=kinfo["bound_by"],
-        library_ms=None)]})
+    phase_golden_default(ht)
+    src = "harmonypy_tpu_torch/csrc/fused_estep.cu"
+    pallas = "harmonypy_tpu/ops/pallas/update_r_fused.py"
+    emit({"kernels": [
+        dict(name="fused_estep", route="cuda", source=src,
+             replaces=f"{pallas}:117", launches=launches, **kinfo,
+             library_ms=None),
+        dict(name="fused_estep_write_r", route="cuda", source=src,
+             replaces=f"{pallas}:109", launches=launches_r, **k2info,
+             library_ms=None)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ histories. `device` names a torch device: None means CUDA ("cuda",
 "cuda:N" and "cpu" are accepted); with no CUDA device, None raises instead
 of running on the CPU.
 
-This release runs the deferred-R fused fit on one device. Every other
-configuration raises NotImplementedError naming the ROADMAP.md item that
-will bring it.
+This release runs, on one device, the fits the JAX package runs there: the
+deferred-R fused fit, the stored-R fused fit (defer_r=False or
+use_pallas=True), low_memory (bf16 R), the per-cell fit (the default below
+20,480 cells) and the zero-iteration fit. Checkpoints and meshes raise
+NotImplementedError naming the ROADMAP.md item that will bring them.
 """
 
 from __future__ import annotations
@@ -19,14 +21,18 @@ import pandas as pd
 import torch
 
 from . import engine
-from .config import EngineConfig, auto_chunk_size, default_nclust, \
-    fused_geometry_ok
+from .config import (EngineConfig, auto_chunk_size, cell_tile_geom,
+                     default_nclust, expected_skip_fraction,
+                     fused_geometry_ok)
 from .layout import pad_cells, shard_mask, unpad_cells
 from .ops.partition import partition_geometry, round_tables
 from .ops.replay import replay_r, windows
 from .ops.update_r_fused import make_zp3
 from .state import HarmonyData, HarmonyParams, HarmonyState
 from .utils.logging import logger
+
+# Above this N a per-cell fit warns that the fused path would be faster.
+_SLOW_PATH_WARN_N = 65536
 
 
 def resolve_device(device) -> torch.device:
@@ -87,10 +93,13 @@ def run_harmony(
 ):
     """Run Harmony batch-effect correction (reference harmony.py:49-215).
 
-    Parameters beyond the reference's follow the JAX package. This port runs
-    the deferred-R fused fit (defer_r=None resolves to it); chunk_size=None
-    picks the chunk size from (N, block_size); fast_objective selects the
-    log-free entropy partials for single-covariate designs;
+    Parameters beyond the reference's follow the JAX package and resolve as
+    it resolves them: defer_r=None picks the deferred-R fused fit where the
+    fused geometry applies; use_pallas=True or defer_r=False the stored-R
+    fused fit; low_memory=True stores R in bfloat16; below the fused
+    geometry the per-cell fit runs. chunk_size=None picks the chunk size
+    from (N, block_size); fast_objective selects the log-free entropy
+    partials for single-covariate designs;
     matmul_precision is accepted for signature compatibility ("default" or
     "float32"; the port computes in float32 either way). `_init_Y` and
     `_blocks_fn` are test hooks (see engine.py).
@@ -266,27 +275,19 @@ class Harmony:
             _unported("a device mesh (more than one device)", "11")
         if checkpoint_dir is not None or resume_from is not None:
             _unported("checkpoint_dir / resume_from", "10")
-        if use_pallas:
-            _unported("use_pallas=True (the stored-R kernel path)", "8")
-        if defer_r is False:
-            _unported("defer_r=False (the stored-R fused path)", "8")
-        if low_memory:
-            _unported("low_memory=True (bfloat16 stored R)", "8")
-        if not fused_ok:
-            _unported(
-                f"the per-cell E-step (N={self.N} gives fewer than "
-                f"{int(np.ceil(1 / block_size))} chunks of {chunk_size} "
-                f"cells)", "8",
-                "; a smaller chunk_size (e.g. chunk_size=128) selects the "
-                "fused path")
-        if zero_iters:
-            _unported("a zero-iteration fit (stored initial assignments)",
-                      "8")
+        # As the JAX package resolves them (api.py:290-309): deferred-R is
+        # the fused default; use_pallas=True keeps R stored. Both fused
+        # flags run the hand-written kernels here.
+        if defer_r is None:
+            defer_r = fused_ok and use_pallas is not True and not zero_iters
+        use_pallas = bool(use_pallas)
+        use_fused_xla = (not use_pallas) and fused_ok
 
         self.device = resolve_device(device)
         cfg = EngineConfig(
             N=self.N, d=self.d, K=K, B=self.B, n_devices=1,
-            use_fused_xla=True, defer_r=True, chunk_size=int(chunk_size),
+            use_pallas=use_pallas, use_fused_xla=use_fused_xla,
+            defer_r=bool(defer_r), chunk_size=int(chunk_size),
             max_iter_harmony=max_iter_harmony,
             max_iter_kmeans=max_iter_kmeans,
             epsilon_kmeans=float(epsilon_kmeans),
@@ -294,8 +295,28 @@ class Harmony:
             window_size=self.window_size, block_size=float(block_size),
             alpha=float(alpha), lambda_estimation=bool(lambda_estimation),
             matmul_precision=str(matmul_precision),
+            r_dtype="bfloat16" if low_memory else "float32",
             n_covariates=self.n_covariates,
             fast_objective=bool(fast_objective))
+        if not cfg.fused_estep:
+            G, cap = cell_tile_geom(cfg.n_blocks)
+            frac = expected_skip_fraction(cfg.n_blocks)
+            emit = logger.warning if frac > 1e-4 else logger.debug
+            emit(f"per-cell E-step: the iid block partition's tile-capacity "
+                 f"rule (tile={G} cells, cap={cap} per block) skips an "
+                 f"expected {frac:.2e} of cells per round; those cells keep "
+                 f"their previous assignment for one round.")
+            logger.info(
+                "per-cell E-step: results are reproducible to reduction-"
+                "order tolerance, not bitwise across devices; a smaller "
+                "chunk_size (e.g. chunk_size=128) selects the fused path.")
+            if self.N > _SLOW_PATH_WARN_N:
+                logger.warning(
+                    f"N={self.N}: chunk geometry (chunk_size={chunk_size}) "
+                    f"disables the fused E-step; falling back to the "
+                    f"per-cell update, which is several times slower at "
+                    f"this scale. A smaller chunk_size usually restores the "
+                    f"fused path.")
         self.cfg = cfg
 
         lamb_arr = np.atleast_1d(np.asarray(lamb, dtype=np.float32))
@@ -372,9 +393,13 @@ class Harmony:
 
     @property
     def R(self):
-        """Soft cluster assignments (N x K), replayed from the final E-step
-        round in bounded chunk windows."""
-        return materialize_r(self.cfg, self.state, self._data, self._params)
+        """Soft cluster assignments (N x K), float32 whatever the storage
+        dtype. A deferred-R fit replays its final E-step round in bounded
+        chunk windows; a stored-R fit copies its stored R."""
+        if self.cfg.defer_r:
+            return materialize_r(self.cfg, self.state, self._data,
+                                 self._params)
+        return stored_r(self.cfg, self.state)
 
     @property
     def Y(self):
@@ -423,11 +448,21 @@ class Harmony:
         return self.Z_corr
 
 
+def stored_r(cfg: EngineConfig, state: HarmonyState) -> np.ndarray:
+    """A stored-R fit's soft assignments as float32 cells-first (N x K),
+    from the chunk-major (fused) or (K, N_pad) (per-cell) stored R."""
+    R = state.R.to(torch.float32)
+    if cfg.fused_estep:
+        R = R.permute(1, 0, 2).reshape(cfg.K, cfg.N_pad)
+    return unpad_cells(R.cpu().numpy(), cfg).T
+
+
 def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
                   params: HarmonyParams) -> np.ndarray:
     """Page a deferred-R fit's soft assignments to the host (N x K):
     replay the final round once per window of chunks (device peak about
-    width * chunk_size * K floats) and copy each window out."""
+    width * chunk_size * K floats) and copy each window out, rounded to
+    cfg.r_dtype as the JAX package's replay stores it."""
     geom = partition_geometry(cfg)
     CH, K = geom.CH, cfg.K
     ZP3 = make_zp3(state.rep_Zcos, data.Phi, data.mask, cfg)
@@ -437,6 +472,7 @@ def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
     for lo, w in windows(cfg, budget=64 * 1024 * 1024):
         Rw = replay_r(tables, ZP3, state.rep_Y, params.sigma, params.theta,
                       params.Pr_b, state.rep_O, state.rep_E, fast, lo, w)
+        Rw = Rw.to(cfg.r_torch_dtype).to(torch.float32)
         out[:, lo * CH: (lo + w) * CH] = (
             Rw.permute(1, 0, 2).reshape(K, w * CH).cpu().numpy())
         state.n_passes += 1

@@ -35,6 +35,36 @@ def default_nclust(N: int) -> int:
     return int(min(round(N / 30.0), 100))
 
 
+CELL_TILE_M = 64  # mean cells per (capacity tile, block) in the iid partition
+
+
+def cell_tile_geom(nb: int) -> tuple[int, int]:
+    """(tile size G, per-(tile, block) capacity cap) of the per-cell iid
+    block partition (ops/partition.py iid_blocks): mean occupancy of a
+    (tile, block) group is m = G/nb = CELL_TILE_M, and cap = m +
+    ceil(4 sqrt(m)) is a >= 4-sigma bound on it."""
+    m = CELL_TILE_M
+    return nb * m, m + int(math.ceil(4.0 * math.sqrt(m)))
+
+
+def expected_skip_fraction(nb: int) -> float:
+    """Exact expected fraction of cells the per-cell capacity rule skips per
+    round: E[(X - cap)^+] / m with X ~ Binomial(G, 1/nb) the occupancy of
+    one (tile, block) group."""
+    G, cap = cell_tile_geom(nb)
+    if cap >= G:
+        return 0.0
+    p = 1.0 / nb
+    lp, l1p = math.log(p), math.log1p(-p)
+    lgG = math.lgamma(G + 1)
+    acc = 0.0
+    for x in range(cap + 1, G + 1):
+        lpmf = (lgG - math.lgamma(x + 1) - math.lgamma(G - x + 1)
+                + x * lp + (G - x) * l1p)
+        acc += (x - cap) * math.exp(lpmf)
+    return acc / CELL_TILE_M
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static geometry + loop bounds for one Harmony problem."""
@@ -127,6 +157,14 @@ class EngineConfig:
         return int(math.ceil(1.0 / self.block_size))
 
     @property
+    def cell_block_width(self) -> int:
+        """Static width of the per-cell E-step's per-block work arrays: the
+        cells intersect at most cdiv(N_local, G) + 1 capacity tiles, each
+        holding at most `cap` cells of one block."""
+        G, cap = cell_tile_geom(self.n_blocks)
+        return min(self.N_local, (cdiv(self.N_local, G) + 1) * cap)
+
+    @property
     def kmeans_hist_len(self) -> int:
         return max(1 + self.max_iter_harmony * self.max_iter_kmeans,
                    self.window_size + 2)
@@ -145,18 +183,26 @@ class EngineConfig:
         return 2 + int(math.log(self.K)) if self.K > 1 else 1
 
     def validate(self) -> None:
-        """The port runs the deferred-R fused path on one device only."""
+        """The port runs one device: the deferred-R fused path, the
+        stored-R fused path (use_fused_xla or use_pallas, both on the
+        hand-written kernels) and the per-cell path (neither)."""
         if not (self.N >= 1 and self.d >= 1 and self.K >= 1 and self.B >= 1):
             raise ValueError(f"empty problem: {self}")
         if not 0.0 < self.block_size <= 1.0:
             raise ValueError(f"block_size must be in (0, 1]: {self}")
-        if self.n_devices != 1 or not (self.defer_r and self.use_fused_xla
-                                       and not self.use_pallas):
+        if self.n_devices != 1:
             raise NotImplementedError(
-                f"the PyTorch port runs the deferred-R fused fit on one "
-                f"device only: {self}")
-        if not fused_geometry_ok(self.N, 1, self.block_size,
-                                 self.chunk_size):
+                f"the PyTorch port runs on one device only (ROADMAP.md §1 "
+                f"item 11): {self}")
+        if self.use_pallas and self.use_fused_xla:
+            raise ValueError(f"use_pallas and use_fused_xla both set: {self}")
+        if self.defer_r and not self.fused_estep:
+            raise ValueError(f"defer_r requires a fused E-step: {self}")
+        if self.r_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"r_dtype must be 'float32' or 'bfloat16': "
+                             f"{self}")
+        if self.fused_estep and not fused_geometry_ok(
+                self.N, 1, self.block_size, self.chunk_size):
             raise ValueError(f"too few chunks for the fused geometry: {self}")
 
 
@@ -189,3 +235,13 @@ def fused_geometry_ok(N: int, n_devices: int = 1, block_size: float = 0.05,
     del n_devices
     n_blocks = int(math.ceil(1.0 / block_size))
     return cdiv(N, chunk_size) >= n_blocks
+
+
+def pallas_supported(N: int, n_devices: int, block_size: float = 0.05,
+                     chunk_size: int = 2048) -> bool:
+    """Whether the JAX package's Pallas E-step applies (one device and the
+    fused chunk geometry); the port routes such fits to its hand-written
+    kernels."""
+    if n_devices != 1:
+        return False
+    return fused_geometry_ok(N, n_devices, block_size, chunk_size)

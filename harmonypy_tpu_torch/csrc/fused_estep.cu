@@ -1,7 +1,8 @@
-// Fused deferred-R E-step round for Hopper (sm_90a), fp32 on CUDA cores.
+// Fused E-step round for Hopper (sm_90a), fp32 on CUDA cores.
 //
-// Replaces the JAX package's Pallas TPU kernel `_kernel_nor` (body
-// `_kernel_impl`, harmonypy_tpu/ops/pallas/update_r_fused.py:117-221). One
+// Replaces the JAX package's Pallas TPU kernels `_kernel_nor` (K1, the
+// deferred-R round) and `_kernel` (K2, the stored-R round), both bodies of
+// `_kernel_impl`, harmonypy_tpu/ops/pallas/update_r_fused.py:109-221. One
 // round visits the nb update blocks in order. For block b:
 //   O', E' = O, E minus the block's cached stats; wdiv = (E'/(O'+E'))^theta
 //   per chunk of the block and per cell: dist = 2(1 - Y^T z),
@@ -28,13 +29,22 @@
 // compiler contracts nothing differently between launches. `r_window` runs
 // the identical code and also stores r for chunks lo..lo+width-1, so a
 // replay reproduces its round's r bitwise (the deferred-R contract).
+// `write_r` (K2) runs it again with the window over every chunk and the
+// store type a template parameter: float, or bf16 rounded to nearest even
+// (`__float2bfloat16_rn`, as torch's .to(bfloat16) and JAX's astype round).
+// Every statistic still uses the fp32 r. Each block's slot list ends in the
+// dummy chunk, whose r is exactly zero, so the kernel itself writes the
+// dummy chunk of R with zeros. The store is coalesced along the cells.
 //
 // Bound on an H100 SXM at 858k cells, d=29, K=100, B=3, CH=2048: one round
 // reads the 33-row slab once (~113 MB, ~34 us at 3.35 TB/s) and does
 // ~11.2 GFLOP (dist ~5.0, stats ~5.7, wdiv Phi ~0.5), ~0.17 ms at the
-// 67 TFLOP/s fp32 rate: bound by operations. This first version keeps every
-// product on CUDA cores in shared memory; wgmma/TMA tiles are later work.
+// 67 TFLOP/s fp32 rate: bound by operations. K2 adds the write of R,
+// 4*K*N_pad bytes in fp32 (~0.34 GB, ~0.10 ms) or half that in bf16, still
+// below the operations bound. This first version keeps every product on CUDA
+// cores in shared memory; wgmma/TMA tiles are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,7 +71,7 @@ struct Args {
   float* cache;          // (nc1, K, B+1)
   float* ybuf;           // (nc1, K, d)
   float* kbuf;           // (nc1, 2)
-  float* rw;             // (width, K, CH) or null
+  void* rw;              // (width, K, CH) float or bf16 (RT), or null
   int lo, width;
   int K, B, d, CH, J, nt, fast_ent;
 };
@@ -98,6 +108,12 @@ __device__ float block_sum(float v, float* red) {
   return red[0];
 }
 
+__device__ __forceinline__ void store_r(float* p, float r) { *p = r; }
+__device__ __forceinline__ void store_r(__nv_bfloat16* p, float r) {
+  *p = __float2bfloat16_rn(r);
+}
+
+template <typename RT>
 __global__ void __launch_bounds__(THREADS) estep_main(Args a, int blk) {
   extern __shared__ float sm[];
   const int K = a.K, B = a.B, d = a.d, B1 = B + 1, R = 1 + B + d;
@@ -178,7 +194,8 @@ __global__ void __launch_bounds__(THREADS) estep_main(Args a, int blk) {
       if (!a.fast_ent && r > 0.0f)
         ent = fmaf(__fmul_rn(r, logf(r)), sig[k], ent);
       if (in_window && c0 + c < a.CH)
-        a.rw[((size_t)(slot - a.lo) * K + k) * a.CH + c0 + c] = r;
+        store_r(static_cast<RT*>(a.rw) +
+                    ((size_t)(slot - a.lo) * K + k) * a.CH + c0 + c, r);
     }
     __syncthreads();
     if (a.fast_ent && tid < TILE) {
@@ -298,18 +315,20 @@ size_t reduce_smem(int K, int B, int J) {
   return sizeof(float) * (slot > add ? slot : add);
 }
 
+template <typename RT>
 int run(const Args& a, int nb, cudaStream_t stream) {
   const size_t sm_main = main_smem(a.K, a.B, a.d);
   const size_t sm_red = reduce_smem(a.K, a.B, a.J);
   if (sm_main > MAX_SMEM || sm_red > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      estep_main, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_main);
+      estep_main<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm_main);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
       estep_reduce, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_red);
   if (err != cudaSuccess) return (int)err;
   for (int blk = 0; blk < nb; ++blk) {
-    estep_main<<<dim3(a.nt, a.J), THREADS, sm_main, stream>>>(a, blk);
+    estep_main<RT><<<dim3(a.nt, a.J), THREADS, sm_main, stream>>>(a, blk);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     estep_reduce<<<a.J + a.K, THREADS, sm_red, stream>>>(a, blk);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -320,7 +339,7 @@ int run(const Args& a, int nb, cudaStream_t stream) {
 Args make_args(const float* zp3, const float* Y, const float* sigma,
                const float* theta, const float* prb, const float* removal,
                const int* slots, float* oe, float* part, float* kpart,
-               float* cache, float* ybuf, float* kbuf, float* rw, int lo,
+               float* cache, float* ybuf, float* kbuf, void* rw, int lo,
                int width, int K, int B, int d, int CH, int J, int fast_ent) {
   Args a;
   a.zp3 = zp3; a.Y = Y; a.sigma = sigma; a.theta = theta; a.prb = prb;
@@ -349,7 +368,7 @@ int fused_estep_round(const float* zp3, const float* Y, const float* sigma,
   const Args a = make_args(zp3, Y, sigma, theta, prb, removal, slots, oe,
                            part, kpart, cache, ybuf, kbuf, nullptr, 0, 0, K,
                            B, d, CH, J, fast_ent);
-  return run(a, nb, (cudaStream_t)stream);
+  return run<float>(a, nb, (cudaStream_t)stream);
 }
 
 // The same round, also writing r of chunks lo..lo+width-1 into rw
@@ -364,7 +383,23 @@ int fused_estep_r_window(const float* zp3, const float* Y, const float* sigma,
   const Args a = make_args(zp3, Y, sigma, theta, prb, removal, slots, oe,
                            part, kpart, cache, ybuf, kbuf, rw, lo, width, K,
                            B, d, CH, J, fast_ent);
-  return run(a, nb, (cudaStream_t)stream);
+  return run<float>(a, nb, (cudaStream_t)stream);
+}
+
+// K2: the same round, also writing r of every slotted chunk into the
+// chunk-major r3 (nc1, K, CH), as float (r_bf16 == 0) or bf16.
+int fused_estep_write_r(const float* zp3, const float* Y, const float* sigma,
+                        const float* theta, const float* prb,
+                        const float* removal, const int* slots, float* oe,
+                        float* part, float* kpart, float* cache, float* ybuf,
+                        float* kbuf, void* r3, int nc1, int r_bf16, int K,
+                        int B, int d, int CH, int nb, int J, int fast_ent,
+                        void* stream) {
+  const Args a = make_args(zp3, Y, sigma, theta, prb, removal, slots, oe,
+                           part, kpart, cache, ybuf, kbuf, r3, 0, nc1, K, B,
+                           d, CH, J, fast_ent);
+  return r_bf16 ? run<__nv_bfloat16>(a, nb, (cudaStream_t)stream)
+                : run<float>(a, nb, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,26 +1,37 @@
-"""The Harmony engine, deferred-R fused path (JAX package engine.py:51-70,
-203-219, 286-349, 533-676).
+"""The Harmony engine on one device (JAX package engine.py:51-719): the
+deferred-R fused path, the stored-R fused path and the per-cell path.
 
   reference harmonize()        -> fit(): init + up to max_iter_harmony
                                   calls of iterate()
-  reference cluster()          -> cluster(): up to max_iter_kmeans fused
-                                  E-step rounds, windowed convergence
-  reference update_R()         -> ops.cuda.fused_estep (the hand-written
-                                  kernel on CUDA, its plain version on CPU)
-  reference moe_correct_ridge()-> replay of the final round: normal
-                                  equations, solve_w, apply
-  reference init_cluster()     -> ops.kmeans.kmeans_init + init_defer()
+  reference cluster()          -> cluster() (deferred), cluster_fused()
+                                  (stored, fused), cluster_percell():
+                                  up to max_iter_kmeans rounds, windowed
+                                  convergence
+  reference update_R()         -> ops.cuda.fused_estep (K1, deferred) and
+                                  fused_estep_r (K2, stored): the
+                                  hand-written kernels on CUDA, their plain
+                                  versions on CPU; ops.update_r (per-cell,
+                                  plain torch everywhere)
+  reference moe_correct_ridge()-> deferred: replay of the final round
+                                  (normal equations, solve_w, apply);
+                                  stored: ops.ridge.moe_correct_ridge
+  reference init_cluster()     -> ops.kmeans.kmeans_init + init_defer() or
+                                  init_stored()
 
-Nothing K x N is ever held: the soft assignments exist only inside the
-kernel (rounds) or one window at a time (replays).
+On the deferred path nothing K x N is ever held: the soft assignments exist
+only inside the kernel (rounds) or one window at a time (replays). The
+stored paths keep R in cfg.r_dtype (fp32, or bf16 under low_memory).
 
 Profiler ranges (torch.profiler.record_function, no cost without a
 profiler beyond a few microseconds per call): harmony::init,
-harmony::kmeans_init, harmony::cluster, harmony::ridge_replay.
+harmony::kmeans_init, harmony::cluster, harmony::ridge_replay (deferred),
+harmony::ridge (stored).
 
 Test hooks: `init_Y` replaces the k-means centroids, and `blocks_fn(i)`
-returns the (L,) block assignment of the i-th round of the fit (counted
-from 0 across harmony iterations) in place of a draw from the generator.
+returns the assignment of the i-th round of the fit (counted from 0 across
+harmony iterations) in place of a draw from the generator: the (L,) chunk
+assignment on the fused paths, the (L_cell,) cell assignment on the
+per-cell path.
 """
 
 from __future__ import annotations
@@ -31,17 +42,20 @@ import torch
 from torch.profiler import record_function
 
 from .config import EngineConfig
-from .ops.cuda.fused_estep import fused_estep
+from .ops.cuda.fused_estep import fused_estep, fused_estep_r
 from .ops.kmeans import kmeans_init
 from .ops.normalize import l2_normalize_cols
-from .ops.objective import chunk_objective_partials, cross_entropy_from_stats
-from .ops.partition import (frame_sum, partition_geometry, round_tables,
+from .ops.objective import (chunk_objective_partials,
+                            compute_objective_terms, cross_entropy_from_stats)
+from .ops.partition import (cell_partition_len, cell_slot_table, frame_sum,
+                            iid_blocks, partition_geometry, round_tables,
                             stripe_blocks)
 from .ops.replay import replay_apply, replay_normal_eq, windows
-from .ops.ridge import solve_w
+from .ops.ridge import moe_correct_ridge, solve_w
+from .ops.update_r import compute_scale_dist, update_r
 from .ops.update_r_fused import chunk_stats, make_zp3
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
-                    empty_histories)
+                    defer_placeholders, empty_histories)
 from .utils.logging import logger
 
 
@@ -118,10 +132,59 @@ def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     terms = (ko[0], ko[1], cross_entropy_from_stats(O, E, params, cfg))
     hist = empty_histories(cfg, dev)
     st = HarmonyState(
-        Z_corr=data.Z_orig, Z_cos=Z_cos, Y=Y, O=O, E=E, cache=cache,
+        Z_corr=data.Z_orig, Z_cos=Z_cos,
+        R=torch.zeros((1, 1), dtype=cfg.r_torch_dtype, device=dev),
+        Y=Y, O=O, E=E, cache=cache,
         **hist, Ysum0=frame_sum(ybuf, geom), rep_Y=Y, rep_O=O, rep_E=E,
         rep_blocks=torch.zeros((geom.L,), dtype=torch.int64, device=dev),
         rep_cache=cache, rep_Zcos=Z_cos)
+    _append_terms(st, terms)
+    st.n_harmony = append(st.obj_harmony, 0, st.obj_kmeans[0])  # harmony.py:392
+    return st
+
+
+@record_function("harmony::init")
+def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
+                gen: torch.Generator, init_Y=None) -> HarmonyState:
+    """Normalize, seed the centroids, and store the initial soft
+    assignments R = softmax_k(-dist/sigma) (harmony.py:377-392) with O/E and
+    the first objective (JAX package engine.py:221-284). Fused layout:
+    per-chunk cache and partials from the fp32 R, reduced by frame_sum.
+    Per-cell layout: O/E and the objective from the storage-rounded R,
+    since its E-step re-reads the stored values."""
+    Z_cos = l2_normalize_cols(data.Z_orig)                       # harmony.py:238
+    with record_function("harmony::kmeans_init"):
+        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
+    Y = l2_normalize_cols(Y)                                     # harmony.py:377
+    dev, K = Z_cos.device, cfg.K
+    dist_mat = 2.0 * (1.0 - Y.T @ Z_cos)                         # harmony.py:380
+    R = compute_scale_dist(dist_mat, params.sigma) * data.mask[None, :]
+    if cfg.fused_estep:
+        geom = partition_geometry(cfg)
+        nc1, CH = geom.nc_cap + 1, geom.CH
+        R = R.reshape(K, nc1, CH).permute(1, 0, 2)               # (nc1, K, CH)
+        cache = chunk_stats(R, data.Phi.reshape(cfg.B, nc1, CH).permute(
+            1, 0, 2))
+        tot = frame_sum(cache, geom)
+        E = tot[:, 0:1] * params.Pr_b[None, :]
+        O = tot[:, 1:]
+        kerr, ent = chunk_objective_partials(
+            R, dist_mat.reshape(K, nc1, CH).permute(1, 0, 2), params.sigma,
+            k_axis=1, chunk_axis=0)
+        nc = 2000.0 / cfg.N
+        terms = (frame_sum(kerr, geom) * nc, frame_sum(ent, geom) * nc,
+                 cross_entropy_from_stats(O, E, params, cfg))
+    else:
+        R = R.to(cfg.r_torch_dtype).to(torch.float32)
+        E = torch.outer(torch.sum(R, dim=1), params.Pr_b)      # harmony.py:388
+        O = R @ data.Phi.T                                       # harmony.py:389
+        cache = torch.zeros((1, 1, 1), dtype=torch.float32, device=dev)
+        terms = compute_objective_terms(R, dist_mat, O, E, data.Phi, params,
+                                        cfg)
+    st = HarmonyState(
+        Z_corr=data.Z_orig, Z_cos=Z_cos,
+        R=R.to(cfg.r_torch_dtype).contiguous(), Y=Y, O=O, E=E, cache=cache,
+        **empty_histories(cfg, dev), **defer_placeholders(cfg, dev))
     _append_terms(st, terms)
     st.n_harmony = append(st.obj_harmony, 0, st.obj_kmeans[0])  # harmony.py:392
     return st
@@ -150,10 +213,9 @@ def cluster(st: HarmonyState, ZP3, params: HarmonyParams, cfg: EngineConfig,
         st.Y, st.O, st.E, st.cache = Y, O, E, cache
         Ysum = frame_sum(ybuf, geom).T
         ko = frame_sum(kbuf, geom)
-        _append_terms(st, (ko[0] * nc, ko[1] * nc,
-                           cross_entropy_from_stats(O, E, params, cfg)))
-        if i > cfg.window_size and check_conv_kmeans(
-                st.obj_kmeans, st.n_kmeans, cfg):
+        if _round_end(st, i, (ko[0] * nc, ko[1] * nc,
+                              cross_entropy_from_stats(O, E, params, cfg)),
+                      cfg):
             return i + 1
     return cfg.max_iter_kmeans
 
@@ -188,13 +250,92 @@ def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
     st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
 
 
+def _round_end(st: HarmonyState, i: int, terms, cfg: EngineConfig) -> bool:
+    """Append a round's objective terms; whether the loop has converged."""
+    _append_terms(st, terms)
+    return i > cfg.window_size and check_conv_kmeans(st.obj_kmeans,
+                                                     st.n_kmeans, cfg)
+
+
+@record_function("harmony::cluster")
+def cluster_fused(st: HarmonyState, ZP3, params: HarmonyParams,
+                  cfg: EngineConfig, draw_blocks) -> int:
+    """Stored-R fused k-means loop (JAX package engine.py:391-511): every
+    round runs K2, which rewrites the chunk-major R3 in place in its
+    storage dtype. The first centroid numerator comes from the stored R by
+    a per-chunk product and frame_sum. Returns the rounds run."""
+    geom = partition_geometry(cfg)
+    fast = fast_ent(cfg)
+    nc = 2000.0 / cfg.N
+    y_c = torch.einsum("jdc,jkc->jdk", ZP3[:, cfg.B1:, :],
+                       st.R.to(torch.float32))
+    Ysum = frame_sum(y_c, geom)
+    for i in range(cfg.max_iter_kmeans):
+        Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443
+        slots, removal = round_tables(draw_blocks(), st.cache, geom)
+        R3, O, E, cache, ybuf, kbuf = fused_estep_r(
+            slots, removal, ZP3, st.R, Y, params.sigma, params.theta,
+            params.Pr_b, st.O, st.E, fast)
+        st.n_passes += 1
+        st.R, st.Y, st.O, st.E, st.cache = R3, Y, O, E, cache
+        Ysum = frame_sum(ybuf, geom).T
+        ko = frame_sum(kbuf, geom)
+        if _round_end(st, i, (ko[0] * nc, ko[1] * nc,
+                              cross_entropy_from_stats(O, E, params, cfg)),
+                      cfg):
+            return i + 1
+    return cfg.max_iter_kmeans
+
+
+@record_function("harmony::cluster")
+def cluster_percell(st: HarmonyState, data: HarmonyData,
+                    params: HarmonyParams, cfg: EngineConfig,
+                    draw_blocks) -> int:
+    """Per-cell k-means loop (JAX package engine.py:351-389): centroids
+    from Z_cos R^T, the distances, one per-cell E-step over iid blocks, the
+    objective from R. Returns the rounds run."""
+    for i in range(cfg.max_iter_kmeans):
+        Y = l2_normalize_cols(st.Z_cos @ st.R.to(torch.float32).T)  # :443-444
+        slot_table = cell_slot_table(draw_blocks(), cfg)
+        dist_mat = 2.0 * (1.0 - Y.T @ st.Z_cos)                  # harmony.py:447
+        st.R, st.E, st.O = update_r(slot_table, st.R, dist_mat, data.Phi,
+                                    st.E, st.O, params, cfg, data.mask)
+        st.Y = Y
+        if _round_end(st, i, compute_objective_terms(
+                st.R, dist_mat, st.O, st.E, data.Phi, params, cfg), cfg):
+            return i + 1
+    return cfg.max_iter_kmeans
+
+
+def iterate_stored(st: HarmonyState, data: HarmonyData,
+                   params: HarmonyParams, cfg: EngineConfig,
+                   draw_blocks) -> None:
+    """One stored-R harmony iteration (JAX package engine.py:685-719):
+    cluster, moe_correct_ridge on the stored R, normalize, the type-1
+    convergence check. Updates `st` in place."""
+    if cfg.fused_estep:
+        ZP3 = make_zp3(st.Z_cos, data.Phi, data.mask, cfg)
+        rounds = cluster_fused(st, ZP3, params, cfg, draw_blocks)
+    else:
+        rounds = cluster_percell(st, data, params, cfg, draw_blocks)
+    st.kmeans_rounds.append(rounds)
+    st.n_rounds += 1
+    st.n_harmony = append(st.obj_harmony, st.n_harmony,
+                          st.obj_kmeans[st.n_kmeans - 1])
+    with record_function("harmony::ridge"):
+        st.Z_corr = moe_correct_ridge(data.Z_orig, data.Phi, st.R, st.E,
+                                      params, cfg, data.mask)
+    st.Z_cos = l2_normalize_cols(st.Z_corr)                      # harmony.py:569
+    st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
+
+
 def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         gen: torch.Generator, verbose: bool = False, init_Y=None,
         blocks_fn: Optional[Callable[[int], torch.Tensor]] = None
         ) -> HarmonyState:
-    """init_cluster + harmonize (harmony.py:280-282, 419-435)."""
+    """init_cluster + harmonize (harmony.py:280-282, 419-435): the
+    deferred-R, stored-R fused or per-cell fit as cfg selects."""
     cfg.validate()
-    geom = partition_geometry(cfg)
     dev = data.Z_orig.device
     n_drawn = 0
 
@@ -203,18 +344,33 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         if blocks_fn is not None:
             blocks = torch.as_tensor(blocks_fn(n_drawn), dtype=torch.int64,
                                      device=dev)
-        else:
+        elif cfg.fused_estep:
+            geom = partition_geometry(cfg)
             blocks = stripe_blocks(gen, geom.NC_fixed, geom.L, geom.nb)
+        else:
+            blocks = iid_blocks(gen, cfg.N, cell_partition_len(cfg),
+                                cfg.n_blocks)
         n_drawn += 1
         return blocks
 
-    st = init_defer(data, params, cfg, gen, init_Y)
-    ZO3 = data.Z_orig.reshape(cfg.d, geom.nc_cap + 1, geom.CH).permute(
-        1, 0, 2).contiguous()
+    if cfg.defer_r:
+        st = init_defer(data, params, cfg, gen, init_Y)
+        geom = partition_geometry(cfg)
+        ZO3 = data.Z_orig.reshape(cfg.d, geom.nc_cap + 1, geom.CH).permute(
+            1, 0, 2).contiguous()
+
+        def step():
+            iterate(st, data, params, cfg, draw_blocks, ZO3)
+    else:
+        st = init_stored(data, params, cfg, gen, init_Y)
+
+        def step():
+            iterate_stored(st, data, params, cfg, draw_blocks)
+
     for i in range(1, cfg.max_iter_harmony + 1):
         if verbose:
             logger.info(f"Iteration {i} of {cfg.max_iter_harmony}")
-        iterate(st, data, params, cfg, draw_blocks, ZO3)
+        step()
         if st.converged:
             if verbose:
                 logger.info(f"Converged after {i} iteration"

@@ -4,7 +4,8 @@
         + sum(sigma * R * (theta * log((O+E)/E)) Phi) ] * 2000 / N
 
 The fused E-step returns the first two terms as per-chunk partials; the
-cross term comes from O and E alone, because O = R Phi^T.
+cross term comes from O and E alone, because O = R Phi^T. The per-cell path
+takes all three from R (compute_objective_terms).
 """
 
 from __future__ import annotations
@@ -55,3 +56,20 @@ def cross_entropy_from_stats(O, E, params: HarmonyParams, cfg: EngineConfig):
     Oc, Ec = torch.clamp_min(O, CLAMP), torch.clamp_min(E, CLAMP)
     theta_log = params.theta[None, :] * torch.log((Oc + Ec) / Ec)   # (K, B)
     return torch.sum(params.sigma[:, None] * theta_log * O) * norm_const
+
+
+def compute_objective_terms(R, dist_mat, O, E, Phi, params: HarmonyParams,
+                            cfg: EngineConfig):
+    """(kmeans_error, entropy, cross_entropy), each * 2000/N, from R
+    (K, N_local) in any storage dtype, summed in fp32 (JAX package
+    ops/objective.py:96-110)."""
+    norm_const = 2000.0 / cfg.N
+    sigma_col = params.sigma[:, None]
+    R = R.to(torch.float32)
+    kmeans_error = torch.sum(R * dist_mat)
+    entropy = torch.sum(safe_entropy(R) * sigma_col)
+    Oc, Ec = torch.clamp_min(O, CLAMP), torch.clamp_min(E, CLAMP)
+    theta_log = params.theta[None, :] * torch.log((Oc + Ec) / Ec)   # (K, B)
+    cross = torch.sum((R * sigma_col) * (theta_log @ Phi))
+    return (kmeans_error * norm_const, entropy * norm_const,
+            cross * norm_const)

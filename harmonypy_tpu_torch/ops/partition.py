@@ -7,9 +7,13 @@ permutation of the block ids. Each block therefore owns one chunk per
 stripe, and its chunks are visited in ascending id order (JAX package
 ops/partition.py:46-250).
 
-Where the JAX package draws stripe permutations from threefry keys, the port
-draws them from a `torch.Generator`; the two streams differ, so tests inject
-the JAX package's `stripe_blocks` output through `round_tables(blocks, ...)`.
+The per-cell E-step assigns each CELL an iid-uniform block instead, with a
+per-tile capacity rule (iid_blocks, JAX package ops/partition.py:86-118).
+
+Where the JAX package draws from threefry keys, the port draws from a
+`torch.Generator`; the two streams differ, so tests inject the JAX package's
+`stripe_blocks` output through `round_tables(blocks, ...)`, and its iid draw
+through `iid_blocks_from_draw`.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import dataclasses
 
 import torch
 
-from ..config import EngineConfig, cdiv, round_up
+from ..config import EngineConfig, cdiv, cell_tile_geom, round_up
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +60,56 @@ def stripe_blocks(gen: torch.Generator, n_real: int, L: int,
     blocks = torch.argsort(keys, dim=1, stable=True).reshape(-1)[:L]
     ids = torch.arange(L, device=blocks.device)
     return torch.where(ids < n_real, blocks, torch.full_like(blocks, nb))
+
+
+def iid_blocks(gen: torch.Generator, n_real: int, L: int,
+               nb: int) -> torch.Tensor:
+    """(L,) int64 iid-uniform block per cell, items >= n_real and capacity
+    overflows on the sentinel block `nb`: a draw of whole capacity tiles
+    from the generator, then iid_blocks_from_draw."""
+    G, _ = cell_tile_geom(nb)
+    n_tiles = cdiv(max(n_real, 1), G)
+    raw = torch.randint(0, nb, (n_tiles * G,), generator=gen,
+                        device=gen.device)
+    return iid_blocks_from_draw(raw, n_real, L, nb)
+
+
+def iid_blocks_from_draw(raw: torch.Tensor, n_real: int, L: int,
+                         nb: int) -> torch.Tensor:
+    """The capacity rule on a raw draw of whole tiles (n_tiles * G,): within
+    each tile of G = nb * CELL_TILE_M consecutive cells at most `cap` cells
+    of any one block take part; the rest (a >= 4-sigma tail) get the
+    sentinel `nb` and keep their assignment for the round. Padded to L and
+    sentinel from n_real on."""
+    G, cap = cell_tile_geom(nb)
+    raw = raw.to(torch.int64)
+    n_tiles = raw.shape[0] // G
+    tiles = raw.reshape(n_tiles, G)
+    occ = tiles[:, :, None] == torch.arange(nb, device=raw.device)
+    ranks = torch.cumsum(occ.to(torch.int64), dim=1) - 1      # (T, G, nb)
+    rank = torch.gather(ranks, 2, tiles[:, :, None]).reshape(-1)
+    blocks = torch.where(rank < cap, raw, torch.full_like(raw, nb))
+    if blocks.shape[0] < L:
+        blocks = torch.cat([blocks, blocks.new_full((L - blocks.shape[0],),
+                                                    nb)])
+    blocks = blocks[:L]
+    ids = torch.arange(L, device=raw.device)
+    return torch.where(ids < n_real, blocks, torch.full_like(blocks, nb))
+
+
+def cell_partition_len(cfg: EngineConfig) -> int:
+    """Length of the per-cell assignment table: every (padded) cell id."""
+    return max(round_up(cfg.N, cfg.n_blocks), cfg.n_devices * cfg.N_local)
+
+
+def cell_slot_table(blocks: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
+    """(nb, cell_block_width) cell ids per block, ascending, from the (L,)
+    per-cell assignment; unfilled slots hold the sentinel N_local."""
+    if cfg.n_devices != 1:
+        raise NotImplementedError("multi-device per-cell tables "
+                                  "(ROADMAP.md §1 item 11)")
+    return group_by_block(blocks[: cfg.N_local], cfg.n_blocks,
+                          cfg.cell_block_width, fill=cfg.N_local)
 
 
 def block_ranks(blocks: torch.Tensor, nb: int, sentinel: int) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """The fused chunk-granular E-step in plain PyTorch.
 
-This is the plain version of the hand-written kernel
-(`ops/cuda/fused_estep.py`, `csrc/fused_estep.cu`): the CPU runs it, and
-the tests and `chip_smoke.py` hold the kernel against it. It computes what
-the JAX package's Pallas `_kernel_nor` and its XLA twin
-`fused_update_nor_xla3` compute (ops/pallas/update_r_fused.py:117-221,
-ops/update_r_fused_xla.py:43-238):
+These are the plain versions of the hand-written kernels
+(`ops/cuda/fused_estep.py`, `csrc/fused_estep.cu`): the CPU runs them, and
+the tests and `chip_smoke.py` hold the kernels against them. They compute
+what the JAX package's Pallas `_kernel_nor` / `_kernel` and their XLA twins
+`fused_update_nor_xla3` / `fused_update_r_xla3` compute
+(ops/pallas/update_r_fused.py:109-221, ops/update_r_fused_xla.py:43-238):
 
   for each block b, in order:
     O, E -= the block's cached stats (reference harmony.py:491-492)
@@ -16,6 +16,7 @@ ops/update_r_fused_xla.py:43-238):
       S = r [mask; Phi; Z]^T -> cache (K, B+1) and ybuf (K, d)
       kbuf = [sum r dist, sum sigma r log r]
     O, E += the block's new stats, in ascending slot order (:506-507)
+    (write-R round only) R3[chunk] = r in the storage dtype
 
 All N-scale inputs are chunk-major: ZP3 (n_chunks+1, 1+B+d, CH) holds
 [mask; Phi; Z_cos] per chunk, and the last chunk is the all-zero dummy that
@@ -110,25 +111,16 @@ def chunk_partials(r, dist, stats, sigma, theta, logratio, logdd,
     return chunk_objective_partials(r, dist, sigma, k_axis=1, chunk_axis=0)
 
 
-def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                     fast_ent: bool, lo: int = 0, width: int = 0):
-    """One deferred-R E-step round over all blocks — the plain version of
-    the kernel, with the kernel's signature.
-
-    slots (nb, J) chunk ids per block (dummy = n_chunks); removal
-    (nb, K, B+1); ZP3 (nc1, 1+B+d, CH); Y (d, K); sigma (K,); theta, Pr_b
-    (B,); O, E (K, B). With width > 0 the r of the chunks lo..lo+width-1
-    is also returned (the `r_window` epilogue).
-
-    Returns (O, E, cache (nc1, K, B+1), ybuf (nc1, K, d), kbuf (nc1, 2),
-    Rw (width, K, CH) or None)."""
-    nc1, _, CH = ZP3.shape
+def _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
+           fast_ent: bool, store):
+    """One round over all blocks; store(slots_b, r) gets each block's r.
+    Returns (O, E, cache, ybuf, kbuf)."""
+    nc1 = ZP3.shape[0]
     K, d, B1 = Y.shape[1], Y.shape[0], theta.shape[0] + 1
     f32 = dict(dtype=torch.float32, device=ZP3.device)
     cache = torch.zeros((nc1, K, B1), **f32)
     ybuf = torch.zeros((nc1, K, d), **f32)
     kbuf = torch.zeros((nc1, 2), **f32)
-    Rw = torch.zeros((width + 1, K, CH), **f32) if width > 0 else None
     slots = slots.long()
     for b in range(slots.shape[0]):
         sl = slots[b]
@@ -141,8 +133,51 @@ def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
         cache[sl] = stats
         ybuf[sl] = yk
         kbuf[sl] = torch.stack([kerr, ent], dim=1)
+        store(sl, r)
+    return O, E, cache, ybuf, kbuf
+
+
+def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
+                     fast_ent: bool, lo: int = 0, width: int = 0):
+    """One deferred-R E-step round over all blocks — the plain version of
+    the kernel K1, with the kernel's signature.
+
+    slots (nb, J) chunk ids per block (dummy = n_chunks); removal
+    (nb, K, B+1); ZP3 (nc1, 1+B+d, CH); Y (d, K); sigma (K,); theta, Pr_b
+    (B,); O, E (K, B). With width > 0 the r of the chunks lo..lo+width-1
+    is also returned (the `r_window` epilogue).
+
+    Returns (O, E, cache (nc1, K, B+1), ybuf (nc1, K, d), kbuf (nc1, 2),
+    Rw (width, K, CH) or None)."""
+    K, CH = Y.shape[1], ZP3.shape[2]
+    Rw = (torch.zeros((width + 1, K, CH), dtype=torch.float32,
+                      device=ZP3.device) if width > 0 else None)
+
+    def store(sl, r):
         if Rw is not None:
             w = sl - lo
             w = torch.where((w >= 0) & (w < width), w, torch.full_like(w, width))
             Rw[w] = r
-    return O, E, cache, ybuf, kbuf, (Rw[:width] if Rw is not None else None)
+
+    out = _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
+                 store)
+    return (*out, Rw[:width] if Rw is not None else None)
+
+
+def fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
+                   fast_ent: bool):
+    """One stored-R E-step round — the plain version of the kernel K2 (the
+    Pallas `_kernel`, JAX package ops/pallas/update_r_fused.py:109-114, and
+    its XLA twin fused_update_r_xla3): fused_update_nor plus
+    R3[slots_b] = r.to(R3.dtype) for every block, written in place into the
+    caller's chunk-major R3 (nc1, K, CH), fp32 or bf16. Every statistic
+    uses the fp32 r. Every block's slots end with the dummy chunk, so the
+    dummy chunk of R3 is written with zeros.
+
+    Returns (R3, O, E, cache, ybuf, kbuf)."""
+    def store(sl, r):
+        R3[sl] = r.to(R3.dtype)
+
+    out = _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
+                 store)
+    return (R3, *out)

@@ -3,15 +3,19 @@
 Layout (the JAX package's, cells are COLUMNS):
   Z_corr, Z_cos : (d, N_local)
   Phi           : (B, N_local)   one-hot batch design, zero on padding
+  R             : stored soft assignments in cfg.r_dtype:
+                  (n_chunks+1, K, CH) chunk-major on the fused stored path,
+                  (K, N_local) on the per-cell path, a (1, 1) placeholder
+                  on the deferred path
   Y             : (d, K)
   O, E          : (K, B)
-  cache         : (n_chunks+1, K, B+1) per-chunk statistics
+  cache         : (n_chunks+1, K, B+1) per-chunk statistics (fused paths)
 
 Deferred-R fits never hold R. The final k-means round's start-of-round
 inputs (rep_*) let the ridge correction and the .R property replay that
 round bitwise. Where the JAX state keeps the round's RNG key, this state
 keeps the round's block assignment itself (`rep_blocks`), so a replay needs
-no random numbers.
+no random numbers. On the stored paths these fields are placeholders.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class HarmonyData:
 class HarmonyState:
     Z_corr: torch.Tensor
     Z_cos: torch.Tensor
+    R: torch.Tensor
     Y: torch.Tensor
     O: torch.Tensor
     E: torch.Tensor
@@ -85,6 +90,15 @@ def empty_histories(cfg: EngineConfig, device) -> dict:
         kmeans_rounds=[], n_rounds=0, converged=False)
 
 
+def defer_placeholders(cfg: EngineConfig, device) -> dict:
+    """(1, 1)-scale values for the deferred-R fields of a stored-R state."""
+    one = torch.zeros((1, 1), dtype=torch.float32, device=device)
+    return dict(Ysum0=one, rep_Y=one, rep_O=one, rep_E=one,
+                rep_blocks=torch.zeros((1,), dtype=torch.int64,
+                                       device=device),
+                rep_cache=one[None], rep_Zcos=one)
+
+
 def append(buf: torch.Tensor, n: int, value) -> int:
     """Ring-buffer append in place: buf[n] = value; returns n + 1."""
     buf[n] = value
@@ -97,22 +111,44 @@ _TENSOR_FIELDS = ("Z_corr", "Z_cos", "Y", "O", "E", "cache", "obj_kmeans",
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray], cfg: EngineConfig,
-                     rep_blocks, device) -> HarmonyState:
+                     rep_blocks=None, device="cpu") -> HarmonyState:
     """Build the port's state from a JAX package ``HarmonyState`` given as
-    numpy arrays by field name (for example a JAX checkpoint ``.npz``). The
-    JAX state's round key cannot be replayed here, so the caller passes the
-    final round's block assignment `rep_blocks` ((L,) integers, the output
-    of the JAX package's ``stripe_blocks`` for that key)."""
+    numpy arrays by field name (for example a JAX checkpoint ``.npz``).
+
+    Deferred-R (cfg.defer_r): the JAX state's round key cannot be replayed
+    here, so the caller passes the final round's block assignment
+    `rep_blocks` ((L,) integers, the output of the JAX package's
+    ``stripe_blocks`` for that key). Stored-R: ``R`` is the JAX state's
+    (K, N_pad) array (bf16 given as float32); it is stored in cfg.r_dtype,
+    chunk-major on the fused path."""
     fields = {k: torch.tensor(np.asarray(arrays[k], np.float32),
-                                 device=device) for k in _TENSOR_FIELDS}
-    for name, shape in (("Z_corr", (cfg.d, cfg.N_local)),
-                        ("rep_Zcos", (cfg.d, cfg.N_local)),
-                        ("Y", (cfg.d, cfg.K)), ("O", (cfg.K, cfg.B)),
-                        ("cache", (cfg.N_local // cfg.chunk_size, cfg.K,
-                                   cfg.B1))):
-        if tuple(fields[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(fields[name].shape)}, "
+                              device=device) for k in _TENSOR_FIELDS}
+    R = torch.tensor(np.asarray(arrays["R"], np.float32), device=device)
+    checks = [("Z_corr", fields["Z_corr"], (cfg.d, cfg.N_local)),
+              ("Y", fields["Y"], (cfg.d, cfg.K)),
+              ("O", fields["O"], (cfg.K, cfg.B))]
+    if cfg.fused_estep:
+        checks.append(("cache", fields["cache"],
+                       (cfg.N_local // cfg.chunk_size, cfg.K, cfg.B1)))
+    if cfg.defer_r:
+        checks.append(("rep_Zcos", fields["rep_Zcos"], (cfg.d, cfg.N_local)))
+    else:
+        checks.append(("R", R, (cfg.K, cfg.N_local)))
+    for name, t, shape in checks:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape} for {cfg}")
+    R = R.to(cfg.r_torch_dtype)
+    if cfg.defer_r:
+        if rep_blocks is None:
+            raise ValueError("a deferred-R state needs rep_blocks")
+        rep_blocks = torch.tensor(np.asarray(rep_blocks, np.int64),
+                                  device=device)
+    else:
+        rep_blocks = torch.zeros((1,), dtype=torch.int64, device=device)
+        if cfg.fused_estep:
+            R = R.reshape(cfg.K, -1, cfg.chunk_size).permute(1, 0, 2)
+    fields["R"] = R.contiguous()
     n_rounds = int(arrays["n_rounds"])
     return HarmonyState(
         **fields,
@@ -120,5 +156,4 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], cfg: EngineConfig,
         kmeans_rounds=[int(x) for x in
                        np.asarray(arrays["kmeans_rounds"])[:n_rounds]],
         n_rounds=n_rounds, converged=bool(arrays["converged"]),
-        rep_blocks=torch.tensor(np.asarray(rep_blocks, np.int64),
-                                   device=device))
+        rep_blocks=rep_blocks)

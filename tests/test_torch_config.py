@@ -8,8 +8,8 @@ from harmonypy_tpu import config as jcfg
 from harmonypy_tpu_torch import config as tcfg
 
 _PROPS = ("fused_estep", "N_pad", "N_local", "N_shard_real", "B1",
-          "n_blocks", "kmeans_hist_len", "harmony_hist_len",
-          "rounds_hist_len", "kmeanspp_trials")
+          "n_blocks", "cell_block_width", "kmeans_hist_len",
+          "harmony_hist_len", "rounds_hist_len", "kmeanspp_trials")
 
 _GRID = list(itertools.product(
     (1, 128, 3_500, 20_479, 20_480, 30_000, 41_000, 858_000),   # N
@@ -40,6 +40,18 @@ def test_chunk_rules_match_jax():
     assert tcfg._PER_CELL_MAX_N == jcfg._PER_CELL_MAX_N
     for N in (1, 29, 30, 3_500, 858_000):
         assert tcfg.default_nclust(N) == jcfg.default_nclust(N)
+    for N, bs, cs in _GRID:
+        for nd in (1, 2):
+            assert tcfg.pallas_supported(N, nd, bs, cs or 2048) == \
+                jcfg.pallas_supported(N, nd, bs, cs or 2048)
+
+
+def test_cell_tile_rules_match_jax():
+    assert tcfg.CELL_TILE_M == jcfg.CELL_TILE_M
+    for nb in (1, 2, 3, 4, 10, 20, 100):
+        assert tcfg.cell_tile_geom(nb) == jcfg.cell_tile_geom(nb)
+        assert tcfg.expected_skip_fraction(nb) == \
+            jcfg.expected_skip_fraction(nb)
 
 
 def test_config_fields_match_jax():
@@ -52,13 +64,20 @@ def test_config_fields_match_jax():
 
 
 def test_validate_accepts_only_the_ported_path():
-    ok = tcfg.EngineConfig(N=5000, d=4, K=5, B=2, n_devices=1,
-                           use_fused_xla=True, defer_r=True, chunk_size=128)
-    ok.validate()
-    for bad in (dict(defer_r=False), dict(n_devices=2),
-                dict(use_fused_xla=False, use_pallas=True)):
-        cfg = tcfg.EngineConfig(**{**dict(
-            N=5000, d=4, K=5, B=2, n_devices=1, use_fused_xla=True,
-            defer_r=True, chunk_size=128), **bad})
-        with pytest.raises(NotImplementedError):
-            cfg.validate()
+    """Deferred-R, stored-R fused (either fused flag), per-cell and bf16 R
+    validate on one device; more devices and inconsistent flags do not."""
+    base = dict(N=5000, d=4, K=5, B=2, n_devices=1, chunk_size=128)
+    for ok in (dict(use_fused_xla=True, defer_r=True),
+               dict(use_pallas=True, defer_r=True),
+               dict(use_fused_xla=True), dict(use_pallas=True), dict(),
+               dict(use_fused_xla=True, r_dtype="bfloat16"),
+               dict(r_dtype="bfloat16")):
+        tcfg.EngineConfig(**base, **ok).validate()
+    with pytest.raises(NotImplementedError):
+        tcfg.EngineConfig(**{**base, "n_devices": 2},
+                          use_fused_xla=True).validate()
+    for bad in (dict(defer_r=True), dict(use_pallas=True, use_fused_xla=True),
+                dict(use_fused_xla=True, r_dtype="float16"),
+                dict(use_pallas=True, chunk_size=2048)):
+        with pytest.raises(ValueError):
+            tcfg.EngineConfig(**{**base, **bad}).validate()

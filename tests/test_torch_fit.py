@@ -1,6 +1,7 @@
 """The port's deferred-R fit end to end on the CPU: an exact trajectory
 against the JAX package with its init and partitions injected, the golden
-pbmc gate, seeds, a JAX fit's state carried across, device selection,
+pbmc gate, seeds, a JAX fit's state carried across, device selection, the
+configurations of the stored-R slice as the JAX package resolves them, the
 unported configurations, and the import boundary."""
 
 import os
@@ -177,12 +178,46 @@ def test_device_none_without_cuda_raises(monkeypatch):
                        device="cuda")
 
 
+def _jax_cfg(monkeypatch, X, meta, **kw):
+    """The EngineConfig the JAX package resolves for these arguments, taken
+    where its Harmony builds the engine, before any fit runs."""
+    import harmonypy_tpu.api as japi
+
+    class _Resolved(Exception):
+        pass
+
+    def stop(cfg, mesh):
+        raise _Resolved(cfg)
+
+    monkeypatch.setattr(japi, "get_engine", stop)
+    with pytest.raises(_Resolved) as exc:
+        hm.run_harmony(X, meta, ["batch"], mesh=make_mesh(n_devices=1), **kw)
+    return exc.value.args[0]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(use_pallas=True),
+    dict(defer_r=False),
+    dict(low_memory=True),
+    dict(chunk_size=None),                               # per-cell path
+    dict(max_iter_harmony=0),
+])
+def test_item8_configurations_run(monkeypatch, kw):
+    """The stored-R, low_memory, per-cell and zero-iteration configurations
+    run, and resolve the flags as the JAX package does."""
+    X, meta = _problem(N=3000, d=6)
+    args = dict(verbose=False, chunk_size=128, max_iter_harmony=2)
+    args.update(kw)
+    ho = ht.run_harmony(X, meta, ["batch"], device="cpu", **args)
+    jc = _jax_cfg(monkeypatch, X, meta, **args)
+    for f in ("use_pallas", "use_fused_xla", "defer_r", "r_dtype",
+              "chunk_size", "max_iter_harmony", "N_pad"):
+        assert getattr(ho.cfg, f) == getattr(jc, f), f
+    Z = ho.Z_corr
+    assert Z.shape == X.shape and np.all(np.isfinite(Z))
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(use_pallas=True), "item 8"),
-    (dict(defer_r=False), "item 8"),
-    (dict(low_memory=True), "item 8"),
-    (dict(chunk_size=None), "chunk_size=128"),        # per-cell path
-    (dict(max_iter_harmony=0), "item 8"),
     (dict(checkpoint_dir="ckpt"), "item 10"),
     (dict(resume_from="ckpt.npz"), "item 10"),
     (dict(mesh=object()), "item 11"),
