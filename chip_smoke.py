@@ -5,30 +5,35 @@
 
 Builds the hand-written kernels from the checkout, then, printing one JSON
 line per phase:
-  1. device   the card (nvidia-smi name and power limit), torch/CUDA
+  1. ptxas    registers, shared memory and spills of every kernel built;
+     device   the card (nvidia-smi name and power limit), torch/CUDA
               versions, the kernel build time;
   2. kernel   the deferred-R E-step kernel K1 against its plain PyTorch
               version at the full 858,000 x 29 PCs, K=100, B=3, CH=2048
               shape (data made from a seed as bench.py makes it): one round
               and one r-window replay, tolerances below, bitwise repeat,
               and the replay's per-chunk stats equal to the round's cache
-              bitwise;
+              bitwise; ms per round by CUDA events and by the profiler's
+              kernel time, launches per round (1), both bounds and the
+              roofline shares;
   2b. kernel2 the stored-R kernel K2 (write_r) on the same round inputs,
               fp32 and bf16 R: against its plain version, its stats and fp32
               r equal to K1's round and r window bitwise, its bf16 R equal
               to K1's r rounded to bf16, the dummy chunk zero, a bitwise
-              repeat, its time and bound;
+              repeat, its times, launches and bounds;
+  2c. shapes  the checks of 2 and 2b at small N for odd shapes (K in
+              {7, 100, 200, 280}, d in {5, 30, 50}, B in {1, 3, 5}, CH in
+              {128, 2048}), both objective forms;
   3. fit      run_harmony on that data on the card, default parameters (the
               deferred-R fit): wall clock of 3 fits after a warm-up fit,
-              peak device memory, k-means
-              rounds, objective, and the kernel launch count, which must be
-              2 * n_blocks per E-step pass the engine ran;
+              peak device memory, k-means rounds, objective, and the kernel
+              launch count, which must be one per E-step pass the engine
+              ran;
   3b. fit_stored  the stored-R fits (defer_r=False, in fp32 and with
               low_memory=True) on that data: the same numbers, K2 launches
-              = 2 * n_blocks * rounds; then the stored fit against the
-              deferred fit of the same seed, every round run, at the JAX
-              package's tolerances for its two paths (tests/test_defer.py:
-              62-76);
+              = k-means rounds; then the stored fit against the deferred fit
+              of the same seed, every round run, at the JAX package's
+              tolerances for its two paths (tests/test_defer.py:62-76);
   3c. profile one deferred and one stored fit under torch.profiler: device
               busy time by kernel, the device's idle share, and the host and
               device spans of the engine's ranges (harmony::init,
@@ -57,8 +62,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_CELLS, N_PCS, N_BATCHES, N_GROUPS, K = 858_000, 29, 3, 24, 100
 CHUNK = 2048
 # H100 SXM published peaks (NVIDIA H100 datasheet): fp32 on CUDA cores,
-# HBM3 bandwidth.
+# TF32 on tensor cores (dense), HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
 # Kernel vs plain tolerances (rtol, atol): both sum the same fp32 products
 # in a different order (tile partials vs one batched matmul), over 2048-cell
@@ -88,14 +94,14 @@ def smi_line() -> str:
     return out[0]
 
 
-def synthetic(seed=0):
+def synthetic(seed=0, N=N_CELLS, d=N_PCS, B=N_BATCHES):
     import numpy as np
     rng = np.random.default_rng(seed)
-    centers = rng.standard_normal((N_GROUPS, N_PCS), np.float32) * 5.0
-    shifts = rng.standard_normal((N_BATCHES, N_PCS), np.float32) * 1.5
-    groups = rng.integers(0, N_GROUPS, size=N_CELLS)
-    batches = rng.integers(0, N_BATCHES, size=N_CELLS)
-    noise = rng.standard_normal((N_CELLS, N_PCS), np.float32)
+    centers = rng.standard_normal((N_GROUPS, d), np.float32) * 5.0
+    shifts = rng.standard_normal((B, d), np.float32) * 1.5
+    groups = rng.integers(0, N_GROUPS, size=N)
+    batches = rng.integers(0, B, size=N)
+    noise = rng.standard_normal((N, d), np.float32)
     X = centers[groups] + shifts[batches] + noise               # (N, d)
     return X.astype(np.float32), batches
 
@@ -124,19 +130,19 @@ def diff(a, b, rtol, atol):
             float((d / (atol + rtol * bb)).max()))
 
 
-def round_inputs(ht_mods, X, batches):
-    """The main path's own inputs of one E-step round at the full shape:
-    init statistics and one round's tables."""
+def round_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK):
+    """The main path's own inputs of one E-step round (the full shape by
+    default): init statistics and one round's tables."""
     import numpy as np
     import torch
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     dev = torch.device("cuda")
-    cfg = config.EngineConfig(N=N_CELLS, d=N_PCS, K=K, B=N_BATCHES,
-                              n_devices=1, use_fused_xla=True, defer_r=True,
-                              chunk_size=CHUNK)
+    (N, d), B = X.shape, int(batches.max()) + 1
+    cfg = config.EngineConfig(N=N, d=d, K=n_clusters, B=B, n_devices=1,
+                              use_fused_xla=True, defer_r=True,
+                              chunk_size=chunk)
     geom = partition.partition_geometry(cfg)
-    Phi = (batches[None, :] == np.arange(N_BATCHES)[:, None]).astype(
-        np.float32)
+    Phi = (batches[None, :] == np.arange(B)[:, None]).astype(np.float32)
 
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -145,8 +151,8 @@ def round_inputs(ht_mods, X, batches):
                                  Phi=t(layout.pad_cells(Phi, cfg)),
                                  mask=t(layout.shard_mask(cfg)))
     params = state_mod.HarmonyParams(
-        theta=t(np.full(N_BATCHES, 2.0)), sigma=t(np.full(K, 0.1)),
-        lamb=t([0.0] + [1.0] * N_BATCHES), Pr_b=t(Phi.mean(axis=1)))
+        theta=t(np.full(B, 2.0)), sigma=t(np.full(n_clusters, 0.1)),
+        lamb=t([0.0] + [1.0] * B), Pr_b=t(Phi.mean(axis=1)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # The main path's own inputs: init statistics, one round's tables.
@@ -162,59 +168,163 @@ def round_inputs(ht_mods, X, batches):
 
 def round_bound(geom, r_bytes=0):
     """Least work of one round: every real cell once; K2 also writes R
-    (r_bytes per element of the (nc1, K, CH) store)."""
+    (r_bytes per element of the (nc1, K, CH) store). bound_ms takes the
+    products and the wdiv Phi weights at the fp32 CUDA-core rate (the bound
+    kept since PR 1); bound_tc_ms takes the two products as 3xTF32 on the
+    tensor cores (3 passes at the dense TF32 rate) and wdiv Phi at the fp32
+    rate, against the same bytes."""
     R = 1 + N_BATCHES + N_PCS
-    flops = N_CELLS * (2 * N_PCS * K + 2 * K * R + 2 * K * N_BATCHES)
+    products = N_CELLS * (2 * N_PCS * K + 2 * K * R)
+    weights = N_CELLS * 2 * K * N_BATCHES
+    flops = products + weights
     nbytes = (4 * (N_CELLS * R + (geom.nc_cap + 1) * (K * R + 2))
               + r_bytes * (geom.nc_cap + 1) * K * geom.CH)
     bound = dict(flop=flops, bytes=nbytes,
                  ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
-                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3)
+                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+                 ops_tc_ms=(3 * products / PEAK_TF32_FLOPS
+                            + weights / PEAK_FP32_FLOPS) * 1e3)
     bound["bound_ms"] = max(bound["ops_ms"], bound["bytes_ms"])
     bound["bound_by"] = ("operations" if bound["ops_ms"] >= bound["bytes_ms"]
                          else "bytes")
+    bound["bound_tc_ms"] = max(bound["ops_tc_ms"], bound["bytes_ms"])
     return bound
 
 
-def phase_kernel(ht_mods, geom, args):
+def device_ms(fn, reps=10):
+    """(device ms of the fused E-step kernel per call, its launches per
+    call) from torch.profiler's kernel events over `reps` calls."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "estep_round" in e.name:
+            us += e.time_range.elapsed_us()
+            n += 1
+    check(n > 0, "the profiler saw no estep_round kernel")
+    return us / 1e3 / reps, n / reps
+
+
+def launches_of(fe, fn):
+    """Kernel launches (K1 + K2 counts) of one call of fn."""
+    n0 = fe.launches + fe.launches_write_r
+    fn()
+    return fe.launches + fe.launches_write_r - n0
+
+
+def check_k1(fe, plain_mod, args, fast, lo, width):
+    """K1 (round with an r window) against its plain version at TOL, a
+    bitwise repeat, and the round without a window equal to it bitwise.
+    Returns (errors, K1 outputs, round outputs)."""
+    import torch
+    kern = fe.fused_estep(*args, fast, lo=lo, width=width)
+    plain = plain_mod.fused_update_nor(*args, fast, lo=lo, width=width)
+    torch.cuda.synchronize()
+    names = ("O", "E", "cache", "ybuf", "kbuf", "r")
+    errs = {n: diff(a, b, *TOL[n]) for n, a, b in zip(names, kern, plain)}
+    for n, (_, _, ratio) in errs.items():
+        check(ratio <= 1.0, f"K1 vs plain {n} (fast_objective={fast}) beyond"
+                            f" rtol/atol {TOL[n]}: {errs}")
+    again = fe.fused_estep(*args, fast, lo=lo, width=width)
+    rnd = fe.fused_estep(*args, fast)
+    check(all(torch.equal(a, b) for a, b in zip(kern, again)),
+          "K1 repeat is not bitwise equal")
+    check(all(torch.equal(a, b) for a, b in zip(kern[:5], rnd[:5])),
+          "replay stats differ from the round's bitwise")
+    return errs, kern, rnd
+
+
+def check_k2(fe, plain_mod, args, fast, dt, k1_round, k1_r, k1_w, lo,
+             width):
+    """K2 with an R3 of dtype dt against its plain version (bf16 R within
+    one ulp), and bitwise: a repeat, its stats equal to K1's round, its R
+    equal to K1's r (fp32) or K1's r rounded to bf16, its fp32 R window
+    equal to K1's r window, the dummy chunk zero. Returns the errors."""
+    import torch
+    nc1, _, CH = args[2].shape
+    nc, Kc = nc1 - 1, args[3].shape[1]
+
+    def k2():
+        R3 = torch.empty((nc1, Kc, CH), dtype=dt, device="cuda")
+        return fe.fused_estep_r(args[0], args[1], args[2], R3, *args[3:],
+                                fast)
+
+    kern = k2()
+    plain = plain_mod.fused_update_r(
+        args[0], args[1], args[2],
+        torch.empty((nc1, Kc, CH), dtype=dt, device="cuda"), *args[3:], fast)
+    torch.cuda.synchronize()
+    names = ("r", "O", "E", "cache", "ybuf", "kbuf")
+    errs = {n: diff(a.float(), b.float(), *TOL[n])
+            for n, a, b in zip(names, kern, plain)}
+    tag = f"({dt}, fast_objective={fast})"
+    if dt == torch.bfloat16:
+        ulps = bf16_ulps(kern[0], plain[0])
+        check(ulps <= 1, f"K2 bf16 R vs plain: {ulps} bf16 ulps {tag}")
+        errs["r"] = (float((kern[0].float() - plain[0].float()).abs().max()),
+                     errs["r"][1], 0.0)
+    for n, (_, _, ratio) in errs.items():
+        check(ratio <= 1.0, f"K2 vs plain {n} {tag} beyond {TOL[n]}: {errs}")
+    again = k2()
+    for ok, what in (
+            (all(torch.equal(a, b) for a, b in zip(kern, again)), "repeat"),
+            (all(torch.equal(a, b) for a, b in zip(kern[1:], k1_round[:5])),
+             "stats vs K1's round"),
+            (torch.equal(kern[0][:nc], k1_r.to(dt)), "R vs K1's r"),
+            (dt != torch.float32
+             or torch.equal(kern[0][lo: lo + width], k1_w), "R vs K1's r "
+             "window"),
+            (not bool(kern[0][nc].float().any()), "dummy chunk zero")):
+        check(ok, f"K2 {what} not bitwise {tag}")
+    return errs
+
+
+def timing(fe, fn, bound, reps=20):
+    """CUDA-event ms per call, profiler device ms per call, launches per
+    call and the roofline shares against both bounds."""
+    ms = cuda_ms(fn, reps=reps)
+    dev_ms, prof_launches = device_ms(fn)
+    return dict(ms=ms, device_ms=dev_ms, launches_per_round=launches_of(
+                    fe, fn), profiler_launches_per_round=prof_launches,
+                roofline_share=bound["bound_ms"] / ms,
+                roofline_share_tc=bound["bound_tc_ms"] / ms)
+
+
+def phase_kernel(ht_mods, geom, args):
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     lo, width = 200, 16
-
     res = {}
     for fast in (False, True):
-        kern = fe.fused_estep(*args, fast, lo=lo, width=width)
-        plain = plain_mod.fused_update_nor(*args, fast, lo=lo, width=width)
-        torch.cuda.synchronize()
-        names = ("O", "E", "cache", "ybuf", "kbuf", "r")
-        errs = {n: diff(a, b, *TOL[n]) for n, a, b in zip(names, kern, plain)}
-        for n, (_, _, ratio) in errs.items():
-            check(ratio <= 1.0, f"kernel vs plain {n} (fast_objective="
-                                f"{fast}) beyond rtol/atol {TOL[n]}: {errs}")
-        again = fe.fused_estep(*args, fast, lo=lo, width=width)
-        rnd = fe.fused_estep(*args, fast)
-        repeat = all(torch.equal(a, b) for a, b in zip(kern, again))
-        replay = all(torch.equal(a, b) for a, b in zip(kern[:5], rnd[:5]))
-        check(repeat, "kernel repeat is not bitwise equal")
-        check(replay, "replay stats differ from the round's bitwise")
+        errs, _, _ = check_k1(fe, plain_mod, args, fast, lo, width)
         res[f"fast_objective={fast}"] = dict(
             max_abs={n: e[0] for n, e in errs.items()},
             max_rel={n: e[1] for n, e in errs.items()},
-            repeat_bitwise=repeat, replay_equals_round_bitwise=replay)
-
-    ms = cuda_ms(lambda: fe.fused_estep(*args, False), reps=20)
+            repeat_bitwise=True, replay_equals_round_bitwise=True)
+    bound = round_bound(geom)
+    t = timing(fe, lambda: fe.fused_estep(*args, False), bound)
+    check(t["launches_per_round"] == 1,
+          f"K1 launched {t['launches_per_round']} kernels per round")
     plain_ms = cuda_ms(lambda: plain_mod.fused_update_nor(*args, False),
                        reps=5, warmup=1)
-    bound = round_bound(geom)
     max_abs = max(v for r in res.values() for v in r["max_abs"].values())
     emit(dict(phase="kernel", shape=dict(N=N_CELLS, d=N_PCS, K=K,
                                          B=N_BATCHES, CH=CHUNK,
                                          chunks=geom.nc_cap, J=geom.J_shard,
                                          n_blocks=geom.nb),
-              tolerance=TOL, results=res, ms_per_round=ms,
-              plain_ms_per_round=plain_ms, launches_per_round=2 * geom.nb,
+              grid=fe.launch_grid(K, N_BATCHES, N_PCS),
+              tolerance=TOL, results=res, ms_per_round=t["ms"],
+              device_ms_per_round=t["device_ms"],
+              plain_ms_per_round=plain_ms, **{k: v for k, v in t.items()
+                                               if k not in ("ms", "device_ms")},
               bound=bound))
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+    return dict(ms=t["ms"], plain_ms=plain_ms, max_abs_err=max_abs,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
@@ -238,62 +348,27 @@ def phase_kernel2(ht_mods, geom, args):
     width = 16
     lo = min(200, nc - width)
 
-    def empty(dt):
-        return torch.empty((nc + 1, K, CH), dtype=dt, device=dev)
-
-    def k2(dt, fast):
-        R3 = empty(dt)
-        return fe.fused_estep_r(args[0], args[1], args[2], R3, *args[3:],
-                                fast)
-
     res, max_abs = {}, 0.0
     for fast in (False, True):
         k1 = fe.fused_estep(*args, fast)
         k1r = fe.fused_estep(*args, fast, lo=0, width=nc)[5]
         k1w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
         for name, dt in dtypes.items():
-            kern = k2(dt, fast)
-            plain = plain_mod.fused_update_r(args[0], args[1], args[2],
-                                             empty(dt), *args[3:], fast)
-            torch.cuda.synchronize()
-            names = ("r", "O", "E", "cache", "ybuf", "kbuf")
-            errs = {n: diff(a.float(), b.float(), *TOL[n])
-                    for n, a, b in zip(names, kern, plain)}
-            if dt == torch.bfloat16:
-                ulps = bf16_ulps(kern[0], plain[0])
-                check(ulps <= 1, f"K2 bf16 R vs plain: {ulps} bf16 ulps")
-                errs.pop("r")
-            for n, (_, _, ratio) in errs.items():
-                check(ratio <= 1.0, f"K2 vs plain {n} ({name}, fast_objective"
-                                    f"={fast}) beyond {TOL[n]}: {errs}")
-            again = k2(dt, fast)
-            repeat = all(torch.equal(a, b) for a, b in zip(kern, again))
-            stats_k1 = all(torch.equal(a, b) for a, b in zip(kern[1:], k1))
-            r_k1 = torch.equal(kern[0][:nc], k1r.to(dt))
-            window = (dt != torch.float32
-                      or torch.equal(kern[0][lo: lo + width], k1w))
-            dummy_zero = not bool(kern[0][nc].float().any())
-            for ok, what in ((repeat, "repeat"),
-                             (stats_k1, "stats vs K1's round"),
-                             (r_k1, "R vs K1's r"),
-                             (window, "R vs K1's r window"),
-                             (dummy_zero, "dummy chunk zero")):
-                check(ok, f"K2 {what} not bitwise ({name}, fast_objective="
-                          f"{fast})")
+            errs = check_k2(fe, plain_mod, args, fast, dt, k1, k1r, k1w, lo,
+                            width)
             max_abs = max(max_abs, *(e[0] for e in errs.values()))
-            if dt == torch.bfloat16:
-                max_abs = max(max_abs, float(
-                    (kern[0].float() - plain[0].float()).abs().max()))
             res[f"{name},fast_objective={fast}"] = dict(
                 max_abs={n: e[0] for n, e in errs.items()},
                 max_rel={n: e[1] for n, e in errs.items()},
-                repeat_bitwise=repeat, stats_equal_k1_round=stats_k1,
-                r_equals_k1_r=r_k1, r_window_equals_k1=window,
-                dummy_chunk_zero=dummy_zero)
+                repeat_bitwise=True, stats_equal_k1_round=True,
+                r_equals_k1_r=True, r_window_equals_k1=True,
+                dummy_chunk_zero=True)
+        del k1, k1r, k1w
 
     # K1 and K2 (fp32, bf16) timed in turns, three times over: the spread
     # within one call, and K2's cost over K1 on the same card.
-    R3s = {name: empty(dt) for name, dt in dtypes.items()}
+    R3s = {name: torch.empty((nc + 1, K, CH), dtype=dt, device=dev)
+           for name, dt in dtypes.items()}
     runs = dict(k1=lambda: fe.fused_estep(*args, False),
                 **{name: (lambda R3=R3: fe.fused_estep_r(
                     args[0], args[1], args[2], R3, *args[3:], False))
@@ -304,16 +379,70 @@ def phase_kernel2(ht_mods, geom, args):
             samples[n].append(cuda_ms(fn, reps=20))
     times = {n: dict(ms=sorted(v)[1], ms_samples=v) for n, v in samples.items()}
     for name, R3 in R3s.items():
-        times[name]["plain_ms"] = cuda_ms(lambda: plain_mod.fused_update_r(
-            args[0], args[1], args[2], R3, *args[3:], False), reps=5,
-            warmup=1)
-        times[name]["bound"] = round_bound(geom, r_bytes=R3.element_size())
+        fn = runs[name]
+        bound = round_bound(geom, r_bytes=R3.element_size())
+        t = timing(fe, fn, bound)
+        check(t["launches_per_round"] == 1,
+              f"K2 {name} launched {t['launches_per_round']} kernels")
+        times[name].update(
+            device_ms=t["device_ms"],
+            launches_per_round=t["launches_per_round"],
+            profiler_launches_per_round=t["profiler_launches_per_round"],
+            roofline_share=bound["bound_ms"] / times[name]["ms"],
+            roofline_share_tc=bound["bound_tc_ms"] / times[name]["ms"],
+            bound=bound,
+            plain_ms=cuda_ms(lambda R3=R3: plain_mod.fused_update_r(
+                args[0], args[1], args[2], R3, *args[3:], False), reps=5,
+                warmup=1))
     emit(dict(phase="kernel2", tolerance=TOL, bf16_r_tolerance="1 bf16 ulp",
-              results=res, times=times, launches_per_round=2 * geom.nb))
+              grid_bf16=fe.launch_grid(K, N_BATCHES, N_PCS, True),
+              results=res, times=times))
     t32 = times["float32"]
     return dict(ms=t32["ms"], plain_ms=t32["plain_ms"], max_abs_err=max_abs,
                 bound_ms=t32["bound"]["bound_ms"],
                 bound_by=t32["bound"]["bound_by"])
+
+
+# Shapes of phase shapes: (N, d, K, B, CH). Every K in {7, 100, 200}, d in
+# {5, 30, 50}, B in {1, 3, 5} and CH in {128, 2048} appears; the last two
+# take the kernel's compact layout (operands split at each load).
+SHAPES = [(6_000, 5, 7, 1, 128), (6_000, 30, 100, 3, 128),
+          (45_000, 5, 200, 1, 2048), (45_000, 50, 7, 3, 2048),
+          (6_000, 5, 100, 5, 128), (45_000, 50, 200, 5, 2048),
+          (6_000, 30, 280, 3, 128)]
+
+
+def phase_shapes(ht_mods):
+    """K1 (round and r window), K2 fp32 and K2 bf16 against their plain
+    versions and each other at small N and odd shapes, both objective
+    forms, with the checks of phases kernel and kernel2."""
+    import torch
+    (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
+    out = []
+    for i, (N, d, Kc, B, CH) in enumerate(SHAPES):
+        X, batches = synthetic(seed=i + 1, N=N, d=d, B=B)
+        geom, args = round_inputs(ht_mods, X, batches, n_clusters=Kc,
+                                  chunk=CH)
+        nc = geom.nc_cap
+        lo, width = nc // 3, max(1, min(5, nc - nc // 3))
+        worst = 0.0
+        for fast in (False, True):
+            errs, kw, rnd = check_k1(fe, plain_mod, args, fast, lo, width)
+            k1r = fe.fused_estep(*args, fast, lo=0, width=nc)[5]
+            worst = max(worst, *(e[2] for e in errs.values()))
+            for dt in (torch.float32, torch.bfloat16):
+                e2 = check_k2(fe, plain_mod, args, fast, dt, rnd, k1r, kw[5],
+                              lo, width)
+                worst = max(worst, *(e[2] for e in e2.values()))
+        out.append(dict(N=N, d=d, K=Kc, B=B, CH=CH, chunks=nc, J=geom.J_shard,
+                        grid=fe.launch_grid(Kc, B, d),
+                        smem_bytes=fe._kernel_lib().fused_estep_smem(Kc, B, d),
+                        worst_tolerance_ratio=worst))
+        del args
+    emit(dict(phase="shapes", tolerance=TOL, bf16_r_tolerance="1 bf16 ulp",
+              checks="K1 round + r window, K2 fp32 and bf16 vs plain; "
+                     "repeat, replay, K2 == K1 bitwise; both objective "
+                     "forms", shapes=out))
 
 
 def timed_fit(ht, fe, X, meta, **kw):
@@ -344,8 +473,9 @@ def phase_fit(ht, fe, X, batches):
         nb = ho.cfg.n_blocks
         passes = ho.state.n_passes
         check(ho.cfg.defer_r, "default config did not select deferred-R")
-        check(launches > 0 and launches == 2 * nb * passes,
-              f"launches {launches} != 2 * {nb} blocks * {passes} passes")
+        check(launches > 0 and launches == passes,
+              f"K1 launches {launches} != {passes} E-step passes "
+              f"({nb} blocks each)")
         check(k2 == 0, f"the deferred fit launched K2 {k2} times")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     obj = ho.objective_harmony
@@ -384,8 +514,9 @@ def phase_fit_stored(ht, fe, X, meta):
             nb = ho.cfg.n_blocks
             check(not ho.cfg.defer_r and ho.cfg.use_fused_xla,
                   f"{name}: not the stored fused config")
-            check(k2 > 0 and k2 == 2 * nb * rounds,
-                  f"{name}: K2 launches {k2} != 2 * {nb} * {rounds} rounds")
+            check(k2 > 0 and k2 == rounds,
+                  f"{name}: K2 launches {k2} != {rounds} rounds ({nb} "
+                  f"blocks each)")
             check(k1 == 0, f"{name}: K1 launched {k1} times")
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         obj = ho.objective_harmony
@@ -547,6 +678,10 @@ def main() -> int:
     build.build_all()
     fe._kernel_lib()
     build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for log in build.build_log.values()
+             for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    emit(dict(phase="ptxas", lines=ptxas))
     emit(dict(phase="device", nvidia_smi=smi,
               name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__,
@@ -560,6 +695,7 @@ def main() -> int:
     kinfo = phase_kernel(mods, geom, args)
     k2info = phase_kernel2(mods, geom, args)
     del args
+    phase_shapes(mods)
     launches, meta = phase_fit(ht, fe, X, batches)
     launches_r = phase_fit_stored(ht, fe, X, meta)
     phase_profile(ht, X, meta, "deferred")

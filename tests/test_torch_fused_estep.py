@@ -24,7 +24,9 @@ from harmonypy_tpu.ops.partition import (partition_geometry,
                                          single_device_tables, stripe_blocks)
 from harmonypy_tpu_torch.config import EngineConfig as TConfig
 from harmonypy_tpu_torch.ops import partition as tp
-from harmonypy_tpu_torch.ops.cuda.fused_estep import fused_estep
+from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+from harmonypy_tpu_torch.ops.cuda.fused_estep import (TILE, fused_estep,
+                                                      kernel_geometry)
 from harmonypy_tpu_torch.ops.replay import replay_r
 from harmonypy_tpu_torch.ops.update_r_fused import (chunk_stats,
                                                     fused_update_nor,
@@ -125,6 +127,50 @@ def test_replay_reproduces_round_bitwise_on_cpu():
                                rtol=1e-5, atol=1e-5)
 
 
+_GEOM_CASES = [(K, CH) for K in (7, 100, 200) for CH in (128, 2048)]
+
+
+@pytest.mark.parametrize("K,CH", _GEOM_CASES)
+@pytest.mark.parametrize("J,n_sm", [(22, 132), (3, 132), (400, 16)])
+def test_kernel_geometry_covers_each_cell_once_in_tile_order(K, CH, J, n_sm):
+    geo = kernel_geometry(K, 3, 29, CH, J, n_sm)
+    assert geo.n_units == J * geo.ng and 1 <= geo.ng <= geo.tiles
+    seen = np.zeros((J, geo.tiles * TILE), dtype=np.int64)
+    last = {}
+    for u in range(geo.n_units):
+        j, t0, t1 = geo.unit_tiles(u)
+        assert t0 < t1, "empty unit"
+        # Units of a slot run over its tiles in ascending order.
+        assert t0 == last.get(j, 0)
+        last[j] = t1
+        seen[j, t0 * TILE: t1 * TILE] += 1
+    assert all(last[j] == geo.tiles for j in range(J))
+    assert (seen == 1).all()
+    assert geo.tiles * TILE >= CH > (geo.tiles - 1) * TILE
+
+
+@pytest.mark.parametrize("K,CH", _GEOM_CASES)
+@pytest.mark.parametrize("B,d", [(1, 5), (3, 29), (5, 50)])
+def test_kernel_geometry_padding(K, CH, B, d):
+    geo = kernel_geometry(K, B, d, CH, 22, 132)
+    R = 1 + B + d
+    assert geo.K_pad % 16 == 0 and K <= geo.K_pad < K + 16
+    assert geo.d_pad % 8 == 0 and d <= geo.d_pad < d + 8
+    assert geo.R_pad % 8 == 0 and R <= geo.R_pad < R + 8
+
+
+@pytest.mark.parametrize("K,CH", _GEOM_CASES)
+def test_kernel_geometry_partial_shapes(K, CH):
+    J, n_sm = 22, 132
+    geo = kernel_geometry(K, 3, 29, CH, J, n_sm)
+    tiles = CH // TILE
+    # As many units as the card runs two CTAs of per SM, at most one per
+    # tile: 12 per slot at CH 2048, both tiles of a 128-cell chunk.
+    assert geo.ng == min(tiles, 2 * n_sm // J)
+    assert geo.part_shape == (J * geo.ng, K, 1 + 3 + 29)
+    assert geo.kpart_shape == (J * geo.ng, 2)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -139,7 +185,9 @@ def test_kernel_matches_plain_on_cuda(cuda_device, fast):
     cfg, p = _chunk_problem(block_size=0.25)
     _, blocks, _ = _jax_round(cfg, p, write_r=False)
     _, geom, args = _port_inputs(cfg, p, blocks, device=cuda_device)
+    n0 = fe.launches
     kern = fused_estep(*args, fast, lo=2, width=5)
+    assert fe.launches == n0 + 1       # one cooperative launch per round
     plain = fused_update_nor(*args, fast, lo=2, width=5)
     torch.cuda.synchronize()
     tol = dict(O=(1e-5, 1e-4), E=(1e-5, 1e-4), cache=(1e-5, 1e-5),

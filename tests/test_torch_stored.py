@@ -22,6 +22,7 @@ from harmonypy_tpu.ops.partition import partition_geometry, stripe_blocks
 from harmonypy_tpu.parallel.mesh import make_mesh
 import harmonypy_tpu_torch as ht
 from harmonypy_tpu_torch.api import stored_r
+from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
 from harmonypy_tpu_torch.ops.cuda.fused_estep import fused_estep, fused_estep_r
 from harmonypy_tpu_torch.ops.update_r_fused import (fused_update_nor,
                                                     fused_update_r)
@@ -161,6 +162,25 @@ def test_stored_state_carried_across_gives_jax_R(jax_stored_fit):
     assert st.kmeans_rounds == ho_j.kmeans_rounds
 
 
+@pytest.mark.parametrize("bad", [-1, "nc1"])
+@pytest.mark.parametrize("write_r", [False, True])
+def test_cpu_path_rejects_slot_ids_out_of_range(bad, write_r):
+    """On the CPU both wrappers check the slot range on the host (on the
+    card the kernel traps instead, with no host synchronise)."""
+    cfg, p = _chunk_problem(block_size=0.25)
+    _, blocks, _ = _jax_round(cfg, p, write_r=False)
+    _, geom, args = _port_inputs(cfg, p, blocks)
+    nc1 = geom.nc_cap + 1
+    slots = args[0].clone()
+    slots[0, 0] = nc1 if bad == "nc1" else bad
+    with pytest.raises(ValueError, match="slot ids"):
+        if write_r:
+            R3 = torch.empty((nc1, cfg.K, geom.CH))
+            fused_estep_r(slots, args[1], args[2], R3, *args[3:], False)
+        else:
+            fused_estep(slots, *args[1:], False)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -183,7 +203,9 @@ def test_kernel_write_r_matches_plain_on_cuda(cuda_device, r_dtype, fast):
         R3 = torch.empty((nc1, K, CH), dtype=dt, device=cuda_device)
         return fused_estep_r(args[0], args[1], args[2], R3, *args[3:], fast)
 
+    n0 = fe.launches_write_r
     kern = run()
+    assert fe.launches_write_r == n0 + 1   # one cooperative launch per round
     R3p = torch.empty((nc1, K, CH), dtype=dt, device=cuda_device)
     plain = fused_update_r(args[0], args[1], args[2], R3p, *args[3:], fast)
     torch.cuda.synchronize()
