@@ -43,7 +43,26 @@ line per phase:
   4b. golden_default  pbmc_3500 at default settings (the per-cell fit) and
               with chunk_size=128, defer_r=False (the stored fit, K2): min
               per-PC r >= 0.99 each;
-  5. kernels  every kernel with its launches on its path's fit, error
+  5. lisi_golden  the R LISI fixture (400 cells) through compute_lisi on
+              the card: np.allclose at default tolerances;
+  5b. lisi    compute_lisi on the deferred fit's Z_corr (858,000 x 29,
+              labels batch and group, knn="exact": the pruned path): the
+              index (clusters, p_max, visit count, certification rate,
+              fallback rows), CUDA-event times of the index build, scan,
+              fallback, Simpson step and whole call, peak memory, a bitwise
+              repeat, brute force on 16,384 sampled queries at the
+              tolerances of tests/test_lisi.py, and one profiled call:
+              device time by kind (GEMM, top-k, gather), idle share, and
+              the scan's bounds;
+  5c. checkpoint  pbmc_3500 with chunk_size=128, deferred and stored: a fit
+              resumed from harmony_iter_1.npz equals the checkpointing fit
+              bitwise; an incompatible resume raises ValueError;
+  5d. cli     `python -m harmonypy_tpu_torch correct` (no --device: CUDA)
+              on the pbmc files, golden r >= 0.99, then `lisi` on its
+              output against an in-process compute_lisi;
+  5e. capacity  memory_envelope >= the measured peak of the three 858k
+              fits, and CapacityError for a config that cannot fit;
+  6. kernels  every kernel with its launches on its path's fit, error
               against the plain version, time, and bound.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero without it; so does a machine without a CUDA card.
@@ -103,7 +122,7 @@ def synthetic(seed=0, N=N_CELLS, d=N_PCS, B=N_BATCHES):
     batches = rng.integers(0, B, size=N)
     noise = rng.standard_normal((N, d), np.float32)
     X = centers[groups] + shifts[batches] + noise               # (N, d)
-    return X.astype(np.float32), batches
+    return X.astype(np.float32), batches, groups
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -420,7 +439,7 @@ def phase_shapes(ht_mods):
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     out = []
     for i, (N, d, Kc, B, CH) in enumerate(SHAPES):
-        X, batches = synthetic(seed=i + 1, N=N, d=d, B=B)
+        X, batches, _ = synthetic(seed=i + 1, N=N, d=d, B=B)
         geom, args = round_inputs(ht_mods, X, batches, n_clusters=Kc,
                                   chunk=CH)
         nc = geom.nc_cap
@@ -447,13 +466,18 @@ def phase_shapes(ht_mods):
 
 def timed_fit(ht, fe, X, meta, **kw):
     """One fit on the card with both launch counts set to 0 just before it:
-    (Harmony, seconds, K1 launches, K2 launches)."""
+    (Harmony, seconds, K1 launches, K2 launches). Sets ho.peak_bytes, the
+    fit's peak device allocation above what was allocated before it."""
     import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     fe.launches = fe.launches_write_r = 0
     t0 = time.perf_counter()
     ho = ht.run_harmony(X, meta, ["batch"], device="cuda", verbose=False,
                         **kw)
     torch.cuda.synchronize()
+    ho.peak_bytes = torch.cuda.max_memory_allocated() - base
     return ho, time.perf_counter() - t0, fe.launches, fe.launches_write_r
 
 
@@ -465,11 +489,11 @@ def phase_fit(ht, fe, X, batches):
         batches, [f"b{i}" for i in range(N_BATCHES)])})
 
     _, warm_s, _, _ = timed_fit(ht, fe, X, meta)
-    fit_s = []
+    fit_s, peaks = [], []
     for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
         ho, s, launches, k2 = timed_fit(ht, fe, X, meta)
         fit_s.append(s)
+        peaks.append(ho.peak_bytes)
         nb = ho.cfg.n_blocks
         passes = ho.state.n_passes
         check(ho.cfg.defer_r, "default config did not select deferred-R")
@@ -492,8 +516,8 @@ def phase_fit(ht, fe, X, batches):
               warmup_fit_s=warm_s, fit_s=fit_s, peak_mem_gib=peak_gib,
               kmeans_rounds=ho.kmeans_rounds, objective_harmony=obj,
               estep_passes=passes, kernel_launches=launches,
-              R_row_sum_max_err=row_err))
-    return launches, meta
+              R_row_sum_max_err=row_err, fit_peak_bytes=peaks))
+    return launches, meta, ho, max(peaks)
 
 
 def phase_fit_stored(ht, fe, X, meta):
@@ -501,15 +525,15 @@ def phase_fit_stored(ht, fe, X, meta):
     then the stored fit against the deferred fit with every round run."""
     import numpy as np
     import torch
-    out, launches = {}, None
+    out, launches, fits = {}, None, {}
     for name, kw in (("stored", dict(defer_r=False)),
                      ("low_memory", dict(defer_r=False, low_memory=True))):
         _, warm_s, _, _ = timed_fit(ht, fe, X, meta, **kw)
-        fit_s = []
+        fit_s, peaks = [], []
         for _ in range(3):
-            torch.cuda.reset_peak_memory_stats()
             ho, s, k1, k2 = timed_fit(ht, fe, X, meta, **kw)
             fit_s.append(s)
+            peaks.append(ho.peak_bytes)
             rounds = sum(ho.kmeans_rounds)
             nb = ho.cfg.n_blocks
             check(not ho.cfg.defer_r and ho.cfg.use_fused_xla,
@@ -534,7 +558,8 @@ def phase_fit_stored(ht, fe, X, meta):
                          fit_s=fit_s, peak_mem_gib=peak_gib,
                          kmeans_rounds=ho.kmeans_rounds,
                          objective_harmony=obj, k2_launches=k2,
-                         R_row_sum_max_err=row_err)
+                         R_row_sum_max_err=row_err, fit_peak_bytes=peaks)
+        fits[name] = (ho.cfg, max(peaks))
         if name == "stored":
             launches = k2
 
@@ -556,7 +581,7 @@ def phase_fit_stored(ht, fe, X, meta):
                   max_abs={n: e[0] for n, e in errs.items()},
                   objective_stored=st.objective_harmony,
                   objective_deferred=de.objective_harmony)))
-    return launches
+    return launches, fits
 
 
 def _union_us(spans):
@@ -658,6 +683,330 @@ def phase_golden_default(ht):
     emit(dict(phase="golden_default", data="pbmc_3500", results=res))
 
 
+DATA = os.path.join(HERE, "harmonypy_tpu", "data")
+# H100 SXM published FP64 tensor-core peak (NVIDIA H100 datasheet, dense):
+# the kNN runs in float64.
+PEAK_FP64_TC_FLOPS = 67e12
+# Pruned vs brute at 858k: tests/test_lisi.py:126-137 (squared distances
+# within 1e-4 of the squared data radius) and :153 (LISI rtol/atol 1e-4).
+TOL_LISI = dict(d2_rel_R2=1e-4, lisi=(1e-4, 1e-4))
+LISI_SAMPLE = 16_384
+
+
+def phase_lisi_golden(ht):
+    """The R LISI package's output on the 400-cell fixture through
+    compute_lisi on the card, at np.allclose's default tolerances
+    (tests/test_lisi.py:17)."""
+    import numpy as np
+    import pandas as pd
+    X = pd.read_csv(os.path.join(DATA, "lisi_x.tsv.gz"), sep="\t")
+    meta = pd.read_csv(os.path.join(DATA, "lisi_metadata.tsv.gz"), sep="\t")
+    ref = pd.read_csv(os.path.join(DATA, "lisi_lisi.tsv.gz"),
+                      sep="\t").iloc[:, -2:].to_numpy()
+    lisi = ht.compute_lisi(X, meta, meta.columns, 30)
+    err = float(np.abs(lisi - ref).max())
+    check(np.allclose(lisi, ref), f"LISI golden max |diff| {err}")
+    emit(dict(phase="lisi_golden", cells=int(X.shape[0]),
+              labels=list(meta.columns), max_abs_diff=err))
+
+
+def _events():
+    import torch
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _timed(fn):
+    """(result, CUDA-event ms) of one call."""
+    import torch
+    e0, e1 = _events()
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _kernel_kind(name: str) -> str:
+    n = name.lower()
+    if any(t in n for t in ("gemm", "xmma", "cutlass", "dmma", "sm90")):
+        return "gemm"
+    if any(t in n for t in ("topk", "radix", "sort", "bitonic", "select",
+                            "kthcount", "withinkcount", "digitcumsum")):
+        return "topk"
+    if any(t in n for t in ("index", "gather", "scatter")):
+        return "gather"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "elementwise"
+
+
+def profile_device(fn):
+    """Run fn once under torch.profiler: (wall s, device busy ms, device ms
+    by kernel kind, top kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans, kinds, work = [], {}, {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or e.name.startswith("lisi::")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+        kind = _kernel_kind(e.name)
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        t, n = work.get(e.name, (0.0, 0))
+        work[e.name] = (t + ms, n + 1)
+    busy_ms = _union_us(spans) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    top = sorted(work.items(), key=lambda kv: -kv[1][0])[:12]
+    return wall_s, busy_ms, kinds, [dict(name=k[:90], ms=ms, count=n)
+                                    for k, (ms, n) in top]
+
+
+def phase_lisi(ht, Z, batches, groups):
+    """compute_lisi on the deferred fit's Z_corr (858,000 x 29) with labels
+    batch (3) and group (24), knn="exact", which takes the pruned path at
+    this size: the index, times by CUDA events of the build, scan,
+    fallback, Simpson step and total, peak memory, a bitwise repeat, brute
+    force on 16,384 sampled queries, and a profile with the scan's bounds."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from harmonypy_tpu_torch import lisi as L
+    from harmonypy_tpu_torch.ops import knn_pruned as kp
+    N = Z.shape[0]
+    labels = ["batch", "group"]
+    meta = pd.DataFrame({
+        "batch": pd.Categorical.from_codes(
+            batches, [f"b{i}" for i in range(N_BATCHES)]),
+        "group": pd.Categorical.from_codes(
+            groups, [f"g{i}" for i in range(N_GROUPS)])})
+    perplexity = 30
+    n_nb = int(perplexity * 3) - 1
+    check(N >= L._PRUNED_MIN_N, "858k is below the pruned threshold")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lisi1, total_ms = _timed(lambda: ht.compute_lisi(Z, meta, labels,
+                                                     perplexity))
+    wall1 = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    lisi2, total2_ms = _timed(lambda: ht.compute_lisi(Z, meta, labels,
+                                                      perplexity))
+    check(np.array_equal(lisi1, lisi2), "LISI repeat is not bitwise equal")
+    check(lisi1.shape == (N, 2) and np.all(np.isfinite(lisi1)),
+          "LISI not finite / wrong shape")
+    check(np.all(lisi1 >= 1 - 1e-9) and np.all(lisi1[:, 0] <= N_BATCHES
+                                                + 1e-9),
+          "LISI outside [1, n_categories]")
+
+    # The same pipeline piece by piece, each timed.
+    Xd = torch.tensor(Z, dtype=torch.float64, device="cuda")
+    ids = torch.arange(N, device="cuda")
+    stats = {}
+    index, build_ms = _timed(lambda: kp.build_index(
+        Xd, kp.default_n_clusters(N, n_nb + 1)))
+    res, scan_ms = _timed(lambda: kp.pruned_knn(Xd, n_nb, index=index,
+                                                stats=stats))
+    check(res is not None, f"the pruned search bailed to brute: {stats}")
+    dist, idx, cert = res
+    dist, idx = L._drop_self_by_id(dist, idx, ids)
+    (dist, idx), fb_ms = _timed(lambda: L._fallback(Xd, dist, idx, cert,
+                                                    n_nb, stats))
+    simpson_ms, pieces = 0.0, np.zeros((N, 2))
+    for i, lab in enumerate(labels):
+        codes = torch.as_tensor(meta[lab].cat.codes.to_numpy().astype(
+            np.int64), device="cuda")
+        sim, ms = _timed(lambda: L._simpson_label(
+            dist, idx, codes, len(meta[lab].cat.categories), perplexity))
+        simpson_ms += ms
+        pieces[:, i] = 1 / sim.cpu().numpy()
+    check(np.array_equal(pieces, lisi1),
+          "the timed pieces differ from compute_lisi")
+
+    # Brute force on sampled queries against the pruned rows.
+    (sv, sidx), brute_ms = _timed(lambda: ht.compute_lisi(
+        Z, meta, labels, perplexity, sample=LISI_SAMPLE, knn="brute"))
+    q = torch.as_tensor(sidx, device="cuda")
+    bd, bi = L._knn_batched(Xd[q], Xd, n_nb, qid=q)
+    Xc = Xd - Xd.mean(0)
+    R2 = float(torch.max(torch.sum(Xc * Xc, dim=1)))
+    d2_err = float(torch.max(torch.abs(dist[q] ** 2 - bd ** 2)))
+    check(d2_err <= TOL_LISI["d2_rel_R2"] * R2,
+          f"pruned vs brute squared distances {d2_err} > 1e-4 R^2 ({R2})")
+    ids_equal = float(torch.mean((idx[q] == bi).double()))
+    rtol, atol = TOL_LISI["lisi"]
+    lisi_err = float(np.abs(sv - lisi1[sidx]).max())
+    check(np.allclose(sv, lisi1[sidx], rtol=rtol, atol=atol),
+          f"pruned vs brute LISI max |diff| {lisi_err}")
+    del bd, bi, Xc
+
+    # One profiled pruned call, and the scan's bounds for this run's index.
+    wall_p, busy_ms, kinds, top = profile_device(
+        lambda: ht.compute_lisi(Z, meta, labels, perplexity))
+    C, P, V = stats["n_clusters"], stats["p_max"], stats["visit"]
+    W, d = V * P, Z.shape[1]
+    flop = 2.0 * d * C * P * (W + C)        # candidate + certificate products
+    nbytes = 2.0 * 8 * C * P * W            # d^2 slabs written and read once
+    bound = dict(flop=flop, bytes=nbytes,
+                 ops_ms=flop / PEAK_FP64_TC_FLOPS * 1e3,
+                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3)
+    bound["bound_ms"] = max(bound["ops_ms"], bound["bytes_ms"])
+    bound["bound_by"] = ("operations" if bound["ops_ms"] >= bound["bytes_ms"]
+                         else "bytes")
+    emit(dict(phase="lisi", N=N, d=d, labels=labels, perplexity=perplexity,
+              knn="exact", index=stats, total_ms=total_ms,
+              total_ms_repeat=total2_ms, wall_s=wall1, build_ms=build_ms,
+              scan_ms=scan_ms, fallback_ms=fb_ms, simpson_ms=simpson_ms,
+              peak_mem_gib=peak / 2 ** 30,
+              mean_lisi=dict(zip(labels, lisi1.mean(axis=0).tolist())),
+              repeat_bitwise=True, pieces_equal_call=True,
+              brute_sample=dict(queries=LISI_SAMPLE, ms=brute_ms,
+                                d2_max_abs=d2_err, R2=R2,
+                                ids_equal=ids_equal,
+                                lisi_max_abs=lisi_err, tolerance=TOL_LISI),
+              profile=dict(wall_s=wall_p, device_busy_ms=busy_ms,
+                           device_idle_share=1.0 - busy_ms / (wall_p * 1e3),
+                           device_ms_by_kind=kinds, top_device=top),
+              scan_bound=bound, scan_share=bound["bound_ms"] / scan_ms))
+
+
+def phase_checkpoint(ht):
+    """pbmc_3500 with chunk_size=128, deferred and stored, 4 harmony
+    iterations on the card: a fit resumed from harmony_iter_1.npz equals
+    the checkpointing fit bitwise; an incompatible resume raises."""
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+    meta = pd.read_csv(os.path.join(DATA, "pbmc_3500_meta.tsv.gz"), sep="\t")
+    pcs = pd.read_csv(os.path.join(DATA, "pbmc_3500_pcs.tsv.gz"), sep="\t")
+    hist = ("objective_harmony", "objective_kmeans", "objective_kmeans_dist",
+            "objective_kmeans_entropy", "objective_kmeans_cross")
+    res = {}
+    for name, kw in (("deferred", {}), ("stored", dict(defer_r=False))):
+        args = dict(verbose=False, chunk_size=128, max_iter_harmony=4, **kw)
+        with tempfile.TemporaryDirectory() as td:
+            full = ht.run_harmony(pcs, meta, ["donor"], checkpoint_dir=td,
+                                  **args)
+            check(full.cfg.defer_r == (name == "deferred"),
+                  f"checkpoint {name}: unexpected config {full.cfg}")
+            path = os.path.join(td, "harmony_iter_1.npz")
+            resumed = ht.run_harmony(pcs, meta, ["donor"], resume_from=path,
+                                     **args)
+            for a in ("Z_corr", "R") + hist:
+                check(np.array_equal(np.asarray(getattr(full, a)),
+                                     np.asarray(getattr(resumed, a))),
+                      f"checkpoint {name}: resumed {a} differs")
+            try:
+                ht.run_harmony(pcs, meta, ["donor"], resume_from=path,
+                               **{**args, "max_iter_harmony": 5})
+                raise RuntimeError(f"chip_smoke: checkpoint {name}: an "
+                                   f"incompatible resume did not raise")
+            except ValueError as e:
+                check("Mismatches" in str(e) and "obj_harmony" in str(e),
+                      f"checkpoint {name}: unexpected message {e}")
+            res[name] = dict(kmeans_rounds=full.kmeans_rounds,
+                             files=sorted(os.listdir(td)),
+                             file_mb=os.path.getsize(path) / 1e6)
+    emit(dict(phase="checkpoint", data="pbmc_3500", chunk_size=128,
+              resumed_from="harmony_iter_1.npz", bitwise=True,
+              incompatible_raises=True, fits=res))
+
+
+def phase_cli(ht):
+    """`python -m harmonypy_tpu_torch correct` on the pbmc fixture files
+    without --device (CUDA), its golden r, then `lisi` on its output
+    against an in-process compute_lisi of the same array."""
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+    gold = pd.read_csv(os.path.join(DATA, "pbmc_3500_pcs_harmonized.tsv.gz"),
+                       sep="\t")
+    if gold.iloc[:, 0].dtype == "object":
+        gold = gold.iloc[:, 1:]
+    meta_path = os.path.join(DATA, "pbmc_3500_meta.tsv.gz")
+    env = {**os.environ, "PYTHONPATH": HERE}
+    with tempfile.TemporaryDirectory() as td:
+        out, tsv = os.path.join(td, "corr.npy"), os.path.join(td, "lisi.tsv")
+        runs = {}
+        for name, argv in (
+                ("correct", ["correct", "--pcs",
+                             os.path.join(DATA, "pbmc_3500_pcs.tsv.gz"),
+                             "--meta", meta_path, "--vars", "donor",
+                             "--out", out, "--quiet"]),
+                ("lisi", ["lisi", "--x", out, "--meta", meta_path,
+                          "--labels", "donor", "--out", tsv])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "harmonypy_tpu_torch", *argv],
+                cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=600)
+            runs[name] = dict(s=time.perf_counter() - t0,
+                              stdout=proc.stdout.strip()[-200:])
+            check(proc.returncode == 0, f"cli {name} failed: "
+                                        f"{proc.stderr[-3000:]}")
+        Z = np.load(out)
+        r = [float(np.corrcoef(Z[:, i], gold.iloc[:, i].values)[0, 1])
+             for i in range(Z.shape[1])]
+        check(min(r) >= 0.99, f"cli correct min per-PC r {min(r)} < 0.99")
+        got = pd.read_csv(tsv, sep="\t")
+        meta = pd.read_csv(meta_path, sep="\t")
+        ref = ht.compute_lisi(Z, meta, ["donor"])
+        check(got.shape == (Z.shape[0], 1), f"cli lisi shape {got.shape}")
+        err = float(np.abs(got.to_numpy() - ref).max())
+        check(np.allclose(got.to_numpy(), ref, rtol=1e-12, atol=0),
+              f"cli lisi vs compute_lisi max |diff| {err}")
+    emit(dict(phase="cli", min_pc_r=min(r), lisi_max_abs_diff=err,
+              runs=runs))
+
+
+def phase_capacity(fits):
+    """memory_envelope against the measured peak of the 858k fits (each
+    model >= its peak), and check_capacity on a config that cannot fit."""
+    import torch
+    from harmonypy_tpu_torch.config import EngineConfig
+    from harmonypy_tpu_torch.utils.memory import (CapacityError,
+                                                  check_capacity,
+                                                  device_capacity_bytes,
+                                                  memory_envelope)
+    out = {}
+    for name, (cfg, peak) in fits.items():
+        env = memory_envelope(cfg)
+        check(env["total"] >= peak, f"capacity {name}: modeled "
+                                    f"{env['total']} < measured peak {peak}")
+        out[name] = dict(modeled_bytes=env["total"], measured_peak=peak,
+                         ratio=env["total"] / peak,
+                         peak_phase=env["peak_phase"])
+    big = EngineConfig(N=250_000_000, d=N_PCS, K=K, B=N_BATCHES,
+                       n_devices=1, use_fused_xla=True)
+    try:
+        check_capacity(big, torch.device("cuda"))
+        raise RuntimeError("chip_smoke: an over-budget config passed "
+                           "check_capacity")
+    except CapacityError as e:
+        msg = str(e)
+        check("defer_r" in msg, f"no defer_r remedy in: {msg}")
+    emit(dict(phase="capacity", fits=out,
+              usable_bytes=device_capacity_bytes(torch.device("cuda")),
+              over_budget=dict(N=big.N, K=big.K, r_dtype=big.r_dtype,
+                               modeled_bytes=memory_envelope(big)["total"],
+                               message=msg[:600])))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -689,19 +1038,26 @@ def main() -> int:
               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
               build_s=build_s, ptxas=build.build_log))
 
-    X, batches = synthetic()
+    X, batches, groups = synthetic()
     mods = (config, engine, layout, partition, fe, update_r_fused, state)
     geom, args = round_inputs(mods, X, batches)
     kinfo = phase_kernel(mods, geom, args)
     k2info = phase_kernel2(mods, geom, args)
     del args
     phase_shapes(mods)
-    launches, meta = phase_fit(ht, fe, X, batches)
-    launches_r = phase_fit_stored(ht, fe, X, meta)
+    launches, meta, fit_ho, fit_peak = phase_fit(ht, fe, X, batches)
+    launches_r, fits = phase_fit_stored(ht, fe, X, meta)
+    fits["deferred"] = (fit_ho.cfg, fit_peak)
     phase_profile(ht, X, meta, "deferred")
     phase_profile(ht, X, meta, "stored", defer_r=False)
     phase_golden(ht)
     phase_golden_default(ht)
+    phase_lisi_golden(ht)
+    phase_lisi(ht, fit_ho.Z_corr, batches, groups)
+    del fit_ho
+    phase_checkpoint(ht)
+    phase_cli(ht)
+    phase_capacity(fits)
     src = "harmonypy_tpu_torch/csrc/fused_estep.cu"
     pallas = "harmonypy_tpu/ops/pallas/update_r_fused.py"
     emit({"kernels": [

@@ -10,11 +10,14 @@ of running on the CPU.
 This release runs, on one device, the fits the JAX package runs there: the
 deferred-R fused fit, the stored-R fused fit (defer_r=False or
 use_pallas=True), low_memory (bf16 R), the per-cell fit (the default below
-20,480 cells) and the zero-iteration fit. Checkpoints and meshes raise
-NotImplementedError naming the ROADMAP.md item that will bring them.
+20,480 cells) and the zero-iteration fit, each with checkpoint_dir /
+resume_from and the capacity preflight (utils/memory.py). A mesh raises
+NotImplementedError naming the ROADMAP.md item that will bring it.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pandas as pd
@@ -29,7 +32,9 @@ from .ops.partition import partition_geometry, round_tables
 from .ops.replay import replay_r, windows
 from .ops.update_r_fused import make_zp3
 from .state import HarmonyData, HarmonyParams, HarmonyState
+from .utils.checkpoint import load_state, state_to, validate_state
 from .utils.logging import logger
+from .utils.memory import check_capacity
 
 # Above this N a per-cell fit warns that the fused path would be faster.
 _SLOW_PATH_WARN_N = 65536
@@ -101,8 +106,12 @@ def run_harmony(
     from (N, block_size); fast_objective selects the log-free entropy
     partials for single-covariate designs;
     matmul_precision is accepted for signature compatibility ("default" or
-    "float32"; the port computes in float32 either way). `_init_Y` and
-    `_blocks_fn` are test hooks (see engine.py).
+    "float32"; the port computes in float32 either way). checkpoint_dir
+    writes harmony_iter_{i}.npz after every harmony iteration; resume_from
+    continues from such a file bitwise as the uninterrupted fit would, under
+    the settings it was written with (a mismatch raises ValueError listing
+    each difference). `_init_Y` and `_blocks_fn` are test hooks (see
+    engine.py).
     """
     N = meta_data.shape[0]
     data_mat = np.asarray(data_mat.values if hasattr(data_mat, "values")
@@ -273,8 +282,6 @@ class Harmony:
                              f"'float32', got {matmul_precision!r}")
         if mesh is not None:
             _unported("a device mesh (more than one device)", "11")
-        if checkpoint_dir is not None or resume_from is not None:
-            _unported("checkpoint_dir / resume_from", "10")
         # As the JAX package resolves them (api.py:290-309): deferred-R is
         # the fused default; use_pallas=True keeps R stored. Both fused
         # flags run the hand-written kernels here.
@@ -318,6 +325,18 @@ class Harmony:
                     f"this scale. A smaller chunk_size usually restores the "
                     f"fused path.")
         self.cfg = cfg
+        # Capacity preflight (JAX package api.py:362-370): fail before the
+        # first upload, with remedies, rather than out of memory midway.
+        if not os.environ.get("HARMONYPY_SKIP_CAPACITY_CHECK"):
+            check_capacity(cfg, self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(random_state))
+        resume = None
+        if resume_from is not None:
+            state, rng = load_state(resume_from)
+            validate_state(state, cfg, resume_from, rng, self.device)
+            gen.set_state(rng.gen_state)
+            resume = (state_to(state, self.device), rng)
 
         lamb_arr = np.atleast_1d(np.asarray(lamb, dtype=np.float32))
         if not lambda_estimation and len(lamb_arr) != self.B + 1:
@@ -337,12 +356,13 @@ class Harmony:
                                  Phi=t(pad_cells(Phi, cfg)),
                                  mask=t(shard_mask(cfg)))
         self._lamb_raw = np.asarray(lamb, dtype=np.float32)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(random_state))
         init_Y = None if _init_Y is None else t(_init_Y)
+        if checkpoint_dir is not None:
+            os.makedirs(checkpoint_dir, exist_ok=True)
         self.state: HarmonyState = engine.fit(
             self._data, self._params, cfg, gen, verbose=verbose,
-            init_Y=init_Y, blocks_fn=_blocks_fn)
+            init_Y=init_Y, blocks_fn=_blocks_fn,
+            checkpoint_dir=checkpoint_dir, resume=resume)
 
     # ---- observability histories (reference harmony.py:273-278) ---------
     def _hist(self, buf, n):

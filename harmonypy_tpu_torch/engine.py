@@ -36,6 +36,7 @@ per-cell path.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
@@ -56,6 +57,7 @@ from .ops.update_r import compute_scale_dist, update_r
 from .ops.update_r_fused import chunk_stats, make_zp3
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
                     defer_placeholders, empty_histories)
+from .utils.checkpoint import RngState, save_state
 from .utils.logging import logger
 
 
@@ -331,13 +333,19 @@ def iterate_stored(st: HarmonyState, data: HarmonyData,
 
 def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         gen: torch.Generator, verbose: bool = False, init_Y=None,
-        blocks_fn: Optional[Callable[[int], torch.Tensor]] = None
-        ) -> HarmonyState:
+        blocks_fn: Optional[Callable[[int], torch.Tensor]] = None,
+        checkpoint_dir: Optional[str] = None, resume=None) -> HarmonyState:
     """init_cluster + harmonize (harmony.py:280-282, 419-435): the
-    deferred-R, stored-R fused or per-cell fit as cfg selects."""
+    deferred-R, stored-R fused or per-cell fit as cfg selects.
+
+    checkpoint_dir: write harmony_iter_{i}.npz after every harmony
+    iteration i (utils/checkpoint.py). resume: (state, RngState) of a
+    validated checkpoint on the fit's device, whose generator state `gen`
+    already holds; the fit continues from its iteration n_rounds + 1 (JAX
+    package api.py:395-436)."""
     cfg.validate()
     dev = data.Z_orig.device
-    n_drawn = 0
+    n_drawn = 0 if resume is None else resume[1].n_drawn
 
     def draw_blocks():
         nonlocal n_drawn
@@ -353,8 +361,13 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         n_drawn += 1
         return blocks
 
-    if cfg.defer_r:
+    if resume is not None:
+        st = resume[0]
+    elif cfg.defer_r:
         st = init_defer(data, params, cfg, gen, init_Y)
+    else:
+        st = init_stored(data, params, cfg, gen, init_Y)
+    if cfg.defer_r:
         geom = partition_geometry(cfg)
         ZO3 = data.Z_orig.reshape(cfg.d, geom.nc_cap + 1, geom.CH).permute(
             1, 0, 2).contiguous()
@@ -362,15 +375,20 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         def step():
             iterate(st, data, params, cfg, draw_blocks, ZO3)
     else:
-        st = init_stored(data, params, cfg, gen, init_Y)
-
         def step():
             iterate_stored(st, data, params, cfg, draw_blocks)
 
-    for i in range(1, cfg.max_iter_harmony + 1):
+    resumed = " (resumed)" if resume is not None else ""
+    for i in range(st.n_rounds + 1, cfg.max_iter_harmony + 1):
+        if st.converged:
+            break
         if verbose:
-            logger.info(f"Iteration {i} of {cfg.max_iter_harmony}")
+            logger.info(f"Iteration {i} of {cfg.max_iter_harmony}{resumed}")
         step()
+        if checkpoint_dir is not None:
+            save_state(os.path.join(checkpoint_dir, f"harmony_iter_{i}.npz"),
+                       st, RngState(gen.get_state(), gen.device.type,
+                                    n_drawn), cfg)
         if st.converged:
             if verbose:
                 logger.info(f"Converged after {i} iteration"

@@ -222,12 +222,23 @@ def test_item8_configurations_run(monkeypatch, kw):
     (dict(resume_from="ckpt.npz"), "item 10"),
     (dict(mesh=object()), "item 11"),
 ])
-def test_unported_configurations_raise(kw, item):
+def test_unported_configurations_raise(kw, item, tmp_path, monkeypatch):
+    """A mesh (item 11) raises NotImplementedError naming its item. The
+    checkpoint arguments (item 10) are ported: they no longer raise it."""
+    monkeypatch.chdir(tmp_path)
     X, meta = _problem(N=3000, d=6)
-    args = dict(device="cpu", verbose=False, chunk_size=128)
+    args = dict(device="cpu", verbose=False, chunk_size=128,
+                max_iter_harmony=1)
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
+    if item == "item 11":
+        with pytest.raises(NotImplementedError, match=re.escape(item)):
+            ht.run_harmony(X, meta, ["batch"], **args)
+    elif "resume_from" in kw:
+        with pytest.raises(FileNotFoundError):
+            ht.run_harmony(X, meta, ["batch"], **args)
+    else:
         ht.run_harmony(X, meta, ["batch"], **args)
+        assert (tmp_path / "ckpt" / "harmony_iter_1.npz").exists()
 
 
 def test_jax_validation_errors_kept():
