@@ -7,8 +7,9 @@ Usage:
   python -m harmonypy_tpu_torch lisi --x corrected.npy --meta meta.tsv.gz \
       --labels donor,cell_type [--out lisi.tsv]
 
---device takes a torch device string ("cuda", "cuda:1", "cpu"); without it
-both subcommands run on CUDA and fail when there is no card.
+--device takes a torch device string ("cuda", "cuda:1", "cpu"); both
+subcommands run on default_mesh(--device) (JAX package __main__.py:111-118):
+without it, or with "cuda", every visible card, failing when there is none.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import argparse
 import sys
 import time
 
-# The JAX package's multi-process flags (ROADMAP.md §1 item 11).
+# The JAX package's multi-process flags (ROADMAP.md §1 item 11b).
 _MULTI = ("coordinator", "num_processes", "process_id")
 
 
@@ -42,11 +43,12 @@ def _add_correct(sub):
     p.add_argument("--checkpoint-dir", default=None,
                    help="write harmony_iter_{i}.npz after every iteration")
     p.add_argument("--device", default=None,
-                   help="torch device (cuda, cuda:N, cpu); default CUDA")
+                   help="torch device (cuda, cuda:N, cpu); default every "
+                        "visible CUDA card")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--coordinator", default=None,
                    help="multi-process runs: not ported (ROADMAP.md §1 "
-                        "item 11)")
+                        "item 11b)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
 
@@ -70,7 +72,8 @@ def _add_lisi(sub):
     p.add_argument("--knn-recall", type=float, default=0.95,
                    help="recall target for --knn approx (0 < r <= 1)")
     p.add_argument("--device", default=None,
-                   help="torch device (cuda, cuda:N, cpu); default CUDA")
+                   help="torch device (cuda, cuda:N, cpu); default every "
+                        "visible CUDA card")
     p.add_argument("--out", default=None, help="output TSV (default: stdout)")
 
 
@@ -92,6 +95,7 @@ def main(argv=None):
     import pandas as pd
 
     from .io import load_matrix
+    from .parallel.mesh import default_mesh
 
     if args.cmd == "lisi":
         from .lisi import compute_lisi
@@ -102,7 +106,7 @@ def main(argv=None):
         out = compute_lisi(X, meta, labels, perplexity=args.perplexity,
                            sample=args.sample, knn=args.knn,
                            knn_recall_target=args.knn_recall,
-                           device=args.device)
+                           mesh=default_mesh(args.device))
         if isinstance(out, tuple):
             lisi, qidx = out
             df = pd.DataFrame(lisi, columns=labels)
@@ -121,7 +125,7 @@ def main(argv=None):
     if given:
         sys.exit(f"harmonypy_tpu_torch: --{given[0].replace('_', '-')}: "
                  f"multi-process runs are not ported yet (ROADMAP.md §1 "
-                 f"item 11)")
+                 f"item 11b); one process drives every visible card")
     from .api import run_harmony
 
     meta = pd.read_csv(args.meta, sep="\t")
@@ -135,7 +139,7 @@ def main(argv=None):
         max_iter_kmeans=args.max_iter_kmeans,
         random_state=args.random_state,
         checkpoint_dir=args.checkpoint_dir,
-        device=args.device,
+        mesh=default_mesh(args.device),
         verbose=not args.quiet,
     )
     Z = ho.Z_corr

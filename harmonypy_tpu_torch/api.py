@@ -3,16 +3,17 @@
 The JAX package's surface (harmonypy_tpu/api.py:34-606, itself the
 reference harmony.py:49-355): same signature, hyper-parameter broadcasting,
 validation errors, defaults, NumPy-returning properties and objective
-histories. `device` names a torch device: None means CUDA ("cuda",
-"cuda:N" and "cpu" are accepted); with no CUDA device, None raises instead
-of running on the CPU.
+histories. A fit runs on a device mesh (parallel/mesh.py): `mesh` if
+given, else default_mesh(device), where None and "cuda" mean every visible
+card (raising without one), "cuda:N" that card and "cpu" the CPU.
 
-This release runs, on one device, the fits the JAX package runs there: the
+It runs the fits the JAX package runs, on one device or a mesh: the
 deferred-R fused fit, the stored-R fused fit (defer_r=False or
 use_pallas=True), low_memory (bf16 R), the per-cell fit (the default below
 20,480 cells) and the zero-iteration fit, each with checkpoint_dir /
-resume_from and the capacity preflight (utils/memory.py). A mesh raises
-NotImplementedError naming the ROADMAP.md item that will bring it.
+resume_from and the capacity preflight (utils/memory.py). The fused fits
+are bitwise the same on every mesh; the per-cell fit to reduction-order
+tolerance.
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ from . import engine
 from .config import (EngineConfig, auto_chunk_size, cell_tile_geom,
                      default_nclust, expected_skip_fraction,
                      fused_geometry_ok)
-from .layout import pad_cells, shard_mask, unpad_cells
-from .ops.partition import partition_geometry, round_tables
-from .ops.replay import replay_r, windows
+from .ops.partition import mesh_round_tables, partition_geometry
+from .ops.replay import round_r_windows, windows
 from .ops.update_r_fused import make_zp3
+from .parallel.mesh import resolve_mesh
+from .parallel.sharding import (cat_cells, one_device, parts, shard_inputs,
+                                unpad_cells, window_rows)
 from .state import HarmonyData, HarmonyParams, HarmonyState
 from .utils.checkpoint import load_state, state_to, validate_state
 from .utils.logging import logger
@@ -38,31 +41,6 @@ from .utils.memory import check_capacity
 
 # Above this N a per-cell fit warns that the fused path would be faster.
 _SLOW_PATH_WARN_N = 65536
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for a `device` argument: None -> CUDA (raises when there
-    is none); "cuda", "cuda:N" and "cpu" as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "harmonypy_tpu_torch runs on CUDA by default and no CUDA "
-                "device is available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        return dev
-    if dev.type != "cuda":
-        raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', "
-                         f"got {device!r}")
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} asked for, but no CUDA device "
-                           f"is available")
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    if index >= torch.cuda.device_count():
-        raise ValueError(f"device {device!r}: only "
-                         f"{torch.cuda.device_count()} CUDA device(s)")
-    return torch.device("cuda", index)
 
 
 def run_harmony(
@@ -102,7 +80,9 @@ def run_harmony(
     it resolves them: defer_r=None picks the deferred-R fused fit where the
     fused geometry applies; use_pallas=True or defer_r=False the stored-R
     fused fit; low_memory=True stores R in bfloat16; below the fused
-    geometry the per-cell fit runs. chunk_size=None picks the chunk size
+    geometry the per-cell fit runs. mesh: a parallel.mesh.Mesh to spread
+    the cells over (default default_mesh(device)). chunk_size=None picks
+    the chunk size
     from (N, block_size); fast_objective selects the log-free entropy
     partials for single-covariate designs;
     matmul_precision is accepted for signature compatibility ("default" or
@@ -189,8 +169,10 @@ def run_harmony(
         theta = theta * (1 - np.exp(-(N_b / (nclust * tau)) ** 2))
         theta = theta.astype(np.float32)
 
+    mesh = resolve_mesh(mesh, device)
     if verbose:
-        logger.info("Running Harmony (PyTorch)")
+        logger.info(f"Running Harmony (PyTorch on {mesh.size} "
+                    f"{mesh.lead.type} device(s))")
         logger.info("  Parameters:")
         logger.info(f"    max_iter_harmony: {max_iter_harmony}")
         logger.info(f"    max_iter_kmeans: {max_iter_kmeans}")
@@ -220,12 +202,6 @@ def run_harmony(
         defer_r=defer_r, fast_objective=fast_objective,
         _init_Y=_init_Y, _blocks_fn=_blocks_fn,
     )
-
-
-def _unported(what: str, item: str, hint: str = ""):
-    raise NotImplementedError(
-        f"{what} is not ported to harmonypy_tpu_torch yet (ROADMAP.md §1 "
-        f"item {item}){hint}; the JAX package harmonypy_tpu runs it")
 
 
 class Harmony:
@@ -260,8 +236,10 @@ class Harmony:
         self.max_iter_kmeans = max_iter_kmeans
         self.verbose = verbose
 
+        mesh = resolve_mesh(mesh, device)
+        n_devices = mesh.size
         chunk_size = auto_chunk_size(self.N, float(block_size), chunk_size)
-        fused_ok = fused_geometry_ok(self.N, 1, float(block_size),
+        fused_ok = fused_geometry_ok(self.N, n_devices, float(block_size),
                                      int(chunk_size))
         if defer_r and not fused_ok:
             raise ValueError(
@@ -280,19 +258,19 @@ class Harmony:
         if matmul_precision not in ("default", "float32"):
             raise ValueError(f"matmul_precision must be 'default' or "
                              f"'float32', got {matmul_precision!r}")
-        if mesh is not None:
-            _unported("a device mesh (more than one device)", "11")
         # As the JAX package resolves them (api.py:290-309): deferred-R is
         # the fused default; use_pallas=True keeps R stored. Both fused
-        # flags run the hand-written kernels here.
+        # flags run the hand-written kernels here: the one-launch round on
+        # one device, its per-block entry on a mesh.
         if defer_r is None:
             defer_r = fused_ok and use_pallas is not True and not zero_iters
         use_pallas = bool(use_pallas)
         use_fused_xla = (not use_pallas) and fused_ok
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.lead
         cfg = EngineConfig(
-            N=self.N, d=self.d, K=K, B=self.B, n_devices=1,
+            N=self.N, d=self.d, K=K, B=self.B, n_devices=n_devices,
             use_pallas=use_pallas, use_fused_xla=use_fused_xla,
             defer_r=bool(defer_r), chunk_size=int(chunk_size),
             max_iter_harmony=max_iter_harmony,
@@ -314,9 +292,10 @@ class Harmony:
                  f"expected {frac:.2e} of cells per round; those cells keep "
                  f"their previous assignment for one round.")
             logger.info(
-                "per-cell E-step: results are reproducible to reduction-"
-                "order tolerance, not bitwise across devices; a smaller "
-                "chunk_size (e.g. chunk_size=128) selects the fused path.")
+                "per-cell E-step: results are mesh-invariant to reduction-"
+                "order tolerance, not bitwise; a smaller chunk_size (e.g. "
+                "chunk_size=128) selects the fused path, which is bitwise "
+                "the same on every mesh.")
             if self.N > _SLOW_PATH_WARN_N:
                 logger.warning(
                     f"N={self.N}: chunk geometry (chunk_size={chunk_size}) "
@@ -328,7 +307,7 @@ class Harmony:
         # Capacity preflight (JAX package api.py:362-370): fail before the
         # first upload, with remedies, rather than out of memory midway.
         if not os.environ.get("HARMONYPY_SKIP_CAPACITY_CHECK"):
-            check_capacity(cfg, self.device)
+            check_capacity(cfg, mesh)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(random_state))
         resume = None
@@ -336,7 +315,7 @@ class Harmony:
             state, rng = load_state(resume_from)
             validate_state(state, cfg, resume_from, rng, self.device)
             gen.set_state(rng.gen_state)
-            resume = (state_to(state, self.device), rng)
+            resume = (state_to(state, mesh, cfg), rng)
 
         lamb_arr = np.atleast_1d(np.asarray(lamb, dtype=np.float32))
         if not lambda_estimation and len(lamb_arr) != self.B + 1:
@@ -352,9 +331,7 @@ class Harmony:
             theta=t(theta), sigma=t(sigma),
             lamb=t(np.zeros(self.B + 1) if lambda_estimation else lamb_arr),
             Pr_b=t(Pr_b))
-        self._data = HarmonyData(Z_orig=t(pad_cells(Z, cfg)),
-                                 Phi=t(pad_cells(Phi, cfg)),
-                                 mask=t(shard_mask(cfg)))
+        self._data = shard_inputs(Z, Phi, cfg, mesh)
         self._lamb_raw = np.asarray(lamb, dtype=np.float32)
         init_Y = None if _init_Y is None else t(_init_Y)
         if checkpoint_dir is not None:
@@ -394,7 +371,7 @@ class Harmony:
 
     # ---- NumPy-view properties (reference harmony.py:288-355) -----------
     def _cells(self, t) -> np.ndarray:
-        return unpad_cells(t.cpu().numpy(), self.cfg).T
+        return unpad_cells(cat_cells(t).numpy(), self.cfg).T
 
     @property
     def Z_corr(self):
@@ -470,30 +447,42 @@ class Harmony:
 
 def stored_r(cfg: EngineConfig, state: HarmonyState) -> np.ndarray:
     """A stored-R fit's soft assignments as float32 cells-first (N x K),
-    from the chunk-major (fused) or (K, N_pad) (per-cell) stored R."""
-    R = state.R.to(torch.float32)
+    from the chunk-major (fused) or (K, N_local) (per-cell) stored R of
+    every shard."""
+    Rs = [R.to(torch.float32) for R in parts(state.R)]
     if cfg.fused_estep:
-        R = R.permute(1, 0, 2).reshape(cfg.K, cfg.N_pad)
-    return unpad_cells(R.cpu().numpy(), cfg).T
+        Rs = [R.permute(1, 0, 2).reshape(cfg.K, cfg.N_local) for R in Rs]
+    return unpad_cells(cat_cells(Rs).numpy(), cfg).T
 
 
 def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
                   params: HarmonyParams) -> np.ndarray:
     """Page a deferred-R fit's soft assignments to the host (N x K):
     replay the final round once per window of chunks (device peak about
-    width * chunk_size * K floats) and copy each window out, rounded to
-    cfg.r_dtype as the JAX package's replay stores it."""
+    width * chunk_size * K floats per shard) and copy each shard's chunks
+    of the window out, rounded to cfg.r_dtype as the JAX package's replay
+    stores it. Shard s's local chunk c is global column s * N_local + c *
+    chunk_size of the padded layout (JAX package api.py:578-606)."""
     geom = partition_geometry(cfg)
     CH, K = geom.CH, cfg.K
-    ZP3 = make_zp3(state.rep_Zcos, data.Phi, data.mask, cfg)
-    tables = round_tables(state.rep_blocks, state.rep_cache, geom)
+    ZP3s = [make_zp3(z, p, m, cfg) for z, p, m in zip(
+        parts(state.rep_Zcos), parts(data.Phi), parts(data.mask))]
+    tables = mesh_round_tables(state.rep_blocks, parts(state.rep_cache), geom,
+                               [z.device for z in ZP3s])
+    rep = (state.rep_Y, params.sigma, params.theta, params.Pr_b, state.rep_O,
+           state.rep_E)
     fast = engine.fast_ent(cfg)
     out = np.zeros((K, cfg.N_pad), np.float32)
-    for lo, w in windows(cfg, budget=64 * 1024 * 1024):
-        Rw = replay_r(tables, ZP3, state.rep_Y, params.sigma, params.theta,
-                      params.Pr_b, state.rep_O, state.rep_E, fast, lo, w)
-        Rw = Rw.to(cfg.r_torch_dtype).to(torch.float32)
-        out[:, lo * CH: (lo + w) * CH] = (
-            Rw.permute(1, 0, 2).reshape(K, w * CH).cpu().numpy())
+    for lo, w in windows(one_device(cfg), budget=64 * 1024 * 1024):
+        Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w)
+        for s, Rw in enumerate(Rws):
+            if Rw is None:
+                continue
+            l0, p0, n = ((lo, 0, w) if cfg.n_devices == 1
+                         else window_rows(geom, s, lo, w))
+            Rw = Rw[p0: p0 + n].to(cfg.r_torch_dtype).to(torch.float32)
+            c0 = s * cfg.N_local + l0 * CH
+            out[:, c0: c0 + n * CH] = (
+                Rw.permute(1, 0, 2).reshape(K, n * CH).cpu().numpy())
         state.n_passes += 1
     return unpad_cells(out, cfg).T

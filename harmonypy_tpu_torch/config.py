@@ -74,7 +74,7 @@ class EngineConfig:
     d: int            # number of PCs
     K: int            # number of clusters
     B: int            # number of batch levels (rows of Phi, without intercept)
-    n_devices: int    # devices the cells are spread over (the port runs 1)
+    n_devices: int    # shards of the mesh the cells are spread over
 
     # Algorithm loop bounds / thresholds.
     max_iter_harmony: int = 10
@@ -183,17 +183,15 @@ class EngineConfig:
         return 2 + int(math.log(self.K)) if self.K > 1 else 1
 
     def validate(self) -> None:
-        """The port runs one device: the deferred-R fused path, the
-        stored-R fused path (use_fused_xla or use_pallas, both on the
-        hand-written kernels) and the per-cell path (neither)."""
+        """The deferred-R fused path, the stored-R fused path (use_fused_xla
+        or use_pallas, both on the hand-written kernels) and the per-cell
+        path (neither), on one device or a mesh of n_devices shards."""
         if not (self.N >= 1 and self.d >= 1 and self.K >= 1 and self.B >= 1):
             raise ValueError(f"empty problem: {self}")
         if not 0.0 < self.block_size <= 1.0:
             raise ValueError(f"block_size must be in (0, 1]: {self}")
-        if self.n_devices != 1:
-            raise NotImplementedError(
-                f"the PyTorch port runs on one device only (ROADMAP.md §1 "
-                f"item 11): {self}")
+        if self.n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1: {self}")
         if self.use_pallas and self.use_fused_xla:
             raise ValueError(f"use_pallas and use_fused_xla both set: {self}")
         if self.defer_r and not self.fused_estep:
@@ -240,8 +238,9 @@ def fused_geometry_ok(N: int, n_devices: int = 1, block_size: float = 0.05,
 def pallas_supported(N: int, n_devices: int, block_size: float = 0.05,
                      chunk_size: int = 2048) -> bool:
     """Whether the JAX package's Pallas E-step applies (one device and the
-    fused chunk geometry); the port routes such fits to its hand-written
-    kernels."""
+    fused chunk geometry: its in-kernel block re-add cannot cross devices).
+    The port runs every fused fit on its hand-written kernel: the one-launch
+    round on one device, the per-block entry on a mesh."""
     if n_devices != 1:
         return False
     return fused_geometry_ok(N, n_devices, block_size, chunk_size)

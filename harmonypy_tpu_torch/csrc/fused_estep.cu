@@ -71,6 +71,14 @@
 //  * K2's store is packed: two adjacent cells of one cluster per float2,
 //    or per __nv_bfloat162 rounded to nearest even (__floats2bfloat162_rn,
 //    as torch's .to(bfloat16) rounds).
+// The per-block entries (fused_estep_block, _block_r_window,
+// _block_write_r) launch the same kernel on one block of the tables, from
+// the O, E they are given, and return the block-removed O, E: a mesh runs
+// one launch per shard per block and re-adds each block across the shards
+// in the host (ops/update_r_fused.mesh_round), in the order the one-launch
+// round's bsum takes. `ng` comes from the one-device slots per block
+// (kernel_geometry's J_glob), so a shard's chunks are split into units, and
+// summed, as the one-device round splits them.
 // No float atomics: every sum has a fixed order, so the same inputs give the
 // same bits. `r_window` and `write_r` run the identical arithmetic and only
 // add the store, so a replay reproduces its round bitwise (the deferred-R
@@ -124,6 +132,8 @@ struct Args {
   void* rw;              // (width, K, CH) float or bf16 (RT), or null
   int lo, width;
   int K, B, d, CH, nb, J, ng, nc1, fast_ent;
+  int readd;             // 1: O1, E1 = O, E at the end of the round;
+                         // 0 (one block alone): the block-removed O, E
 };
 
 // Padded sizes and the shared-memory plan (offsets in floats). Padding
@@ -775,8 +785,9 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     for (int i = tid; i < K * B; i += THREADS) {
       const int k = i / B, b = i % B;
       const float* bs = a.bsum + (size_t)k * B1;
-      a.E1[i] = __fadd_rn(Er[i], __fmul_rn(__ldcg(bs), a.prb[b]));
-      a.O1[i] = __fadd_rn(Or[i], __ldcg(bs + 1 + b));
+      a.E1[i] = a.readd ? __fadd_rn(Er[i], __fmul_rn(__ldcg(bs), a.prb[b]))
+                        : Er[i];
+      a.O1[i] = a.readd ? __fadd_rn(Or[i], __ldcg(bs + 1 + b)) : Or[i];
     }
   }
 }
@@ -868,7 +879,22 @@ Args make_args(const float* zp3, const float* Y, const float* sigma,
   a.ybuf = ybuf; a.kbuf = kbuf; a.O1 = O1; a.E1 = E1; a.rw = rw;
   a.lo = lo; a.width = width; a.K = K; a.B = B; a.d = d; a.CH = CH;
   a.nb = nb; a.J = J; a.ng = ng; a.nc1 = nc1; a.fast_ent = fast_ent;
+  a.readd = 1;
   return a;
+}
+
+// Block blk of the round alone: the tables' row blk, a one-block walk from
+// the O, E given (the block's start), and O1, E1 = the block-removed O, E.
+// The caller re-adds the block's stats (ops/update_r_fused.mesh_round sums
+// its slots' cache rows over every shard in the global rank frame, in the
+// order the round's bsum takes them).
+int block_args(Args& a, int blk) {
+  if (blk < 0 || blk >= a.nb) return (int)cudaErrorInvalidValue;
+  a.slots += (size_t)blk * a.J;
+  a.removal += (size_t)blk * a.K * (a.B + 1);
+  a.nb = 1;
+  a.readd = 0;
+  return 0;
 }
 
 }  // namespace
@@ -921,6 +947,33 @@ int fused_estep_r_window(ESTEP_PTRS, float* rw, int lo, int width,
 // chunk-major r3 (nc1, K, CH), as float (r_bf16 == 0) or bf16.
 int fused_estep_write_r(ESTEP_PTRS, void* r3, int r_bf16, ESTEP_DIMS) {
   const Args a = ESTEP_ARGS(r3, 0, nc1);
+  return r_bf16 ? run<__nv_bfloat16>(a, (cudaStream_t)stream)
+                : run<float>(a, (cudaStream_t)stream);
+}
+
+// The per-block entries (one launch per shard per block on a mesh): block
+// blk of fused_estep_round, of fused_estep_r_window (lo may be negative:
+// rw holds the window's chunks lo..lo+width-1 in the shard's chunk ids) and
+// of fused_estep_write_r. The same kernel and arithmetic; O1, E1 get the
+// block-removed O, E (see block_args).
+int fused_estep_block(ESTEP_PTRS, int blk, ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(nullptr, 0, 0);
+  const int err = block_args(a, blk);
+  return err ? err : run<float>(a, (cudaStream_t)stream);
+}
+
+int fused_estep_block_r_window(ESTEP_PTRS, float* rw, int lo, int width,
+                               int blk, ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(rw, lo, width);
+  const int err = block_args(a, blk);
+  return err ? err : run<float>(a, (cudaStream_t)stream);
+}
+
+int fused_estep_block_write_r(ESTEP_PTRS, void* r3, int r_bf16, int blk,
+                              ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(r3, 0, nc1);
+  const int err = block_args(a, blk);
+  if (err) return err;
   return r_bf16 ? run<__nv_bfloat16>(a, (cudaStream_t)stream)
                 : run<float>(a, (cudaStream_t)stream);
 }

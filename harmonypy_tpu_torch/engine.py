@@ -1,5 +1,6 @@
-"""The Harmony engine on one device (JAX package engine.py:51-719): the
-deferred-R fused path, the stored-R fused path and the per-cell path.
+"""The Harmony engine on one device or a mesh of shards (JAX package
+engine.py:51-719): the deferred-R fused path, the stored-R fused path and
+the per-cell path.
 
   reference harmonize()        -> fit(): init + up to max_iter_harmony
                                   calls of iterate()
@@ -21,6 +22,16 @@ deferred-R fused path, the stored-R fused path and the per-cell path.
 On the deferred path nothing K x N is ever held: the soft assignments exist
 only inside the kernel (rounds) or one window at a time (replays). The
 stored paths keep R in cfg.r_dtype (fp32, or bf16 under low_memory).
+
+On a mesh (parallel/), the N-scale data and state are lists of the shards'
+tensors and the rest lives on the lead device. A fused round runs the
+per-block entry of the kernel on every shard and re-adds each block
+through the global rank frame (ops/update_r_fused.mesh_round); every other
+reduction over chunks gathers the shards' per-chunk rows into the global
+frame (ops/partition.frame_sum); the N-axis work outside the kernel runs on
+each shard in the one-device layout (parallel/sharding.py). The fused fits
+are therefore the one-device fits bit for bit on any mesh. The per-cell fit
+sums shard partials in shard order: equal to reduction-order tolerance.
 
 Profiler ranges (torch.profiler.record_function, no cost without a
 profiler beyond a few microseconds per call): harmony::init,
@@ -47,14 +58,18 @@ from .ops.cuda.fused_estep import fused_estep, fused_estep_r
 from .ops.kmeans import kmeans_init
 from .ops.normalize import l2_normalize_cols
 from .ops.objective import (chunk_objective_partials,
-                            compute_objective_terms, cross_entropy_from_stats)
+                            compute_objective_terms, cross_entropy_from_stats,
+                            shard_sum)
 from .ops.partition import (cell_partition_len, cell_slot_table, frame_sum,
-                            iid_blocks, partition_geometry, round_tables,
+                            iid_blocks, mesh_round_tables, partition_geometry,
                             stripe_blocks)
 from .ops.replay import replay_apply, replay_normal_eq, windows
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
-from .ops.update_r_fused import chunk_stats, make_zp3
+from .ops.update_r_fused import chunk_stats, make_zp3, mesh_round
+from .parallel.sharding import (embed_chunks, embed_cols, extract_chunks,
+                                extract_cols, one_device, pack, parts,
+                                real_cols, window_rows)
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
                     defer_placeholders, empty_histories)
 from .utils.checkpoint import RngState, save_state
@@ -96,50 +111,82 @@ def _append_terms(st: HarmonyState, terms) -> None:
     st.n_kmeans = append(st.obj_cross, n, cross)
 
 
-@record_function("harmony::init")
-def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
-               gen: torch.Generator, init_Y=None) -> HarmonyState:
-    """Normalize, seed the centroids, and make one pass over the chunks for
-    the cache, O/E, the first objective and the first centroid numerator:
-    the initial soft assignments (softmax of -dist/sigma, harmony.py:380-389)
-    are reduced away one window of chunks at a time."""
-    geom = partition_geometry(cfg)
-    Z_cos = l2_normalize_cols(data.Z_orig)                       # harmony.py:238
-    with record_function("harmony::kmeans_init"):
-        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
-    Y = l2_normalize_cols(Y)                                     # harmony.py:377
+def _devices(data: HarmonyData) -> list:
+    return [z.device for z in parts(data.Z_orig)]
 
+
+def normalize_cells(X, cfg: EngineConfig):
+    """l2_normalize_cols of a sharded (rows, N_local) array, each shard in
+    the one-device layout (harmony.py:238, 569)."""
+    return pack(extract_cols(l2_normalize_cols(embed_cols(x, s, cfg)), s, cfg)
+                for s, x in enumerate(parts(X)))
+
+
+def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, wins):
+    """Per-chunk cache, centroid numerator and objective partials of the
+    initial soft assignments (softmax of -dist/sigma, harmony.py:380-389),
+    one window of chunks at a time, in the one-device layout of cfg."""
+    geom = partition_geometry(cfg)
     nc1, CH, K, d = geom.nc_cap + 1, geom.CH, cfg.K, cfg.d
     dev = Z_cos.device
     cache = torch.zeros((nc1, K, cfg.B1), dtype=torch.float32, device=dev)
     ybuf = torch.zeros((nc1, d, K), dtype=torch.float32, device=dev)
     kbuf = torch.zeros((nc1, 2), dtype=torch.float32, device=dev)
     z3 = Z_cos.reshape(d, nc1, CH).permute(1, 0, 2)
-    p3 = data.Phi.reshape(cfg.B, nc1, CH).permute(1, 0, 2)
-    m3 = data.mask.reshape(nc1, 1, CH)
-    for lo, w in windows(cfg):
+    p3 = Phi.reshape(cfg.B, nc1, CH).permute(1, 0, 2)
+    m3 = mask.reshape(nc1, 1, CH)
+    for lo, w in wins:
         sl = slice(lo, lo + w)
         dist = 2.0 * (1.0 - torch.einsum("dk,jdc->jkc", Y, z3[sl]))
-        s = torch.exp(-dist / params.sigma[None, :, None])
+        s = torch.exp(-dist / sigma[None, :, None])
         r = s / torch.sum(s, dim=1, keepdim=True) * m3[sl]      # (w, K, CH)
         cache[sl] = chunk_stats(r, p3[sl])
         ybuf[sl] = torch.einsum("jdc,jkc->jdk", z3[sl], r)
         kbuf[sl] = torch.stack(chunk_objective_partials(
-            r, dist, params.sigma, k_axis=1, chunk_axis=0), dim=1)
+            r, dist, sigma, k_axis=1, chunk_axis=0), dim=1)
+    return cache, ybuf, kbuf
 
-    tot = frame_sum(cache, geom)                                  # (K, B+1)
+
+@record_function("harmony::init")
+def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
+               gen: torch.Generator, init_Y=None) -> HarmonyState:
+    """Normalize, seed the centroids, and make one pass over the chunks for
+    the cache, O/E, the first objective and the first centroid numerator:
+    the initial soft assignments are reduced away one window of chunks at a
+    time (each shard: the windows that hold its chunks)."""
+    geom = partition_geometry(cfg)
+    cfg1 = one_device(cfg)
+    Z_cos = normalize_cells(data.Z_orig, cfg)                    # harmony.py:238
+    with record_function("harmony::kmeans_init"):
+        Y = (kmeans_init(gen, real_cols(Z_cos, cfg), cfg) if init_Y is None
+             else init_Y)
+    Y = l2_normalize_cols(Y)                                     # harmony.py:377
+    dev = Y.device
+    caches, ybufs, kbufs = [], [], []
+    for s, (z, p, m) in enumerate(zip(parts(Z_cos), parts(data.Phi),
+                                      parts(data.mask))):
+        wins = [(lo, w) for lo, w in windows(cfg1)
+                if geom.n_devices == 1 or window_rows(geom, s, lo, w)[2]]
+        out = _init_pass(embed_cols(z, s, cfg), embed_cols(p, s, cfg),
+                         embed_cols(m[None], s, cfg)[0], Y.to(z.device),
+                         params.sigma.to(z.device), cfg1, wins)
+        for buf, o in zip((caches, ybufs, kbufs), out):
+            buf.append(extract_chunks(o, s, geom))
+
+    tot = frame_sum(caches, geom)                                # (K, B+1)
     E = tot[:, 0:1] * params.Pr_b[None, :]
     O = tot[:, 1:]
-    ko = frame_sum(kbuf, geom) * (2000.0 / cfg.N)
+    ko = frame_sum(kbufs, geom) * (2000.0 / cfg.N)
     terms = (ko[0], ko[1], cross_entropy_from_stats(O, E, params, cfg))
     hist = empty_histories(cfg, dev)
+    cache = pack(caches)
     st = HarmonyState(
         Z_corr=data.Z_orig, Z_cos=Z_cos,
         R=torch.zeros((1, 1), dtype=cfg.r_torch_dtype, device=dev),
         Y=Y, O=O, E=E, cache=cache,
-        **hist, Ysum0=frame_sum(ybuf, geom), rep_Y=Y, rep_O=O, rep_E=E,
+        **hist, Ysum0=frame_sum(ybufs, geom), rep_Y=Y, rep_O=O, rep_E=E,
         rep_blocks=torch.zeros((geom.L,), dtype=torch.int64, device=dev),
-        rep_cache=cache, rep_Zcos=Z_cos)
+        rep_cache=cache, rep_Zcos=Z_cos, n_devices=cfg.n_devices)
     _append_terms(st, terms)
     st.n_harmony = append(st.obj_harmony, 0, st.obj_kmeans[0])  # harmony.py:392
     return st
@@ -151,49 +198,85 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     """Normalize, seed the centroids, and store the initial soft
     assignments R = softmax_k(-dist/sigma) (harmony.py:377-392) with O/E and
     the first objective (JAX package engine.py:221-284). Fused layout:
-    per-chunk cache and partials from the fp32 R, reduced by frame_sum.
-    Per-cell layout: O/E and the objective from the storage-rounded R,
-    since its E-step re-reads the stored values."""
-    Z_cos = l2_normalize_cols(data.Z_orig)                       # harmony.py:238
+    per-chunk cache and partials from the fp32 R, reduced by frame_sum
+    (each shard in the one-device layout). Per-cell layout: O/E and the
+    objective from the storage-rounded R, since its E-step re-reads the
+    stored values; shard partials summed in shard order."""
+    Z_cos = normalize_cells(data.Z_orig, cfg)                    # harmony.py:238
     with record_function("harmony::kmeans_init"):
-        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
+        Y = (kmeans_init(gen, real_cols(Z_cos, cfg), cfg) if init_Y is None
+             else init_Y)
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
-    dev, K = Z_cos.device, cfg.K
-    dist_mat = 2.0 * (1.0 - Y.T @ Z_cos)                         # harmony.py:380
-    R = compute_scale_dist(dist_mat, params.sigma) * data.mask[None, :]
+    dev, K = Y.device, cfg.K
+    Rs, dists = [], []
     if cfg.fused_estep:
         geom = partition_geometry(cfg)
-        nc1, CH = geom.nc_cap + 1, geom.CH
-        R = R.reshape(K, nc1, CH).permute(1, 0, 2)               # (nc1, K, CH)
-        cache = chunk_stats(R, data.Phi.reshape(cfg.B, nc1, CH).permute(
-            1, 0, 2))
-        tot = frame_sum(cache, geom)
+        cfg1 = one_device(cfg)
+        nc1, CH = partition_geometry(cfg1).nc_cap + 1, geom.CH
+        caches, kerrs, ents = [], [], []
+        for s, (z, p, m) in enumerate(zip(parts(Z_cos), parts(data.Phi),
+                                          parts(data.mask))):
+            Ys, sigma = Y.to(z.device), params.sigma.to(z.device)
+            dist_mat = 2.0 * (1.0 - Ys.T @ embed_cols(z, s, cfg))  # :380
+            R = (compute_scale_dist(dist_mat, sigma)
+                 * embed_cols(m[None], s, cfg))
+            R = R.reshape(K, nc1, CH).permute(1, 0, 2)           # (nc1, K, CH)
+            caches.append(extract_chunks(chunk_stats(R, embed_cols(
+                p, s, cfg).reshape(cfg.B, nc1, CH).permute(1, 0, 2)), s,
+                geom))
+            kerr, ent = chunk_objective_partials(
+                R, dist_mat.reshape(K, nc1, CH).permute(1, 0, 2), sigma,
+                k_axis=1, chunk_axis=0)
+            kerrs.append(extract_chunks(kerr, s, geom))
+            ents.append(extract_chunks(ent, s, geom))
+            Rs.append(extract_chunks(R, s, geom))
+        tot = frame_sum(caches, geom)
         E = tot[:, 0:1] * params.Pr_b[None, :]
         O = tot[:, 1:]
-        kerr, ent = chunk_objective_partials(
-            R, dist_mat.reshape(K, nc1, CH).permute(1, 0, 2), params.sigma,
-            k_axis=1, chunk_axis=0)
         nc = 2000.0 / cfg.N
-        terms = (frame_sum(kerr, geom) * nc, frame_sum(ent, geom) * nc,
+        terms = (frame_sum(kerrs, geom) * nc, frame_sum(ents, geom) * nc,
                  cross_entropy_from_stats(O, E, params, cfg))
+        cache = pack(caches)
     else:
-        R = R.to(cfg.r_torch_dtype).to(torch.float32)
-        E = torch.outer(torch.sum(R, dim=1), params.Pr_b)      # harmony.py:388
-        O = R @ data.Phi.T                                       # harmony.py:389
+        for z, m in zip(parts(Z_cos), parts(data.mask)):
+            dist_mat = 2.0 * (1.0 - Y.to(z.device).T @ z)        # :380
+            R = (compute_scale_dist(dist_mat, params.sigma.to(z.device))
+                 * m[None, :])
+            Rs.append(R.to(cfg.r_torch_dtype).to(torch.float32))
+            dists.append(dist_mat)
+        E = torch.outer(shard_sum([torch.sum(R, dim=1) for R in Rs], dev),
+                        params.Pr_b)                             # :388
+        O = shard_sum([R @ p.T for R, p in zip(Rs, parts(data.Phi))],
+                      dev)                                       # :389
         cache = torch.zeros((1, 1, 1), dtype=torch.float32, device=dev)
-        terms = compute_objective_terms(R, dist_mat, O, E, data.Phi, params,
-                                        cfg)
+        terms = compute_objective_terms(pack(Rs), pack(dists), O, E,
+                                        data.Phi, params, cfg)
     st = HarmonyState(
         Z_corr=data.Z_orig, Z_cos=Z_cos,
-        R=R.to(cfg.r_torch_dtype).contiguous(), Y=Y, O=O, E=E, cache=cache,
-        **empty_histories(cfg, dev), **defer_placeholders(cfg, dev))
+        R=pack(R.to(cfg.r_torch_dtype).contiguous() for R in Rs), Y=Y, O=O,
+        E=E, cache=cache, **empty_histories(cfg, dev),
+        **defer_placeholders(cfg, dev), n_devices=cfg.n_devices)
     _append_terms(st, terms)
     st.n_harmony = append(st.obj_harmony, 0, st.obj_kmeans[0])  # harmony.py:392
     return st
 
 
+def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
+              geom):
+    """One deferred-R round: the one-launch K1 on one device, the mesh
+    round (K1's per-block entry) on a mesh. Returns (O, E, caches, ybufs,
+    kbufs) with the per-chunk buffers per shard."""
+    if len(ZP3s) == 1:
+        O, E, cache, ybuf, kbuf, _ = fused_estep(
+            tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
+            params.theta, params.Pr_b, O, E, fast)
+        return O, E, [cache], [ybuf], [kbuf]
+    return mesh_round(tables, ZP3s, Y, params.sigma, params.theta,
+                      params.Pr_b, O, E, fast, geom.J_fix)[:5]
+
+
 @record_function("harmony::cluster")
-def cluster(st: HarmonyState, ZP3, params: HarmonyParams, cfg: EngineConfig,
+def cluster(st: HarmonyState, ZP3s, params: HarmonyParams, cfg: EngineConfig,
             draw_blocks: Callable[[], torch.Tensor]) -> int:
     """Deferred-R k-means loop (harmony.py:437-462): every round runs the
     fused E-step and keeps its start-of-round inputs for the replays.
@@ -201,20 +284,20 @@ def cluster(st: HarmonyState, ZP3, params: HarmonyParams, cfg: EngineConfig,
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
     nc = 2000.0 / cfg.N
+    devs = [z.device for z in ZP3s]
     Ysum = st.Ysum0
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443
         blocks = draw_blocks()
-        slots, removal = round_tables(blocks, st.cache, geom)
+        tables = mesh_round_tables(blocks, parts(st.cache), geom, devs)
         st.rep_Y, st.rep_O, st.rep_E = Y, st.O, st.E
         st.rep_cache, st.rep_blocks = st.cache, blocks
-        O, E, cache, ybuf, kbuf, _ = fused_estep(
-            slots, removal, ZP3, Y, params.sigma, params.theta, params.Pr_b,
-            st.O, st.E, fast)
+        O, E, caches, ybufs, kbufs = _k1_round(tables, ZP3s, Y, params,
+                                               st.O, st.E, fast, geom)
         st.n_passes += 1
-        st.Y, st.O, st.E, st.cache = Y, O, E, cache
-        Ysum = frame_sum(ybuf, geom).T
-        ko = frame_sum(kbuf, geom)
+        st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
+        Ysum = frame_sum(ybufs, geom).T
+        ko = frame_sum(kbufs, geom)
         if _round_end(st, i, (ko[0] * nc, ko[1] * nc,
                               cross_entropy_from_stats(O, E, params, cfg)),
                       cfg):
@@ -222,33 +305,38 @@ def cluster(st: HarmonyState, ZP3, params: HarmonyParams, cfg: EngineConfig,
     return cfg.max_iter_kmeans
 
 
+def _zp3s(st: HarmonyState, data: HarmonyData, cfg: EngineConfig) -> list:
+    return [make_zp3(z, p, m, cfg) for z, p, m in
+            zip(parts(st.Z_cos), parts(data.Phi), parts(data.mask))]
+
+
 def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
-            cfg: EngineConfig, draw_blocks, ZO3) -> None:
+            cfg: EngineConfig, draw_blocks, ZO3s) -> None:
     """One harmony iteration (harmony.py:421-428): cluster, then the ridge
     correction by replaying the final round twice (normal equations;
     apply), then the type-1 convergence check. Updates `st` in place."""
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
-    ZP3 = make_zp3(st.Z_cos, data.Phi, data.mask, cfg)
-    rounds = cluster(st, ZP3, params, cfg, draw_blocks)
+    ZP3s = _zp3s(st, data, cfg)
+    rounds = cluster(st, ZP3s, params, cfg, draw_blocks)
     st.kmeans_rounds.append(rounds)
     st.n_rounds += 1
     st.n_harmony = append(st.obj_harmony, st.n_harmony,
                           st.obj_kmeans[st.n_kmeans - 1])
 
     with record_function("harmony::ridge_replay"):
-        tables = round_tables(st.rep_blocks, st.rep_cache, geom)
+        tables = mesh_round_tables(st.rep_blocks, parts(st.rep_cache), geom,
+                                   [z.device for z in ZP3s])
         rep = (st.rep_Y, params.sigma, params.theta, params.Pr_b, st.rep_O,
                st.rep_E)
-        S = replay_normal_eq(tables, ZP3, ZO3, *rep, cfg, fast)
+        S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast)
         W = solve_w(S, st.E, params, cfg)
-        Zc3, Zs3, st.Ysum0 = replay_apply(tables, ZP3, ZO3, W, *rep, cfg,
-                                          fast)
-        st.n_passes += 2 * len(windows(cfg))
-    nc1, CH = geom.nc_cap + 1, geom.CH
+        Zc3s, Zs3s, st.Ysum0 = replay_apply(tables, ZP3s, ZO3s, W, rep, cfg,
+                                            fast)
+        st.n_passes += 2 * len(windows(one_device(cfg)))
     st.rep_Zcos = st.Z_cos
-    st.Z_corr = Zc3.permute(1, 0, 2).reshape(cfg.d, nc1 * CH)
-    st.Z_cos = Zs3.permute(1, 0, 2).reshape(cfg.d, nc1 * CH)
+    st.Z_corr = pack(z.permute(1, 0, 2).reshape(cfg.d, -1) for z in Zc3s)
+    st.Z_cos = pack(z.permute(1, 0, 2).reshape(cfg.d, -1) for z in Zs3s)
     st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
 
 
@@ -260,28 +348,38 @@ def _round_end(st: HarmonyState, i: int, terms, cfg: EngineConfig) -> bool:
 
 
 @record_function("harmony::cluster")
-def cluster_fused(st: HarmonyState, ZP3, params: HarmonyParams,
+def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
                   cfg: EngineConfig, draw_blocks) -> int:
     """Stored-R fused k-means loop (JAX package engine.py:391-511): every
     round runs K2, which rewrites the chunk-major R3 in place in its
     storage dtype. The first centroid numerator comes from the stored R by
     a per-chunk product and frame_sum. Returns the rounds run."""
     geom = partition_geometry(cfg)
+    nc1 = partition_geometry(one_device(cfg)).nc_cap + 1
     fast = fast_ent(cfg)
     nc = 2000.0 / cfg.N
-    y_c = torch.einsum("jdc,jkc->jdk", ZP3[:, cfg.B1:, :],
-                       st.R.to(torch.float32))
-    Ysum = frame_sum(y_c, geom)
+    devs = [z.device for z in ZP3s]
+    y_cs = [extract_chunks(torch.einsum(
+        "jdc,jkc->jdk", embed_chunks(Z, s, geom, nc1)[:, cfg.B1:, :],
+        embed_chunks(R, s, geom, nc1).to(torch.float32)), s, geom)
+        for s, (Z, R) in enumerate(zip(ZP3s, parts(st.R)))]
+    Ysum = frame_sum(y_cs, geom)
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443
-        slots, removal = round_tables(draw_blocks(), st.cache, geom)
-        R3, O, E, cache, ybuf, kbuf = fused_estep_r(
-            slots, removal, ZP3, st.R, Y, params.sigma, params.theta,
-            params.Pr_b, st.O, st.E, fast)
+        tables = mesh_round_tables(draw_blocks(), parts(st.cache), geom, devs)
+        if len(ZP3s) == 1:
+            _, O, E, cache, ybuf, kbuf = fused_estep_r(
+                tables.slots[0], tables.removal, ZP3s[0], st.R, Y,
+                params.sigma, params.theta, params.Pr_b, st.O, st.E, fast)
+            caches, ybufs, kbufs = [cache], [ybuf], [kbuf]
+        else:
+            O, E, caches, ybufs, kbufs, _ = mesh_round(
+                tables, ZP3s, Y, params.sigma, params.theta, params.Pr_b,
+                st.O, st.E, fast, geom.J_fix, R3s=st.R)
         st.n_passes += 1
-        st.R, st.Y, st.O, st.E, st.cache = R3, Y, O, E, cache
-        Ysum = frame_sum(ybuf, geom).T
-        ko = frame_sum(kbuf, geom)
+        st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
+        Ysum = frame_sum(ybufs, geom).T
+        ko = frame_sum(kbufs, geom)
         if _round_end(st, i, (ko[0] * nc, ko[1] * nc,
                               cross_entropy_from_stats(O, E, params, cfg)),
                       cfg):
@@ -295,16 +393,25 @@ def cluster_percell(st: HarmonyState, data: HarmonyData,
                     draw_blocks) -> int:
     """Per-cell k-means loop (JAX package engine.py:351-389): centroids
     from Z_cos R^T, the distances, one per-cell E-step over iid blocks, the
-    objective from R. Returns the rounds run."""
+    objective from R. Returns the rounds run. On a mesh the centroid
+    numerator and every block's O/E change are shard partials summed in
+    shard order."""
+    lead = st.Y.device
     for i in range(cfg.max_iter_kmeans):
-        Y = l2_normalize_cols(st.Z_cos @ st.R.to(torch.float32).T)  # :443-444
-        slot_table = cell_slot_table(draw_blocks(), cfg)
-        dist_mat = 2.0 * (1.0 - Y.T @ st.Z_cos)                  # harmony.py:447
-        st.R, st.E, st.O = update_r(slot_table, st.R, dist_mat, data.Phi,
-                                    st.E, st.O, params, cfg, data.mask)
+        Y = l2_normalize_cols(shard_sum(                          # :443-444
+            [z @ R.to(torch.float32).T
+             for z, R in zip(parts(st.Z_cos), parts(st.R))], lead))
+        blocks = draw_blocks()
+        tables = [cell_slot_table(blocks, cfg, s).to(z.device)
+                  for s, z in enumerate(parts(st.Z_cos))]
+        dists = [2.0 * (1.0 - Y.to(z.device).T @ z)             # harmony.py:447
+                 for z in parts(st.Z_cos)]
+        st.R, st.E, st.O = update_r(pack(tables), st.R, pack(dists),
+                                    data.Phi, st.E, st.O, params, cfg,
+                                    data.mask)
         st.Y = Y
         if _round_end(st, i, compute_objective_terms(
-                st.R, dist_mat, st.O, st.E, data.Phi, params, cfg), cfg):
+                st.R, pack(dists), st.O, st.E, data.Phi, params, cfg), cfg):
             return i + 1
     return cfg.max_iter_kmeans
 
@@ -316,8 +423,8 @@ def iterate_stored(st: HarmonyState, data: HarmonyData,
     cluster, moe_correct_ridge on the stored R, normalize, the type-1
     convergence check. Updates `st` in place."""
     if cfg.fused_estep:
-        ZP3 = make_zp3(st.Z_cos, data.Phi, data.mask, cfg)
-        rounds = cluster_fused(st, ZP3, params, cfg, draw_blocks)
+        rounds = cluster_fused(st, _zp3s(st, data, cfg), params, cfg,
+                               draw_blocks)
     else:
         rounds = cluster_percell(st, data, params, cfg, draw_blocks)
     st.kmeans_rounds.append(rounds)
@@ -327,7 +434,7 @@ def iterate_stored(st: HarmonyState, data: HarmonyData,
     with record_function("harmony::ridge"):
         st.Z_corr = moe_correct_ridge(data.Z_orig, data.Phi, st.R, st.E,
                                       params, cfg, data.mask)
-    st.Z_cos = l2_normalize_cols(st.Z_corr)                      # harmony.py:569
+    st.Z_cos = normalize_cells(st.Z_corr, cfg)                   # :569
     st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
 
 
@@ -344,7 +451,7 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     already holds; the fit continues from its iteration n_rounds + 1 (JAX
     package api.py:395-436)."""
     cfg.validate()
-    dev = data.Z_orig.device
+    dev = _devices(data)[0]
     n_drawn = 0 if resume is None else resume[1].n_drawn
 
     def draw_blocks():
@@ -369,11 +476,11 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         st = init_stored(data, params, cfg, gen, init_Y)
     if cfg.defer_r:
         geom = partition_geometry(cfg)
-        ZO3 = data.Z_orig.reshape(cfg.d, geom.nc_cap + 1, geom.CH).permute(
-            1, 0, 2).contiguous()
+        ZO3s = [z.reshape(cfg.d, geom.nc_cap + 1, geom.CH).permute(
+            1, 0, 2).contiguous() for z in parts(data.Z_orig)]
 
         def step():
-            iterate(st, data, params, cfg, draw_blocks, ZO3)
+            iterate(st, data, params, cfg, draw_blocks, ZO3s)
     else:
         def step():
             iterate_stored(st, data, params, cfg, draw_blocks)

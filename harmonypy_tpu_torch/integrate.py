@@ -22,7 +22,8 @@ def harmony_integrate(adata, key, *, basis: str = "X_pca",
     """Run Harmony on `adata.obsm[basis]` against the `key` column(s) of
     `adata.obs`, storing the corrected embedding in
     `adata.obsm[adjusted_basis]`. Returns the fitted Harmony object.
-    kwargs go to run_harmony (device=None means CUDA)."""
+    kwargs go to run_harmony (mesh= and device= as there: by default every
+    visible CUDA card)."""
     vars_use = [key] if isinstance(key, str) else list(key)
     ho = run_harmony(adata.obsm[basis], adata.obs, vars_use, **kwargs)
     adata.obsm[adjusted_basis] = ho.Z_corr

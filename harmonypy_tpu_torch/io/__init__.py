@@ -1,7 +1,7 @@
 """Matrix loading for harmonypy_tpu_torch (JAX package io/): the
-pandas/NumPy path of load_matrix_tsv and the extension dispatch of
-load_matrix."""
+pandas/NumPy path of load_matrix_tsv, the extension dispatch of
+load_matrix, and the single-process sharded ingest load_sharded_data."""
 
-from .loader import load_matrix, load_matrix_tsv
+from .loader import load_matrix, load_matrix_tsv, load_sharded_data
 
-__all__ = ["load_matrix", "load_matrix_tsv"]
+__all__ = ["load_matrix", "load_matrix_tsv", "load_sharded_data"]

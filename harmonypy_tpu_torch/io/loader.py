@@ -6,6 +6,9 @@
                           data, e.g. data/pbmc_3500_pcs.tsv.gz).
   load_matrix(path)       dispatch on extension: .npy / .npz / .parquet /
                           .tsv[.gz] / .csv[.gz].
+  load_sharded_data(...)  parse once, upload each shard of a mesh to its
+                          device (JAX package io/loader.py:163-253, its
+                          single-process form).
 """
 
 from __future__ import annotations
@@ -67,3 +70,38 @@ def load_matrix(path: str, rows: tuple[int, int] | None = None) -> np.ndarray:
     if ext == ".csv":
         return load_matrix_tsv(path, rows=rows, sep=",")
     raise ValueError(f"unsupported matrix format: {path}")
+
+
+def load_sharded_data(pcs_path: str, meta_data, vars_use, mesh, cfg=None):
+    """Sharded ingest on a mesh: parse the embedding file once, then upload
+    each shard's cell range (padded per shard) to its device. Returns
+    (data, cfg, N, (Pr_b, phi_n)): data a HarmonyData of per-shard tensors
+    (a tensor per field on a one-device mesh), cfg the JAX package's
+    default for this mesh when none is given (fused with the default
+    chunk size where the geometry allows it), Pr_b and phi_n
+    for the hyper-parameter broadcasting. One process drives the mesh;
+    the per-process ingest of a multi-process run is ROADMAP.md §1 item
+    11b."""
+    import pandas as pd
+
+    from ..config import EngineConfig, default_nclust, fused_geometry_ok
+    from ..parallel.sharding import shard_inputs
+
+    N = len(meta_data)
+    if isinstance(vars_use, str):
+        vars_use = [vars_use]
+    cats = meta_data[vars_use].astype("category")
+    phi = pd.get_dummies(cats).to_numpy().T.astype(np.float32)   # (B, N)
+    phi_n = np.asarray([len(cats[c].cat.categories) for c in cats.columns],
+                       dtype=int)
+    X = load_matrix(pcs_path)
+    if X.shape[0] != N:
+        raise ValueError(f"{pcs_path}: {X.shape[0]} cells, the metadata "
+                         f"{N}")
+    if cfg is None:
+        cfg = EngineConfig(N=N, d=X.shape[1], K=default_nclust(N),
+                           B=phi.shape[0], n_devices=mesh.size,
+                           use_fused_xla=fused_geometry_ok(N, mesh.size))
+    data = shard_inputs(X.T, phi, cfg, mesh)
+    Pr_b = (phi.sum(axis=1) / N).astype(np.float32)
+    return data, cfg, N, (Pr_b, phi_n)

@@ -16,6 +16,13 @@ compute_lisi computes in float64 on every device, as the reference does;
 the kNN functions work in the dtype of their input, float32 products in
 full float32. Profiler ranges: lisi::build_index, lisi::scan,
 lisi::fallback, lisi::brute, lisi::simpson.
+
+On a device mesh (JAX package lisi.py:207-270, ops/knn_pruned.py:337-480)
+the brute force splits the queries over the shards, each against the whole
+reference set on its device, and the pruned scan deals the cluster batches
+out to the shards, each writing its clusters' rows: no reduction, and every
+row is computed as on one device, so the values are the one-device values
+bit for bit.
 """
 
 from __future__ import annotations
@@ -137,20 +144,36 @@ def _knn_impl(Q, X, n_neighbors: int, chunk: int = _KNN_CHUNK, qid=None):
         return _knn_chunks(Q, _reference_set(X), n_neighbors, chunk, qid)
 
 
-def _knn_batched(Q, X, n_neighbors: int, chunk: int = _KNN_CHUNK, qid=None):
+def _knn_batched(Q, X, n_neighbors: int, chunk: int = _KNN_CHUNK, qid=None,
+                 mesh=None):
     """_knn_impl in host batches of _KNN_BATCH queries; each query row is
-    independent, so the values equal the one-shot computation."""
+    independent, so the values equal the one-shot computation. On a mesh
+    of several devices the queries are split into one contiguous part per
+    shard, each answered on its device against the whole of X; the results
+    come back to X's device."""
+    devices = [X.device] if mesh is None else list(mesh.devices)
+    n = -(-Q.shape[0] // len(devices))
+    dists, idxs = [], []
     with full_precision_matmul(), record_function("lisi::brute"):
-        ref = _reference_set(X)
-        outs = [_knn_chunks(Q[lo: lo + _KNN_BATCH], ref, n_neighbors, chunk,
-                            None if qid is None else qid[lo: lo + _KNN_BATCH])
-                for lo in range(0, Q.shape[0], _KNN_BATCH)]
-    return (torch.cat([o[0] for o in outs]),
-            torch.cat([o[1] for o in outs]))
+        refs = {}
+        for s, dev in enumerate(devices):
+            Qs = Q[s * n: (s + 1) * n].to(dev)
+            if Qs.shape[0] == 0:
+                continue
+            if dev not in refs:
+                refs[dev] = _reference_set(X.to(dev))
+            qs = None if qid is None else qid[s * n: (s + 1) * n].to(dev)
+            for lo in range(0, Qs.shape[0], _KNN_BATCH):
+                d, i = _knn_chunks(
+                    Qs[lo: lo + _KNN_BATCH], refs[dev], n_neighbors, chunk,
+                    None if qs is None else qs[lo: lo + _KNN_BATCH])
+                dists.append(d.to(X.device))
+                idxs.append(i.to(X.device))
+    return torch.cat(dists), torch.cat(idxs)
 
 
 def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
-                stats: dict | None = None):
+                stats: dict | None = None, mesh=None):
     """Exact full-N kNN via the pruned search (ops/knn_pruned.py) with a
     brute-force fallback for uncertified queries. Returns (dist, idx) after
     the self-drop, or None when pruning cannot pay on this input: an
@@ -159,7 +182,8 @@ def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
     caller then uses the brute force.
 
     stats: a dict to fill with the index numbers (pruned_knn's), the
-    certification rate and the fallback rows."""
+    certification rate and the fallback rows. mesh: the scan and the
+    fallback run on its shards."""
     visit = _DEFAULT_VISIT if visit is None else visit
     with record_function("lisi::build_index"):
         index = build_index(X, default_n_clusters(X.shape[0],
@@ -170,15 +194,15 @@ def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
         return None
     with record_function("lisi::scan"):
         res = pruned_knn(X, n_neighbors, visit=visit, index=index,
-                         stats=stats)
+                         stats=stats, mesh=mesh)
     if res is None:                                   # probe bail
         return None
     dist, idx, cert = res
     dist, idx = _drop_self_by_id(dist, idx, qid)
-    return _fallback(X, dist, idx, cert, n_neighbors, stats)
+    return _fallback(X, dist, idx, cert, n_neighbors, stats, mesh)
 
 
-def _fallback(X, dist, idx, cert, n_neighbors: int, stats=None):
+def _fallback(X, dist, idx, cert, n_neighbors: int, stats=None, mesh=None):
     """Re-answer the uncertified rows of a pruned result by brute force, the
     query count padded to a power-of-two bucket (at least 256)."""
     with record_function("lisi::fallback"):
@@ -190,7 +214,8 @@ def _fallback(X, dist, idx, cert, n_neighbors: int, stats=None):
             B = max(256, 1 << (n - 1).bit_length())
             sel = torch.cat([fail, fail.new_zeros(B - n)])
             fqid = torch.cat([fail, fail.new_full((B - n,), -1)])
-            fb_d, fb_i = _knn_batched(X[sel], X, n_neighbors, qid=fqid)
+            fb_d, fb_i = _knn_batched(X[sel], X, n_neighbors, qid=fqid,
+                                      mesh=mesh)
             dist[fail] = fb_d[:n]
             idx[fail] = fb_i[:n]
     return dist, idx
@@ -257,7 +282,7 @@ def compute_simpson(distances, indices, labels, n_categories, perplexity,
     """Reference-compatible entry (lisi.py:68-75): distances/indices are
     (k, N) column-per-cell; labels is a pd.Categorical (or its codes).
     Returns the (N,) Simpson index as NumPy. device as in run_harmony."""
-    from .api import resolve_device
+    from .parallel.mesh import resolve_device
     dev = resolve_device(device)
     codes = torch.as_tensor(np.asarray(
         labels.codes if hasattr(labels, "codes") else labels, np.int64),
@@ -300,9 +325,9 @@ def compute_lisi(
     top-k; here it is answered by the exact top-k, whose recall of 1 meets
     every knn_recall_target in (0, 1] (still validated).
 
-    device: as in run_harmony (None = CUDA, raising without a card). A
-    torch tensor X stays on its own device.
-    mesh: multi-device runs are ROADMAP.md §1 item 11 (not ported).
+    mesh, device: as in run_harmony; the kNN runs on the mesh (default
+    default_mesh(device): None = every visible card, raising without one).
+    A torch tensor X without a mesh stays on its own device alone.
     """
     if knn not in ("exact", "brute", "pruned", "approx"):
         raise ValueError(f"knn must be 'exact', 'brute', 'pruned' or "
@@ -311,15 +336,14 @@ def compute_lisi(
     if not 0.0 < knn_recall_target <= 1.0:
         raise ValueError(f"knn_recall_target must be in (0, 1], "
                          f"got {knn_recall_target}")
-    from .api import _unported, resolve_device
-    if mesh is not None:
-        _unported("a device mesh (more than one device)", "11")
-    if isinstance(X, torch.Tensor):
+    from .parallel.mesh import Mesh, resolve_mesh
+    if isinstance(X, torch.Tensor) and mesh is None:
         Xd = X.detach().to(torch.float64)
+        mesh = Mesh((Xd.device,))
     else:
+        mesh = resolve_mesh(mesh, device)
         X = np.asarray(X.values if hasattr(X, "values") else X)
-        Xd = torch.tensor(X, dtype=torch.float64,
-                          device=resolve_device(device))
+        Xd = torch.tensor(X, dtype=torch.float64, device=mesh.lead)
     dev = Xd.device
     n_cells = metadata.shape[0]
     label_colnames = list(label_colnames)
@@ -337,16 +361,16 @@ def compute_lisi(
     res = None
     if knn == "pruned" or (knn == "exact" and not subset
                            and n_cells >= _PRUNED_MIN_N):
-        res = _knn_pruned(Xd, n_neighbors, all_ids)
+        res = _knn_pruned(Xd, n_neighbors, all_ids, mesh=mesh)
         if res is not None and subset:  # forced pruned: keep sampled rows
             q = torch.as_tensor(query_idx, device=dev)
             res = (res[0][q], res[1][q])
     if res is None:
         if subset:
             q = torch.as_tensor(query_idx, device=dev)
-            res = _knn_batched(Xd[q], Xd, n_neighbors, qid=q)
+            res = _knn_batched(Xd[q], Xd, n_neighbors, qid=q, mesh=mesh)
         else:
-            res = _knn_batched(Xd, Xd, n_neighbors, qid=all_ids)
+            res = _knn_batched(Xd, Xd, n_neighbors, qid=all_ids, mesh=mesh)
     dist, idx = res
 
     lisi_df = np.zeros((dist.shape[0], len(label_colnames)))

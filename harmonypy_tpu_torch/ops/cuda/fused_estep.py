@@ -10,6 +10,13 @@ into the caller's R3 in its dtype. On CUDA tensors each launches its kernel
 plain version (`ops.update_r_fused.fused_update_nor` / `fused_update_r`).
 `launches` and `launches_write_r` count the launches of K1 and K2.
 
+`fused_estep_block` is the per-block entry of the same kernel, which a mesh
+of several shards runs (one launch per shard per block, the block re-added
+by the caller across shards, `ops.update_r_fused.mesh_round`): block b of
+K1, of its r window or of K2. Its plain version is
+`ops.update_r_fused.fused_update_block`; `launches_block` (K1 and its r
+window) and `launches_block_write_r` (K2) count its launches.
+
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
 """
@@ -22,11 +29,14 @@ import functools
 
 import torch
 
-from ..update_r_fused import fused_update_nor, fused_update_r
+from ..update_r_fused import (fused_update_block, fused_update_nor,
+                              fused_update_r)
 from . import build
 
 launches = 0
 launches_write_r = 0
+launches_block = 0
+launches_block_write_r = 0
 
 TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
@@ -64,12 +74,19 @@ class KernelGeometry:
 
 
 def kernel_geometry(K: int, B: int, d: int, CH: int, J: int,
-                    n_sm: int) -> KernelGeometry:
+                    n_sm: int, J_glob: int | None = None) -> KernelGeometry:
     """The work split of one round: a function of the shape and the card's
     SM count only, never of occupancy, so K1, its r window and K2 (whose
-    instantiations may fit differently) sum in the same order."""
+    instantiations may fit differently) sum in the same order.
+
+    J is the launch's slots per block; J_glob (default J) the slots per
+    block of the one-device round, J_fix + 1, which sets the units per slot
+    `ng`. A chunk's statistics are the sum of its ng unit partials, so ng
+    must not depend on the shard: a mesh shard (J = J_shard < J_fix + 1)
+    splits each chunk as the one-device round does, and sums it in the
+    same order."""
     tiles = -(-CH // TILE)
-    ng = max(1, min(tiles, UNITS_PER_SM * n_sm // J))
+    ng = max(1, min(tiles, UNITS_PER_SM * n_sm // (J_glob or J)))
     R = 1 + B + d
     return KernelGeometry(K_pad=_up(K, 16), d_pad=_up(d, 8), R_pad=_up(R, 8),
                           tiles=tiles, ng=ng, n_units=J * ng,
@@ -91,8 +108,14 @@ def _kernel_lib():
         lib.fused_estep_round.argtypes = common + tail
         lib.fused_estep_r_window.argtypes = common + [_P, _I, _I] + tail
         lib.fused_estep_write_r.argtypes = common + [_P, _I] + tail
+        lib.fused_estep_block.argtypes = common + [_I] + tail
+        lib.fused_estep_block_r_window.argtypes = (common + [_P, _I, _I, _I]
+                                                   + tail)
+        lib.fused_estep_block_write_r.argtypes = common + [_P, _I, _I] + tail
         for fn in (lib.fused_estep_round, lib.fused_estep_r_window,
-                   lib.fused_estep_write_r):
+                   lib.fused_estep_write_r, lib.fused_estep_block,
+                   lib.fused_estep_block_r_window,
+                   lib.fused_estep_block_write_r):
             fn.restype = _I
         lib.fused_estep_smem.argtypes = [_I, _I, _I]
         lib.fused_estep_grid.argtypes = [_I, _I, _I, _I]
@@ -169,26 +192,30 @@ def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E):
 
 
 def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-            fast_ent):
+            fast_ent, J_glob=None, out=None):
     """Allocate the outputs and scratch and run one round through the
     library function `entry` (extra: its arguments between the common
-    pointers and the dimensions). Returns (O, E, cache, ybuf, kbuf)."""
+    pointers and the dimensions). out: the caller's (cache, ybuf, kbuf)
+    to write into, else new ones. Returns (O, E, cache, ybuf, kbuf)."""
     nc1, _, CH = ZP3.shape
     d, K = Y.shape
     B = theta.shape[0]
     nb, J = slots.shape
     dev, f32 = ZP3.device, torch.float32
-    geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0))
+    geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0), J_glob)
     # Partials of S by block parity: a block's ybuf rows are summed while
     # the next block runs.
     part = torch.empty((2, *geo.part_shape), dtype=f32, device=dev)
     kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
     bsum = torch.empty((K, B + 1), dtype=f32, device=dev)
-    # Only slotted chunks are written; every real chunk is in exactly one
-    # slot and the dummy chunk in at least one, so nothing stays unset.
-    cache = torch.empty((nc1, K, B + 1), dtype=f32, device=dev)
-    ybuf = torch.empty((nc1, K, d), dtype=f32, device=dev)
-    kbuf = torch.empty((nc1, 2), dtype=f32, device=dev)
+    if out is None:
+        # Only slotted chunks are written; every real chunk is in exactly
+        # one slot and the dummy chunk in at least one, so nothing stays
+        # unset.
+        out = (torch.empty((nc1, K, B + 1), dtype=f32, device=dev),
+               torch.empty((nc1, K, d), dtype=f32, device=dev),
+               torch.empty((nc1, 2), dtype=f32, device=dev))
+    cache, ybuf, kbuf = out
     O0, E0 = O.contiguous(), E.contiguous()
     O1 = torch.empty((K, B), dtype=f32, device=dev)
     E1 = torch.empty((K, B), dtype=f32, device=dev)
@@ -204,6 +231,54 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
         raise RuntimeError(f"{entry} cooperative launch failed: CUDA error "
                            f"{err}")
     return O1, E1, cache, ybuf, kbuf
+
+
+def fused_estep_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b, O,
+                      E, fast_ent: bool, out, J_glob: int, Rw=None,
+                      lo: int = 0, R3=None):
+    """Block b of a round alone (the per-block entry of K1, its r window or
+    K2), from O, E at the block's start: writes the rows of the block's
+    slots into out = (cache, ybuf, kbuf) (the round's per-chunk buffers),
+    r of the chunks lo..lo+width-1 into Rw (width, K, CH) (lo may be
+    negative: Rw holds a window of global chunks that starts before this
+    shard) or r of every slotted chunk into R3 (nc1, K, CH), fp32 or bf16.
+    J_glob = J_fix + 1 sets the units per slot (kernel_geometry). Returns
+    (O, E) with the block's cached stats removed; the caller re-adds the
+    block. See `ops.update_r_fused.fused_update_block`."""
+    nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma, theta,
+                                    Pr_b, O, E)
+    dev, f32 = ZP3.device, torch.float32
+    if not 0 <= b < slots.shape[0]:
+        raise ValueError(f"block {b} outside [0, {slots.shape[0]})")
+    for name, t, shape in (("cache", out[0], (nc1, K, B + 1)),
+                           ("ybuf", out[1], (nc1, K, d)),
+                           ("kbuf", out[2], (nc1, 2))):
+        _check(name, t, shape, f32, dev)
+    if Rw is not None:
+        _check("Rw", Rw, (Rw.shape[0], K, CH), f32, dev)
+    if R3 is not None:
+        _check("R3", R3, (nc1, K, CH), (torch.float32, torch.bfloat16), dev)
+    if dev.type == "cpu":
+        return fused_update_block(b, slots, removal, ZP3, Y, sigma, theta,
+                                  Pr_b, O, E, fast_ent, out, Rw=Rw, lo=lo,
+                                  R3=R3)
+
+    global launches_block, launches_block_write_r
+    if R3 is not None:
+        entry = "fused_estep_block_write_r"
+        extra = [R3.data_ptr(), int(R3.dtype == torch.bfloat16), b]
+    elif Rw is not None:
+        entry = "fused_estep_block_r_window"
+        extra = [Rw.data_ptr(), lo, Rw.shape[0], b]
+    else:
+        entry, extra = "fused_estep_block", [b]
+    O1, E1, _, _, _ = _launch(entry, extra, slots, removal, ZP3, Y, sigma,
+                              theta, Pr_b, O, E, fast_ent, J_glob, out)
+    if R3 is not None:
+        launches_block_write_r += 1
+    else:
+        launches_block += 1
+    return O1, E1
 
 
 def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,

@@ -132,7 +132,10 @@ def lloyd(centers, X, cfg: EngineConfig):
 def kmeans_init(gen, Z_cos, cfg: EngineConfig):
     """k-means centroids (d, K) of the unit-normalized embedding Z_cos
     (d, N_local, real cells first). Not yet normalized (the caller does,
-    reference harmony.py:377)."""
+    reference harmony.py:377). On a mesh the engine gathers the (d, N) real
+    cells to the lead device and calls this there, so the draws and the
+    bits are one device's (the JAX package shards it, ops/kmeans.py:54-64;
+    ROADMAP §1 item 11)."""
     S = min(cfg.kmeanspp_sample, cfg.N)
     if S < cfg.N:
         ids = torch.randint(0, cfg.N, (S,), generator=gen, device=gen.device)

@@ -24,6 +24,13 @@ rows, so values do not depend on how the scan is batched.
 Works in the dtype of its input. A float32 input runs its products in full
 float32 (TF32 off for the call): the certificate's margin assumes
 fp32-faithful products.
+
+On a mesh (JAX package ops/knn_pruned.py:337-372, 413-480) the index is
+built once on the lead device and copied to each shard's; the scan's
+cluster batches are dealt out to the shards in turn, and each writes its
+clusters' rows of the lead's result buffers. The rows are disjoint and
+every batch has the one-device shape, so the values are the one-device
+values bit for bit.
 """
 
 from __future__ import annotations
@@ -321,16 +328,29 @@ def _scan_clusters(index: PrunedIndex, cids, nbrs, k: int, out):
 
     at = rows[row_valid]          # each row belongs to one cluster: unique
     dist_o, idx_o, cert_o = out
-    dist_o[at] = kdist[row_valid]
-    idx_o[at] = kidx[row_valid]
-    cert_o[at] = cert[row_valid]
+    dev_o = dist_o.device
+    at = at.to(dev_o)
+    dist_o[at] = kdist[row_valid].to(dev_o)
+    idx_o[at] = kidx[row_valid].to(dev_o)
+    cert_o[at] = cert[row_valid].to(dev_o)
+
+
+def index_to(index: PrunedIndex, device) -> PrunedIndex:
+    """The index with every tensor on `device` (itself when already
+    there)."""
+    if index.Xs.device == torch.device(device):
+        return index
+    return dataclasses.replace(index, **{
+        f.name: getattr(index, f.name).to(device)
+        for f in dataclasses.fields(PrunedIndex)
+        if isinstance(getattr(index, f.name), torch.Tensor)})
 
 
 def pruned_knn(X: torch.Tensor, n_neighbors: int,
                visit: int = _DEFAULT_VISIT, n_clusters: int | None = None,
                seed: int = 0, index: PrunedIndex | None = None,
                probe_min_cert: float | None = _PROBE_MIN_CERT,
-               stats: dict | None = None):
+               stats: dict | None = None, mesh=None):
     """kNN of every row of X against X, via the pruned index.
 
     Returns (dist (N, k), idx (N, k), cert (N,) bool) with k = n_neighbors
@@ -347,6 +367,10 @@ def pruned_knn(X: torch.Tensor, n_neighbors: int,
 
     stats: a dict to fill with the index's C, p_max, the visit count used
     and the clusters per scan batch.
+
+    mesh: deal the scan's cluster batches out to its devices in turn (the
+    index built on X's device, copied to the others); the result is on X's
+    device and equal to the one-device result.
     """
     N, d = X.shape
     k = n_neighbors + 1
@@ -360,20 +384,26 @@ def pruned_knn(X: torch.Tensor, n_neighbors: int,
     Np = N + index.p_max
     cb = min(_CLUSTER_BATCH, C)
     dev = X.device
+    devices = [dev] if mesh is None else list(mesh.devices)
+    indexes = {d: index_to(index, d) for d in devices}
 
     def scan_all(V_try: int):
         """Full pass at one visit count; None if the probe batch fails."""
         nbrs = _cluster_neighbors(index.centroids, V_try)
+        nbrs = {d: nbrs.to(d) for d in devices}
         b = scan_batch_size(index, V_try)
         out = (torch.zeros((Np, k), dtype=X.dtype, device=dev),
                torch.full((Np, k), -1, dtype=torch.int64, device=dev),
                torch.zeros((Np,), dtype=torch.bool, device=dev))
         probe = probe_min_cert is not None and C > cb
+        n_batch = 0
         for seg_lo, seg_hi in ((0, cb), (cb, C)) if probe else ((0, C),):
             for lo in range(seg_lo, seg_hi, b):
-                cids = torch.arange(lo, lo + b, device=dev)
+                d = devices[n_batch % len(devices)]
+                n_batch += 1
+                cids = torch.arange(lo, lo + b, device=d)
                 cids = torch.where(cids < seg_hi, cids, -1)
-                _scan_clusters(index, cids, nbrs, k, out)
+                _scan_clusters(indexes[d], cids, nbrs[d], k, out)
             if probe and seg_lo == 0:
                 n_cert = float(torch.sum(out[2]))
                 n_probe = float(torch.sum(index.counts[:cb]))

@@ -5,7 +5,8 @@
 
 The fused E-step returns the first two terms as per-chunk partials; the
 cross term comes from O and E alone, because O = R Phi^T. The per-cell path
-takes all three from R (compute_objective_terms).
+takes all three from R (compute_objective_terms); on a mesh each shard
+sums its cells and the shard sums are added in shard order.
 """
 
 from __future__ import annotations
@@ -58,18 +59,33 @@ def cross_entropy_from_stats(O, E, params: HarmonyParams, cfg: EngineConfig):
     return torch.sum(params.sigma[:, None] * theta_log * O) * norm_const
 
 
+def shard_sum(xs, device) -> torch.Tensor:
+    """Shard partials added in shard order on `device` (one shard: its
+    partial itself)."""
+    acc = xs[0].to(device)
+    for x in xs[1:]:
+        acc = acc + x.to(device)
+    return acc
+
+
 def compute_objective_terms(R, dist_mat, O, E, Phi, params: HarmonyParams,
                             cfg: EngineConfig):
     """(kmeans_error, entropy, cross_entropy), each * 2000/N, from R
     (K, N_local) in any storage dtype, summed in fp32 (JAX package
-    ops/objective.py:96-110)."""
+    ops/objective.py:96-110). R, dist_mat and Phi may be sharded (lists):
+    each shard's sums are added in shard order."""
+    from ..parallel.sharding import parts
     norm_const = 2000.0 / cfg.N
-    sigma_col = params.sigma[:, None]
-    R = R.to(torch.float32)
-    kmeans_error = torch.sum(R * dist_mat)
-    entropy = torch.sum(safe_entropy(R) * sigma_col)
     Oc, Ec = torch.clamp_min(O, CLAMP), torch.clamp_min(E, CLAMP)
     theta_log = params.theta[None, :] * torch.log((Oc + Ec) / Ec)   # (K, B)
-    cross = torch.sum((R * sigma_col) * (theta_log @ Phi))
-    return (kmeans_error * norm_const, entropy * norm_const,
-            cross * norm_const)
+    sums = []
+    for R_s, dist_s, Phi_s in zip(parts(R), parts(dist_mat), parts(Phi)):
+        dev = R_s.device
+        sigma_col = params.sigma.to(dev)[:, None]
+        R_s = R_s.to(torch.float32)
+        sums.append((torch.sum(R_s * dist_s),
+                     torch.sum(safe_entropy(R_s) * sigma_col),
+                     torch.sum((R_s * sigma_col)
+                               * (theta_log.to(dev) @ Phi_s))))
+    return tuple(shard_sum([t[i] for t in sums], O.device) * norm_const
+                 for i in range(3))

@@ -1,4 +1,5 @@
-"""Chunk-to-block partition and fixed-order reductions, one device.
+"""Chunk-to-block partition and fixed-order reductions, on one device or a
+mesh of shards.
 
 The fused E-step updates cells in contiguous CHUNKS of `chunk_size` cells.
 Chunks are assigned to ceil(1/block_size) blocks through stripes of
@@ -10,6 +11,14 @@ ops/partition.py:46-250).
 The per-cell E-step assigns each CELL an iid-uniform block instead, with a
 per-tile capacity rule (iid_blocks, JAX package ops/partition.py:86-118).
 
+On a mesh, shard s holds the chunks s * nc_cap .. (s + 1) * nc_cap - 1
+(global ids) and its own dummy chunk; the draws are global (the same
+generator calls as on one device), and every reduction over chunks gathers
+the shards' per-chunk rows into the global frame on the lead device and
+reduces it there exactly as one device does (`frame_rows`, `frame_sum`): a
+copy with no arithmetic, so the result is the one-device result bit for
+bit (JAX package ops/partition.py:20-27, 237-250).
+
 Where the JAX package draws from threefry keys, the port draws from a
 `torch.Generator`; the two streams differ, so tests inject the JAX package's
 `stripe_blocks` output through `round_tables(blocks, ...)`, and its iid draw
@@ -19,6 +28,7 @@ through `iid_blocks_from_draw`.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -54,10 +64,17 @@ def stripe_blocks(gen: torch.Generator, n_real: int, L: int,
     """(L,) int64 block assignment: item g < n_real gets block
     sigma_{g // nb}(g % nb), with one random permutation sigma_s of the block
     ids per stripe; items >= n_real get the sentinel block `nb`. Drawn on
-    the generator's device."""
-    n_stripes = cdiv(max(L, n_real), nb)
+    the generator's device. The draw covers the stripes of the n_real items
+    only, so it does not depend on L (which grows with the mesh): the same
+    seed gives the same blocks and leaves the generator in the same state on
+    every mesh."""
+    n_stripes = cdiv(n_real, nb)
     keys = torch.rand((n_stripes, nb), generator=gen, device=gen.device)
-    blocks = torch.argsort(keys, dim=1, stable=True).reshape(-1)[:L]
+    blocks = torch.argsort(keys, dim=1, stable=True).reshape(-1)
+    if blocks.shape[0] < L:
+        blocks = torch.cat([blocks, blocks.new_full((L - blocks.shape[0],),
+                                                    nb)])
+    blocks = blocks[:L]
     ids = torch.arange(L, device=blocks.device)
     return torch.where(ids < n_real, blocks, torch.full_like(blocks, nb))
 
@@ -102,13 +119,13 @@ def cell_partition_len(cfg: EngineConfig) -> int:
     return max(round_up(cfg.N, cfg.n_blocks), cfg.n_devices * cfg.N_local)
 
 
-def cell_slot_table(blocks: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
-    """(nb, cell_block_width) cell ids per block, ascending, from the (L,)
-    per-cell assignment; unfilled slots hold the sentinel N_local."""
-    if cfg.n_devices != 1:
-        raise NotImplementedError("multi-device per-cell tables "
-                                  "(ROADMAP.md §1 item 11)")
-    return group_by_block(blocks[: cfg.N_local], cfg.n_blocks,
+def cell_slot_table(blocks: torch.Tensor, cfg: EngineConfig,
+                    shard: int = 0) -> torch.Tensor:
+    """(nb, cell_block_width) local cell ids of shard `shard` per block,
+    ascending, from the (L,) per-cell assignment of the padded layout;
+    unfilled slots hold the sentinel N_local."""
+    lo = shard * cfg.N_local
+    return group_by_block(blocks[lo: lo + cfg.N_local], cfg.n_blocks,
                           cfg.cell_block_width, fill=cfg.N_local)
 
 
@@ -153,19 +170,29 @@ def group_by_block(my_blocks, nb: int, width: int, fill: int,
     return slots, ex
 
 
+def shard_slot_tables(blocks, ranks, geom: PartitionGeometry, shard: int):
+    """(slots, granks) of one shard from the global (L,) assignment and
+    ranks (JAX package ops/partition.py:165-180):
+      slots  (nb, J_shard) the shard's local chunk ids of each block,
+             ascending; unfilled slots hold its dummy chunk id `nc_cap`;
+      granks (nb, J_shard) the matching within-block ranks (sentinel J_fix).
+    """
+    lo = shard * geom.nc_cap
+    return group_by_block(
+        blocks[lo: lo + geom.nc_cap], geom.nb, geom.J_shard,
+        fill=geom.nc_cap, extra=ranks[lo: lo + geom.nc_cap],
+        extra_fill=geom.J_fix)
+
+
 def single_device_tables(blocks: torch.Tensor, geom: PartitionGeometry):
     """(slots, granks, gtbl) for one device from the (L,) block assignment:
-      slots  (nb, J_shard) chunk ids of each block, ascending; unfilled
-             slots hold the dummy chunk id `nc_cap`;
-      granks (nb, J_shard) the matching within-block ranks (sentinel J_fix);
-      gtbl   (nb, J_fix) chunk id per (block, rank)."""
+    shard 0's shard_slot_tables and gtbl (nb, J_fix), the chunk id per
+    (block, rank)."""
     if geom.n_devices != 1:
-        raise NotImplementedError("multi-device partition tables "
-                                  "(ROADMAP.md §1 item 11)")
+        raise ValueError(f"single_device_tables on a {geom.n_devices}-shard "
+                         f"geometry: use mesh_round_tables")
     ranks = block_ranks(blocks, geom.nb, geom.J_fix)
-    slots, granks = group_by_block(
-        blocks[: geom.nc_cap], geom.nb, geom.J_shard, fill=geom.nc_cap,
-        extra=ranks[: geom.nc_cap], extra_fill=geom.J_fix)
+    slots, granks = shard_slot_tables(blocks, ranks, geom, 0)
     return slots, granks, global_slot_table(blocks, ranks, geom)
 
 
@@ -179,17 +206,60 @@ def removal_from_cache(cache, gtbl, geom: PartitionGeometry) -> torch.Tensor:
 
 
 def round_tables(blocks, cache, geom: PartitionGeometry):
-    """What one fused E-step round derives from its block assignment and the
-    previous cache: (slots (nb, J_shard) int32, removal (nb, K, B+1)). The
-    k-means round and every replay of it share this, so a replay sees the
-    round's partition and O/E evolution exactly."""
+    """What one fused E-step round on one device derives from its block
+    assignment and the previous cache: (slots (nb, J_shard) int32, removal
+    (nb, K, B+1)). The k-means round and every replay of it share this, so
+    a replay sees the round's partition and O/E evolution exactly."""
     slots, _, gtbl = single_device_tables(blocks, geom)
     removal = removal_from_cache(cache[: geom.nc_cap], gtbl, geom)
     return slots.to(torch.int32).contiguous(), removal.contiguous()
 
 
+class MeshTables(NamedTuple):
+    """round_tables on a mesh: per shard its slots (int32) and ranks on the
+    shard's device, and the replicated removal stats on the lead device."""
+    slots: list
+    granks: list
+    removal: torch.Tensor
+
+
+def mesh_round_tables(blocks, caches, geom: PartitionGeometry,
+                      devices) -> MeshTables:
+    """round_tables for every shard of a mesh (JAX package
+    ops/partition.py:209-226): the slot tables cut from the global
+    assignment, the removal stats from the caches gathered into the global
+    frame. On one device, round_tables' values."""
+    if geom.n_devices == 1:
+        slots, removal = round_tables(blocks, caches[0], geom)
+        return MeshTables([slots], [None], removal)
+    ranks = block_ranks(blocks, geom.nb, geom.J_fix)
+    gtbl = global_slot_table(blocks, ranks, geom)
+    removal = removal_from_cache(frame_rows(caches, geom), gtbl, geom)
+    slots, granks = [], []
+    for s, dev in enumerate(devices):
+        sl, gr = shard_slot_tables(blocks, ranks, geom, s)
+        slots.append(sl.to(device=dev, dtype=torch.int32).contiguous())
+        granks.append(gr.to(dev))
+    return MeshTables(slots, granks, removal.contiguous())
+
+
+def frame_rows(vals, geom: PartitionGeometry) -> torch.Tensor:
+    """The per-chunk rows of every real chunk in global chunk order, on the
+    lead device: vals is one device's (nc_cap + 1, ...) buffer, or the list
+    of every shard's. On a mesh the rows are copied into one (NC_real, ...)
+    tensor: no arithmetic, and the one-device shape."""
+    if not isinstance(vals, (list, tuple)):
+        return vals[: geom.nc_cap]
+    if len(vals) == 1:
+        return vals[0][: geom.nc_cap]
+    lead = vals[0].device
+    rows = torch.cat([v[: geom.nc_cap].to(lead) for v in vals])
+    return rows[: geom.NC_real]
+
+
 def frame_sum(vals, geom: PartitionGeometry) -> torch.Tensor:
-    """Sum of per-chunk rows vals[:nc_cap] over the chunk axis. One
-    `torch.sum` over a fixed shape: deterministic on the CPU and on CUDA
-    (no atomics), so the same inputs give the same bits."""
-    return torch.sum(vals[: geom.nc_cap], dim=0)
+    """Sum over the chunk axis of frame_rows(vals): one `torch.sum` over
+    the (NC_real, ...) frame, the one-device shape whatever the mesh, on
+    the lead device. Deterministic on the CPU and on CUDA (no atomics), so
+    the same rows give the same bits on every mesh."""
+    return torch.sum(frame_rows(vals, geom), dim=0)

@@ -8,7 +8,10 @@ moe_correct_ridge, harmony.py:535-569; JAX package ops/ridge.py:38-146):
 The deferred-R path builds the normal equations from replayed r
 (ops/replay.py) and shares solve_w; the stored-R paths read the stored R
 here. The products are plain torch matmuls, as the JAX package leaves them
-to XLA.
+to XLA. On a mesh the fused layout computes each shard's per-chunk rows in
+the one-device layout (parallel/sharding.py) and reduces them through the
+global frame (bitwise the one-device result); the per-cell layout adds the
+shards' normal equations in shard order.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
+from ..parallel.sharding import (embed_chunks, embed_cols, extract_chunks,
+                                 extract_cols, one_device, pack, parts)
 from ..state import HarmonyParams
+from .objective import shard_sum
 from .partition import frame_sum, partition_geometry
 
 # Cap per-window stacked-feature temporaries at 64M floats (256 MB).
@@ -69,8 +75,62 @@ def solve_w(S, E, params: HarmonyParams, cfg: EngineConfig) -> torch.Tensor:
     return W
 
 
+def _design(Z_orig, Phi, mask, cfg: EngineConfig):
+    """(A3, Z3, windows) of one device's (or one shard's) cells: the design
+    rows Phi_moe = [mask; Phi] and Z_orig as (B1, n, c) and (d, n, c) — n
+    chunks of CH cells (fused layout) or one row of all cells (per-cell
+    layout) — and the windows of n the products run over."""
+    B1, d = cfg.B1, cfg.d
+    A = torch.cat([mask[None, :], Phi], dim=0)                  # Phi_moe
+    if cfg.fused_estep:
+        geom = partition_geometry(cfg)
+        nc1, CH = geom.nc_cap + 1, geom.CH
+        w = max(1, _CHUNK_BUDGET_ELEMS // (B1 * (B1 + d) * CH))
+        return (A.reshape(B1, nc1, CH), Z_orig.reshape(d, nc1, CH),
+                [(lo, min(w, nc1 - lo)) for lo in range(0, nc1, w)])
+    Nl, CC = Z_orig.shape[1], _col_chunk(B1, d)
+    return (A[:, None], Z_orig[:, None],
+            [(lo, min(CC, Nl - lo)) for lo in range(0, Nl, CC)])
+
+
+def _normal_eq(Z_orig, Phi, R, mask, cfg: EngineConfig):
+    """Fused layout: the per-chunk normal equations (nc1, B1*(B1+d), K).
+    Per-cell layout: their sum over the cells, in window order."""
+    A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
+    if cfg.fused_estep:
+        S_c = torch.empty((A3.shape[1], cfg.B1 * (cfg.B1 + cfg.d), cfg.K),
+                          dtype=torch.float32, device=R.device)
+        for lo, n in wins:
+            sl = slice(lo, lo + n)
+            S_c[sl] = _products(A3[:, sl], Z3[:, sl], R[sl])
+        return S_c
+    R3 = R[None]
+    S = torch.zeros((cfg.B1 * (cfg.B1 + cfg.d), cfg.K), dtype=torch.float32,
+                    device=R.device)
+    for lo, n in wins:
+        sl = slice(lo, lo + n)
+        S = S + _products(A3[..., sl], Z3[..., sl], R3[..., sl])[0]
+    return S
+
+
+def _apply(Z_orig, Phi, R, mask, W, cfg: EngineConfig) -> torch.Tensor:
+    """Z_orig minus the correction, window by window."""
+    A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
+    Wf = W.reshape(cfg.K, cfg.B1 * cfg.d)
+    Z_corr = torch.empty_like(Z_orig)
+    Zc3 = Z_corr.reshape(cfg.d, -1, Z3.shape[-1])
+    for lo, n in wins:
+        sl = slice(lo, lo + n)
+        if cfg.fused_estep:
+            Zc3[:, sl] = Z3[:, sl] - _correction(A3[:, sl], R[sl], Wf)
+        else:
+            Zc3[..., sl] = Z3[..., sl] - _correction(A3[..., sl],
+                                                     R[None][..., sl], Wf)
+    return Z_corr
+
+
 def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
-                      cfg: EngineConfig, mask) -> torch.Tensor:
+                      cfg: EngineConfig, mask):
     """Z_corr (d, N_local) = Z_orig - the ridge correction, from the stored
     R in the layout of its path:
       - fused layout (cfg.fused_estep): R3 (nc1, K, CH) chunk-major; the
@@ -79,40 +139,26 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
       - per-cell layout: R (K, N_local); the products are summed over
         column chunks in order (ridge.py:126-133).
     Both solve with solve_w and apply the correction window by window.
-    mask zeroes padded cells out of the intercept row."""
-    B1, d, K = cfg.B1, cfg.d, cfg.K
-    A = torch.cat([mask[None, :], Phi], dim=0)                  # Phi_moe
+    mask zeroes padded cells out of the intercept row. On a mesh every
+    cell-axis argument is a list of the shards' and so is Z_corr."""
+    shards = list(zip(parts(Z_orig), parts(Phi), parts(R), parts(mask)))
     if cfg.fused_estep:
-        geom = partition_geometry(cfg)
-        nc1, CH = geom.nc_cap + 1, geom.CH
-        A3, Z3 = A.reshape(B1, nc1, CH), Z_orig.reshape(d, nc1, CH)
-        w = max(1, _CHUNK_BUDGET_ELEMS // (B1 * (B1 + d) * CH))
-        wins = [(lo, min(w, nc1 - lo)) for lo in range(0, nc1, w)]
-        S_c = torch.empty((nc1, B1 * (B1 + d), K), dtype=torch.float32,
-                          device=R.device)
-        for lo, n in wins:
-            sl = slice(lo, lo + n)
-            S_c[sl] = _products(A3[:, sl], Z3[:, sl], R[sl])
-        S = frame_sum(S_c, geom)
-    else:
-        Nl, CC = Z_orig.shape[1], _col_chunk(B1, d)
-        wins = [(lo, min(CC, Nl - lo)) for lo in range(0, Nl, CC)]
-        A3, Z3, R3 = A[:, None], Z_orig[:, None], R[None]
-        S = torch.zeros((B1 * (B1 + d), K), dtype=torch.float32,
-                        device=R.device)
-        for lo, n in wins:
-            sl = slice(lo, lo + n)
-            S = S + _products(A3[..., sl], Z3[..., sl], R3[..., sl])[0]
-    W = solve_w(S, E, params, cfg)
+        geom, cfg1 = partition_geometry(cfg), one_device(cfg)
+        nc1 = partition_geometry(cfg1).nc_cap + 1
 
-    Wf = W.reshape(K, B1 * d)
-    Z_corr = torch.empty_like(Z_orig)
-    Zc3 = Z_corr.reshape(d, -1, Z3.shape[-1])
-    for lo, n in wins:
-        sl = slice(lo, lo + n)
-        if cfg.fused_estep:
-            Zc3[:, sl] = Z3[:, sl] - _correction(A3[:, sl], R[sl], Wf)
-        else:
-            Zc3[..., sl] = Z3[..., sl] - _correction(A3[..., sl],
-                                                     R3[..., sl], Wf)
-    return Z_corr
+        def one(s, z, p, r, m):
+            return (embed_cols(z, s, cfg), embed_cols(p, s, cfg),
+                    embed_chunks(r, s, geom, nc1),
+                    embed_cols(m[None], s, cfg)[0])
+
+        S = frame_sum([extract_chunks(_normal_eq(*one(s, *sh), cfg1), s, geom)
+                       for s, sh in enumerate(shards)], geom)
+        W = solve_w(S, E, params, cfg)
+        return pack(extract_cols(_apply(*one(s, *sh), W.to(sh[0].device),
+                                        cfg1), s, cfg)
+                    for s, sh in enumerate(shards))
+    S = shard_sum([_normal_eq(z, p, r, m, cfg) for z, p, r, m in shards],
+                  E.device)
+    W = solve_w(S, E, params, cfg)
+    return pack(_apply(z, p, r, m, W.to(z.device), cfg)
+                for z, p, r, m in shards)

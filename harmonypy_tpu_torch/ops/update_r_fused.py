@@ -111,30 +111,49 @@ def chunk_partials(r, dist, stats, sigma, theta, logratio, logdd,
     return chunk_objective_partials(r, dist, sigma, k_axis=1, chunk_axis=0)
 
 
+def fused_update_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b,
+                       O, E, fast_ent: bool, out, Rw=None, lo: int = 0,
+                       R3=None):
+    """Block b of a round alone — the plain version of the per-block entry
+    (`ops.cuda.fused_estep.fused_estep_block`), with its signature: from O,
+    E at the block's start, write the rows of the block's slots into out =
+    (cache, ybuf, kbuf), r of chunks lo..lo+width-1 into Rw (width, K, CH)
+    or r of every slotted chunk into R3 in its dtype; return (O, E) with
+    the block's cached stats removed."""
+    cache, ybuf, kbuf = out
+    B1 = theta.shape[0] + 1
+    sl = slots[b].long()
+    O, E, r, g, dist, logratio, logdd = block_core(
+        O, E, removal[b], sl, ZP3, Y, sigma, theta, Pr_b)
+    stats, yk = block_stats(r, g, B1)
+    kerr, ent = chunk_partials(r, dist, stats, sigma, theta, logratio,
+                               logdd, fast_ent)
+    cache[sl] = stats
+    ybuf[sl] = yk
+    kbuf[sl] = torch.stack([kerr, ent], dim=1)
+    if Rw is not None:
+        w = sl - lo
+        keep = (w >= 0) & (w < Rw.shape[0])
+        Rw[w[keep]] = r[keep]
+    if R3 is not None:
+        R3[sl] = r.to(R3.dtype)
+    return O, E
+
+
 def _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-           fast_ent: bool, store):
-    """One round over all blocks; store(slots_b, r) gets each block's r.
-    Returns (O, E, cache, ybuf, kbuf)."""
+           fast_ent: bool, Rw=None, lo: int = 0, R3=None):
+    """One round over all blocks: each block alone, then its re-add from
+    its slots' cache rows. Returns (O, E, cache, ybuf, kbuf)."""
     nc1 = ZP3.shape[0]
     K, d, B1 = Y.shape[1], Y.shape[0], theta.shape[0] + 1
     f32 = dict(dtype=torch.float32, device=ZP3.device)
-    cache = torch.zeros((nc1, K, B1), **f32)
-    ybuf = torch.zeros((nc1, K, d), **f32)
-    kbuf = torch.zeros((nc1, 2), **f32)
-    slots = slots.long()
+    out = (torch.zeros((nc1, K, B1), **f32), torch.zeros((nc1, K, d), **f32),
+           torch.zeros((nc1, 2), **f32))
     for b in range(slots.shape[0]):
-        sl = slots[b]
-        O, E, r, g, dist, logratio, logdd = block_core(
-            O, E, removal[b], sl, ZP3, Y, sigma, theta, Pr_b)
-        stats, yk = block_stats(r, g, B1)
-        O, E = block_readd(O, E, stats, Pr_b)
-        kerr, ent = chunk_partials(r, dist, stats, sigma, theta, logratio,
-                                   logdd, fast_ent)
-        cache[sl] = stats
-        ybuf[sl] = yk
-        kbuf[sl] = torch.stack([kerr, ent], dim=1)
-        store(sl, r)
-    return O, E, cache, ybuf, kbuf
+        O, E = fused_update_block(b, slots, removal, ZP3, Y, sigma, theta,
+                                  Pr_b, O, E, fast_ent, out, Rw, lo, R3)
+        O, E = block_readd(O, E, out[0][slots[b].long()], Pr_b)
+    return (O, E, *out)
 
 
 def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
@@ -150,18 +169,11 @@ def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     Returns (O, E, cache (nc1, K, B+1), ybuf (nc1, K, d), kbuf (nc1, 2),
     Rw (width, K, CH) or None)."""
     K, CH = Y.shape[1], ZP3.shape[2]
-    Rw = (torch.zeros((width + 1, K, CH), dtype=torch.float32,
+    Rw = (torch.zeros((width, K, CH), dtype=torch.float32,
                       device=ZP3.device) if width > 0 else None)
-
-    def store(sl, r):
-        if Rw is not None:
-            w = sl - lo
-            w = torch.where((w >= 0) & (w < width), w, torch.full_like(w, width))
-            Rw[w] = r
-
     out = _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
-                 store)
-    return (*out, Rw[:width] if Rw is not None else None)
+                 Rw, lo)
+    return (*out, Rw)
 
 
 def fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
@@ -175,9 +187,84 @@ def fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
     dummy chunk of R3 is written with zeros.
 
     Returns (R3, O, E, cache, ybuf, kbuf)."""
-    def store(sl, r):
-        R3[sl] = r.to(R3.dtype)
-
     out = _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
-                 store)
+                 R3=R3)
     return (R3, *out)
+
+
+def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
+               J_fix: int, windows=None, R3s=None):
+    """One E-step round on a mesh of several shards (the JAX package's
+    fused_update_nor_xla3 / fused_update_r_xla3 under shard_map,
+    ops/update_r_fused_xla.py:131-238): for each block, every shard runs
+    the block on its own chunks through the per-block entry (the kernel on
+    a CUDA shard, `fused_update_block` on a CPU shard), then the block's
+    stats are re-added on the lead device (the device of O).
+
+    The re-add copies each shard's rows of the block into the (J_fix, K,
+    B+1) rank frame (row = the chunk's within-block rank, ascending global
+    chunk id; ranks no shard holds stay zero) and sums the frame one row
+    after the other from zero, then forms O + sum[:, 1:] and E + sum[:, 0]
+    Pr_b, each product and sum rounded on its own: the order and roundings
+    of the one-launch round's in-kernel re-add, which sums a block's slots
+    in ascending slot order (= ascending global id, the zero dummy slots
+    last). The per-chunk rows are the one-device round's bitwise: the
+    kernel splits each chunk into units by the global geometry
+    (kernel_geometry's J_glob), and a CPU shard pads its slot table to the
+    one-device width J_fix + 1 with its dummy chunk, so its batched
+    products have the one-device shapes. The result equals the one-device
+    round bit for bit.
+
+    tables: ops.partition.MeshTables. ZP3s: each shard's slab. windows:
+    per shard None or (lo, width), the chunks whose r to return (lo may be
+    negative). R3s: per shard the stored R to rewrite (K2).
+
+    Returns (O, E, caches, ybufs, kbufs, Rws) with the per-chunk buffers
+    and r windows per shard (R3s are written in place)."""
+    from .cuda.fused_estep import fused_estep_block
+    nb = tables.removal.shape[0]
+    K, d, B1 = Y.shape[1], Y.shape[0], theta.shape[0] + 1
+    lead = O.device
+    shards = []
+    for s, ZP3 in enumerate(ZP3s):
+        dev, nc1, CH = ZP3.device, ZP3.shape[0], ZP3.shape[2]
+        slots, granks = tables.slots[s], tables.granks[s]
+        if dev.type == "cpu" and slots.shape[1] < J_fix + 1:
+            pad = J_fix + 1 - slots.shape[1]
+            slots = torch.cat([slots, slots.new_full((nb, pad), nc1 - 1)], 1)
+            granks = torch.cat([granks, granks.new_full((nb, pad), J_fix)],
+                               1)
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = (torch.zeros((nc1, K, B1), **f32),
+               torch.zeros((nc1, K, d), **f32), torch.zeros((nc1, 2), **f32))
+        win = None if windows is None else windows[s]
+        Rw = (None if win is None
+              else torch.zeros((win[1], K, CH), **f32))
+        consts = [t.to(dev) for t in (tables.removal, Y, sigma, theta, Pr_b)]
+        shards.append(dict(
+            ZP3=ZP3, slots=slots.contiguous(), gidx=slots.long().to(dev),
+            granks=granks.to(lead), out=out, Rw=Rw,
+            lo=0 if win is None else win[0], consts=consts,
+            R3=None if R3s is None else R3s[s]))
+    for b in range(nb):
+        frame = torch.zeros((J_fix + 1, K, B1), dtype=torch.float32,
+                            device=lead)     # row J_fix: unfilled slots
+        Or = Er = None
+        for sh in shards:
+            removal, Ys, sig, th, prb = sh["consts"]
+            dev = sh["ZP3"].device
+            Ob, Eb = fused_estep_block(
+                b, sh["slots"], removal, sh["ZP3"], Ys, sig, th, prb,
+                O.to(dev), E.to(dev), fast_ent, sh["out"], J_fix + 1,
+                Rw=sh["Rw"], lo=sh["lo"], R3=sh["R3"])
+            if Or is None:
+                Or, Er = Ob.to(lead), Eb.to(lead)
+            frame[sh["granks"][b]] = sh["out"][0][sh["gidx"][b]].to(lead)
+        acc = torch.zeros((K, B1), dtype=torch.float32, device=lead)
+        for r in range(J_fix):
+            acc = acc + frame[r]
+        O = Or + acc[:, 1:]
+        E = Er + acc[:, 0:1] * Pr_b[None, :]
+    return (O, E, [sh["out"][0] for sh in shards],
+            [sh["out"][1] for sh in shards], [sh["out"][2] for sh in shards],
+            [sh["Rw"] for sh in shards])

@@ -11,6 +11,11 @@ Layout (the JAX package's, cells are COLUMNS):
   O, E          : (K, B)
   cache         : (n_chunks+1, K, B+1) per-chunk statistics (fused paths)
 
+On a mesh of several shards the cell-axis fields (Z_corr, Z_cos, a stored
+R, cache, rep_cache, rep_Zcos) are lists of the shards' tensors, each in
+the layout above at shard size (N_local cells, the shard's chunks), and the
+rest is replicated on the lead device; `n_devices` records the shards.
+
 Deferred-R fits never hold R. The final k-means round's start-of-round
 inputs (rep_*) let the ridge correction and the .R property replay that
 round bitwise. Where the JAX state keeps the round's RNG key, this state
@@ -78,6 +83,8 @@ class HarmonyState:
 
     # Fused E-step passes (k-means rounds + replay windows) run so far.
     n_passes: int = 0
+    # Shards the cell-axis fields are split into.
+    n_devices: int = 1
 
 
 def empty_histories(cfg: EngineConfig, device) -> dict:
@@ -110,45 +117,70 @@ _TENSOR_FIELDS = ("Z_corr", "Z_cos", "Y", "O", "E", "cache", "obj_kmeans",
                   "Ysum0", "rep_Y", "rep_O", "rep_E", "rep_cache", "rep_Zcos")
 
 
-def state_from_numpy(arrays: Mapping[str, np.ndarray], cfg: EngineConfig,
-                     rep_blocks=None, device="cpu") -> HarmonyState:
-    """Build the port's state from a JAX package ``HarmonyState`` given as
-    numpy arrays by field name (for example a JAX checkpoint ``.npz``).
+def sharded_fields(cfg: EngineConfig) -> dict:
+    """The cell-axis fields of a state under cfg and the axis each one's
+    shards are concatenated along in the global layout (cells of Z and
+    the per-cell R; chunk rows of the caches and the chunk-major R)."""
+    out = {"Z_corr": 1, "Z_cos": 1}
+    if cfg.fused_estep:
+        out["cache"] = 0
+    if cfg.defer_r:
+        out.update(rep_cache=0, rep_Zcos=1)
+    else:
+        out["R"] = 0 if cfg.fused_estep else 1
+    return out
 
-    Deferred-R (cfg.defer_r): the JAX state's round key cannot be replayed
-    here, so the caller passes the final round's block assignment
-    `rep_blocks` ((L,) integers, the output of the JAX package's
-    ``stripe_blocks`` for that key). Stored-R: ``R`` is the JAX state's
-    (K, N_pad) array (bf16 given as float32); it is stored in cfg.r_dtype,
-    chunk-major on the fused path."""
-    fields = {k: torch.tensor(np.asarray(arrays[k], np.float32),
-                              device=device) for k in _TENSOR_FIELDS}
-    R = torch.tensor(np.asarray(arrays["R"], np.float32), device=device)
-    checks = [("Z_corr", fields["Z_corr"], (cfg.d, cfg.N_local)),
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray], cfg: EngineConfig,
+                     rep_blocks=None, device="cpu", mesh=None) -> HarmonyState:
+    """Build the port's state from a JAX package ``HarmonyState`` given as
+    numpy arrays by field name (for example a JAX checkpoint ``.npz``), on
+    `device` or, given a `mesh` of cfg.n_devices shards, split over it.
+
+    The JAX arrays are global: (d, N_pad) cells, caches of n_devices *
+    (nc_cap + 1) chunk rows. Deferred-R (cfg.defer_r): the JAX state's
+    round key cannot be replayed here, so the caller passes the final
+    round's block assignment `rep_blocks` ((L,) integers, the output of the
+    JAX package's ``stripe_blocks`` for that key). Stored-R: ``R`` is the
+    JAX state's (K, N_pad) array (bf16 given as float32); it is stored in
+    cfg.r_dtype, chunk-major on the fused path."""
+    from .parallel.sharding import split_cells
+    lead = torch.device(device) if mesh is None else mesh.lead
+    D = cfg.n_devices
+    fields = {k: torch.tensor(np.asarray(arrays[k], np.float32))
+              for k in _TENSOR_FIELDS}
+    R = torch.tensor(np.asarray(arrays["R"], np.float32))
+    checks = [("Z_corr", fields["Z_corr"], (cfg.d, cfg.N_pad)),
               ("Y", fields["Y"], (cfg.d, cfg.K)),
               ("O", fields["O"], (cfg.K, cfg.B))]
     if cfg.fused_estep:
         checks.append(("cache", fields["cache"],
-                       (cfg.N_local // cfg.chunk_size, cfg.K, cfg.B1)))
+                       (D * (cfg.N_local // cfg.chunk_size), cfg.K, cfg.B1)))
     if cfg.defer_r:
-        checks.append(("rep_Zcos", fields["rep_Zcos"], (cfg.d, cfg.N_local)))
+        checks.append(("rep_Zcos", fields["rep_Zcos"], (cfg.d, cfg.N_pad)))
     else:
-        checks.append(("R", R, (cfg.K, cfg.N_local)))
+        checks.append(("R", R, (cfg.K, cfg.N_pad)))
     for name, t, shape in checks:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape} for {cfg}")
-    R = R.to(cfg.r_torch_dtype)
     if cfg.defer_r:
         if rep_blocks is None:
             raise ValueError("a deferred-R state needs rep_blocks")
-        rep_blocks = torch.tensor(np.asarray(rep_blocks, np.int64),
-                                  device=device)
+        rep_blocks = torch.tensor(np.asarray(rep_blocks, np.int64))
     else:
-        rep_blocks = torch.zeros((1,), dtype=torch.int64, device=device)
-        if cfg.fused_estep:
+        rep_blocks = torch.zeros((1,), dtype=torch.int64)
+        if cfg.fused_estep:                           # per shard chunk-major
             R = R.reshape(cfg.K, -1, cfg.chunk_size).permute(1, 0, 2)
-    fields["R"] = R.contiguous()
+    if cfg.defer_r:
+        R = torch.zeros((1, 1))                       # the JAX placeholder
+    fields["R"] = R.to(cfg.r_torch_dtype).contiguous()
+    fields["rep_blocks"] = rep_blocks
+    for name, t in fields.items():
+        if name in sharded_fields(cfg) and mesh is not None:
+            fields[name] = split_cells(t, cfg, mesh, sharded_fields(cfg)[name])
+        else:
+            fields[name] = t.to(lead)
     n_rounds = int(arrays["n_rounds"])
     return HarmonyState(
         **fields,
@@ -156,4 +188,4 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], cfg: EngineConfig,
         kmeans_rounds=[int(x) for x in
                        np.asarray(arrays["kmeans_rounds"])[:n_rounds]],
         n_rounds=n_rounds, converged=bool(arrays["converged"]),
-        rep_blocks=rep_blocks)
+        n_devices=D)

@@ -10,6 +10,11 @@ uninterrupted fit would have drawn, and continues bitwise.
 
 bfloat16 fields (low_memory R) are stored as their int16 bit patterns and
 named in a `bf16` sidecar: NumPy has no bfloat16.
+
+A mesh state is written in the JAX package's global layout: each
+cell-axis field's shards concatenated (Z (d, N_pad); caches and the
+chunk-major R n_devices * (nc_cap + 1) rows), with `n_devices` beside. A
+resume on another mesh size is refused with the mismatch listed.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ import torch
 
 from ..config import EngineConfig
 from ..ops.partition import partition_geometry
-from ..state import HarmonyState
+from ..parallel.sharding import cat_cells, split_cells
+from ..state import HarmonyState, sharded_fields
 
-_SCALARS = ("n_kmeans", "n_harmony", "n_rounds", "converged", "n_passes")
+_SCALARS = ("n_kmeans", "n_harmony", "n_rounds", "converged", "n_passes",
+            "n_devices")
 
 
 @dataclasses.dataclass
@@ -39,8 +46,11 @@ def save_state(path: str, state: HarmonyState, rng: RngState,
     """Write `state` and `rng` to `path` (.npz). kmeans_rounds is stored
     padded to cfg.rounds_hist_len, as the JAX state holds it."""
     arrays, bf16 = {}, []
+    axes = sharded_fields(cfg)
     for f in dataclasses.fields(HarmonyState):
         x = getattr(state, f.name)
+        if f.name in axes and isinstance(x, list):
+            x = cat_cells(x, axes[f.name])
         if isinstance(x, torch.Tensor):
             x = x.detach().cpu()
             if x.dtype == torch.bfloat16:
@@ -65,6 +75,9 @@ def load_state(path: str) -> tuple[HarmonyState, RngState]:
         bf16 = set(z["bf16"].tolist())
         fields = {}
         for f in dataclasses.fields(HarmonyState):
+            if f.name == "n_devices" and f.name not in z.files:
+                fields[f.name] = 1        # written before meshes existed
+                continue
             x = z[f.name]
             if f.name in _SCALARS:
                 fields[f.name] = (bool(x) if f.name == "converged"
@@ -83,13 +96,14 @@ def load_state(path: str) -> tuple[HarmonyState, RngState]:
 
 
 def expected_leaf_shapes(cfg: EngineConfig) -> dict:
-    """Shape of every tensor field of HarmonyState under `cfg`: they
-    encode the geometry a checkpoint was written under (N_pad and chunk
-    layout, history lengths from max_iter_*, the stored-R layout)."""
+    """Global shape of every tensor field of HarmonyState under `cfg`:
+    they encode the geometry a checkpoint was written under (N_pad and
+    chunk layout on the mesh, history lengths from max_iter_*, the
+    stored-R layout)."""
     K, d, B = cfg.K, cfg.d, cfg.B
     if cfg.fused_estep:
         geom = partition_geometry(cfg)
-        nc1, CH = geom.nc_cap + 1, geom.CH
+        nc1, CH = cfg.n_devices * (geom.nc_cap + 1), geom.CH
         cache = (nc1, K, B + 1)
     else:
         cache = (1, 1, 1)
@@ -122,6 +136,9 @@ def validate_state(state: HarmonyState, cfg: EngineConfig,
     does not fit the current configuration (or, given `rng` and `device`,
     its generator state cannot be restored on that device)."""
     problems = []
+    if state.n_devices != cfg.n_devices:
+        problems.append(f"mesh: written on {state.n_devices} device(s), "
+                        f"resuming on {cfg.n_devices}")
     for name, want in expected_leaf_shapes(cfg).items():
         got = tuple(getattr(state, name).shape)
         if got != want:
@@ -139,15 +156,21 @@ def validate_state(state: HarmonyState, cfg: EngineConfig,
             f"Checkpoint {path} is incompatible with the current "
             f"configuration — it was written under different engine "
             f"geometry (max_iter_harmony/max_iter_kmeans, chunk_size, "
-            f"defer_r, low_memory or device). Mismatches: "
+            f"defer_r, low_memory, device or mesh size). Mismatches: "
             + "; ".join(problems)
             + ". Resume with the settings the checkpoint was written "
             "under, or re-run from scratch.")
 
 
-def state_to(state: HarmonyState, device) -> HarmonyState:
-    """The state with every tensor field moved to `device`."""
-    return dataclasses.replace(state, **{
-        f.name: getattr(state, f.name).to(device)
-        for f in dataclasses.fields(HarmonyState)
-        if isinstance(getattr(state, f.name), torch.Tensor)})
+def state_to(state: HarmonyState, mesh, cfg: EngineConfig) -> HarmonyState:
+    """A loaded (global, host) state on `mesh`: its cell-axis fields split
+    into the shards, each on its device, the rest on the lead device."""
+    axes = sharded_fields(cfg)
+    out = {}
+    for f in dataclasses.fields(HarmonyState):
+        x = getattr(state, f.name)
+        if not isinstance(x, torch.Tensor):
+            continue
+        out[f.name] = (split_cells(x, cfg, mesh, axes[f.name])
+                       if f.name in axes else x.to(mesh.lead))
+    return dataclasses.replace(state, **out)

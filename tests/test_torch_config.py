@@ -65,7 +65,8 @@ def test_config_fields_match_jax():
 
 def test_validate_accepts_only_the_ported_path():
     """Deferred-R, stored-R fused (either fused flag), per-cell and bf16 R
-    validate on one device; more devices and inconsistent flags do not."""
+    validate on one device and on a mesh; no devices and inconsistent flags
+    do not."""
     base = dict(N=5000, d=4, K=5, B=2, n_devices=1, chunk_size=128)
     for ok in (dict(use_fused_xla=True, defer_r=True),
                dict(use_pallas=True, defer_r=True),
@@ -73,10 +74,10 @@ def test_validate_accepts_only_the_ported_path():
                dict(use_fused_xla=True, r_dtype="bfloat16"),
                dict(r_dtype="bfloat16")):
         tcfg.EngineConfig(**base, **ok).validate()
-    with pytest.raises(NotImplementedError):
-        tcfg.EngineConfig(**{**base, "n_devices": 2},
-                          use_fused_xla=True).validate()
-    for bad in (dict(defer_r=True), dict(use_pallas=True, use_fused_xla=True),
+    for ok in (dict(use_fused_xla=True, defer_r=True), dict()):
+        tcfg.EngineConfig(**{**base, "n_devices": 4}, **ok).validate()
+    for bad in (dict(n_devices=0), dict(defer_r=True),
+                dict(use_pallas=True, use_fused_xla=True),
                 dict(use_fused_xla=True, r_dtype="float16"),
                 dict(use_pallas=True, chunk_size=2048)):
         with pytest.raises(ValueError):

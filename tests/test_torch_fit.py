@@ -223,15 +223,16 @@ def test_item8_configurations_run(monkeypatch, kw):
     (dict(mesh=object()), "item 11"),
 ])
 def test_unported_configurations_raise(kw, item, tmp_path, monkeypatch):
-    """A mesh (item 11) raises NotImplementedError naming its item. The
-    checkpoint arguments (item 10) are ported: they no longer raise it."""
+    """The arguments of once-unported items are ported: the checkpoint
+    arguments (item 10) run, and mesh= (item 11) takes a
+    parallel.mesh.Mesh, refusing anything else with an error naming it."""
     monkeypatch.chdir(tmp_path)
     X, meta = _problem(N=3000, d=6)
     args = dict(device="cpu", verbose=False, chunk_size=128,
                 max_iter_harmony=1)
     args.update(kw)
     if item == "item 11":
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
+        with pytest.raises((TypeError, ValueError), match="Mesh"):
             ht.run_harmony(X, meta, ["batch"], **args)
     elif "resume_from" in kw:
         with pytest.raises(FileNotFoundError):

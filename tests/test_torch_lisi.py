@@ -212,12 +212,12 @@ def test_lisi_argument_errors(kw, match):
 
 
 def test_lisi_device_and_mesh():
-    """device=None means CUDA and raises without a card; mesh= raises
-    NotImplementedError naming ROADMAP item 11; a torch tensor stays on its
-    own device."""
+    """device=None means every CUDA card and raises without one; mesh=
+    takes a parallel.mesh.Mesh and refuses anything else naming it; a torch
+    tensor stays on its own device."""
     X = np.random.default_rng(0).normal(size=(120, 3))
     meta = pd.DataFrame({"b": ["x", "y"] * 60})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         _lisi(X, meta, ["b"], mesh=object())
     np.testing.assert_array_equal(
         ht.compute_lisi(torch.tensor(X), meta, ["b"]), _lisi(X, meta, ["b"]))
