@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of harmonypy_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py            # one card, every phase
-    python3 chip_smoke.py --cards    # several cards: the mesh of every card
+    python3 chip_smoke.py
 
 Builds the hand-written kernels from the checkout, then, printing one JSON
 line per phase:
@@ -78,9 +77,10 @@ line per phase:
               at 3 iterations, the default fit at the golden gate;
               compute_lisi on the mesh fit's output equal to phase lisi's
               values bitwise (pruned, and brute on the sampled queries); a
-              resume on the mesh bitwise, one on 2 shards refused; the same
-              checks but the per-block ones on a mesh of every card when
-              there are several (alone, after the build: --cards);
+              resume on the mesh bitwise, one on 2 shards refused; each
+              mesh fit's peak device memory per card under memory_envelope;
+              the same checks but the per-block ones on a mesh of every
+              card when there are several;
   6. kernels  every kernel with its launches on its path's fit, error
               against the plain version, time, and bound.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
@@ -1109,7 +1109,9 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                 torch.zeros((nc1, 2), device="cuda"))
 
     lo, width = 200, 16
-    errs, worst = {}, 0.0
+    # Worst error against the plain version: K1's entry (no r, r window)
+    # and K2's (fp32 and bf16 R), each its own.
+    errs, worst = {}, dict(k1=0.0, k2=0.0)
     for fast in (False, True):
         rnd = fe.fused_estep(*args, fast)
         rnd_w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
@@ -1168,9 +1170,10 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                              (k[0], k[1], *ko), (p_[0], p_[1], *kp)))
             if var == "r_window":
                 pairs.append(("r", kw["Rw"], plain_kw["Rw"]))
+            kk = "k1" if var in ("round", "r_window") else "k2"
             for name, a, b in pairs:
                 e = diff(a, b, *TOL[name])
-                worst = max(worst, e[0])
+                worst[kk] = max(worst[kk], e[0])
                 errs[f"{var},{tag},{name}"] = e[0]
                 check(e[2] <= 1.0, f"per-block {var} vs plain {name} beyond "
                                    f"{TOL[name]} ({tag}): {e}")
@@ -1181,7 +1184,7 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                                      f"ulps ({tag})")
                 else:
                     e = diff(kw["R3"], plain_kw["R3"], *TOL["r"])
-                    worst = max(worst, e[0])
+                    worst[kk] = max(worst[kk], e[0])
                     check(e[2] <= 1.0, f"per-block K2 R vs plain ({tag})")
         # The mesh round against the one-launch round, bitwise.
         wins = [(lo - s * nc, width)
@@ -1267,13 +1270,23 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
     Z_corr, R, the five histories and kmeans_rounds bitwise equal to the
     one-device fit refs[name]; per-block launches = blocks x shards per
     pass (deferred: every round and replay window; stored: every round),
-    and no one-launch round. Returns (results, launch counts)."""
+    and no one-launch round; each card's peak allocation during the fit
+    (above what it held before) at most memory_envelope(cfg, the shards it
+    holds). Returns (results, launch counts, the deferred fit)."""
+    import collections
+
     import numpy as np
     import torch
+    from harmonypy_tpu_torch.utils.memory import memory_envelope
     out, counts = {}, {}
+    cards = collections.Counter(mesh.devices)
     for name, kw in (("deferred", {}), ("stored", dict(defer_r=False)),
                      ("low_memory", dict(defer_r=False, low_memory=True))):
         torch.cuda.synchronize()
+        base = {}
+        for dv in cards:
+            torch.cuda.reset_peak_memory_stats(dv)
+            base[dv] = torch.cuda.memory_allocated(dv)
         fe.launches = fe.launches_write_r = 0
         fe.launches_block = fe.launches_block_write_r = 0
         t0 = time.perf_counter()
@@ -1283,6 +1296,17 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
         wall = time.perf_counter() - t0
         got = (fe.launches, fe.launches_write_r, fe.launches_block,
                fe.launches_block_write_r)
+        memory = {}
+        for dv, shards in cards.items():
+            peak = torch.cuda.max_memory_allocated(dv) - base[dv]
+            env = memory_envelope(ho.cfg, shards)
+            check(env["total"] >= peak,
+                  f"mesh {name} on {dv} ({shards} shards): modeled "
+                  f"{env['total']} < measured peak {peak}")
+            memory[str(dv)] = dict(shards=shards, modeled_bytes=env["total"],
+                                   measured_peak=peak,
+                                   ratio=env["total"] / peak,
+                                   peak_phase=env["peak_phase"])
         per = ho.cfg.n_blocks * mesh.size
         passes, rounds = ho.state.n_passes, sum(ho.kmeans_rounds)
         want = ((0, 0, per * passes, 0) if name == "deferred"
@@ -1298,7 +1322,7 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
         out[name] = dict(wall_s=wall, kmeans_rounds=ho.kmeans_rounds,
                          passes=passes, launches=dict(zip(
                              ("k1", "k2", "k1_block", "k2_block"), got)),
-                         bitwise_equal_one_device=True)
+                         bitwise_equal_one_device=True, memory=memory)
         counts[name] = got
         if name == "deferred":
             mesh_ho = ho
@@ -1425,41 +1449,14 @@ def phase_mesh(ht, mods, X, batches, groups, meta, refs, lisi_ref):
               kernel_tolerance=TOL, **res, real_cards=real))
     return dict(
         k1=dict(launches=counts["deferred"][2], ms=kinfo["ms_block"],
-                plain_ms=kinfo["plain_ms_block"], max_abs_err=worst,
+                plain_ms=kinfo["plain_ms_block"], max_abs_err=worst["k1"],
                 bound_ms=kinfo["bound_block"]["bound_ms"],
                 bound_by=kinfo["bound_block"]["bound_by"]),
         k2=dict(launches=counts["stored"][3], ms=kinfo["ms_block_write_r"],
-                plain_ms=kinfo["plain_ms_block_write_r"], max_abs_err=worst,
+                plain_ms=kinfo["plain_ms_block_write_r"],
+                max_abs_err=worst["k2"],
                 bound_ms=kinfo["bound_block_write_r"]["bound_ms"],
                 bound_by=kinfo["bound_block_write_r"]["bound_by"]))
-
-
-def cards_main(ht, fe):
-    """`chip_smoke.py --cards`, on a machine with several cards: only the
-    path that exists across cards, mesh_path_checks on a mesh of every
-    card, against the one-device fits and LISI on cuda:0."""
-    import pandas as pd
-    import torch
-    from harmonypy_tpu_torch.parallel.mesh import make_mesh
-    check(torch.cuda.device_count() > 1, "--cards needs several cards")
-    X, batches, groups = synthetic()
-    meta = pd.DataFrame({"batch": pd.Categorical.from_codes(
-        batches, [f"b{i}" for i in range(N_BATCHES)])})
-    refs = {name: ht.run_harmony(X, meta, ["batch"], device="cuda:0",
-                                 verbose=False, **kw)
-            for name, kw in (("deferred", {}), ("stored", dict(defer_r=False)),
-                             ("low_memory", dict(defer_r=False,
-                                                 low_memory=True)))}
-    meta_l, labels = lisi_meta(batches, groups), ["batch", "group"]
-    Z = refs["deferred"].Z_corr
-    lisi1 = ht.compute_lisi(Z, meta_l, labels, 30, device="cuda:0")
-    sv, sidx = ht.compute_lisi(Z, meta_l, labels, 30, sample=LISI_SAMPLE,
-                               knn="brute", device="cuda:0")
-    res, _ = mesh_path_checks(ht, fe, X, batches, groups, meta, make_mesh(),
-                              refs, (lisi1, sv, sidx))
-    emit(dict(phase="cards", count=torch.cuda.device_count(),
-              names=sorted({torch.cuda.get_device_name(i) for i in
-                            range(torch.cuda.device_count())}), **res))
 
 
 def main() -> int:
@@ -1492,14 +1489,6 @@ def main() -> int:
               cuda=torch.version.cuda, python=sys.version.split()[0],
               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
               build_s=build_s, ptxas=build.build_log))
-    if sys.argv[1:] == ["--cards"]:
-        cards_main(ht, fe)
-        print(smi, flush=True)
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-
     X, batches, groups = synthetic()
     mods = (config, engine, layout, partition, fe, update_r_fused, state)
     geom, args = round_inputs(mods, X, batches)

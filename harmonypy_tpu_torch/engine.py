@@ -63,13 +63,13 @@ from .ops.objective import (chunk_objective_partials,
 from .ops.partition import (cell_partition_len, cell_slot_table, frame_sum,
                             iid_blocks, mesh_round_tables, partition_geometry,
                             stripe_blocks)
-from .ops.replay import replay_apply, replay_normal_eq, windows
+from .ops.replay import INIT_ELEMS, replay_apply, replay_normal_eq, windows
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
 from .ops.update_r_fused import chunk_stats, make_zp3, mesh_round
-from .parallel.sharding import (embed_chunks, embed_cols, extract_chunks,
-                                extract_cols, one_device, pack, parts,
-                                real_cols, window_rows)
+from .parallel.sharding import (embed_cols, extract_chunks, extract_cols,
+                                holds_window, one_device, pack, parts,
+                                put_window, real_cols, window_of)
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
                     defer_placeholders, empty_histories)
 from .utils.checkpoint import RngState, save_state
@@ -122,10 +122,12 @@ def normalize_cells(X, cfg: EngineConfig):
                 for s, x in enumerate(parts(X)))
 
 
-def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, wins):
+def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, wins,
+               put_r=None):
     """Per-chunk cache, centroid numerator and objective partials of the
     initial soft assignments (softmax of -dist/sigma, harmony.py:380-389),
-    one window of chunks at a time, in the one-device layout of cfg."""
+    one window of chunks at a time, in the one-device layout of cfg;
+    put_r(lo, w, r), when given, stores each window's assignments."""
     geom = partition_geometry(cfg)
     nc1, CH, K, d = geom.nc_cap + 1, geom.CH, cfg.K, cfg.d
     dev = Z_cos.device
@@ -139,12 +141,44 @@ def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, wins):
         sl = slice(lo, lo + w)
         dist = 2.0 * (1.0 - torch.einsum("dk,jdc->jkc", Y, z3[sl]))
         s = torch.exp(-dist / sigma[None, :, None])
-        r = s / torch.sum(s, dim=1, keepdim=True) * m3[sl]      # (w, K, CH)
+        # In place: the bits of s / sum * m3, one window less held.
+        r = s.div_(torch.sum(s, dim=1, keepdim=True)).mul_(m3[sl])  # (w,K,CH)
+        if put_r is not None:
+            put_r(lo, w, r)
         cache[sl] = chunk_stats(r, p3[sl])
         ybuf[sl] = torch.einsum("jdc,jkc->jdk", z3[sl], r)
         kbuf[sl] = torch.stack(chunk_objective_partials(
             r, dist, sigma, k_axis=1, chunk_axis=0), dim=1)
     return cache, ybuf, kbuf
+
+
+def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
+                cfg: EngineConfig, R3s=None):
+    """The init pass on every shard, each over the one-device windows that
+    hold its chunks, reduced through the frame: (O, E, objective terms,
+    the shards' caches, the centroid numerator). With R3s (each shard's
+    chunk-major R) the assignments are also stored there in its dtype."""
+    geom, cfg1 = partition_geometry(cfg), one_device(cfg)
+    caches, ybufs, kbufs = [], [], []
+    for s, (z, p, m) in enumerate(zip(parts(Z_cos), parts(data.Phi),
+                                      parts(data.mask))):
+        put_r = None
+        if R3s is not None:
+            def put_r(lo, w, r, R3=R3s[s], s=s):
+                put_window(R3, r.to(R3.dtype), s, geom, lo, w)
+        wins = [(lo, w) for lo, w in windows(cfg1, INIT_ELEMS)
+                if holds_window(geom, s, lo, w)]
+        out = _init_pass(embed_cols(z, s, cfg), embed_cols(p, s, cfg),
+                         embed_cols(m[None], s, cfg)[0], Y.to(z.device),
+                         params.sigma.to(z.device), cfg1, wins, put_r)
+        for buf, o in zip((caches, ybufs, kbufs), out):
+            buf.append(extract_chunks(o, s, geom))
+    tot = frame_sum(caches, geom)                                # (K, B+1)
+    E = tot[:, 0:1] * params.Pr_b[None, :]
+    O = tot[:, 1:]
+    ko = frame_sum(kbufs, geom) * (2000.0 / cfg.N)
+    terms = (ko[0], ko[1], cross_entropy_from_stats(O, E, params, cfg))
+    return O, E, terms, pack(caches), frame_sum(ybufs, geom)
 
 
 @record_function("harmony::init")
@@ -155,36 +189,19 @@ def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     the initial soft assignments are reduced away one window of chunks at a
     time (each shard: the windows that hold its chunks)."""
     geom = partition_geometry(cfg)
-    cfg1 = one_device(cfg)
     Z_cos = normalize_cells(data.Z_orig, cfg)                    # harmony.py:238
     with record_function("harmony::kmeans_init"):
         Y = (kmeans_init(gen, real_cols(Z_cos, cfg), cfg) if init_Y is None
              else init_Y)
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev = Y.device
-    caches, ybufs, kbufs = [], [], []
-    for s, (z, p, m) in enumerate(zip(parts(Z_cos), parts(data.Phi),
-                                      parts(data.mask))):
-        wins = [(lo, w) for lo, w in windows(cfg1)
-                if geom.n_devices == 1 or window_rows(geom, s, lo, w)[2]]
-        out = _init_pass(embed_cols(z, s, cfg), embed_cols(p, s, cfg),
-                         embed_cols(m[None], s, cfg)[0], Y.to(z.device),
-                         params.sigma.to(z.device), cfg1, wins)
-        for buf, o in zip((caches, ybufs, kbufs), out):
-            buf.append(extract_chunks(o, s, geom))
-
-    tot = frame_sum(caches, geom)                                # (K, B+1)
-    E = tot[:, 0:1] * params.Pr_b[None, :]
-    O = tot[:, 1:]
-    ko = frame_sum(kbufs, geom) * (2000.0 / cfg.N)
-    terms = (ko[0], ko[1], cross_entropy_from_stats(O, E, params, cfg))
+    O, E, terms, cache, Ysum0 = _init_fused(Z_cos, data, Y, params, cfg)
     hist = empty_histories(cfg, dev)
-    cache = pack(caches)
     st = HarmonyState(
         Z_corr=data.Z_orig, Z_cos=Z_cos,
         R=torch.zeros((1, 1), dtype=cfg.r_torch_dtype, device=dev),
         Y=Y, O=O, E=E, cache=cache,
-        **hist, Ysum0=frame_sum(ybufs, geom), rep_Y=Y, rep_O=O, rep_E=E,
+        **hist, Ysum0=Ysum0, rep_Y=Y, rep_O=O, rep_E=E,
         rep_blocks=torch.zeros((geom.L,), dtype=torch.int64, device=dev),
         rep_cache=cache, rep_Zcos=Z_cos, n_devices=cfg.n_devices)
     _append_terms(st, terms)
@@ -197,11 +214,11 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
                 gen: torch.Generator, init_Y=None) -> HarmonyState:
     """Normalize, seed the centroids, and store the initial soft
     assignments R = softmax_k(-dist/sigma) (harmony.py:377-392) with O/E and
-    the first objective (JAX package engine.py:221-284). Fused layout:
-    per-chunk cache and partials from the fp32 R, reduced by frame_sum
-    (each shard in the one-device layout). Per-cell layout: O/E and the
-    objective from the storage-rounded R, since its E-step re-reads the
-    stored values; shard partials summed in shard order."""
+    the first objective (JAX package engine.py:221-284). Fused layout: the
+    deferred fit's init pass, storing each window's R; cache and partials
+    come from the fp32 R. Per-cell layout: O/E and the objective from the
+    storage-rounded R, since its E-step re-reads the stored values; shard
+    partials summed in shard order."""
     Z_cos = normalize_cells(data.Z_orig, cfg)                    # harmony.py:238
     with record_function("harmony::kmeans_init"):
         Y = (kmeans_init(gen, real_cols(Z_cos, cfg), cfg) if init_Y is None
@@ -211,32 +228,10 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     Rs, dists = [], []
     if cfg.fused_estep:
         geom = partition_geometry(cfg)
-        cfg1 = one_device(cfg)
-        nc1, CH = partition_geometry(cfg1).nc_cap + 1, geom.CH
-        caches, kerrs, ents = [], [], []
-        for s, (z, p, m) in enumerate(zip(parts(Z_cos), parts(data.Phi),
-                                          parts(data.mask))):
-            Ys, sigma = Y.to(z.device), params.sigma.to(z.device)
-            dist_mat = 2.0 * (1.0 - Ys.T @ embed_cols(z, s, cfg))  # :380
-            R = (compute_scale_dist(dist_mat, sigma)
-                 * embed_cols(m[None], s, cfg))
-            R = R.reshape(K, nc1, CH).permute(1, 0, 2)           # (nc1, K, CH)
-            caches.append(extract_chunks(chunk_stats(R, embed_cols(
-                p, s, cfg).reshape(cfg.B, nc1, CH).permute(1, 0, 2)), s,
-                geom))
-            kerr, ent = chunk_objective_partials(
-                R, dist_mat.reshape(K, nc1, CH).permute(1, 0, 2), sigma,
-                k_axis=1, chunk_axis=0)
-            kerrs.append(extract_chunks(kerr, s, geom))
-            ents.append(extract_chunks(ent, s, geom))
-            Rs.append(extract_chunks(R, s, geom))
-        tot = frame_sum(caches, geom)
-        E = tot[:, 0:1] * params.Pr_b[None, :]
-        O = tot[:, 1:]
-        nc = 2000.0 / cfg.N
-        terms = (frame_sum(kerrs, geom) * nc, frame_sum(ents, geom) * nc,
-                 cross_entropy_from_stats(O, E, params, cfg))
-        cache = pack(caches)
+        Rs = [torch.zeros((geom.nc_cap + 1, K, geom.CH),
+                          dtype=cfg.r_torch_dtype, device=z.device)
+              for z in parts(Z_cos)]
+        O, E, terms, cache, _ = _init_fused(Z_cos, data, Y, params, cfg, Rs)
     else:
         for z, m in zip(parts(Z_cos), parts(data.mask)):
             dist_mat = 2.0 * (1.0 - Y.to(z.device).T @ z)        # :380
@@ -353,16 +348,22 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
     """Stored-R fused k-means loop (JAX package engine.py:391-511): every
     round runs K2, which rewrites the chunk-major R3 in place in its
     storage dtype. The first centroid numerator comes from the stored R by
-    a per-chunk product and frame_sum. Returns the rounds run."""
+    a per-chunk product, window by window, and frame_sum. Returns the
+    rounds run."""
     geom = partition_geometry(cfg)
-    nc1 = partition_geometry(one_device(cfg)).nc_cap + 1
     fast = fast_ent(cfg)
     nc = 2000.0 / cfg.N
     devs = [z.device for z in ZP3s]
-    y_cs = [extract_chunks(torch.einsum(
-        "jdc,jkc->jdk", embed_chunks(Z, s, geom, nc1)[:, cfg.B1:, :],
-        embed_chunks(R, s, geom, nc1).to(torch.float32)), s, geom)
-        for s, (Z, R) in enumerate(zip(ZP3s, parts(st.R)))]
+    y_cs = []
+    for s, (Z, R) in enumerate(zip(ZP3s, parts(st.R))):
+        y_cs.append(torch.zeros((Z.shape[0], cfg.d, cfg.K),
+                                dtype=torch.float32, device=Z.device))
+        for lo, w in windows(one_device(cfg)):
+            if holds_window(geom, s, lo, w):
+                put_window(y_cs[-1], torch.einsum(
+                    "jdc,jkc->jdk", window_of(Z, s, geom, lo, w)[:, cfg.B1:],
+                    window_of(R, s, geom, lo, w).to(torch.float32)),
+                    s, geom, lo, w)
     Ysum = frame_sum(y_cs, geom)
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443

@@ -11,10 +11,10 @@ design products then run in torch on that window; windows are bounded by a
 memory budget, one replay per window.
 
 Windows are global chunk ranges, the one-device ones on every mesh: a mesh
-shard computes a window's products in the one-device window shape with its
-own chunks in place and zeros elsewhere (parallel/sharding.py), so its rows
-are the one-device rows bit for bit, and the rows are reduced through the
-global frame.
+shard computes the products of the windows that hold its chunks, each in
+the one-device window shape with its own chunks in place and zeros
+elsewhere (parallel/sharding.py), so its rows are the one-device rows bit
+for bit, and the rows are reduced through the global frame.
 """
 
 from __future__ import annotations
@@ -22,13 +22,17 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
-from ..parallel.sharding import one_device, window_rows
+from ..parallel.sharding import (one_device, put_window, window_of,
+                                 window_rows)
 from .cuda.fused_estep import fused_estep
 from .partition import frame_sum, partition_geometry
 from .update_r_fused import mesh_round
 
 # Cap on the elements of one window of r (width * K * CH floats): 1 GiB.
 WINDOW_ELEMS = 256 * 1024 * 1024
+# The init pass (engine._init_pass) works in quarter-size windows: its
+# temporaries, about five windows, then stay near one K x N array.
+INIT_ELEMS = WINDOW_ELEMS // 4
 
 
 def window_width(cfg: EngineConfig, budget: int = WINDOW_ELEMS) -> int:
@@ -65,27 +69,6 @@ def round_r_windows(tables, ZP3s, rep, fast_ent: bool, geom, lo: int,
             for s in range(len(ZP3s))]
     return mesh_round(tables, ZP3s, *rep, fast_ent, geom.J_fix,
                       windows=wins)[5]
-
-
-def window_of(x3, s: int, geom, lo: int, width: int) -> torch.Tensor:
-    """Rows [lo, lo + width) of a chunk-major array in the one-device
-    layout: on one device the slice itself, on a mesh shard s's rows of the
-    window in place and zeros elsewhere."""
-    if geom.n_devices == 1:
-        return x3[lo: lo + width]
-    l0, p0, n = window_rows(geom, s, lo, width)
-    out = x3.new_zeros((width,) + tuple(x3.shape[1:]))
-    out[p0: p0 + n] = x3[l0: l0 + n]
-    return out
-
-
-def put_window(buf, rows, s: int, geom, lo: int, width: int) -> None:
-    """Store a window's rows (width, ...) into shard s's chunk-major buf."""
-    if geom.n_devices == 1:
-        buf[lo: lo + width] = rows
-        return
-    l0, p0, n = window_rows(geom, s, lo, width)
-    buf[l0: l0 + n] = rows[p0: p0 + n]
 
 
 def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,

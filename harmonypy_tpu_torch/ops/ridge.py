@@ -8,10 +8,10 @@ moe_correct_ridge, harmony.py:535-569; JAX package ops/ridge.py:38-146):
 The deferred-R path builds the normal equations from replayed r
 (ops/replay.py) and shares solve_w; the stored-R paths read the stored R
 here. The products are plain torch matmuls, as the JAX package leaves them
-to XLA. On a mesh the fused layout computes each shard's per-chunk rows in
-the one-device layout (parallel/sharding.py) and reduces them through the
-global frame (bitwise the one-device result); the per-cell layout adds the
-shards' normal equations in shard order.
+to XLA. On a mesh the fused layout computes each shard's per-chunk rows
+over the one-device windows that hold its chunks (parallel/sharding.py)
+and reduces them through the global frame (bitwise the one-device result);
+the per-cell layout adds the shards' normal equations in shard order.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
-from ..parallel.sharding import (embed_chunks, embed_cols, extract_chunks,
-                                 extract_cols, one_device, pack, parts)
+from ..parallel.sharding import (embed_cols, extract_chunks, extract_cols,
+                                 holds_window, one_device, pack, parts,
+                                 window_of)
 from ..state import HarmonyParams
 from .objective import shard_sum
 from .partition import frame_sum, partition_geometry
@@ -93,39 +94,44 @@ def _design(Z_orig, Phi, mask, cfg: EngineConfig):
             [(lo, min(CC, Nl - lo)) for lo in range(0, Nl, CC)])
 
 
-def _normal_eq(Z_orig, Phi, R, mask, cfg: EngineConfig):
-    """Fused layout: the per-chunk normal equations (nc1, B1*(B1+d), K).
-    Per-cell layout: their sum over the cells, in window order."""
+def _normal_eq(Z_orig, Phi, mask, cfg: EngineConfig, r_rows, keep=None):
+    """Fused layout: the per-chunk normal equations (nc1, B1*(B1+d), K) of
+    the windows `keep(lo, n)` accepts (every window when None; the other
+    rows are left unset). Per-cell layout: their sum over the cells, in
+    window order. r_rows(lo, n) gives R's rows of window (lo, n)."""
     A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
     if cfg.fused_estep:
         S_c = torch.empty((A3.shape[1], cfg.B1 * (cfg.B1 + cfg.d), cfg.K),
-                          dtype=torch.float32, device=R.device)
+                          dtype=torch.float32, device=A3.device)
         for lo, n in wins:
-            sl = slice(lo, lo + n)
-            S_c[sl] = _products(A3[:, sl], Z3[:, sl], R[sl])
+            if keep is None or keep(lo, n):
+                sl = slice(lo, lo + n)
+                S_c[sl] = _products(A3[:, sl], Z3[:, sl], r_rows(lo, n))
         return S_c
-    R3 = R[None]
     S = torch.zeros((cfg.B1 * (cfg.B1 + cfg.d), cfg.K), dtype=torch.float32,
-                    device=R.device)
+                    device=A3.device)
     for lo, n in wins:
         sl = slice(lo, lo + n)
-        S = S + _products(A3[..., sl], Z3[..., sl], R3[..., sl])[0]
+        S = S + _products(A3[..., sl], Z3[..., sl], r_rows(lo, n))[0]
     return S
 
 
-def _apply(Z_orig, Phi, R, mask, W, cfg: EngineConfig) -> torch.Tensor:
-    """Z_orig minus the correction, window by window."""
+def _apply(Z_orig, Phi, mask, W, cfg: EngineConfig, r_rows, keep=None):
+    """Z_orig minus the correction, window by window (the windows `keep`
+    accepts; the other columns are left unset)."""
     A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
     Wf = W.reshape(cfg.K, cfg.B1 * cfg.d)
     Z_corr = torch.empty_like(Z_orig)
     Zc3 = Z_corr.reshape(cfg.d, -1, Z3.shape[-1])
     for lo, n in wins:
+        if keep is not None and not keep(lo, n):
+            continue
         sl = slice(lo, lo + n)
         if cfg.fused_estep:
-            Zc3[:, sl] = Z3[:, sl] - _correction(A3[:, sl], R[sl], Wf)
+            Zc3[:, sl] = Z3[:, sl] - _correction(A3[:, sl], r_rows(lo, n), Wf)
         else:
             Zc3[..., sl] = Z3[..., sl] - _correction(A3[..., sl],
-                                                     R[None][..., sl], Wf)
+                                                     r_rows(lo, n), Wf)
     return Z_corr
 
 
@@ -144,21 +150,28 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
     shards = list(zip(parts(Z_orig), parts(Phi), parts(R), parts(mask)))
     if cfg.fused_estep:
         geom, cfg1 = partition_geometry(cfg), one_device(cfg)
-        nc1 = partition_geometry(cfg1).nc_cap + 1
 
-        def one(s, z, p, r, m):
-            return (embed_cols(z, s, cfg), embed_cols(p, s, cfg),
-                    embed_chunks(r, s, geom, nc1),
-                    embed_cols(m[None], s, cfg)[0])
+        def on_shard(fn, s, z, p, r, m, *args):
+            """fn on shard s in the one-device layout: its cell inputs
+            embedded whole, its R read window by window, only the windows
+            that hold its chunks (parallel/sharding.py)."""
+            return fn(embed_cols(z, s, cfg), embed_cols(p, s, cfg),
+                      embed_cols(m[None], s, cfg)[0], *args, cfg1,
+                      r_rows=lambda lo, n: window_of(r, s, geom, lo, n),
+                      keep=lambda lo, n: holds_window(geom, s, lo, n))
 
-        S = frame_sum([extract_chunks(_normal_eq(*one(s, *sh), cfg1), s, geom)
+        S = frame_sum([extract_chunks(on_shard(_normal_eq, s, *sh), s, geom)
                        for s, sh in enumerate(shards)], geom)
         W = solve_w(S, E, params, cfg)
-        return pack(extract_cols(_apply(*one(s, *sh), W.to(sh[0].device),
-                                        cfg1), s, cfg)
+        return pack(extract_cols(on_shard(_apply, s, *sh, W.to(sh[0].device)),
+                                 s, cfg)
                     for s, sh in enumerate(shards))
-    S = shard_sum([_normal_eq(z, p, r, m, cfg) for z, p, r, m in shards],
-                  E.device)
+
+    def cols(r):
+        return lambda lo, n: r[None][..., lo: lo + n]
+
+    S = shard_sum([_normal_eq(z, p, m, cfg, cols(r))
+                   for z, p, r, m in shards], E.device)
     W = solve_w(S, E, params, cfg)
-    return pack(_apply(z, p, r, m, W.to(z.device), cfg)
+    return pack(_apply(z, p, m, W.to(z.device), cfg, cols(r))
                 for z, p, r, m in shards)

@@ -12,15 +12,23 @@ it is the list of the shards' tensors, each on its shard's device (`parts`
 and `pack` convert).
 
 The one-device layout. Every N-axis computation outside the E-step kernel
-(the init pass, k-means init, the replays' products, the stored ridge, the
-column normalisation) runs on a mesh shard in the layout one device uses,
-with the other shards' cells zero: `embed_cols` / `embed_chunks` place a
-shard's columns or chunks where one device holds them, `extract_cols` /
-`extract_chunks` take them back. Each product and reduction then has the
-one-device shapes and strides, so cuBLAS, the reductions and the
-elementwise kernels pick what they pick on one device and every cell's
-values are the one-device bits. It costs each shard the one-device work of
-those phases; on one device the helpers are the identity.
+runs on a mesh shard in the shapes one device uses, so cuBLAS, the
+reductions and the elementwise kernels pick what they pick on one device
+and every cell's values are the one-device bits:
+  - the K-row work (the init pass and stored R, the first stored centroid
+    numerator, the replays' and the stored ridge's products) runs over the
+    one-device windows of chunks (`ops/replay.windows`, the ridge's own),
+    each shard only over the windows that hold its chunks: `window_of`
+    gives a window's rows with the shard's chunks in place and zeros
+    elsewhere, `put_window` stores them back. Work and K-row memory per
+    shard fall with the mesh;
+  - the cell inputs (Z, Phi, the mask; the stored ridge's Z_corr: 2d +
+    B + 1 rows at most) are held whole: `embed_cols` places a shard's
+    columns where one device holds them, `extract_cols` takes them back,
+    and `extract_chunks` takes a shard's rows of per-chunk results. Each
+    shard holds these one-device sized, and the column normalisation runs
+    over all of them.
+On one device the helpers are the identity (or a slice).
 """
 
 from __future__ import annotations
@@ -139,20 +147,9 @@ def shard_chunks(nc_cap: int, NC_real: int, s: int) -> tuple[int, int]:
     return s * nc_cap, max(0, min(nc_cap, NC_real - s * nc_cap))
 
 
-def embed_chunks(x3: torch.Tensor, s: int, geom, nc1: int) -> torch.Tensor:
-    """Shard s's chunk-major rows (nc_cap + 1, ...) in the one-device
-    (nc1, ...) layout, zero elsewhere."""
-    if geom.n_devices == 1:
-        return x3
-    lo, n = shard_chunks(geom.nc_cap, geom.NC_real, s)
-    out = x3.new_zeros((nc1,) + tuple(x3.shape[1:]))
-    out[lo: lo + n] = x3[:n]
-    return out
-
-
 def extract_chunks(y3: torch.Tensor, s: int, geom) -> torch.Tensor:
-    """Inverse of embed_chunks: shard s's (nc_cap + 1, ...) rows of a
-    one-device chunk-major array, zero past its real chunks."""
+    """Shard s's (nc_cap + 1, ...) rows of a one-device chunk-major array,
+    zero past its real chunks."""
     if geom.n_devices == 1:
         return y3
     lo, n = shard_chunks(geom.nc_cap, geom.NC_real, s)
@@ -169,6 +166,35 @@ def window_rows(geom, s: int, lo: int, width: int):
     if b <= a:
         return 0, 0, 0
     return a - c0, a - lo, b - a
+
+
+def holds_window(geom, s: int, lo: int, width: int) -> bool:
+    """Whether shard s holds any chunk of the global window [lo, lo +
+    width): always on one device."""
+    return geom.n_devices == 1 or window_rows(geom, s, lo, width)[2] > 0
+
+
+def window_of(x3: torch.Tensor, s: int, geom, lo: int,
+              width: int) -> torch.Tensor:
+    """Rows [lo, lo + width) of a chunk-major array in the one-device
+    layout: on one device the slice itself, on a mesh shard s's rows of the
+    window in place and zeros elsewhere (the same shape and strides)."""
+    if geom.n_devices == 1:
+        return x3[lo: lo + width]
+    l0, p0, n = window_rows(geom, s, lo, width)
+    out = x3.new_zeros((width,) + tuple(x3.shape[1:]))
+    out[p0: p0 + n] = x3[l0: l0 + n]
+    return out
+
+
+def put_window(buf: torch.Tensor, rows: torch.Tensor, s: int, geom, lo: int,
+               width: int) -> None:
+    """Store a window's rows (width, ...) into shard s's chunk-major buf."""
+    if geom.n_devices == 1:
+        buf[lo: lo + width] = rows
+        return
+    l0, p0, n = window_rows(geom, s, lo, width)
+    buf[l0: l0 + n] = rows[p0: p0 + n]
 
 
 def real_cols(xs, cfg: EngineConfig) -> torch.Tensor:

@@ -35,7 +35,7 @@ import torch
 from ..config import EngineConfig, fused_geometry_ok
 from ..ops.cuda.fused_estep import kernel_geometry
 from ..ops.partition import partition_geometry
-from ..ops.replay import window_width
+from ..ops.replay import INIT_ELEMS, window_width
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import one_device
 
@@ -75,12 +75,11 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
     r_bytes = 2 if cfg.r_dtype == "bfloat16" else 4
     persistent = {"inputs (Z_orig, Phi, mask)": c * (d + B + 1) * Nl * _F}
     # On a mesh: k-means init gathers the real cells to the lead card, and
-    # a shard's init and stored-ridge phases hold its cells in the
-    # one-device layout.
+    # a shard's init and stored-ridge phases hold its cell inputs in the
+    # one-device layout (parallel/sharding.py).
     phases = {"kmeans init": _kmeans_init_bytes(cfg)
               + (d * cfg.N * _F if mesh else 0)}
     emb = (d + B + 1) * one.N_pad * _F if mesh else 0
-    KN = K * one.N_pad * _F               # one float32 K x N array
     if cfg.fused_estep:
         geom = partition_geometry(cfg)
         nc1, CH, J = geom.nc_cap + 1, geom.CH, geom.J_shard
@@ -89,23 +88,29 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
             2 * (B + 1) + 2 * d + 2 + (B + 1) * (B + 1 + d)) * _F
         slab = c * 2 * (1 + B + d) * Nl * _F  # ZP3 and the copy that builds it
         partials = 2 * units * K * (1 + B + d) * _F
+        # One window of r (ops/replay.windows), as float32. The init pass
+        # holds dist, exp, r and their products per window of its own
+        # (a quarter of the size), and a stored fit one more for the store.
+        wcells = window_width(one) * CH
+        win = wcells * K * _F
+        phases["init chunk pass"] = emb + (6 + (not cfg.defer_r)) * (
+            window_width(one, INIT_ELEMS) * CH * K * _F)
     if cfg.defer_r:
-        win = window_width(one) * K * CH * _F
         persistent["Z_corr, Z_cos, rep_Zcos, ZO3"] = c * 4 * d * Nl * _F
-        # The init pass holds dist, exp, r and their products per window.
-        phases["init chunk pass"] = 6 * win + emb
         # A replayed round's r windows live on every shard at once.
         phases["harmony iteration"] = (
             slab + partials + (c + 1) * win + 2 * c * d * Nl * _F
-            + window_width(one) * CH * (3 * d + (B + 1) ** 2) * _F)
+            + wcells * (3 * d + (B + 1) ** 2) * _F)
     elif cfg.fused_estep:
         persistent["Z_corr, Z_cos"] = c * 2 * d * Nl * _F
         persistent["R (chunk-major)"] = c * K * Nl * r_bytes
-        phases["init (K x N temporaries)"] = 5 * KN + emb
-        # fp32 views of R for the centroid product and the ridge (on a
-        # mesh: of the shard's R in the one-device layout).
-        phases["harmony iteration"] = (slab + partials + 2 * KN
-                                       + (KN + emb if mesh else 0))
+        # fp32 windows of R for the first centroid product and the ridge;
+        # on a mesh also a window of the shard's R and slab in the
+        # one-device layout, and the ridge's cell inputs and Z_corr.
+        phases["harmony iteration"] = (
+            slab + partials + 2 * win
+            + (win + wcells * (1 + B + d) * _F + emb + d * one.N_pad * _F
+               if mesh else 0))
     else:
         KNl = K * Nl * _F
         persistent["Z_corr, Z_cos"] = c * 2 * d * Nl * _F
@@ -187,8 +192,9 @@ def _check_card(cfg: EngineConfig, shards: int, cap: int, device) -> None:
         f"spread the cells over an {n}-device mesh (one shard per card, "
         f"parallel.mesh.make_mesh): modeled {_fmt(total)} per card "
         + ("fits" if total <= budget else
-           "(still over budget: a mesh shard's init and stored-ridge phases "
-           "are one-device shaped)"))
+           "(still over budget: k-means init gathers every cell to the "
+           "lead card, and each shard holds its cell inputs one-device "
+           "sized)"))
     parts = ", ".join(f"{k} {_fmt(v)}"
                       for k, v in env["persistent"].items())
     on = (f" on {device} ({shards} shards of a {cfg.n_devices}-device mesh)"

@@ -199,9 +199,10 @@ def _cfg(N, K, **kw):
 def test_capacity_error_under_a_memory_cap(monkeypatch):
     """A stored fit over the budget raises CapacityError naming defer_r
     (which fits) and low_memory; run_harmony raises it before any upload;
-    HARMONYPY_SKIP_CAPACITY_CHECK lets it run."""
-    cfg = _cfg(20_000_000, 100)
-    deferred = memory_envelope(_cfg(20_000_000, 100, defer_r=True))["total"]
+    HARMONYPY_SKIP_CAPACITY_CHECK lets it run. At K = 200 the stored R
+    outweighs the deferred fit's replay buffers."""
+    cfg = _cfg(20_000_000, 200)
+    deferred = memory_envelope(_cfg(20_000_000, 200, defer_r=True))["total"]
     cap = int(deferred / 0.92) + 1
     assert memory_envelope(cfg)["total"] > cap
     monkeypatch.setenv("HARMONYPY_DEVICE_MEM_BYTES", str(cap))
@@ -209,7 +210,7 @@ def test_capacity_error_under_a_memory_cap(monkeypatch):
         check_capacity(cfg, "cpu")
     assert "low_memory=True" in str(exc.value)
     assert "-device mesh" in str(exc.value)
-    check_capacity(_cfg(20_000_000, 100, defer_r=True), "cpu")
+    check_capacity(_cfg(20_000_000, 200, defer_r=True), "cpu")
 
     X, meta = _problem(N=3000, d=6)
     monkeypatch.setenv("HARMONYPY_DEVICE_MEM_BYTES", "1000000")
@@ -224,8 +225,10 @@ def test_capacity_error_under_a_memory_cap(monkeypatch):
 
 def test_envelope_ordering():
     """At atlas scale and large K the deferred fit models below the stored
-    one, and bf16 R below fp32; the CPU has no capacity to check."""
-    N, K = 5_000_000, 200
+    one, and bf16 R below fp32; the CPU has no capacity to check. At K =
+    400 even a bf16 R outweighs the deferred fit's replay buffers (about
+    4 d N floats more than a stored fit holds)."""
+    N, K = 5_000_000, 400
     stored = memory_envelope(_cfg(N, K))["total"]
     bf16 = memory_envelope(_cfg(N, K, r_dtype="bfloat16"))["total"]
     deferred = memory_envelope(_cfg(N, K, defer_r=True))["total"]
