@@ -67,13 +67,16 @@ line per phase:
               J_shard 7): the kernel's per-block entry on the round of
               phase kernel cut into shards — each shard's rows equal the
               one-launch round's bitwise, against its plain version at TOL
-              (no r, r window, K2 fp32 / bf16), a bitwise repeat, the mesh
-              round (every shard and block, the frame re-add) equal to the
-              one-launch round bitwise, ms per launch and per pass, bounds;
+              (no r, r window, K2 fp32 / bf16), a bitwise repeat, the
+              re-add kernel bitwise against frame_readd, the mesh round
+              (every shard and block, the re-add kernel) equal to the
+              one-launch round bitwise, ms per launch and per pass, bounds,
+              one profiled pass (host and device ms, kernel ms per block,
+              the other device operations);
               the deferred, stored and low_memory fits bitwise equal to
               phases fit / fit_stored (Z_corr, R, histories, kmeans_rounds)
-              with blocks x shards per-block launches per pass and their
-              wall clock; pbmc per-cell fit within 5e-4 max|Z| of one device
+              with blocks x shards per-block and blocks re-add launches
+              per pass and their wall clock; pbmc per-cell fit within 5e-4 max|Z| of one device
               at 3 iterations, the default fit at the golden gate;
               compute_lisi on the mesh fit's output equal to phase lisi's
               values bitwise (pruned, and brute on the sampled queries); a
@@ -81,8 +84,9 @@ line per phase:
               mesh fit's peak device memory per card under memory_envelope;
               the same checks but the per-block ones on a mesh of every
               card when there are several;
-  6. kernels  every kernel with its launches on its path's fit, error
-              against the plain version, time, and bound.
+  6. kernels  every kernel (K1, K2, their per-block entries, the re-add)
+              with its launches on its path's fit, error against the plain
+              version, time, and bound.
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero without it; so does a machine without a CUDA card.
 """
@@ -1071,9 +1075,76 @@ def block_bound(n_cells, n_slots, r_bytes=0):
     return bound
 
 
+def readd_bound(J_fix):
+    """Least work of one re-add launch: the block's J_fix frame rows (K,
+    B+1) and the rank row read once, O', E' read and O, E written once;
+    J_fix (B+1) K adds and 2 K B operations to form O, E."""
+    B1 = N_BATCHES + 1
+    nbytes = 4 * (J_fix * K * B1 + J_fix + 4 * K * N_BATCHES + N_BATCHES)
+    flops = J_fix * K * B1 + 2 * K * N_BATCHES
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return dict(flop=flops, bytes=nbytes, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def _eq(a, b) -> bool:
     import torch
     return bool(torch.equal(a, b))
+
+
+def mesh_pass_profile(run, n_blocks, shards, passes=5):
+    """`passes` calls of run() (one mesh pass each) under torch.profiler,
+    after one warm-up: the host's ms to issue one pass and the wall ms per
+    pass to the last synchronise, device-busy ms per pass (union of every
+    kernel, copy and fill interval), the per-block kernel's device ms per
+    launch (kernels named estep_*; n_blocks x shards per pass), the re-add
+    kernel's, and the other device operations per pass by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    issue = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            t = time.perf_counter()
+            run()
+            issue.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, block, readd, other = [], [], [], {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        us = e.time_range.elapsed_us()
+        if "estep" in e.name:
+            block.append(us)
+        elif "readd" in e.name:
+            readd.append(us)
+        else:
+            other[e.name[:80]] = other.get(e.name[:80], 0) + 1
+    check(len(block) == passes * n_blocks * shards,
+          f"profiled {len(block)} per-block kernels in {passes} passes, not "
+          f"{passes * n_blocks * shards}")
+    busy_ms = _union_us(spans) / 1e3
+    return dict(
+        passes=passes, host_issue_ms_per_pass=sorted(issue)[passes // 2]
+        * 1e3, wall_ms_per_pass=wall * 1e3 / passes,
+        device_busy_ms_per_pass=busy_ms / passes,
+        device_idle_share=1.0 - busy_ms / (wall * 1e3),
+        block_kernel_device_ms=sum(block) / len(block) / 1e3,
+        block_kernel_device_ms_per_pass=sum(block) / passes / 1e3,
+        readd_launches_per_pass=len(readd) / passes,
+        readd_kernel_device_ms=(sum(readd) / len(readd) / 1e3
+                                if readd else None),
+        other_ops_per_pass=sum(other.values()) / passes,
+        other_ops=dict(sorted(other.items(), key=lambda kv: -kv[1])[:12]))
 
 
 def mesh_kernel_checks(mods, X, batches, mesh):
@@ -1111,7 +1182,7 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     lo, width = 200, 16
     # Worst error against the plain version: K1's entry (no r, r window)
     # and K2's (fp32 and bf16 R), each its own.
-    errs, worst = {}, dict(k1=0.0, k2=0.0)
+    errs, worst = {}, dict(k1=0.0, k2=0.0, readd=0.0)
     for fast in (False, True):
         rnd = fe.fused_estep(*args, fast)
         rnd_w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
@@ -1186,12 +1257,30 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                     e = diff(kw["R3"], plain_kw["R3"], *TOL["r"])
                     worst[kk] = max(worst[kk], e[0])
                     check(e[2] <= 1.0, f"per-block K2 R vs plain ({tag})")
-        # The mesh round against the one-launch round, bitwise.
+        # The re-add kernel against its plain version, bitwise, on block
+        # 0's rows of every shard (from the per-block launches above).
+        rows, grk = [], []
+        for s in range(D):
+            out = outs(nc + 1)
+            fe.fused_estep_block(0, tabs.slots[s], removal, ZP3s[s],
+                                 *consts, O, E, fast, out, J1)
+            rows.append(out[0][tabs.slots[s][0].long()])
+            grk.append(tabs.granks[s][0])
+        Or = O - removal[0][:, 1:]
+        Er = E - removal[0][:, 0:1] * Pr_b[None, :]
+        rk = fe.fused_frame_readd(rows, grk, Or, Er, Pr_b, geom.J_fix)
+        rp = plain_mod.frame_readd(rows, grk, Or, Er, Pr_b, geom.J_fix)
+        worst["readd"] = max(worst["readd"], *(
+            float((a - b).abs().max()) for a, b in zip(rk, rp)))
+        check(_eq(rk[0], rp[0]) and _eq(rk[1], rp[1]),
+              f"re-add kernel differs from frame_readd ({tag})")
+        # The mesh round (per-block and re-add kernels) against the
+        # one-launch round, bitwise.
         wins = [(lo - s * nc, width)
                 if sharding.window_rows(geomD, s, lo, width)[2] else None
                 for s in range(D)]
-        m = plain_mod.mesh_round(tabs, ZP3s, *consts, O, E, fast,
-                                 geom.J_fix, windows=wins)
+        m = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, fast, geom.J_fix,
+                                windows=wins)
         check(_eq(m[0], rnd[0]) and _eq(m[1], rnd[1]),
               f"mesh round O/E differ from the round's ({tag})")
         for name, parts_, full in zip(("cache", "ybuf", "kbuf"), m[2:5],
@@ -1212,65 +1301,97 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                                   fast)
             R3s = [torch.zeros((nc + 1, K, CHUNK), dtype=dt, device="cuda")
                    for _ in range(D)]
-            m2 = plain_mod.mesh_round(tabs, ZP3s, *consts, O, E, fast,
-                                      geom.J_fix, R3s=R3s)
+            m2 = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, fast,
+                                     geom.J_fix, R3s=R3s)
             check(_eq(m2[0], k2[1]) and _eq(m2[1], k2[2])
                   and _eq(partition.frame_rows(R3s, geomD),
                           R3[: geom.nc_cap]),
                   f"mesh K2 round ({dt}) differs from the round's ({tag})")
         del rnd, m
     # Times: one per-block launch (shard 0, its block with the most real
-    # cells), K1 and K2 fp32, the plain version, and one mesh round (every
-    # shard and block).
+    # cells), K1 and K2 fp32: the launch the mesh pass issues (checks and
+    # scratch once, then launch(b) back to back) and, as PR 5 timed it, the
+    # whole wrapper call (its checks and allocations included); the plain
+    # version; the re-add kernel (launch(b) back to back) and its plain
+    # version; one mesh round (every shard and block) by CUDA events and
+    # under the profiler.
     out = outs(nc + 1)
     R3 = torch.zeros((nc + 1, K, CHUNK), device="cuda")
     cells = ZP3s[0][tabs.slots[0].long(), 0, :].sum(dim=(1, 2))
     bt = int(torch.argmax(cells))
     n_cells = int(cells[bt])
     n_slots = int(torch.unique(tabs.slots[0][bt]).numel())
-    fe.launches_block = fe.launches_block_write_r = 0
-    ms_block = cuda_ms(lambda: fe.fused_estep_block(
-        bt, tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out, J1),
-        reps=50)
-    ms_block_k2 = cuda_ms(lambda: fe.fused_estep_block(
-        bt, tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out, J1,
-        R3=R3), reps=50)
+    fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
+    args0 = (tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out, J1)
+    ln = fe._BlockLaunch(*args0)
+    ln2 = fe._BlockLaunch(*args0, R3=R3)
+    ms_block = cuda_ms(lambda: ln.launch(bt), reps=200)
+    ms_block_k2 = cuda_ms(lambda: ln2.launch(bt), reps=200)
+    ms_call = cuda_ms(lambda: fe.fused_estep_block(bt, *args0), reps=50)
+    ms_call_k2 = cuda_ms(lambda: fe.fused_estep_block(bt, *args0, R3=R3),
+                         reps=50)
     plain_ms = cuda_ms(lambda: plain_mod.fused_update_block(
-        bt, tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out),
-        reps=10)
+        bt, *args0[:-1]), reps=10)
     plain_ms_k2 = cuda_ms(lambda: plain_mod.fused_update_block(
-        bt, tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out,
-        R3=R3), reps=10)
-    n0 = fe.launches_block
-    ms_pass = cuda_ms(lambda: plain_mod.mesh_round(
-        tabs, ZP3s, *consts, O, E, False, geom.J_fix), reps=5, warmup=1)
+        bt, *args0[:-1], R3=R3), reps=10)
+    check(fe.launches_block == 2 + 200 + 2 + 50
+          and fe.launches_block_write_r == 2 + 200 + 2 + 50,
+          f"per-block launches counted {fe.launches_block}, "
+          f"{fe.launches_block_write_r}")
+    rd_rows = [torch.zeros((int(t.shape[1]), K, N_BATCHES + 1),
+                           device="cuda") for t in tabs.slots]
+    Od, Ed = torch.empty_like(O), torch.empty_like(E)
+    rd = fe._Readd(rd_rows, tabs.granks, ln.O1, ln.E1, Pr_b, geom.J_fix,
+                   Od, Ed)
+    ms_readd = cuda_ms(lambda: rd.launch(bt), reps=200)
+    plain_ms_readd = cuda_ms(lambda: plain_mod.frame_readd(
+        rd_rows, [g[bt] for g in tabs.granks], ln.O1, ln.E1, Pr_b,
+        geom.J_fix), reps=20)
+    n0, r0 = fe.launches_block, fe.launches_readd
+
+    def mesh_pass():
+        return fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, False,
+                                   geom.J_fix)
+    ms_pass = cuda_ms(mesh_pass, reps=5, warmup=1)
     per_pass = (fe.launches_block - n0) // 6
-    check(per_pass == geom.nb * D, f"mesh round launched {per_pass} "
-                                   f"per-block kernels, not {geom.nb * D}")
+    readd_per_pass = (fe.launches_readd - r0) // 6
+    check(per_pass == geom.nb * D and readd_per_pass == geom.nb,
+          f"mesh round launched {per_pass} per-block and {readd_per_pass} "
+          f"re-add kernels, not {geom.nb * D} and {geom.nb}")
+    prof = mesh_pass_profile(mesh_pass, geom.nb, D)
+    check(prof["readd_launches_per_pass"] == geom.nb,
+          f"profiled {prof['readd_launches_per_pass']} re-add kernels per "
+          f"pass, not {geom.nb}")
     b1, b2 = block_bound(n_cells, n_slots), block_bound(n_cells, n_slots, 4)
+    br = readd_bound(geom.J_fix)
     return dict(
         shape=dict(shards=D, N_shard_real=geomD.nc_cap * CHUNK,
                    nc_cap=geomD.nc_cap, J_shard=geomD.J_shard, J_glob=J1,
                    units_per_slot=fe.kernel_geometry(
                        K, N_BATCHES, N_PCS, CHUNK, geomD.J_shard, 132,
                        J1).ng),
-        rows_equal_round=True, repeat_bitwise=True,
+        rows_equal_round=True, repeat_bitwise=True, readd_bitwise=True,
         mesh_round_equals_round=True, max_abs=errs,
         timed_block=bt, ms_block=ms_block, ms_block_write_r=ms_block_k2,
+        ms_block_wrapper_call=ms_call,
+        ms_block_write_r_wrapper_call=ms_call_k2,
         plain_ms_block=plain_ms, plain_ms_block_write_r=plain_ms_k2,
+        ms_readd=ms_readd, plain_ms_readd=plain_ms_readd,
         ms_per_pass=ms_pass, launches_per_pass=per_pass,
-        bound_block=b1, bound_block_write_r=b2,
+        readd_launches_per_pass=readd_per_pass, pass_profile=prof,
+        bound_block=b1, bound_block_write_r=b2, bound_readd=br,
         roofline_share_block=b1["bound_ms"] / ms_block,
         roofline_share_block_tc=b1["bound_tc_ms"] / ms_block), worst
 
 
 def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
     """The default deferred fit, the stored fit and the low_memory fit on
-    `mesh`, each with the four launch counts set to 0 just before it:
+    `mesh`, each with the five launch counts set to 0 just before it:
     Z_corr, R, the five histories and kmeans_rounds bitwise equal to the
     one-device fit refs[name]; per-block launches = blocks x shards per
     pass (deferred: every round and replay window; stored: every round),
-    and no one-launch round; each card's peak allocation during the fit
+    re-add launches = blocks per pass, and no one-launch round; each
+    card's peak allocation during the fit
     (above what it held before) at most memory_envelope(cfg, the shards it
     holds). Returns (results, launch counts, the deferred fit)."""
     import collections
@@ -1288,14 +1409,14 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
             torch.cuda.reset_peak_memory_stats(dv)
             base[dv] = torch.cuda.memory_allocated(dv)
         fe.launches = fe.launches_write_r = 0
-        fe.launches_block = fe.launches_block_write_r = 0
+        fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
         t0 = time.perf_counter()
         ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
                             **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = (fe.launches, fe.launches_write_r, fe.launches_block,
-               fe.launches_block_write_r)
+               fe.launches_block_write_r, fe.launches_readd)
         memory = {}
         for dv, shards in cards.items():
             peak = torch.cuda.max_memory_allocated(dv) - base[dv]
@@ -1307,13 +1428,14 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
                                    measured_peak=peak,
                                    ratio=env["total"] / peak,
                                    peak_phase=env["peak_phase"])
-        per = ho.cfg.n_blocks * mesh.size
+        nb = ho.cfg.n_blocks
         passes, rounds = ho.state.n_passes, sum(ho.kmeans_rounds)
-        want = ((0, 0, per * passes, 0) if name == "deferred"
-                else (0, 0, 0, per * rounds))
+        want = ((0, 0, nb * mesh.size * passes, 0, nb * passes)
+                if name == "deferred"
+                else (0, 0, 0, nb * mesh.size * rounds, nb * rounds))
         check(got == want and max(got) > 0,
-              f"mesh {name}: launches (K1, K2, K1 per-block, K2 per-block) "
-              f"{got}, expected {want}")
+              f"mesh {name}: launches (K1, K2, K1 per-block, K2 per-block, "
+              f"re-add) {got}, expected {want}")
         ref = refs[name]
         for a in ("Z_corr", "R") + HIST:
             check(np.array_equal(np.asarray(getattr(ho, a)),
@@ -1321,7 +1443,8 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
                   f"mesh {name}: {a} differs from the one-device fit")
         out[name] = dict(wall_s=wall, kmeans_rounds=ho.kmeans_rounds,
                          passes=passes, launches=dict(zip(
-                             ("k1", "k2", "k1_block", "k2_block"), got)),
+                             ("k1", "k2", "k1_block", "k2_block", "readd"),
+                             got)),
                          bitwise_equal_one_device=True, memory=memory)
         counts[name] = got
         if name == "deferred":
@@ -1456,7 +1579,12 @@ def phase_mesh(ht, mods, X, batches, groups, meta, refs, lisi_ref):
                 plain_ms=kinfo["plain_ms_block_write_r"],
                 max_abs_err=worst["k2"],
                 bound_ms=kinfo["bound_block_write_r"]["bound_ms"],
-                bound_by=kinfo["bound_block_write_r"]["bound_by"]))
+                bound_by=kinfo["bound_block_write_r"]["bound_by"]),
+        readd=dict(launches=counts["deferred"][4], ms=kinfo["ms_readd"],
+                   plain_ms=kinfo["plain_ms_readd"],
+                   max_abs_err=worst["readd"],
+                   bound_ms=kinfo["bound_readd"]["bound_ms"],
+                   bound_by=kinfo["bound_readd"]["bound_by"]))
 
 
 def main() -> int:
@@ -1478,6 +1606,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     fe._kernel_lib()
+    fe._frame_readd_lib()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in build.build_log.values()
              for ln in log.splitlines()
@@ -1523,7 +1652,10 @@ def main() -> int:
         dict(name="fused_estep_block", route="cuda", source=src,
              replaces=f"{pallas}:117", **minfo["k1"], library_ms=None),
         dict(name="fused_estep_block_write_r", route="cuda", source=src,
-             replaces=f"{pallas}:109", **minfo["k2"], library_ms=None)]})
+             replaces=f"{pallas}:109", **minfo["k2"], library_ms=None),
+        dict(name="frame_readd", route="cuda",
+             source="harmonypy_tpu_torch/csrc/frame_readd.cu",
+             replaces=f"{pallas}:215", **minfo["readd"], library_ms=None)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

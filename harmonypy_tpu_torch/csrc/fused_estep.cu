@@ -71,14 +71,19 @@
 //  * K2's store is packed: two adjacent cells of one cluster per float2,
 //    or per __nv_bfloat162 rounded to nearest even (__floats2bfloat162_rn,
 //    as torch's .to(bfloat16) rounds).
-// The per-block entries (fused_estep_block, _block_r_window,
-// _block_write_r) launch the same kernel on one block of the tables, from
-// the O, E they are given, and return the block-removed O, E: a mesh runs
-// one launch per shard per block and re-adds each block across the shards
-// in the host (ops/update_r_fused.mesh_round), in the order the one-launch
-// round's bsum takes. `ng` comes from the one-device slots per block
-// (kernel_geometry's J_glob), so a shard's chunks are split into units, and
-// summed, as the one-device round splits them.
+// The per-block entry (fused_estep_block: K1, its r window or K2 on one
+// block of the tables) is what a mesh runs, one launch per shard per block,
+// from the O, E it is given, returning the block-removed O, E; the lead
+// device re-adds the block across shards (csrc/frame_readd.cu). A shard's
+// block is small (8 slots x 12 units at 858k on 4 shards: ~12k cells,
+// 0.16 GFLOP, a 2.4 us bound), so the launch is an ordinary one of one CTA
+// per unit, with no grid barrier: each CTA runs its unit's tiles as above,
+// and the last of a slot's ng units to finish (an integer ticket, no float
+// atomics) sums the slot's unit partials in ascending unit order, as the
+// round does. `ng` comes from the one-device slots per block
+// (kernel_geometry's J_glob), so a shard's chunks are split into units,
+// and summed, as the one-device round splits them: the rows are the
+// round's bitwise.
 // No float atomics: every sum has a fixed order, so the same inputs give the
 // same bits. `r_window` and `write_r` run the identical arithmetic and only
 // add the store, so a replay reproduces its round bitwise (the deferred-R
@@ -127,13 +132,15 @@ struct Args {
   float* cache;          // (nc1, K, B+1)
   float* ybuf;           // (nc1, K, d)
   float* kbuf;           // (nc1, 2)
-  float* O1;             // (K, B) O, E at the end of the round
-  float* E1;
+  float* O1;             // (K, B) O, E at the end of the round; one
+  float* E1;             // block alone: the block-removed O, E
   void* rw;              // (width, K, CH) float or bf16 (RT), or null
+  int* tickets;          // (J) one block alone (per-block mode), else null:
+                         // units of each slot done, back to 0 at the end
+  float* brows;          // (J, K, B+1) per-block mode: the slots' cache
+                         // rows in slot order
   int lo, width;
   int K, B, d, CH, nb, J, ng, nc1, fast_ent;
-  int readd;             // 1: O1, E1 = O, E at the end of the round;
-                         // 0 (one block alone): the block-removed O, E
 };
 
 // Padded sizes and the shared-memory plan (offsets in floats). Padding
@@ -376,57 +383,65 @@ __device__ void ybuf_share(const Args& a, const Lay& L, int blk) {
   }
 }
 
+// kbuf of slot j of block blk: the kerr and entropy partials of its units
+// in ascending unit order, and under the fast objective the O-term
+// sum_kb sigma_k theta_b logratio_kb O_chunk[k, b] from the block-removed
+// O/E and the slot's stats. Every thread of the CTA takes part.
+__device__ void slot_kbuf(const Args& a, const Lay& L, int blk, int j,
+                          const float* sm) {
+  const int K = a.K, B = a.B, R = L.R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t KR = (size_t)K * R;
+  const float* sig = sm + L.oSig;
+  const float* Or = sm + L.oOr;
+  const float* Er = sm + L.oEr;
+  float* red = const_cast<float*>(sm) + L.oRed;
+  // One unit per lane; thread 0 holds the sums.
+  float kerr = 0.0f, second = 0.0f;
+  if (tid < 32) {
+    for (int q0 = 0; q0 < a.ng; q0 += 32) {
+      const int q = q0 + lane;
+      const float* kp = a.kpart + ((size_t)j * a.ng + q) * 2;
+      const float v0 = q < a.ng ? __ldcg(kp) : 0.0f;
+      const float v1 = q < a.ng ? __ldcg(kp + 1) : 0.0f;
+      kerr = lane_sum(kerr, v0, min(32, a.ng - q0));
+      second = lane_sum(second, v1, min(32, a.ng - q0));
+    }
+  }
+  float ent = second;
+  if (a.fast_ent) {
+    float v = 0.0f;
+    for (int i = tid; i < K * B; i += THREADS) {
+      const int k = i / B, b = i % B;
+      const float coef = __fmul_rn(__fmul_rn(sig[k], a.theta[b]),
+                                   log_ratio(Or[i], Er[i]));
+      v = fmaf(coef, slot_sum(a, KR, blk, j, (size_t)k * R + 1 + b), v);
+    }
+    const float stv = block_sum(v, red);
+    ent = __fsub_rn(__fadd_rn(-kerr, stv), second);
+  }
+  if (tid == 0) {
+    const int slot = a.slots[(size_t)blk * a.J + j];
+    a.kbuf[(size_t)slot * 2] = kerr;
+    a.kbuf[(size_t)slot * 2 + 1] = ent;
+  }
+}
+
 // The reduce phase of block blk, after its tile phase:
-//  * kbuf of slot j, by CTA grid - 1 - j (mod grid): the kerr and entropy
-//    partials in ascending unit order, and under the fast objective the
-//    O-term sum_kb sigma_k theta_b logratio_kb O_chunk[k, b] from the
-//    block-removed O/E and the slot's stats;
+//  * kbuf of slot j, by CTA grid - 1 - j (mod grid) (from the last CTA
+//    down, apart from the CTAs that take the block sums);
 //  * the design columns of each slot's cache row (its unit partials in
 //    ascending unit order; the ybuf columns: ybuf_share, next block), and
 //    bsum (K, B+1), those summed over the slots in ascending slot order.
 //    The next block's prologue adds bsum back into O/E.
 __device__ void reduce_block(const Args& a, const Lay& L, int blk,
                              const float* sm) {
-  const int K = a.K, B = a.B, B1 = L.B1, R = L.R, J = a.J;
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int K = a.K, B1 = L.B1, R = L.R, J = a.J;
+  const int tid = threadIdx.x;
   const size_t KR = (size_t)K * R;
   const int* slots = a.slots + (size_t)blk * J;
-  const float* sig = sm + L.oSig;
-  const float* Or = sm + L.oOr;
-  const float* Er = sm + L.oEr;
-  float* red = const_cast<float*>(sm) + L.oRed;
-  for (int j = gridDim.x - 1 - blockIdx.x; j < J; j += gridDim.x) {
-    // kerr and the entropy partial of slot j: its units in ascending order,
-    // one unit per lane; thread 0 holds the sums. (From the last CTA down,
-    // apart from the CTAs that take the block sums.)
-    float kerr = 0.0f, second = 0.0f;
-    if (tid < 32) {
-      for (int q0 = 0; q0 < a.ng; q0 += 32) {
-        const int q = q0 + lane;
-        const float* kp = a.kpart + ((size_t)j * a.ng + q) * 2;
-        const float v0 = q < a.ng ? __ldcg(kp) : 0.0f;
-        const float v1 = q < a.ng ? __ldcg(kp + 1) : 0.0f;
-        kerr = lane_sum(kerr, v0, min(32, a.ng - q0));
-        second = lane_sum(second, v1, min(32, a.ng - q0));
-      }
-    }
-    float ent = second;
-    if (a.fast_ent) {
-      float v = 0.0f;
-      for (int i = tid; i < K * B; i += THREADS) {
-        const int k = i / B, b = i % B;
-        const float coef = __fmul_rn(__fmul_rn(sig[k], a.theta[b]),
-                                     log_ratio(Or[i], Er[i]));
-        v = fmaf(coef, slot_sum(a, KR, blk, j, (size_t)k * R + 1 + b), v);
-      }
-      const float stv = block_sum(v, red);
-      ent = __fsub_rn(__fadd_rn(-kerr, stv), second);
-    }
-    if (tid == 0) {
-      a.kbuf[(size_t)slots[j] * 2] = kerr;
-      a.kbuf[(size_t)slots[j] * 2 + 1] = ent;
-    }
-  }
+  for (int j = gridDim.x - 1 - blockIdx.x; j < J; j += gridDim.x)
+    slot_kbuf(a, L, blk, j, sm);
   // The design columns of the cache rows and bsum: this CTA's entries, in
   // rounds that fit the idle r stage: the slot sums of each (entry, slot)
   // in parallel (each a cache value), then one thread per entry adds its
@@ -464,6 +479,45 @@ __device__ void reduce_block(const Args& a, const Lay& L, int blk,
       a.bsum[item] = acc;
     }
   }
+}
+
+// Per-block mode, after the CTA's one unit (unit blockIdx.x): CTA 0 writes
+// the block-removed O, E; the last CTA to finish among slot j's ng units
+// (an integer ticket: the partials are fenced before it, read from L2
+// after it) writes the slot's kbuf, cache and ybuf rows, each value its
+// unit partials in ascending unit order as the round's reduce phase and
+// ybuf_share sum them, and the cache row into brows[j] for the re-add. It
+// resets the ticket, so the next launch needs no memset. (Loads batched
+// over several values here took registers the tile phase needs: inlined,
+// some instantiations spilled and the one-launch round slowed by 4%; out
+// of line, by 33%.)
+__device__ void block_tail(const Args& a, const Lay& L, const float* sm) {
+  const int K = a.K, B1 = L.B1, R = L.R, d = a.d, tid = threadIdx.x;
+  const int j = blockIdx.x / a.ng;
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < K * a.B; i += THREADS) {
+      a.O1[i] = sm[L.oOr + i];
+      a.E1[i] = sm[L.oEr + i];
+    }
+  }
+  __threadfence();
+  int last = 0;
+  if (tid == 0) last = atomicAdd(a.tickets + j, 1) == a.ng - 1;
+  if (!__syncthreads_or(last)) return;
+  __threadfence();
+  if (tid == 0) a.tickets[j] = 0;
+  slot_kbuf(a, L, 0, j, sm);
+  const size_t KR = (size_t)K * R, Kd = (size_t)K * d, nkb = (size_t)K * B1;
+  const int slot = a.slots[j];
+  for (int item = tid; item < (int)nkb; item += THREADS) {
+    const float v =
+        slot_sum(a, KR, 0, j, (size_t)(item / B1) * R + item % B1);
+    a.cache[(size_t)slot * nkb + item] = v;
+    a.brows[(size_t)j * nkb + item] = v;
+  }
+  for (int i = tid; i < (int)Kd; i += THREADS)
+    a.ybuf[(size_t)slot * Kd + i] =
+        slot_sum(a, KR, 0, j, (size_t)(i / d) * R + B1 + i % d);
 }
 
 // Prefetch the first tile of this CTA's first unit of block blk into ring
@@ -774,6 +828,10 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         a.kpart[(size_t)u * 2 + 1] = en;
       }
     }
+    if (a.tickets != nullptr) {  // per-block mode: one unit per CTA, nb 1
+      block_tail(a, L, sm);
+      return;
+    }
     if (blk > 0) ybuf_share(a, L, blk - 1);
     if (blk + 1 < a.nb) prefetch_first(a, L, blk + 1, T, ring);
     grid.sync();
@@ -785,9 +843,8 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     for (int i = tid; i < K * B; i += THREADS) {
       const int k = i / B, b = i % B;
       const float* bs = a.bsum + (size_t)k * B1;
-      a.E1[i] = a.readd ? __fadd_rn(Er[i], __fmul_rn(__ldcg(bs), a.prb[b]))
-                        : Er[i];
-      a.O1[i] = a.readd ? __fadd_rn(Or[i], __ldcg(bs + 1 + b)) : Or[i];
+      a.E1[i] = __fadd_rn(Er[i], __fmul_rn(__ldcg(bs), a.prb[b]));
+      a.O1[i] = __fadd_rn(Or[i], __ldcg(bs + 1 + b));
     }
   }
 }
@@ -855,6 +912,34 @@ int run(const Args& a, cudaStream_t stream) {
   });
 }
 
+// One block alone in per-block mode: an ordinary launch of J * ng CTAs, one
+// per unit (Args from block_args).
+template <typename RT>
+int run_block(const Args& a, cudaStream_t stream) {
+  const Lay L = layout(a.K, a.B, a.d);
+  const size_t smem = sizeof(float) * (size_t)L.total;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  return with_variant(L, [&](auto nrg, auto pre) {
+    estep_round<RT, decltype(nrg)::value, decltype(pre)::value>
+        <<<a.J * a.ng, THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Allow the dynamic shared memory of (K, B, d) for estep_round<RT> on the
+// current device.
+template <typename RT>
+int allow_smem(int K, int B, int d) {
+  const Lay L = layout(K, B, d);
+  const size_t smem = sizeof(float) * (size_t)L.total;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  return with_variant(L, [&](auto nrg, auto pre) {
+    return (int)cudaFuncSetAttribute(
+        estep_round<RT, decltype(nrg)::value, decltype(pre)::value>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  });
+}
+
 template <typename RT>
 int grid_of(int K, int B, int d) {
   const Lay L = layout(K, B, d);
@@ -879,21 +964,26 @@ Args make_args(const float* zp3, const float* Y, const float* sigma,
   a.ybuf = ybuf; a.kbuf = kbuf; a.O1 = O1; a.E1 = E1; a.rw = rw;
   a.lo = lo; a.width = width; a.K = K; a.B = B; a.d = d; a.CH = CH;
   a.nb = nb; a.J = J; a.ng = ng; a.nc1 = nc1; a.fast_ent = fast_ent;
-  a.readd = 1;
+  a.tickets = nullptr; a.brows = nullptr;
   return a;
 }
 
-// Block blk of the round alone: the tables' row blk, a one-block walk from
-// the O, E given (the block's start), and O1, E1 = the block-removed O, E.
-// The caller re-adds the block's stats (ops/update_r_fused.mesh_round sums
-// its slots' cache rows over every shard in the global rank frame, in the
-// order the round's bsum takes them).
+// A per-block launch prepared once per pass: the Args of the whole tables
+// (block_args picks a block at each launch), the store type, the stream.
+struct BlockCall {
+  Args a;
+  int r_bf16;
+  int device;  // the stream's device, current during the launch
+  cudaStream_t stream;
+};
+
+// Block blk of the round alone (per-block mode): the tables' row blk, a
+// one-block walk from the O, E given (the block's start).
 int block_args(Args& a, int blk) {
   if (blk < 0 || blk >= a.nb) return (int)cudaErrorInvalidValue;
   a.slots += (size_t)blk * a.J;
   a.removal += (size_t)blk * a.K * (a.B + 1);
   a.nb = 1;
-  a.readd = 0;
   return 0;
 }
 
@@ -951,31 +1041,63 @@ int fused_estep_write_r(ESTEP_PTRS, void* r3, int r_bf16, ESTEP_DIMS) {
                 : run<float>(a, (cudaStream_t)stream);
 }
 
-// The per-block entries (one launch per shard per block on a mesh): block
-// blk of fused_estep_round, of fused_estep_r_window (lo may be negative:
-// rw holds the window's chunks lo..lo+width-1 in the shard's chunk ids) and
-// of fused_estep_write_r. The same kernel and arithmetic; O1, E1 get the
-// block-removed O, E (see block_args).
-int fused_estep_block(ESTEP_PTRS, int blk, ESTEP_DIMS) {
-  Args a = ESTEP_ARGS(nullptr, 0, 0);
-  const int err = block_args(a, blk);
-  return err ? err : run<float>(a, (cudaStream_t)stream);
+// Lets the per-block launches of (K, B, d) take their dynamic shared memory
+// on the current device: once per device and shape before them. Returns 0
+// or the CUDA error.
+int fused_estep_block_setup(int K, int B, int d) {
+  const int err = allow_smem<float>(K, B, d);
+  return err ? err : allow_smem<__nv_bfloat16>(K, B, d);
 }
 
-int fused_estep_block_r_window(ESTEP_PTRS, float* rw, int lo, int width,
-                               int blk, ESTEP_DIMS) {
-  Args a = ESTEP_ARGS(rw, lo, width);
-  const int err = block_args(a, blk);
-  return err ? err : run<float>(a, (cudaStream_t)stream);
+// Bytes of the call record fused_estep_block_prepare writes.
+int fused_estep_block_call_size() { return (int)sizeof(BlockCall); }
+
+// The per-block entry (one launch per shard per block on a mesh): block blk
+// of fused_estep_round (rw null), of fused_estep_r_window (lo may be
+// negative: rw holds the window's chunks lo..lo+width-1 in the shard's
+// chunk ids) or of fused_estep_write_r (rw = r3, lo 0, width nc1, r_bf16
+// its type), from the O0, E0 given (the block's start), as one ordinary
+// launch of J * ng CTAs. The same arithmetic as the round: the slots'
+// cache, ybuf and kbuf rows equal the round's bitwise. Also writes the
+// slots' cache rows into brows (J, K, B+1) in slot order, and O1, E1 = the
+// block-removed O, E; the caller re-adds the block (csrc/frame_readd.cu).
+// tickets (J ints) must be zero before the first launch and stay zero
+// after each. part holds J * ng unit partials (one block's).
+// prepare writes the call record once per pass into `call` (host memory
+// of fused_estep_block_call_size() bytes; bsum unused); launch issues
+// block blk of it, so the host converts two arguments per launch.
+int fused_estep_block_prepare(ESTEP_PTRS, int* tickets, float* brows,
+                              void* rw, int r_bf16, int lo, int width,
+                              ESTEP_DIMS, int device, void* call) {
+  if (tickets == nullptr || brows == nullptr || call == nullptr)
+    return (int)cudaErrorInvalidValue;
+  BlockCall* c = static_cast<BlockCall*>(call);
+  c->a = ESTEP_ARGS(rw, lo, width);
+  c->a.tickets = tickets;
+  c->a.brows = brows;
+  c->r_bf16 = r_bf16;
+  c->device = device;
+  c->stream = (cudaStream_t)stream;
+  return 0;
 }
 
-int fused_estep_block_write_r(ESTEP_PTRS, void* r3, int r_bf16, int blk,
-                              ESTEP_DIMS) {
-  Args a = ESTEP_ARGS(r3, 0, nc1);
-  const int err = block_args(a, blk);
+// Launch block blk of a prepared call, on its device (the current device
+// is restored after). Returns 0 or the CUDA error of the launch.
+int fused_estep_block_launch(const void* call, int blk) {
+  const BlockCall* c = static_cast<const BlockCall*>(call);
+  Args a = c->a;
+  int err = block_args(a, blk), prev = c->device;
   if (err) return err;
-  return r_bf16 ? run<__nv_bfloat16>(a, (cudaStream_t)stream)
-                : run<float>(a, (cudaStream_t)stream);
+  if ((err = (int)cudaGetDevice(&prev)) != 0) return err;
+  if (prev != c->device && (err = (int)cudaSetDevice(c->device)) != 0)
+    return err;
+  err = c->r_bf16 ? run_block<__nv_bfloat16>(a, c->stream)
+                  : run_block<float>(a, c->stream);
+  if (prev != c->device) {
+    const int e2 = (int)cudaSetDevice(prev);
+    if (!err) err = e2;
+  }
+  return err;
 }
 
 }  // extern "C"

@@ -26,12 +26,15 @@ stored paths keep R in cfg.r_dtype (fp32, or bf16 under low_memory).
 On a mesh (parallel/), the N-scale data and state are lists of the shards'
 tensors and the rest lives on the lead device. A fused round runs the
 per-block entry of the kernel on every shard and re-adds each block
-through the global rank frame (ops/update_r_fused.mesh_round); every other
-reduction over chunks gathers the shards' per-chunk rows into the global
-frame (ops/partition.frame_sum); the N-axis work outside the kernel runs on
-each shard in the one-device layout (parallel/sharding.py). The fused fits
-are therefore the one-device fits bit for bit on any mesh. The per-cell fit
-sums shard partials in shard order: equal to reduction-order tolerance.
+through the global rank frame on the lead device (ops/cuda/fused_estep.
+fused_estep_mesh); every other reduction over chunks gathers the shards'
+per-chunk rows into the global frame (ops/partition.frame_sum); the N-axis
+work outside the kernel runs on each shard over the one-device windows of
+chunks that hold its cells (parallel/sharding.py), and k-means init copies
+its sample's columns from the shards that own them. The fused fits are
+therefore the one-device fits bit for bit on any mesh, and no shard holds
+an array of the one-device width. The per-cell fit sums shard partials in
+shard order: equal to reduction-order tolerance.
 
 Profiler ranges (torch.profiler.record_function, no cost without a
 profiler beyond a few microseconds per call): harmony::init,
@@ -54,9 +57,10 @@ import torch
 from torch.profiler import record_function
 
 from .config import EngineConfig
-from .ops.cuda.fused_estep import fused_estep, fused_estep_r
+from .ops.cuda.fused_estep import (fused_estep, fused_estep_mesh,
+                                   fused_estep_r)
 from .ops.kmeans import kmeans_init
-from .ops.normalize import l2_normalize_cols
+from .ops.normalize import l2_normalize_cells, l2_normalize_cols
 from .ops.objective import (chunk_objective_partials,
                             compute_objective_terms, cross_entropy_from_stats,
                             shard_sum)
@@ -66,10 +70,9 @@ from .ops.partition import (cell_partition_len, cell_slot_table, frame_sum,
 from .ops.replay import INIT_ELEMS, replay_apply, replay_normal_eq, windows
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
-from .ops.update_r_fused import chunk_stats, make_zp3, mesh_round
-from .parallel.sharding import (embed_cols, extract_chunks, extract_cols,
-                                holds_window, one_device, pack, parts,
-                                put_window, real_cols, window_of)
+from .ops.update_r_fused import chunk_stats, make_zp3
+from .parallel.sharding import (cells_window, holds_window, one_device,
+                                pack, parts, put_window, window_of)
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
                     defer_placeholders, empty_histories)
 from .utils.checkpoint import RngState, save_state
@@ -115,40 +118,42 @@ def _devices(data: HarmonyData) -> list:
     return [z.device for z in parts(data.Z_orig)]
 
 
-def normalize_cells(X, cfg: EngineConfig):
-    """l2_normalize_cols of a sharded (rows, N_local) array, each shard in
-    the one-device layout (harmony.py:238, 569)."""
-    return pack(extract_cols(l2_normalize_cols(embed_cols(x, s, cfg)), s, cfg)
-                for s, x in enumerate(parts(X)))
+def normalize_cells(X):
+    """Column L2 normalisation of a sharded (rows, N_local) array, each
+    shard's columns on their own (harmony.py:238, 569): the one-device bits
+    on any mesh (l2_normalize_cells)."""
+    return pack(l2_normalize_cells(x) for x in parts(X))
 
 
-def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, wins,
-               put_r=None):
+def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, s: int,
+               wins, put_r=None):
     """Per-chunk cache, centroid numerator and objective partials of the
-    initial soft assignments (softmax of -dist/sigma, harmony.py:380-389),
-    one window of chunks at a time, in the one-device layout of cfg;
-    put_r(lo, w, r), when given, stores each window's assignments."""
+    initial soft assignments (softmax of -dist/sigma, harmony.py:380-389)
+    of shard s's (rows, N_local) cells (one device: s = 0), over the
+    one-device windows of chunks `wins`, each window's cells copied into
+    new chunk-major arrays of the one-device window shape
+    (parallel/sharding.py `cells_window`); put_r(lo, w, r), when given,
+    stores each window's assignments."""
     geom = partition_geometry(cfg)
-    nc1, CH, K, d = geom.nc_cap + 1, geom.CH, cfg.K, cfg.d
+    nc1, K, d = geom.nc_cap + 1, cfg.K, cfg.d
     dev = Z_cos.device
     cache = torch.zeros((nc1, K, cfg.B1), dtype=torch.float32, device=dev)
     ybuf = torch.zeros((nc1, d, K), dtype=torch.float32, device=dev)
     kbuf = torch.zeros((nc1, 2), dtype=torch.float32, device=dev)
-    z3 = Z_cos.reshape(d, nc1, CH).permute(1, 0, 2)
-    p3 = Phi.reshape(cfg.B, nc1, CH).permute(1, 0, 2)
-    m3 = mask.reshape(nc1, 1, CH)
     for lo, w in wins:
-        sl = slice(lo, lo + w)
-        dist = 2.0 * (1.0 - torch.einsum("dk,jdc->jkc", Y, z3[sl]))
-        s = torch.exp(-dist / sigma[None, :, None])
-        # In place: the bits of s / sum * m3, one window less held.
-        r = s.div_(torch.sum(s, dim=1, keepdim=True)).mul_(m3[sl])  # (w,K,CH)
+        z3 = cells_window(Z_cos, s, geom, lo, w)                    # (w,d,CH)
+        dist = 2.0 * (1.0 - torch.einsum("dk,jdc->jkc", Y, z3))
+        e = torch.exp(-dist / sigma[None, :, None])
+        # In place: the bits of e / sum * mask, one window less held.
+        r = e.div_(torch.sum(e, dim=1, keepdim=True)).mul_(
+            cells_window(mask[None], s, geom, lo, w))               # (w,K,CH)
         if put_r is not None:
             put_r(lo, w, r)
-        cache[sl] = chunk_stats(r, p3[sl])
-        ybuf[sl] = torch.einsum("jdc,jkc->jdk", z3[sl], r)
-        kbuf[sl] = torch.stack(chunk_objective_partials(
-            r, dist, sigma, k_axis=1, chunk_axis=0), dim=1)
+        put_window(cache, chunk_stats(r, cells_window(Phi, s, geom, lo, w)),
+                   s, geom, lo, w)
+        put_window(ybuf, torch.einsum("jdc,jkc->jdk", z3, r), s, geom, lo, w)
+        put_window(kbuf, torch.stack(chunk_objective_partials(
+            r, dist, sigma, k_axis=1, chunk_axis=0), dim=1), s, geom, lo, w)
     return cache, ybuf, kbuf
 
 
@@ -168,11 +173,10 @@ def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
                 put_window(R3, r.to(R3.dtype), s, geom, lo, w)
         wins = [(lo, w) for lo, w in windows(cfg1, INIT_ELEMS)
                 if holds_window(geom, s, lo, w)]
-        out = _init_pass(embed_cols(z, s, cfg), embed_cols(p, s, cfg),
-                         embed_cols(m[None], s, cfg)[0], Y.to(z.device),
-                         params.sigma.to(z.device), cfg1, wins, put_r)
+        out = _init_pass(z, p, m, Y.to(z.device), params.sigma.to(z.device),
+                         cfg, s, wins, put_r)
         for buf, o in zip((caches, ybufs, kbufs), out):
-            buf.append(extract_chunks(o, s, geom))
+            buf.append(o)
     tot = frame_sum(caches, geom)                                # (K, B+1)
     E = tot[:, 0:1] * params.Pr_b[None, :]
     O = tot[:, 1:]
@@ -189,10 +193,9 @@ def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     the initial soft assignments are reduced away one window of chunks at a
     time (each shard: the windows that hold its chunks)."""
     geom = partition_geometry(cfg)
-    Z_cos = normalize_cells(data.Z_orig, cfg)                    # harmony.py:238
+    Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
     with record_function("harmony::kmeans_init"):
-        Y = (kmeans_init(gen, real_cols(Z_cos, cfg), cfg) if init_Y is None
-             else init_Y)
+        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev = Y.device
     O, E, terms, cache, Ysum0 = _init_fused(Z_cos, data, Y, params, cfg)
@@ -219,10 +222,9 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     come from the fp32 R. Per-cell layout: O/E and the objective from the
     storage-rounded R, since its E-step re-reads the stored values; shard
     partials summed in shard order."""
-    Z_cos = normalize_cells(data.Z_orig, cfg)                    # harmony.py:238
+    Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
     with record_function("harmony::kmeans_init"):
-        Y = (kmeans_init(gen, real_cols(Z_cos, cfg), cfg) if init_Y is None
-             else init_Y)
+        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev, K = Y.device, cfg.K
     Rs, dists = [], []
@@ -266,8 +268,8 @@ def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
             tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
             params.theta, params.Pr_b, O, E, fast)
         return O, E, [cache], [ybuf], [kbuf]
-    return mesh_round(tables, ZP3s, Y, params.sigma, params.theta,
-                      params.Pr_b, O, E, fast, geom.J_fix)[:5]
+    return fused_estep_mesh(tables, ZP3s, Y, params.sigma, params.theta,
+                            params.Pr_b, O, E, fast, geom.J_fix)[:5]
 
 
 @record_function("harmony::cluster")
@@ -374,7 +376,7 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
                 params.sigma, params.theta, params.Pr_b, st.O, st.E, fast)
             caches, ybufs, kbufs = [cache], [ybuf], [kbuf]
         else:
-            O, E, caches, ybufs, kbufs, _ = mesh_round(
+            O, E, caches, ybufs, kbufs, _ = fused_estep_mesh(
                 tables, ZP3s, Y, params.sigma, params.theta, params.Pr_b,
                 st.O, st.E, fast, geom.J_fix, R3s=st.R)
         st.n_passes += 1
@@ -435,7 +437,7 @@ def iterate_stored(st: HarmonyState, data: HarmonyData,
     with record_function("harmony::ridge"):
         st.Z_corr = moe_correct_ridge(data.Z_orig, data.Phi, st.R, st.E,
                                       params, cfg, data.mask)
-    st.Z_cos = normalize_cells(st.Z_corr, cfg)                   # :569
+    st.Z_cos = normalize_cells(st.Z_corr)                        # :569
     st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
 
 

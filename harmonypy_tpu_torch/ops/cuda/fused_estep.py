@@ -10,12 +10,18 @@ into the caller's R3 in its dtype. On CUDA tensors each launches its kernel
 plain version (`ops.update_r_fused.fused_update_nor` / `fused_update_r`).
 `launches` and `launches_write_r` count the launches of K1 and K2.
 
-`fused_estep_block` is the per-block entry of the same kernel, which a mesh
-of several shards runs (one launch per shard per block, the block re-added
-by the caller across shards, `ops.update_r_fused.mesh_round`): block b of
-K1, of its r window or of K2. Its plain version is
-`ops.update_r_fused.fused_update_block`; `launches_block` (K1 and its r
-window) and `launches_block_write_r` (K2) count its launches.
+`fused_estep_mesh` is the round on a mesh of several shards: for each
+block, the kernel's per-block entry on every shard (`fused_estep_block` runs
+one alone: block b of K1, of its r window or of K2, an ordinary launch of
+one CTA per unit), then the re-add kernel (csrc/frame_readd.cu,
+`fused_frame_readd` runs one alone) on the lead device. The inputs are
+checked and the scratch allocated once per pass; the block loop issues the
+launches and nothing else on one card (and the copies of O/E and of the
+block rows between cards on several). Its plain version is
+`ops.update_r_fused.mesh_round` (per block `fused_update_block`, then
+`frame_readd`); `launches_block` (K1 and its r window),
+`launches_block_write_r` (K2) and `launches_readd` count the launches, and
+`checks` the input checks (one per shard per pass on a mesh).
 
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
@@ -29,20 +35,23 @@ import functools
 
 import torch
 
-from ..update_r_fused import (fused_update_block, fused_update_nor,
-                              fused_update_r)
+from ..update_r_fused import (frame_readd, fused_update_block,
+                              fused_update_nor, fused_update_r, mesh_round)
 from . import build
 
 launches = 0
 launches_write_r = 0
 launches_block = 0
 launches_block_write_r = 0
+launches_readd = 0
+checks = 0
 
 TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
+_readd_lib = None
 
 
 def _up(x: int, m: int) -> int:
@@ -108,16 +117,17 @@ def _kernel_lib():
         lib.fused_estep_round.argtypes = common + tail
         lib.fused_estep_r_window.argtypes = common + [_P, _I, _I] + tail
         lib.fused_estep_write_r.argtypes = common + [_P, _I] + tail
-        lib.fused_estep_block.argtypes = common + [_I] + tail
-        lib.fused_estep_block_r_window.argtypes = (common + [_P, _I, _I, _I]
-                                                   + tail)
-        lib.fused_estep_block_write_r.argtypes = common + [_P, _I, _I] + tail
+        lib.fused_estep_block_prepare.argtypes = (
+            common + [_P, _P, _P] + [_I] * 3 + tail + [_I, _P])
+        lib.fused_estep_block_launch.argtypes = [_P, _I]
         for fn in (lib.fused_estep_round, lib.fused_estep_r_window,
-                   lib.fused_estep_write_r, lib.fused_estep_block,
-                   lib.fused_estep_block_r_window,
-                   lib.fused_estep_block_write_r):
+                   lib.fused_estep_write_r, lib.fused_estep_block_prepare,
+                   lib.fused_estep_block_launch,
+                   lib.fused_estep_block_call_size):
             fn.restype = _I
         lib.fused_estep_smem.argtypes = [_I, _I, _I]
+        lib.fused_estep_block_setup.argtypes = [_I, _I, _I]
+        lib.fused_estep_block_setup.restype = _I
         lib.fused_estep_grid.argtypes = [_I, _I, _I, _I]
         for fn in (lib.fused_estep_smem, lib.fused_estep_smem_limit,
                    lib.fused_estep_tile, lib.fused_estep_grid):
@@ -127,6 +137,23 @@ def _kernel_lib():
                                f" cells, the wrapper {TILE}")
         _lib = lib
     return _lib
+
+
+def _frame_readd_lib():
+    global _readd_lib
+    if _readd_lib is None:
+        lib = build.load("frame_readd")
+        lib.frame_readd_prepare.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P,
+                                            _P, _P, _I, _I, _I, _P, _P]
+        lib.frame_readd_launch.argtypes = [_P, _I]
+        lib.mesh_fork.argtypes = [_P, _P, _I, _P, _P, _P, ctypes.c_longlong]
+        lib.mesh_join.argtypes = [_P, _I, _P, _P, _P, _P, _P]
+        for fn in (lib.frame_readd_prepare, lib.frame_readd_launch,
+                   lib.frame_readd_max_shards, lib.frame_readd_call_size,
+                   lib.mesh_fork, lib.mesh_join):
+            fn.restype = _I
+        _readd_lib = lib
+    return _readd_lib
 
 
 def launch_grid(K: int, B: int, d: int, r_bf16: bool = False) -> int:
@@ -154,6 +181,8 @@ def _check(name, t, shape, dtype, device, contiguous=True):
 def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E):
     """Check the inputs every round takes; returns (nc1, K, B, d, CH). The
     slot range is checked here on the CPU and by the kernel on the card."""
+    global checks
+    checks += 1
     if ZP3.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_estep runs on cuda or cpu, not {ZP3.device}")
     nc1, R, CH = ZP3.shape
@@ -233,6 +262,91 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     return O1, E1, cache, ybuf, kbuf
 
 
+class _BlockLaunch:
+    """One shard's per-block launches of a round (K1, its r window or K2):
+    the inputs checked, the shared memory allowed and the scratch allocated
+    once; `launch(b)` issues block b, reading the block's start O, E from
+    `O0`, `E0` (written in place by the caller between blocks) and writing
+    the block-removed O, E into `O1`, `E1` and the slots' cache rows into
+    `brows` (J, K, B+1) in slot order, on `stream` (default: the current
+    stream of the shard's device)."""
+
+    def __init__(self, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
+                 fast_ent: bool, out, J_glob: int, Rw=None, lo: int = 0,
+                 R3=None, stream=None):
+        nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma,
+                                        theta, Pr_b, O, E)
+        dev, f32 = ZP3.device, torch.float32
+        for name, t, shape in (("cache", out[0], (nc1, K, B + 1)),
+                               ("ybuf", out[1], (nc1, K, d)),
+                               ("kbuf", out[2], (nc1, 2))):
+            _check(name, t, shape, f32, dev)
+        if Rw is not None:
+            _check("Rw", Rw, (Rw.shape[0], K, CH), f32, dev)
+        if R3 is not None:
+            _check("R3", R3, (nc1, K, CH), (torch.float32, torch.bfloat16),
+                   dev)
+        nb, J = slots.shape
+        self.nb, self.write_r = nb, R3 is not None
+        if dev.type == "cpu":
+            return
+        lib = _kernel_lib()
+        geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0),
+                              J_glob)
+        with torch.cuda.device(dev):
+            err = lib.fused_estep_block_setup(K, B, d)
+        if err != 0:
+            raise RuntimeError(f"fused_estep_block: shared memory of K={K},"
+                               f" B={B}, d={d} refused: CUDA error {err}")
+        self.part = torch.empty(geo.part_shape, dtype=f32, device=dev)
+        self.kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
+        self.tickets = torch.zeros((J,), dtype=torch.int32, device=dev)
+        self.brows = torch.empty((J, K, B + 1), dtype=f32, device=dev)
+        self.O0, self.E0 = O.contiguous(), E.contiguous()
+        self.O1 = torch.empty((K, B), dtype=f32, device=dev)
+        self.E1 = torch.empty((K, B), dtype=f32, device=dev)
+        # The kernel reads and writes these through the pointers below.
+        self._keep = (slots, removal, ZP3, Y, sigma, theta, Pr_b, out, Rw,
+                      R3)
+        if R3 is not None:
+            store = (R3.data_ptr(), int(R3.dtype == torch.bfloat16), 0, nc1)
+        elif Rw is not None:
+            store = (Rw.data_ptr(), 0, lo, Rw.shape[0])
+        else:
+            store = (None, 0, 0, 0)
+        stream = self.stream = stream or torch.cuda.current_stream(dev)
+        # The launch's arguments, converted once: each launch passes the
+        # record and the block.
+        self._call = ctypes.create_string_buffer(
+            lib.fused_estep_block_call_size())
+        err = lib.fused_estep_block_prepare(
+            *[t.data_ptr() for t in (
+                ZP3, Y, sigma, theta, Pr_b, removal, slots, self.O0, self.E0,
+                self.part, self.kpart)], None, *[t.data_ptr() for t in (
+                    out[0], out[1], out[2], self.O1, self.E1, self.tickets,
+                    self.brows)], *store, K, B, d, CH, nb, J, geo.ng, nc1,
+            int(bool(fast_ent)), stream.cuda_stream, dev.index or 0,
+            self._call)
+        if err != 0:
+            raise RuntimeError(f"fused_estep_block_prepare failed: CUDA "
+                               f"error {err}")
+        self._fn = lib.fused_estep_block_launch
+        self.device = dev
+
+    def launch(self, b: int) -> None:
+        global launches_block, launches_block_write_r
+        if not 0 <= b < self.nb:
+            raise ValueError(f"block {b} outside [0, {self.nb})")
+        err = self._fn(self._call, b)
+        if err != 0:
+            raise RuntimeError(f"fused_estep_block launch failed: CUDA "
+                               f"error {err}")
+        if self.write_r:
+            launches_block_write_r += 1
+        else:
+            launches_block += 1
+
+
 def fused_estep_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b, O,
                       E, fast_ent: bool, out, J_glob: int, Rw=None,
                       lo: int = 0, R3=None):
@@ -245,40 +359,206 @@ def fused_estep_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b, O,
     J_glob = J_fix + 1 sets the units per slot (kernel_geometry). Returns
     (O, E) with the block's cached stats removed; the caller re-adds the
     block. See `ops.update_r_fused.fused_update_block`."""
-    nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma, theta,
-                                    Pr_b, O, E)
-    dev, f32 = ZP3.device, torch.float32
-    if not 0 <= b < slots.shape[0]:
-        raise ValueError(f"block {b} outside [0, {slots.shape[0]})")
-    for name, t, shape in (("cache", out[0], (nc1, K, B + 1)),
-                           ("ybuf", out[1], (nc1, K, d)),
-                           ("kbuf", out[2], (nc1, 2))):
-        _check(name, t, shape, f32, dev)
-    if Rw is not None:
-        _check("Rw", Rw, (Rw.shape[0], K, CH), f32, dev)
-    if R3 is not None:
-        _check("R3", R3, (nc1, K, CH), (torch.float32, torch.bfloat16), dev)
-    if dev.type == "cpu":
+    ln = _BlockLaunch(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
+                      fast_ent, out, J_glob, Rw, lo, R3)
+    if ZP3.device.type == "cpu":
+        if not 0 <= b < slots.shape[0]:
+            raise ValueError(f"block {b} outside [0, {slots.shape[0]})")
         return fused_update_block(b, slots, removal, ZP3, Y, sigma, theta,
                                   Pr_b, O, E, fast_ent, out, Rw=Rw, lo=lo,
                                   R3=R3)
+    ln.launch(b)
+    return ln.O1, ln.E1
 
-    global launches_block, launches_block_write_r
-    if R3 is not None:
-        entry = "fused_estep_block_write_r"
-        extra = [R3.data_ptr(), int(R3.dtype == torch.bfloat16), b]
-    elif Rw is not None:
-        entry = "fused_estep_block_r_window"
-        extra = [Rw.data_ptr(), lo, Rw.shape[0], b]
-    else:
-        entry, extra = "fused_estep_block", [b]
-    O1, E1, _, _, _ = _launch(entry, extra, slots, removal, ZP3, Y, sigma,
-                              theta, Pr_b, O, E, fast_ent, J_glob, out)
-    if R3 is not None:
-        launches_block_write_r += 1
-    else:
-        launches_block += 1
-    return O1, E1
+
+class _Readd:
+    """The re-add launches of a round on the lead device: rows[s] (J_s, K,
+    B+1) hold shard s's block rows (on the lead device), granks[s] (nb,
+    J_s) their ranks, from which the (nb, J_fix + 1) rank table is built
+    once; `launch(b)` forms O, E of block b from Or, Er."""
+
+    def __init__(self, rows, granks, Or, Er, Pr_b, J_fix: int, O, E):
+        lead = Or.device
+        K, B = Or.shape
+        nb = granks[0].shape[0]
+        for s, (r, g) in enumerate(zip(rows, granks)):
+            _check(f"rows[{s}]", r, (r.shape[0], K, B + 1), torch.float32,
+                   lead)
+            if tuple(g.shape) != (nb, r.shape[0]):
+                raise ValueError(f"granks[{s}] has shape {tuple(g.shape)}, "
+                                 f"expected {(nb, r.shape[0])}")
+        for name, t in (("Or", Or), ("Er", Er), ("O", O), ("E", E)):
+            _check(name, t, (K, B), torch.float32, lead)
+        _check("Pr_b", Pr_b, (B,), torch.float32, lead)
+        if len(rows) > _frame_readd_lib().frame_readd_max_shards():
+            raise ValueError(f"the re-add kernel takes at most "
+                             f"{_frame_readd_lib().frame_readd_max_shards()}"
+                             f" shards, got {len(rows)}")
+        jmax = max(r.shape[0] for r in rows)
+        src = torch.full((nb, J_fix + 1), -1, dtype=torch.int32, device=lead)
+        for s, g in enumerate(granks):
+            code = (s * jmax + torch.arange(g.shape[1], dtype=torch.int32,
+                                            device=lead))
+            # Column J_fix takes every slot without a rank: scratch.
+            src.scatter_(1, g.to(lead, torch.int64).clamp_(0, J_fix),
+                         code.expand(nb, -1).contiguous())
+        lib = _frame_readd_lib()
+        # The rows' pointers go to the kernel by value, in the call record
+        # prepared once: each launch passes the record and the block.
+        ptrs = (ctypes.c_void_p * len(rows))(*[r.data_ptr() for r in rows])
+        self._call = ctypes.create_string_buffer(lib.frame_readd_call_size())
+        err = lib.frame_readd_prepare(
+            ptrs, len(rows), src.data_ptr(), J_fix, jmax, Or.data_ptr(),
+            Er.data_ptr(), Pr_b.data_ptr(), O.data_ptr(), E.data_ptr(), K, B,
+            lead.index or 0, torch.cuda.current_stream(lead).cuda_stream,
+            self._call)
+        if err != 0:
+            raise RuntimeError(f"frame_readd_prepare failed: CUDA error "
+                               f"{err}")
+        self._fn = lib.frame_readd_launch
+        # The kernel reads and writes these through the record's pointers.
+        self._keep = (rows, src, Or, Er, Pr_b, O, E)
+
+    def launch(self, b: int) -> None:
+        global launches_readd
+        err = self._fn(self._call, b)
+        if err != 0:
+            raise RuntimeError(f"frame_readd launch failed: CUDA error "
+                               f"{err}")
+        launches_readd += 1
+
+
+class _Exchange:
+    """The streams of a mesh pass's shards beside the lead stream (shard 0's)
+    and what crosses between cards at each block: `fork()` lets every
+    shard's stream wait for the lead stream's work so far and copies the
+    block's start O|E to each shard on another card; `join()` copies those
+    shards' block rows to the lead card and lets the lead stream wait for
+    every shard's stream. Events and copies on the streams: the host never
+    waits. A shard on the lead card gets a stream of its own, so the
+    shards of one card run at once; a shard on another card runs on that
+    card's current stream."""
+
+    def __init__(self, lead, shards, oe, rows):
+        """shards: the `_BlockLaunch`es of shards 1.., oe: the lead card's
+        (2, K, B) O|E, rows: per shard the lead card's block rows (the
+        shard's own `brows` on the lead card, else a copy's target)."""
+        self.lead = torch.cuda.current_stream(lead)
+        n = len(shards)
+        self.streams = [ln.stream for ln in shards]
+        fork_ev = torch.cuda.Event()
+        fork_ev.record(self.lead)                     # creates the event
+        self._evs = [fork_ev] + [torch.cuda.Event() for _ in shards]
+        for ev, st in zip(self._evs[1:], self.streams):
+            ev.record(st)                   # creates it on the stream's card
+        P = ctypes.c_void_p * max(n, 1)
+        remote = [ln.device != lead for ln in shards]
+        self._side = P(*[st.cuda_stream for st in self.streams])
+        self._join_evs = P(*[ev._as_parameter_.value
+                             for ev in self._evs[1:]])
+        self._oe_dst = P(*[ln.O0.data_ptr() if far else None
+                           for ln, far in zip(shards, remote)])
+        self._rows_dst = P(*[r.data_ptr() if far else None
+                             for r, far in zip(rows, remote)])
+        self._rows_src = P(*[ln.brows.data_ptr() for ln in shards])
+        self._rows_bytes = (ctypes.c_longlong * max(n, 1))(
+            *[ln.brows.numel() * 4 for ln in shards])
+        self._fork = (self.lead.cuda_stream, fork_ev._as_parameter_.value,
+                      n, self._side, self._oe_dst, oe.data_ptr(),
+                      oe.numel() * 4)
+        self._join = (self.lead.cuda_stream, n, self._side, self._join_evs,
+                      self._rows_dst, self._rows_src, self._rows_bytes)
+        self._lib = _frame_readd_lib()
+        self._keep = (oe, rows)
+
+    def fork(self) -> None:
+        if self.streams:
+            err = self._lib.mesh_fork(*self._fork)
+            if err != 0:
+                raise RuntimeError(f"mesh_fork failed: CUDA error {err}")
+
+    def join(self) -> None:
+        if self.streams:
+            err = self._lib.mesh_join(*self._join)
+            if err != 0:
+                raise RuntimeError(f"mesh_join failed: CUDA error {err}")
+
+
+def fused_frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
+    """One block's re-add across the shards of a mesh by the re-add kernel
+    (one launch) on the device of Or: rows[s] (J_s, K, B+1) shard s's
+    block rows in slot order, granks[s] (J_s,) their ranks (J_fix: none).
+    Returns (O, E); see `ops.update_r_fused.frame_readd`, its plain
+    version, which runs on the CPU."""
+    lead = Or.device
+    if lead.type == "cpu":
+        return frame_readd(rows, granks, Or, Er, Pr_b, J_fix)
+    K, B = Or.shape
+    O = torch.empty((K, B), dtype=torch.float32, device=lead)
+    E = torch.empty_like(O)
+    rows = [r.to(lead).contiguous() for r in rows]
+    _Readd(rows, [g.reshape(1, -1) for g in granks], Or.contiguous(),
+           Er.contiguous(), Pr_b.contiguous(), J_fix, O, E).launch(0)
+    return O, E
+
+
+def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
+                     fast_ent: bool, J_fix: int, windows=None, R3s=None):
+    """One E-step round on a mesh of several shards (K1, its r windows or
+    K2), with the signature and results of `ops.update_r_fused.mesh_round`,
+    its plain version, which CPU shards run.
+
+    On CUDA shards: per shard a `_BlockLaunch` (checks and scratch once per
+    pass) reading the block's start O, E from one buffer on the lead card,
+    which the re-add kernel overwrites after each block (a shard on
+    another card reads its own copy); per block the exchange's fork, one
+    launch per shard, its join and one re-add launch (`_Exchange`: streams,
+    events and the copies between cards; the host never waits)."""
+    lead = O.device
+    if lead.type == "cpu":
+        for s, ZP3 in enumerate(ZP3s):
+            _check_round(tables.slots[s], tables.removal, ZP3, Y, sigma,
+                         theta, Pr_b, O, E)
+        return mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
+                          fast_ent, J_fix, windows, R3s)
+    K, d, B = Y.shape[1], Y.shape[0], theta.shape[0]
+    f32 = dict(dtype=torch.float32)
+    # O|E at each block's start, which the re-add overwrites (one buffer,
+    # so one copy reaches a shard on another card).
+    OE = torch.stack([O, E])
+    shards, rows, outs, Rws = [], [], [], []
+    for s, ZP3 in enumerate(ZP3s):
+        dev, nc1, CH = ZP3.device, ZP3.shape[0], ZP3.shape[2]
+        out = (torch.zeros((nc1, K, B + 1), device=dev, **f32),
+               torch.zeros((nc1, K, d), device=dev, **f32),
+               torch.zeros((nc1, 2), device=dev, **f32))
+        win = None if windows is None else windows[s]
+        Rw = (None if win is None
+              else torch.zeros((win[1], K, CH), device=dev, **f32))
+        OEs = OE if dev == lead else torch.empty_like(OE, device=dev)
+        ln = _BlockLaunch(
+            tables.slots[s], tables.removal.to(dev), ZP3, Y.to(dev),
+            sigma.to(dev), theta.to(dev), Pr_b.to(dev), OEs[0], OEs[1],
+            fast_ent, out, J_fix + 1, Rw, 0 if win is None else win[0],
+            None if R3s is None else R3s[s],
+            torch.cuda.Stream(device=lead) if 0 < s and dev == lead
+            else None)
+        rows.append(ln.brows if dev == lead
+                    else torch.empty_like(ln.brows, device=lead))
+        shards.append(ln)
+        outs.append(out)
+        Rws.append(Rw)
+    exchange = _Exchange(lead, shards[1:], OE, rows[1:])
+    readd = _Readd(rows, [g.to(lead) for g in tables.granks], shards[0].O1,
+                   shards[0].E1, Pr_b.contiguous(), J_fix, OE[0], OE[1])
+    for b in range(tables.removal.shape[0]):
+        exchange.fork()
+        for ln in shards:
+            ln.launch(b)
+        exchange.join()
+        readd.launch(b)
+    return (OE[0], OE[1], [o[0] for o in outs], [o[1] for o in outs],
+            [o[2] for o in outs], Rws)
 
 
 def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
+from ..parallel.sharding import gather_cols, parts
 
 
 def _sq_norms(X):
@@ -130,18 +131,20 @@ def lloyd(centers, X, cfg: EngineConfig):
 
 
 def kmeans_init(gen, Z_cos, cfg: EngineConfig):
-    """k-means centroids (d, K) of the unit-normalized embedding Z_cos
-    (d, N_local, real cells first). Not yet normalized (the caller does,
-    reference harmony.py:377). On a mesh the engine gathers the (d, N) real
-    cells to the lead device and calls this there, so the draws and the
-    bits are one device's (the JAX package shards it, ops/kmeans.py:54-64;
-    ROADMAP §1 item 11)."""
+    """k-means centroids (d, K) of the unit-normalized embedding Z_cos, a
+    sharded (d, N_local) array (one device: the tensor, real cells first;
+    a mesh: the list of its shards), on the lead device. Not yet normalized
+    (the caller does, reference harmony.py:377). The sample's global cell
+    ids are drawn on the caller's generator and its columns copied from the
+    shards that own them (parallel.sharding.gather_cols; the JAX package's
+    _gather_columns, ops/kmeans.py:54-64): the draws and the bits are one
+    device's on any mesh, and no shard gathers more than the sample."""
     S = min(cfg.kmeanspp_sample, cfg.N)
     if S < cfg.N:
         ids = torch.randint(0, cfg.N, (S,), generator=gen, device=gen.device)
     else:
-        ids = torch.arange(cfg.N, device=Z_cos.device)
-    Xs = Z_cos[:, ids.to(Z_cos.device)]
+        ids = torch.arange(cfg.N, device=parts(Z_cos)[0].device)
+    Xs = gather_cols(Z_cos, ids, cfg)
     if S < cfg.N and S >= cfg.kmeansbb_oversample * cfg.K:
         centers = kmeansbb_seed(gen, Xs, cfg)
     else:

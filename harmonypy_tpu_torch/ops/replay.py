@@ -24,9 +24,9 @@ import torch
 from ..config import EngineConfig
 from ..parallel.sharding import (one_device, put_window, window_of,
                                  window_rows)
-from .cuda.fused_estep import fused_estep
+from .cuda.fused_estep import fused_estep, fused_estep_mesh
+from .normalize import l2_normalize_cells
 from .partition import frame_sum, partition_geometry
-from .update_r_fused import mesh_round
 
 # Cap on the elements of one window of r (width * K * CH floats): 1 GiB.
 WINDOW_ELEMS = 256 * 1024 * 1024
@@ -67,8 +67,33 @@ def round_r_windows(tables, ZP3s, rep, fast_ent: bool, geom, lo: int,
     wins = [(lo - s * geom.nc_cap, width)
             if window_rows(geom, s, lo, width)[2] else None
             for s in range(len(ZP3s))]
-    return mesh_round(tables, ZP3s, *rep, fast_ent, geom.J_fix,
-                      windows=wins)[5]
+    return fused_estep_mesh(tables, ZP3s, *rep, fast_ent, geom.J_fix,
+                            windows=wins)[5]
+
+
+def window_normal_eq(a, zo, r) -> torch.Tensor:
+    """The per-chunk ridge normal equations (w, B1*(B1+d), K) of one window
+    of chunks: design rows a (w, B1, CH), Z_orig zo (w, d, CH), soft
+    assignments r (w, K, CH). Rows b*B1+c hold sum a_b a_c r, rows B1*B1 +
+    b*d + x sum a_b z_x r. The replays and the stored ridge share it, so
+    the same r gives the same bits on both paths."""
+    w, B1 = a.shape[:2]
+    Fa = (a[:, :, None, :] * a[:, None, :, :]).reshape(w, B1 * B1, -1)
+    Sa = torch.einsum("jfc,jkc->jfk", Fa, r)
+    Sz = [torch.einsum("jdc,jkc->jdk", a[:, b, None, :] * zo, r)
+          for b in range(B1)]
+    return torch.cat([Sa] + Sz, dim=1)
+
+
+def window_apply(a, zo, r, W) -> torch.Tensor:
+    """Z_orig minus the ridge correction over one window of chunks
+    (harmony.py:559-569): zo - sum_b a_b (W[:, b]^T r), (w, d, CH); shared
+    by the replays and the stored ridge."""
+    corr = a[:, 0, None, :] * torch.einsum("kd,jkc->jdc", W[:, 0, :], r)
+    for b in range(1, a.shape[1]):
+        corr = corr + (a[:, b, None, :]
+                       * torch.einsum("kd,jkc->jdc", W[:, b, :], r))
+    return zo - corr
 
 
 def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
@@ -86,13 +111,9 @@ def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
         for s, r in enumerate(rs):
             if r is None:
                 continue
-            a = window_of(ZP3s[s], s, geom, lo, w)[:, :B1, :]
-            zo = window_of(ZO3s[s], s, geom, lo, w)
-            Fa = (a[:, :, None, :] * a[:, None, :, :]).reshape(w, B1 * B1, -1)
-            Sa = torch.einsum("jfc,jkc->jfk", Fa, r)
-            Sz = [torch.einsum("jdc,jkc->jdk", a[:, b, None, :] * zo, r)
-                  for b in range(B1)]
-            put_window(Sbufs[s], torch.cat([Sa] + Sz, dim=1), s, geom, lo, w)
+            put_window(Sbufs[s], window_normal_eq(
+                window_of(ZP3s[s], s, geom, lo, w)[:, :B1, :],
+                window_of(ZO3s[s], s, geom, lo, w), r), s, geom, lo, w)
     return frame_sum(Sbufs, geom)
 
 
@@ -117,16 +138,12 @@ def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
         for s, r in enumerate(rs):
             if r is None:
                 continue
-            Ws = W.to(r.device)
-            a = window_of(ZP3s[s], s, geom, lo, w)[:, :B1, :]
-            corr = a[:, 0, None, :] * torch.einsum("kd,jkc->jdc", Ws[:, 0, :],
-                                                   r)
-            for b in range(1, B1):
-                corr = corr + (a[:, b, None, :]
-                               * torch.einsum("kd,jkc->jdc", Ws[:, b, :], r))
-            zc = window_of(ZO3s[s], s, geom, lo, w) - corr
-            norm = torch.sqrt(torch.sum(zc * zc, dim=1, keepdim=True))
-            zs = zc / torch.where(norm > 0.0, norm, torch.ones_like(norm))
+            zc = window_apply(window_of(ZP3s[s], s, geom, lo, w)[:, :B1, :],
+                              window_of(ZO3s[s], s, geom, lo, w), r,
+                              W.to(r.device))
+            # Each cell's column normalised as the stored fit's
+            # normalize_cells does it, so the two paths keep one Z_cos.
+            zs = l2_normalize_cells(zc, dim=1)
             put_window(Zc3s[s], zc, s, geom, lo, w)
             put_window(Zs3s[s], zs, s, geom, lo, w)
             put_window(ybufs[s], torch.einsum("jdc,jkc->jdk", zs, r), s, geom,

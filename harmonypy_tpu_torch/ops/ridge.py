@@ -8,10 +8,13 @@ moe_correct_ridge, harmony.py:535-569; JAX package ops/ridge.py:38-146):
 The deferred-R path builds the normal equations from replayed r
 (ops/replay.py) and shares solve_w; the stored-R paths read the stored R
 here. The products are plain torch matmuls, as the JAX package leaves them
-to XLA. On a mesh the fused layout computes each shard's per-chunk rows
-over the one-device windows that hold its chunks (parallel/sharding.py)
-and reduces them through the global frame (bitwise the one-device result);
-the per-cell layout adds the shards' normal equations in shard order.
+to XLA. The fused layout computes the per-chunk rows over the replays'
+one-device windows of chunks with the replays' window functions, each
+window's cell inputs copied into new chunk-major arrays of the window's
+shape; a mesh shard runs only the windows that hold its chunks
+(parallel/sharding.py) and the rows are reduced through the global frame
+(bitwise the one-device result, and the deferred fit's for the same r).
+The per-cell layout adds the shards' normal equations in shard order.
 """
 
 from __future__ import annotations
@@ -19,12 +22,13 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
-from ..parallel.sharding import (embed_cols, extract_chunks, extract_cols,
-                                 holds_window, one_device, pack, parts,
+from ..parallel.sharding import (cells_window, holds_window, one_device,
+                                 pack, parts, put_cells, put_window,
                                  window_of)
 from ..state import HarmonyParams
 from .objective import shard_sum
 from .partition import frame_sum, partition_geometry
+from .replay import window_apply, window_normal_eq, windows
 
 # Cap per-window stacked-feature temporaries at 64M floats (256 MB).
 _CHUNK_BUDGET_ELEMS = 64 * 1024 * 1024
@@ -77,62 +81,69 @@ def solve_w(S, E, params: HarmonyParams, cfg: EngineConfig) -> torch.Tensor:
 
 
 def _design(Z_orig, Phi, mask, cfg: EngineConfig):
-    """(A3, Z3, windows) of one device's (or one shard's) cells: the design
-    rows Phi_moe = [mask; Phi] and Z_orig as (B1, n, c) and (d, n, c) — n
-    chunks of CH cells (fused layout) or one row of all cells (per-cell
-    layout) — and the windows of n the products run over."""
+    """Per-cell layout: (A3, Z3, windows) of one device's (or one shard's)
+    cells: the design rows Phi_moe = [mask; Phi] and Z_orig as (B1, 1, N)
+    and (d, 1, N), and the column windows the products run over."""
     B1, d = cfg.B1, cfg.d
     A = torch.cat([mask[None, :], Phi], dim=0)                  # Phi_moe
-    if cfg.fused_estep:
-        geom = partition_geometry(cfg)
-        nc1, CH = geom.nc_cap + 1, geom.CH
-        w = max(1, _CHUNK_BUDGET_ELEMS // (B1 * (B1 + d) * CH))
-        return (A.reshape(B1, nc1, CH), Z_orig.reshape(d, nc1, CH),
-                [(lo, min(w, nc1 - lo)) for lo in range(0, nc1, w)])
     Nl, CC = Z_orig.shape[1], _col_chunk(B1, d)
     return (A[:, None], Z_orig[:, None],
             [(lo, min(CC, Nl - lo)) for lo in range(0, Nl, CC)])
 
 
-def _normal_eq(Z_orig, Phi, mask, cfg: EngineConfig, r_rows, keep=None):
-    """Fused layout: the per-chunk normal equations (nc1, B1*(B1+d), K) of
-    the windows `keep(lo, n)` accepts (every window when None; the other
-    rows are left unset). Per-cell layout: their sum over the cells, in
-    window order. r_rows(lo, n) gives R's rows of window (lo, n)."""
+def _normal_eq(Z_orig, Phi, mask, cfg: EngineConfig, R):
+    """Per-cell layout: the normal equations summed over the cells in
+    column-window order."""
     A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
-    if cfg.fused_estep:
-        S_c = torch.empty((A3.shape[1], cfg.B1 * (cfg.B1 + cfg.d), cfg.K),
-                          dtype=torch.float32, device=A3.device)
-        for lo, n in wins:
-            if keep is None or keep(lo, n):
-                sl = slice(lo, lo + n)
-                S_c[sl] = _products(A3[:, sl], Z3[:, sl], r_rows(lo, n))
-        return S_c
     S = torch.zeros((cfg.B1 * (cfg.B1 + cfg.d), cfg.K), dtype=torch.float32,
                     device=A3.device)
     for lo, n in wins:
         sl = slice(lo, lo + n)
-        S = S + _products(A3[..., sl], Z3[..., sl], r_rows(lo, n))[0]
+        S = S + _products(A3[..., sl], Z3[..., sl], R[None][..., sl])[0]
     return S
 
 
-def _apply(Z_orig, Phi, mask, W, cfg: EngineConfig, r_rows, keep=None):
-    """Z_orig minus the correction, window by window (the windows `keep`
-    accepts; the other columns are left unset)."""
+def _apply(Z_orig, Phi, mask, W, cfg: EngineConfig, R):
+    """Per-cell layout: Z_orig minus the correction, column window by
+    column window."""
     A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
     Wf = W.reshape(cfg.K, cfg.B1 * cfg.d)
     Z_corr = torch.empty_like(Z_orig)
-    Zc3 = Z_corr.reshape(cfg.d, -1, Z3.shape[-1])
+    Zc3 = Z_corr[:, None]
     for lo, n in wins:
-        if keep is not None and not keep(lo, n):
-            continue
         sl = slice(lo, lo + n)
-        if cfg.fused_estep:
-            Zc3[:, sl] = Z3[:, sl] - _correction(A3[:, sl], r_rows(lo, n), Wf)
-        else:
-            Zc3[..., sl] = Z3[..., sl] - _correction(A3[..., sl],
-                                                     r_rows(lo, n), Wf)
+        Zc3[..., sl] = Z3[..., sl] - _correction(A3[..., sl],
+                                                 R[None][..., sl], Wf)
     return Z_corr
+
+
+def _fused_shard(z, p, m, R3, s: int, cfg: EngineConfig, W=None):
+    """Shard s of the fused layout over the one-device windows of the
+    replays (ops/replay.windows) that hold its chunks, each window's design
+    rows and Z_orig copied into new chunk-major arrays of the window's
+    shape (parallel.sharding.cells_window) and computed by the replays' own
+    window_normal_eq / window_apply, so a stored fit's ridge is the
+    deferred fit's bit for bit for the same r: with W None its per-chunk
+    normal equations (nc1, B1*(B1+d), K), else its Z_corr (d, N_local) =
+    Z_orig - the correction (zero on chunks no window holds)."""
+    geom = partition_geometry(cfg)
+    A = torch.cat([m[None, :], p], dim=0)                       # Phi_moe
+    if W is None:
+        out = torch.zeros((R3.shape[0], cfg.B1 * (cfg.B1 + cfg.d), cfg.K),
+                          dtype=torch.float32, device=z.device)
+    else:
+        out = torch.zeros_like(z)
+    for lo, n in windows(one_device(cfg)):
+        if not holds_window(geom, s, lo, n):
+            continue
+        a = cells_window(A, s, geom, lo, n)                     # (n, B1, CH)
+        zo = cells_window(z, s, geom, lo, n)                    # (n, d, CH)
+        r = window_of(R3, s, geom, lo, n).to(torch.float32)
+        if W is None:
+            put_window(out, window_normal_eq(a, zo, r), s, geom, lo, n)
+        else:
+            put_cells(out, window_apply(a, zo, r, W), s, geom, lo, n)
+    return out
 
 
 def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
@@ -147,31 +158,16 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
     Both solve with solve_w and apply the correction window by window.
     mask zeroes padded cells out of the intercept row. On a mesh every
     cell-axis argument is a list of the shards' and so is Z_corr."""
-    shards = list(zip(parts(Z_orig), parts(Phi), parts(R), parts(mask)))
+    shards = list(zip(parts(Z_orig), parts(Phi), parts(mask), parts(R)))
     if cfg.fused_estep:
-        geom, cfg1 = partition_geometry(cfg), one_device(cfg)
-
-        def on_shard(fn, s, z, p, r, m, *args):
-            """fn on shard s in the one-device layout: its cell inputs
-            embedded whole, its R read window by window, only the windows
-            that hold its chunks (parallel/sharding.py)."""
-            return fn(embed_cols(z, s, cfg), embed_cols(p, s, cfg),
-                      embed_cols(m[None], s, cfg)[0], *args, cfg1,
-                      r_rows=lambda lo, n: window_of(r, s, geom, lo, n),
-                      keep=lambda lo, n: holds_window(geom, s, lo, n))
-
-        S = frame_sum([extract_chunks(on_shard(_normal_eq, s, *sh), s, geom)
-                       for s, sh in enumerate(shards)], geom)
+        S = frame_sum([_fused_shard(*sh, s, cfg)
+                       for s, sh in enumerate(shards)],
+                      partition_geometry(cfg))
         W = solve_w(S, E, params, cfg)
-        return pack(extract_cols(on_shard(_apply, s, *sh, W.to(sh[0].device)),
-                                 s, cfg)
+        return pack(_fused_shard(*sh, s, cfg, W.to(sh[0].device))
                     for s, sh in enumerate(shards))
-
-    def cols(r):
-        return lambda lo, n: r[None][..., lo: lo + n]
-
-    S = shard_sum([_normal_eq(z, p, m, cfg, cols(r))
-                   for z, p, r, m in shards], E.device)
+    S = shard_sum([_normal_eq(z, p, m, cfg, r) for z, p, m, r in shards],
+                  E.device)
     W = solve_w(S, E, params, cfg)
-    return pack(_apply(z, p, m, W.to(z.device), cfg, cols(r))
-                for z, p, r, m in shards)
+    return pack(_apply(z, p, m, W.to(z.device), cfg, r)
+                for z, p, m, r in shards)

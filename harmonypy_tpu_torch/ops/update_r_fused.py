@@ -192,28 +192,45 @@ def fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
     return (R3, *out)
 
 
+def frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
+    """Re-add one block across the shards of a mesh (the JAX package's
+    `_block_readd`, ops/update_r_fused_xla.py:104-114) — the plain version
+    of the re-add kernel (csrc/frame_readd.cu, `ops.cuda.fused_estep.
+    fused_frame_readd`). rows[s] (J_s, K, B+1) are shard s's block stats in
+    slot order and granks[s] (J_s,) their within-block ranks (J_fix: no
+    rank). The rows go to the (J_fix, K, B+1) rank frame on the device of
+    Or (ranks no shard holds stay zero), the frame is summed one row after
+    the other from zero, and O = Or + sum[:, 1:], E = Er + sum[:, 0] Pr_b,
+    each product and sum rounded on its own: the order and roundings of the
+    one-launch round's in-kernel re-add, which sums a block's slots in
+    ascending slot order (= ascending rank, the zero dummy slots last).
+    Or, Er: the block-removed O, E."""
+    lead = Or.device
+    frame = torch.zeros((J_fix + 1,) + tuple(rows[0].shape[1:]),
+                        dtype=torch.float32, device=lead)   # row J_fix: none
+    for r, g in zip(rows, granks):
+        frame[g.to(lead)] = r.to(lead)
+    acc = torch.zeros_like(frame[0])
+    for i in range(J_fix):
+        acc = acc + frame[i]
+    return Or + acc[:, 1:], Er + acc[:, 0:1] * Pr_b[None, :]
+
+
 def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
                J_fix: int, windows=None, R3s=None):
     """One E-step round on a mesh of several shards (the JAX package's
     fused_update_nor_xla3 / fused_update_r_xla3 under shard_map,
-    ops/update_r_fused_xla.py:131-238): for each block, every shard runs
-    the block on its own chunks through the per-block entry (the kernel on
-    a CUDA shard, `fused_update_block` on a CPU shard), then the block's
-    stats are re-added on the lead device (the device of O).
+    ops/update_r_fused_xla.py:131-238) — the plain version of the kernels'
+    mesh round (`ops.cuda.fused_estep.fused_estep_mesh`, which runs it on
+    CPU shards): for each block, every shard runs the block on its own
+    chunks (`fused_update_block`), then the block is re-added on the lead
+    device (the device of O) from every shard's rows of it (`frame_readd`).
 
-    The re-add copies each shard's rows of the block into the (J_fix, K,
-    B+1) rank frame (row = the chunk's within-block rank, ascending global
-    chunk id; ranks no shard holds stay zero) and sums the frame one row
-    after the other from zero, then forms O + sum[:, 1:] and E + sum[:, 0]
-    Pr_b, each product and sum rounded on its own: the order and roundings
-    of the one-launch round's in-kernel re-add, which sums a block's slots
-    in ascending slot order (= ascending global id, the zero dummy slots
-    last). The per-chunk rows are the one-device round's bitwise: the
-    kernel splits each chunk into units by the global geometry
-    (kernel_geometry's J_glob), and a CPU shard pads its slot table to the
-    one-device width J_fix + 1 with its dummy chunk, so its batched
-    products have the one-device shapes. The result equals the one-device
-    round bit for bit.
+    The per-chunk rows are the one-device round's bitwise: a CPU shard pads
+    its slot table to the one-device width J_fix + 1 with its dummy chunk,
+    so its batched products have the one-device shapes; the re-add takes
+    the one-device order. The result equals the one-device round bit for
+    bit.
 
     tables: ops.partition.MeshTables. ZP3s: each shard's slab. windows:
     per shard None or (lo, width), the chunks whose r to return (lo may be
@@ -221,7 +238,6 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
 
     Returns (O, E, caches, ybufs, kbufs, Rws) with the per-chunk buffers
     and r windows per shard (R3s are written in place)."""
-    from .cuda.fused_estep import fused_estep_block
     nb = tables.removal.shape[0]
     K, d, B1 = Y.shape[1], Y.shape[0], theta.shape[0] + 1
     lead = O.device
@@ -235,36 +251,31 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
             granks = torch.cat([granks, granks.new_full((nb, pad), J_fix)],
                                1)
         f32 = dict(dtype=torch.float32, device=dev)
-        out = (torch.zeros((nc1, K, B1), **f32),
-               torch.zeros((nc1, K, d), **f32), torch.zeros((nc1, 2), **f32))
         win = None if windows is None else windows[s]
-        Rw = (None if win is None
-              else torch.zeros((win[1], K, CH), **f32))
-        consts = [t.to(dev) for t in (tables.removal, Y, sigma, theta, Pr_b)]
         shards.append(dict(
-            ZP3=ZP3, slots=slots.contiguous(), gidx=slots.long().to(dev),
-            granks=granks.to(lead), out=out, Rw=Rw,
-            lo=0 if win is None else win[0], consts=consts,
+            ZP3=ZP3, slots=slots, gidx=slots.long(), granks=granks.to(lead),
+            out=(torch.zeros((nc1, K, B1), **f32),
+                 torch.zeros((nc1, K, d), **f32),
+                 torch.zeros((nc1, 2), **f32)),
+            Rw=None if win is None else torch.zeros((win[1], K, CH), **f32),
+            lo=0 if win is None else win[0],
+            consts=[t.to(dev) for t in (tables.removal, Y, sigma, theta,
+                                        Pr_b)],
             R3=None if R3s is None else R3s[s]))
     for b in range(nb):
-        frame = torch.zeros((J_fix + 1, K, B1), dtype=torch.float32,
-                            device=lead)     # row J_fix: unfilled slots
-        Or = Er = None
+        rows, Or, Er = [], None, None
         for sh in shards:
             removal, Ys, sig, th, prb = sh["consts"]
             dev = sh["ZP3"].device
-            Ob, Eb = fused_estep_block(
+            Ob, Eb = fused_update_block(
                 b, sh["slots"], removal, sh["ZP3"], Ys, sig, th, prb,
-                O.to(dev), E.to(dev), fast_ent, sh["out"], J_fix + 1,
-                Rw=sh["Rw"], lo=sh["lo"], R3=sh["R3"])
+                O.to(dev), E.to(dev), fast_ent, sh["out"], Rw=sh["Rw"],
+                lo=sh["lo"], R3=sh["R3"])
             if Or is None:
                 Or, Er = Ob.to(lead), Eb.to(lead)
-            frame[sh["granks"][b]] = sh["out"][0][sh["gidx"][b]].to(lead)
-        acc = torch.zeros((K, B1), dtype=torch.float32, device=lead)
-        for r in range(J_fix):
-            acc = acc + frame[r]
-        O = Or + acc[:, 1:]
-        E = Er + acc[:, 0:1] * Pr_b[None, :]
+            rows.append(sh["out"][0][sh["gidx"][b]])
+        O, E = frame_readd(rows, [sh["granks"][b] for sh in shards], Or, Er,
+                           Pr_b, J_fix)
     return (O, E, [sh["out"][0] for sh in shards],
             [sh["out"][1] for sh in shards], [sh["out"][2] for sh in shards],
             [sh["Rw"] for sh in shards])

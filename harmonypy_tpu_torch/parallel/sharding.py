@@ -14,21 +14,19 @@ and `pack` convert).
 The one-device layout. Every N-axis computation outside the E-step kernel
 runs on a mesh shard in the shapes one device uses, so cuBLAS, the
 reductions and the elementwise kernels pick what they pick on one device
-and every cell's values are the one-device bits:
-  - the K-row work (the init pass and stored R, the first stored centroid
-    numerator, the replays' and the stored ridge's products) runs over the
-    one-device windows of chunks (`ops/replay.windows`, the ridge's own),
-    each shard only over the windows that hold its chunks: `window_of`
-    gives a window's rows with the shard's chunks in place and zeros
-    elsewhere, `put_window` stores them back. Work and K-row memory per
-    shard fall with the mesh;
-  - the cell inputs (Z, Phi, the mask; the stored ridge's Z_corr: 2d +
-    B + 1 rows at most) are held whole: `embed_cols` places a shard's
-    columns where one device holds them, `extract_cols` takes them back,
-    and `extract_chunks` takes a shard's rows of per-chunk results. Each
-    shard holds these one-device sized, and the column normalisation runs
-    over all of them.
-On one device the helpers are the identity (or a slice).
+and every cell's values are the one-device bits. It runs over the
+one-device windows of chunks (`ops/replay.windows`), each
+shard only over the windows that hold its chunks: `window_of` gives a
+window's rows of a chunk-major array (the init pass's stored R, the first
+stored centroid numerator, the replays' and the stored ridge's products)
+with the shard's chunks in place and zeros elsewhere, `put_window` stores
+them back; `cells_window` and `put_cells` do the same for a shard's
+(rows, N_local) cell inputs (Z, Phi, the mask; the stored ridge's Z_corr),
+giving each window as a new chunk-major array. One device runs the same
+windows, so no shard holds an array of the one-device width: work and
+memory per shard fall with the mesh. The column normalisation needs no
+window (ops/normalize.l2_normalize_cells). On one device window_of and
+put_window slice, and cells_window copies the window like a shard's.
 """
 
 from __future__ import annotations
@@ -114,34 +112,6 @@ def one_device(cfg: EngineConfig) -> EngineConfig:
     return dataclasses.replace(cfg, n_devices=1)
 
 
-def shard_cells(cfg: EngineConfig, s: int) -> tuple[int, int]:
-    """(first global cell, real cells) of shard s."""
-    q = cfg.N_shard_real
-    return s * q, max(0, min(q, cfg.N - s * q))
-
-
-def embed_cols(x: torch.Tensor, s: int, cfg: EngineConfig) -> torch.Tensor:
-    """Shard s's (rows, N_local) columns in the one-device (rows, N_pad)
-    layout, zero elsewhere, on the shard's device."""
-    if cfg.n_devices == 1:
-        return x
-    lo, n = shard_cells(cfg, s)
-    out = x.new_zeros(x.shape[:-1] + (one_device(cfg).N_pad,))
-    out[..., lo: lo + n] = x[..., :n]
-    return out
-
-
-def extract_cols(y: torch.Tensor, s: int, cfg: EngineConfig) -> torch.Tensor:
-    """Inverse of embed_cols: shard s's (rows, N_local) columns of a
-    one-device-layout array, zero on the shard's padding."""
-    if cfg.n_devices == 1:
-        return y
-    lo, n = shard_cells(cfg, s)
-    out = y.new_zeros(y.shape[:-1] + (cfg.N_local,))
-    out[..., :n] = y[..., lo: lo + n]
-    return out
-
-
 def shard_chunks(nc_cap: int, NC_real: int, s: int) -> tuple[int, int]:
     """(first global chunk, real chunks) of shard s."""
     return s * nc_cap, max(0, min(nc_cap, NC_real - s * nc_cap))
@@ -197,13 +167,45 @@ def put_window(buf: torch.Tensor, rows: torch.Tensor, s: int, geom, lo: int,
     buf[l0: l0 + n] = rows[p0: p0 + n]
 
 
-def real_cols(xs, cfg: EngineConfig) -> torch.Tensor:
-    """A sharded array's real columns in cell order on the lead device: on
-    one device the padded array itself (real cells first), on a mesh the
-    (rows, N) gather of every shard's."""
+def cells_window(x: torch.Tensor, s: int, geom, lo: int,
+                 width: int) -> torch.Tensor:
+    """The cell-axis twin of window_of: chunks [lo, lo + width) of shard
+    s's (rows, N_local) cell array in the one-device layout, as a new
+    chunk-major (width, rows, CH) array with the shard's real chunks of the
+    window in place and zeros elsewhere (padding cells are zero anyway).
+    The same shape and strides on one device and on every shard."""
+    CH, rows = geom.CH, x.shape[0]
+    out = x.new_zeros((width, rows, CH))
+    l0, p0, n = window_rows(geom, s, lo, width)
+    out[p0: p0 + n] = x[:, l0 * CH: (l0 + n) * CH].reshape(
+        rows, n, CH).permute(1, 0, 2)
+    return out
+
+
+def put_cells(buf: torch.Tensor, rows3: torch.Tensor, s: int, geom, lo: int,
+              width: int) -> None:
+    """Store a chunk-major window (width, rows, CH) into shard s's
+    (rows, N_local) cell array buf (its real chunks of the window)."""
+    CH = geom.CH
+    l0, p0, n = window_rows(geom, s, lo, width)
+    buf[:, l0 * CH: (l0 + n) * CH] = rows3[p0: p0 + n].permute(
+        1, 0, 2).reshape(buf.shape[0], n * CH)
+
+
+def gather_cols(xs, ids: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
+    """(rows, S) columns of a sharded array at global cell ids (each < N),
+    on the lead device: on one device the columns themselves; on a mesh
+    each shard's columns of the ids it owns, copied into place (the JAX
+    package's owner-scatter, ops/kmeans.py:54-64, by index copy). Copies
+    only, so the bits are one device's on any mesh."""
     xs = parts(xs)
     if len(xs) == 1:
-        return xs[0]
-    lead = xs[0].device
-    return torch.cat([x[..., : shard_cells(cfg, s)[1]].to(lead)
-                      for s, x in enumerate(xs)], dim=-1)
+        return xs[0][:, ids.to(xs[0].device)]
+    lead, q = xs[0].device, cfg.N_shard_real
+    ids = ids.to(lead)
+    out = xs[0].new_empty((xs[0].shape[0], ids.shape[0]))
+    owner = torch.div(ids, q, rounding_mode="floor")
+    for s, x in enumerate(xs):
+        pos = torch.nonzero(owner == s).squeeze(1)
+        out[:, pos] = x[:, (ids[pos] - s * q).to(x.device)].to(lead)
+    return out

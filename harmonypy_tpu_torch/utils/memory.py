@@ -13,15 +13,16 @@ set of one phase (k-means init, the init pass, one harmony iteration),
 times a slack factor for allocator rounding and temporaries the model does
 not name. On a mesh the model is per card: the persistent arrays of every
 shard the card holds (several when a mesh repeats a device), and the
-phases' working sets, which on a mesh shard are one-device shaped (the
-N-axis work outside the kernel runs in the one-device layout,
-parallel/sharding.py) and run one shard at a time, apart from the r
-windows of a replayed round, which every shard holds at once. The working sets of the init phases are counted in K x N arrays
-(or r windows) as measured on a card: `chip_smoke.py`'s phase capacity
-holds the model above the measured peak of the 858k deferred, stored and
-low_memory fits. It errs high: a preflight that refuses a fit that would
-have run is a nuisance, one that lets an impossible fit start is the
-failure it exists to prevent.
+phases' working sets, which run one shard at a time over the one-device
+windows of chunks (parallel/sharding.py), apart from the r windows of a
+replayed round, which every shard holds at once. No term grows with the
+mesh's total cells beyond a window, whose size is capped. The working
+sets of the init phases are counted in r windows as measured on a card:
+`chip_smoke.py`'s phase capacity holds the model above the measured peak
+of the 858k deferred, stored and low_memory fits (phase mesh: per card).
+It errs high: a preflight that refuses a fit that would have run is a
+nuisance, one that lets an impossible fit start is the failure it exists
+to prevent.
 """
 
 from __future__ import annotations
@@ -74,12 +75,7 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
     one = one_device(cfg)
     r_bytes = 2 if cfg.r_dtype == "bfloat16" else 4
     persistent = {"inputs (Z_orig, Phi, mask)": c * (d + B + 1) * Nl * _F}
-    # On a mesh: k-means init gathers the real cells to the lead card, and
-    # a shard's init and stored-ridge phases hold its cell inputs in the
-    # one-device layout (parallel/sharding.py).
-    phases = {"kmeans init": _kmeans_init_bytes(cfg)
-              + (d * cfg.N * _F if mesh else 0)}
-    emb = (d + B + 1) * one.N_pad * _F if mesh else 0
+    phases = {"kmeans init": _kmeans_init_bytes(cfg)}
     if cfg.fused_estep:
         geom = partition_geometry(cfg)
         nc1, CH, J = geom.nc_cap + 1, geom.CH, geom.J_shard
@@ -87,14 +83,18 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         persistent["chunk caches"] = c * nc1 * K * (
             2 * (B + 1) + 2 * d + 2 + (B + 1) * (B + 1 + d)) * _F
         slab = c * 2 * (1 + B + d) * Nl * _F  # ZP3 and the copy that builds it
-        partials = 2 * units * K * (1 + B + d) * _F
+        # Unit partials: one round's two block parities on one device, one
+        # block's on each shard of a mesh.
+        partials = (c if mesh else 2) * units * K * (1 + B + d) * _F
         # One window of r (ops/replay.windows), as float32. The init pass
         # holds dist, exp, r and their products per window of its own
-        # (a quarter of the size), and a stored fit one more for the store.
+        # (a quarter of the size), a stored fit one more for the store, and
+        # the window's cells (1 + B + d rows) copied chunk-major.
         wcells = window_width(one) * CH
         win = wcells * K * _F
-        phases["init chunk pass"] = emb + (6 + (not cfg.defer_r)) * (
-            window_width(one, INIT_ELEMS) * CH * K * _F)
+        icells = window_width(one, INIT_ELEMS) * CH
+        phases["init chunk pass"] = (
+            (6 + (not cfg.defer_r)) * icells * K + icells * (1 + B + d)) * _F
     if cfg.defer_r:
         persistent["Z_corr, Z_cos, rep_Zcos, ZO3"] = c * 4 * d * Nl * _F
         # A replayed round's r windows live on every shard at once.
@@ -104,13 +104,14 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
     elif cfg.fused_estep:
         persistent["Z_corr, Z_cos"] = c * 2 * d * Nl * _F
         persistent["R (chunk-major)"] = c * K * Nl * r_bytes
-        # fp32 windows of R for the first centroid product and the ridge;
-        # on a mesh also a window of the shard's R and slab in the
-        # one-device layout, and the ridge's cell inputs and Z_corr.
+        # fp32 windows of R for the first centroid product and the ridge,
+        # the ridge's window of design rows and Z_orig copied chunk-major
+        # and its products (the replays' window functions); on a mesh also
+        # a window of the shard's R and slab in the one-device layout.
         phases["harmony iteration"] = (
             slab + partials + 2 * win
-            + (win + wcells * (1 + B + d) * _F + emb + d * one.N_pad * _F
-               if mesh else 0))
+            + wcells * (3 * d + (B + 1) ** 2 + B + 1 + d) * _F
+            + (win + wcells * (1 + B + d) * _F if mesh else 0))
     else:
         KNl = K * Nl * _F
         persistent["Z_corr, Z_cos"] = c * 2 * d * Nl * _F
@@ -190,11 +191,8 @@ def _check_card(cfg: EngineConfig, shards: int, cap: int, device) -> None:
         n *= 2
     remedies.append(
         f"spread the cells over an {n}-device mesh (one shard per card, "
-        f"parallel.mesh.make_mesh): modeled {_fmt(total)} per card "
-        + ("fits" if total <= budget else
-           "(still over budget: k-means init gathers every cell to the "
-           "lead card, and each shard holds its cell inputs one-device "
-           "sized)"))
+        f"parallel.mesh.make_mesh): modeled {_fmt(total)} per card"
+        + (" fits" if total <= budget else ""))
     parts = ", ".join(f"{k} {_fmt(v)}"
                       for k, v in env["persistent"].items())
     on = (f" on {device} ({shards} shards of a {cfg.n_devices}-device mesh)"

@@ -298,13 +298,16 @@ def _round_inputs(n_dev, X, meta):
     return g1, g, (slots1, removal, ZP3), tabs, ZP3s, common
 
 
+@pytest.mark.parametrize("entry", [mesh_round, fe.fused_estep_mesh])
 @pytest.mark.parametrize("n_dev", [2, 4])
 @pytest.mark.parametrize("kind", ["round", "r_window", "float32",
                                   "bfloat16"])
-def test_per_block_plain_round_equals_one_call_round(data, n_dev, kind):
+def test_per_block_plain_round_equals_one_call_round(data, n_dev, kind,
+                                                     entry):
     """The plain per-block entry on every shard with the frame re-add
-    (mesh_round) equals fused_update_nor / fused_update_r bit for bit:
-    O, E, the per-chunk rows, the r window and the stored R."""
+    (mesh_round, and the wrapper that runs it on CPU shards) equals
+    fused_update_nor / fused_update_r bit for bit: O, E, the per-chunk
+    rows, the r window and the stored R."""
     X, meta = data
     g1, g, (slots1, removal, ZP3), tabs, ZP3s, common = _round_inputs(
         n_dev, X, meta)
@@ -318,7 +321,7 @@ def test_per_block_plain_round_equals_one_call_round(data, n_dev, kind):
         wins = ([(lo - s * g.nc_cap, width)
                  if sharding.window_rows(g, s, lo, width)[2] else None
                  for s in range(n_dev)] if fast else None)
-        out = mesh_round(tabs, ZP3s, *common, fast, g.J_fix, windows=wins)
+        out = entry(tabs, ZP3s, *common, fast, g.J_fix, windows=wins)
     else:
         dt = getattr(torch, kind)
         R3 = torch.zeros((g1.nc_cap + 1, 12, g.CH), dtype=dt)
@@ -326,8 +329,8 @@ def test_per_block_plain_round_equals_one_call_round(data, n_dev, kind):
         ref = (*r[1:], r[0])
         R3s = [torch.zeros((g.nc_cap + 1, 12, g.CH), dtype=dt)
                for _ in range(n_dev)]
-        out = (*mesh_round(tabs, ZP3s, *common, fast, g.J_fix,
-                           R3s=R3s)[:5], R3s)
+        out = (*entry(tabs, ZP3s, *common, fast, g.J_fix, R3s=R3s)[:5],
+               R3s)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     for got, want in zip(out[2:5], ref[2:5]):
         assert torch.equal(tp.frame_rows(got, g), want[: g1.nc_cap])
@@ -454,15 +457,16 @@ def cuda_device():
 @pytest.mark.cuda
 def test_mesh_fit_bitwise_on_logical_shards_of_the_card(cuda_device, data):
     """On the card: 4 logical shards of cuda:0 run the per-block entry
-    (blocks x shards launches per pass) and give the one-device fit bit
-    for bit."""
+    (blocks x shards launches per pass) and the re-add kernel (blocks per
+    pass) and give the one-device fit bit for bit."""
     X, meta = data
     one = ht.run_harmony(X, meta, ["batch"], device="cuda:0", **FIT)
-    n0 = fe.launches_block
+    n0, r0 = fe.launches_block, fe.launches_readd
     four = ht.run_harmony(X, meta, ["batch"], mesh=make_mesh(["cuda:0"] * 4),
                           **FIT)
     assert fe.launches_block - n0 == (four.cfg.n_blocks * 4
                                       * four.state.n_passes)
+    assert fe.launches_readd - r0 == four.cfg.n_blocks * four.state.n_passes
     np.testing.assert_array_equal(four.Z_corr, one.Z_corr)
     for h in HIST:
         assert getattr(four, h) == getattr(one, h), h
