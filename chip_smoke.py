@@ -76,14 +76,17 @@ line per phase:
               the deferred, stored and low_memory fits bitwise equal to
               phases fit / fit_stored (Z_corr, R, histories, kmeans_rounds)
               with blocks x shards per-block and blocks re-add launches
-              per pass and their wall clock; pbmc per-cell fit within 5e-4 max|Z| of one device
-              at 3 iterations, the default fit at the golden gate;
+              per pass and their wall clock; pbmc per-cell fit within
+              5e-4 max|Z| of one device at 3 iterations, the default fit at
+              the golden gate;
               compute_lisi on the mesh fit's output equal to phase lisi's
               values bitwise (pruned, and brute on the sampled queries); a
               resume on the mesh bitwise, one on 2 shards refused; each
               mesh fit's peak device memory per card under memory_envelope;
               the same checks but the per-block ones on a mesh of every
-              card when there are several;
+              card when there are several, and there the mesh round on the
+              cards in reverse order (its lead not the current device)
+              bitwise equal to the one-launch round;
   6. kernels  every kernel (K1, K2, their per-block entries, the re-add)
               with its launches on its path's fit, error against the plain
               version, time, and bound.
@@ -1147,6 +1150,25 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
         other_ops=dict(sorted(other.items(), key=lambda kv: -kv[1])[:12]))
 
 
+def block_launch(fe, b, *args, **kw):
+    """Block b of a round alone through the mesh pass's per-block launch
+    (`_BlockLaunch(*args, **kw).launch(b)`); returns its block-removed O,
+    E."""
+    ln = fe._BlockLaunch(*args, **kw)
+    ln.launch(b)
+    return ln.O1, ln.E1
+
+
+def readd_launch(fe, rows, granks, Or, Er, Pr_b, J_fix):
+    """One block's re-add by the re-add kernel (`_Readd(...).launch(0)`):
+    rows[s] shard s's block rows, granks[s] (J_s,) their ranks."""
+    import torch
+    O, E = torch.empty_like(Or), torch.empty_like(Er)
+    fe._Readd(rows, [g.reshape(1, -1) for g in granks], Or.contiguous(),
+              Er.contiguous(), Pr_b, J_fix, O, E).launch(0)
+    return O, E
+
+
 def mesh_kernel_checks(mods, X, batches, mesh):
     """The per-block entry on the 858k round inputs cut into the mesh's
     shards: each shard's block-0 rows equal the one-launch round's rows
@@ -1190,8 +1212,8 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         # Block 0 of every shard: its rows are the one-launch round's.
         for s in range(D):
             out = outs(nc + 1)
-            Ob, Eb = fe.fused_estep_block(0, tabs.slots[s], removal, ZP3s[s],
-                                          *consts, O, E, fast, out, J1)
+            Ob, Eb = block_launch(fe, 0, tabs.slots[s], removal, ZP3s[s],
+                                  *consts, O, E, fast, out, J1)
             sl = tabs.slots[s][0].long()
             n_real = sharding.shard_chunks(nc, geom.NC_real, s)[1]
             sl = sl[sl < n_real]
@@ -1205,8 +1227,8 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                   f"per-block removed O/E of shard {s} ({tag})")
         # The same entry on the one-device table (J = 22 slots).
         out1 = outs(geom.nc_cap + 1)
-        fe.fused_estep_block(0, slots1, removal, ZP3, *consts, O, E, fast,
-                             out1, J1)
+        block_launch(fe, 0, slots1, removal, ZP3, *consts, O, E, fast, out1,
+                     J1)
         sl = slots1[0].long()
         check(all(_eq(a[sl], b[sl]) for a, b in zip(out1, rnd[2:5])),
               f"per-block rows on the one-device table differ ({tag})")
@@ -1223,16 +1245,16 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                                          device="cuda"))
                 plain_kw = dict(R3=torch.zeros_like(kw["R3"]))
             ko, kp = outs(nc + 1), outs(nc + 1)
-            k = fe.fused_estep_block(0, tabs.slots[0], removal, ZP3s[0],
-                                     *consts, O, E, fast, ko, J1, **kw)
+            k = block_launch(fe, 0, tabs.slots[0], removal, ZP3s[0],
+                             *consts, O, E, fast, ko, J1, **kw)
             p_ = plain_mod.fused_update_block(0, tabs.slots[0], removal,
                                               ZP3s[0], *consts, O, E, fast,
                                               kp, **plain_kw)
             kw2 = {n: torch.zeros_like(v) if torch.is_tensor(v) else v
                    for n, v in kw.items()}
             ko2 = outs(nc + 1)
-            ka = fe.fused_estep_block(0, tabs.slots[0], removal, ZP3s[0],
-                                      *consts, O, E, fast, ko2, J1, **kw2)
+            ka = block_launch(fe, 0, tabs.slots[0], removal, ZP3s[0],
+                              *consts, O, E, fast, ko2, J1, **kw2)
             check(all(_eq(a, b) for a, b in zip((*ka, *ko2, *(
                 v for v in kw2.values() if torch.is_tensor(v))), (*k, *ko, *(
                     v for v in kw.values() if torch.is_tensor(v))))),
@@ -1262,13 +1284,13 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         rows, grk = [], []
         for s in range(D):
             out = outs(nc + 1)
-            fe.fused_estep_block(0, tabs.slots[s], removal, ZP3s[s],
-                                 *consts, O, E, fast, out, J1)
+            block_launch(fe, 0, tabs.slots[s], removal, ZP3s[s], *consts,
+                         O, E, fast, out, J1)
             rows.append(out[0][tabs.slots[s][0].long()])
             grk.append(tabs.granks[s][0])
         Or = O - removal[0][:, 1:]
         Er = E - removal[0][:, 0:1] * Pr_b[None, :]
-        rk = fe.fused_frame_readd(rows, grk, Or, Er, Pr_b, geom.J_fix)
+        rk = readd_launch(fe, rows, grk, Or, Er, Pr_b, geom.J_fix)
         rp = plain_mod.frame_readd(rows, grk, Or, Er, Pr_b, geom.J_fix)
         worst["readd"] = max(worst["readd"], *(
             float((a - b).abs().max()) for a, b in zip(rk, rp)))
@@ -1310,11 +1332,10 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         del rnd, m
     # Times: one per-block launch (shard 0, its block with the most real
     # cells), K1 and K2 fp32: the launch the mesh pass issues (checks and
-    # scratch once, then launch(b) back to back) and, as PR 5 timed it, the
-    # whole wrapper call (its checks and allocations included); the plain
-    # version; the re-add kernel (launch(b) back to back) and its plain
-    # version; one mesh round (every shard and block) by CUDA events and
-    # under the profiler.
+    # scratch once, then launch(b) back to back) by CUDA events, and its
+    # kernel's device time alone (profiler); the plain version; the re-add
+    # kernel (launch(b) back to back) and its plain version; one mesh round
+    # (every shard and block) by CUDA events and under the profiler.
     out = outs(nc + 1)
     R3 = torch.zeros((nc + 1, K, CHUNK), device="cuda")
     cells = ZP3s[0][tabs.slots[0].long(), 0, :].sum(dim=(1, 2))
@@ -1327,15 +1348,19 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     ln2 = fe._BlockLaunch(*args0, R3=R3)
     ms_block = cuda_ms(lambda: ln.launch(bt), reps=200)
     ms_block_k2 = cuda_ms(lambda: ln2.launch(bt), reps=200)
-    ms_call = cuda_ms(lambda: fe.fused_estep_block(bt, *args0), reps=50)
-    ms_call_k2 = cuda_ms(lambda: fe.fused_estep_block(bt, *args0, R3=R3),
-                         reps=50)
+    # Device ms per kernel the profiler recorded (it may drop a few of the
+    # 50 back-to-back launches' events).
+    dev_ms, per = device_ms(lambda: ln.launch(bt), reps=50)
+    dev_ms_k2, per_k2 = device_ms(lambda: ln2.launch(bt), reps=50)
+    check(0 < per <= 1 and 0 < per_k2 <= 1,
+          f"profiled {per}, {per_k2} kernels per per-block launch")
+    dev_ms, dev_ms_k2 = dev_ms / per, dev_ms_k2 / per_k2
     plain_ms = cuda_ms(lambda: plain_mod.fused_update_block(
         bt, *args0[:-1]), reps=10)
     plain_ms_k2 = cuda_ms(lambda: plain_mod.fused_update_block(
         bt, *args0[:-1], R3=R3), reps=10)
-    check(fe.launches_block == 2 + 200 + 2 + 50
-          and fe.launches_block_write_r == 2 + 200 + 2 + 50,
+    check(fe.launches_block == 2 + 200 + 1 + 50
+          and fe.launches_block_write_r == 2 + 200 + 1 + 50,
           f"per-block launches counted {fe.launches_block}, "
           f"{fe.launches_block_write_r}")
     rd_rows = [torch.zeros((int(t.shape[1]), K, N_BATCHES + 1),
@@ -1373,15 +1398,86 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         rows_equal_round=True, repeat_bitwise=True, readd_bitwise=True,
         mesh_round_equals_round=True, max_abs=errs,
         timed_block=bt, ms_block=ms_block, ms_block_write_r=ms_block_k2,
-        ms_block_wrapper_call=ms_call,
-        ms_block_write_r_wrapper_call=ms_call_k2,
+        device_ms_block=dev_ms, device_ms_block_write_r=dev_ms_k2,
         plain_ms_block=plain_ms, plain_ms_block_write_r=plain_ms_k2,
         ms_readd=ms_readd, plain_ms_readd=plain_ms_readd,
         ms_per_pass=ms_pass, launches_per_pass=per_pass,
         readd_launches_per_pass=readd_per_pass, pass_profile=prof,
         bound_block=b1, bound_block_write_r=b2, bound_readd=br,
         roofline_share_block=b1["bound_ms"] / ms_block,
+        roofline_share_block_device=b1["bound_ms"] / dev_ms,
         roofline_share_block_tc=b1["bound_tc_ms"] / ms_block), worst
+
+
+def mesh_cards_round_checks(mods, X, batches, mesh):
+    """The mesh round on `mesh`, real cards whose lead need not be the
+    current device: K1 with r windows and K2 fp32 bitwise equal to the
+    one-launch round on cuda:0 (streams, events and copies between cards
+    order every launch); ms per pass on the host's clock, every card
+    synchronised."""
+    import dataclasses
+
+    import torch
+    (config, engine, layout, partition, fe, plain_mod, state_mod) = mods
+    from harmonypy_tpu_torch.parallel import sharding
+    geom, args, (cfg, blocks, st) = round_inputs(mods, X, batches,
+                                                 with_state=True)
+    D, lead, devs = mesh.size, mesh.lead, mesh.devices
+    geomD = partition.partition_geometry(
+        dataclasses.replace(cfg, n_devices=D))
+    nc = geomD.nc_cap
+    ZP3s = [sharding.extract_chunks(args[2], s, geomD).to(dv).contiguous()
+            for s, dv in enumerate(devs)]
+    # The round's blocks on the lead card, as the engine draws them there.
+    tabs = partition.mesh_round_tables(
+        blocks.to(lead), [sharding.extract_chunks(st.cache, s, geomD).to(dv)
+                          for s, dv in enumerate(devs)], geomD, devs)
+    consts = [t.to(lead) for t in args[3:]]
+    lo, width = 200, 16
+    rnd = fe.fused_estep(*args, False, lo=lo, width=width)
+    wins = [(lo - s * nc, width)
+            if sharding.window_rows(geomD, s, lo, width)[2] else None
+            for s in range(D)]
+    m = fe.fused_estep_mesh(tabs, ZP3s, *consts, False, geom.J_fix,
+                            windows=wins)
+    check(_eq(m[0].cpu(), rnd[0].cpu()) and _eq(m[1].cpu(), rnd[1].cpu()),
+          f"mesh round on {devs}: O/E differ from the round's")
+    for name, parts_, full in zip(("cache", "ybuf", "kbuf"), m[2:5],
+                                  rnd[2:5]):
+        check(_eq(partition.frame_rows(parts_, geomD).cpu(),
+                  full[: geom.nc_cap].cpu()),
+              f"mesh round on {devs}: {name} rows differ")
+    for s, Rw in enumerate(m[5]):
+        if Rw is not None:
+            l0, p0, n = sharding.window_rows(geomD, s, lo, width)
+            check(_eq(Rw[p0: p0 + n].cpu(), rnd[5][p0: p0 + n].cpu()),
+                  f"mesh round on {devs}: r window of shard {s} differs")
+    R3 = torch.zeros((geom.nc_cap + 1, K, CHUNK), device="cuda")
+    k2 = fe.fused_estep_r(args[0], args[1], args[2], R3, *args[3:], False)
+    R3s = [torch.zeros((nc + 1, K, CHUNK), device=dv) for dv in devs]
+    m2 = fe.fused_estep_mesh(tabs, ZP3s, *consts, False, geom.J_fix,
+                             R3s=R3s)
+    check(_eq(m2[0].cpu(), k2[1].cpu()) and _eq(m2[1].cpu(), k2[2].cpu())
+          and _eq(partition.frame_rows(R3s, geomD).cpu(),
+                  R3[: geom.nc_cap].cpu()),
+          f"mesh K2 round on {devs} differs from the round's")
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    def mesh_pass():
+        fe.fused_estep_mesh(tabs, ZP3s, *consts, False, geom.J_fix)
+    mesh_pass()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mesh_pass()
+    sync()
+    return dict(devices=[str(dv) for dv in devs],
+                current_device=torch.cuda.current_device(),
+                round_bitwise=True, write_r_bitwise=True,
+                ms_per_pass_host_clock=(time.perf_counter() - t0) * 200)
 
 
 def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
@@ -1565,9 +1661,14 @@ def phase_mesh(ht, mods, X, batches, groups, meta, refs, lisi_ref):
     res, counts = mesh_path_checks(ht, fe, X, batches, groups, meta, mesh,
                                    refs, lisi_ref)
     cards = torch.cuda.device_count()
-    real = (mesh_path_checks(ht, fe, X, batches, groups, meta, make_mesh(),
-                             refs, lisi_ref)[0]
-            if cards > 1 else f"skipped: {cards} card")
+    real = f"skipped: {cards} card"
+    if cards > 1:
+        real = mesh_path_checks(ht, fe, X, batches, groups, meta, make_mesh(),
+                                refs, lisi_ref)[0]
+        # The lead card is not the current device (cuda:0).
+        real["lead_not_current"] = mesh_cards_round_checks(
+            mods, X, batches,
+            make_mesh([f"cuda:{i}" for i in reversed(range(cards))]))
     emit(dict(phase="mesh", shards=MESH_SHARDS, kernel=kinfo,
               kernel_tolerance=TOL, **res, real_cards=real))
     return dict(

@@ -139,41 +139,4 @@ int frame_readd_launch(const void* call, int blk) {
   return err;
 }
 
-// Before a block's launches on a mesh: record ev on the lead stream; each
-// shard's stream waits for it and, where oe_dst[i] is set (a shard on
-// another card), copies the block's start O|E (oe_bytes at oe_src on the
-// lead card) there, on its stream. No host wait. Returns 0 or the first
-// CUDA error.
-int mesh_fork(void* lead, void* ev, int n, void* const* side,
-              void* const* oe_dst, const void* oe_src, long long oe_bytes) {
-  cudaError_t e = cudaEventRecord((cudaEvent_t)ev, (cudaStream_t)lead);
-  for (int i = 0; i < n && e == cudaSuccess; ++i) {
-    e = cudaStreamWaitEvent((cudaStream_t)side[i], (cudaEvent_t)ev, 0);
-    if (e == cudaSuccess && oe_dst[i] != nullptr)
-      e = cudaMemcpyAsync(oe_dst[i], oe_src, (size_t)oe_bytes,
-                          cudaMemcpyDefault, (cudaStream_t)side[i]);
-  }
-  return (int)e;
-}
-
-// After a block's launches: where rows_dst[i] is set (a shard on another
-// card), copy its block rows (rows_bytes[i] at rows_src[i]) to rows_dst[i]
-// on the lead card, on its stream; record evs[i] on each shard's stream
-// and let the lead stream wait for it.
-int mesh_join(void* lead, int n, void* const* side, void* const* evs,
-              void* const* rows_dst, void* const* rows_src,
-              const long long* rows_bytes) {
-  cudaError_t e = cudaSuccess;
-  for (int i = 0; i < n && e == cudaSuccess; ++i) {
-    if (rows_dst[i] != nullptr)
-      e = cudaMemcpyAsync(rows_dst[i], rows_src[i], (size_t)rows_bytes[i],
-                          cudaMemcpyDefault, (cudaStream_t)side[i]);
-    if (e == cudaSuccess)
-      e = cudaEventRecord((cudaEvent_t)evs[i], (cudaStream_t)side[i]);
-    if (e == cudaSuccess)
-      e = cudaStreamWaitEvent((cudaStream_t)lead, (cudaEvent_t)evs[i], 0);
-  }
-  return (int)e;
-}
-
 }  // extern "C"

@@ -71,9 +71,9 @@
 //  * K2's store is packed: two adjacent cells of one cluster per float2,
 //    or per __nv_bfloat162 rounded to nearest even (__floats2bfloat162_rn,
 //    as torch's .to(bfloat16) rounds).
-// The per-block entry (fused_estep_block: K1, its r window or K2 on one
-// block of the tables) is what a mesh runs, one launch per shard per block,
-// from the O, E it is given, returning the block-removed O, E; the lead
+// The per-block entry (fused_estep_block_launch: K1, its r window or K2 on
+// one block of the tables) is what a mesh runs, one launch per shard per
+// block, from the O, E it is given, returning the block-removed O, E; the lead
 // device re-adds the block across shards (csrc/frame_readd.cu). A shard's
 // block is small (8 slots x 12 units at 858k on 4 shards: ~12k cells,
 // 0.16 GFLOP, a 2.4 us bound), so the launch is an ordinary one of one CTA

@@ -11,17 +11,15 @@ plain version (`ops.update_r_fused.fused_update_nor` / `fused_update_r`).
 `launches` and `launches_write_r` count the launches of K1 and K2.
 
 `fused_estep_mesh` is the round on a mesh of several shards: for each
-block, the kernel's per-block entry on every shard (`fused_estep_block` runs
-one alone: block b of K1, of its r window or of K2, an ordinary launch of
-one CTA per unit), then the re-add kernel (csrc/frame_readd.cu,
-`fused_frame_readd` runs one alone) on the lead device. The inputs are
-checked and the scratch allocated once per pass; the block loop issues the
-launches and nothing else on one card (and the copies of O/E and of the
-block rows between cards on several). Its plain version is
-`ops.update_r_fused.mesh_round` (per block `fused_update_block`, then
-`frame_readd`); `launches_block` (K1 and its r window),
-`launches_block_write_r` (K2) and `launches_readd` count the launches, and
-`checks` the input checks (one per shard per pass on a mesh).
+block, the kernel's per-block entry on every shard (`_BlockLaunch`: block b
+of K1, of its r window or of K2, an ordinary launch of one CTA per unit),
+then the re-add kernel (csrc/frame_readd.cu, `_Readd`) on the lead device.
+The inputs are checked and the scratch allocated once per pass; the block
+loop issues the launches and events and nothing else on one card (and the
+copies of O/E and of the block rows between cards on several). Its plain
+version is `ops.update_r_fused.mesh_round` (per block `fused_update_block`,
+then `frame_readd`); `launches_block` (K1 and its r window),
+`launches_block_write_r` (K2) and `launches_readd` count the launches.
 
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
@@ -35,8 +33,7 @@ import functools
 
 import torch
 
-from ..update_r_fused import (frame_readd, fused_update_block,
-                              fused_update_nor, fused_update_r, mesh_round)
+from ..update_r_fused import fused_update_nor, fused_update_r, mesh_round
 from . import build
 
 launches = 0
@@ -44,7 +41,6 @@ launches_write_r = 0
 launches_block = 0
 launches_block_write_r = 0
 launches_readd = 0
-checks = 0
 
 TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
@@ -146,11 +142,8 @@ def _frame_readd_lib():
         lib.frame_readd_prepare.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P,
                                             _P, _P, _I, _I, _I, _P, _P]
         lib.frame_readd_launch.argtypes = [_P, _I]
-        lib.mesh_fork.argtypes = [_P, _P, _I, _P, _P, _P, ctypes.c_longlong]
-        lib.mesh_join.argtypes = [_P, _I, _P, _P, _P, _P, _P]
         for fn in (lib.frame_readd_prepare, lib.frame_readd_launch,
-                   lib.frame_readd_max_shards, lib.frame_readd_call_size,
-                   lib.mesh_fork, lib.mesh_join):
+                   lib.frame_readd_max_shards, lib.frame_readd_call_size):
             fn.restype = _I
         _readd_lib = lib
     return _readd_lib
@@ -181,8 +174,6 @@ def _check(name, t, shape, dtype, device, contiguous=True):
 def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E):
     """Check the inputs every round takes; returns (nc1, K, B, d, CH). The
     slot range is checked here on the CPU and by the kernel on the card."""
-    global checks
-    checks += 1
     if ZP3.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_estep runs on cuda or cpu, not {ZP3.device}")
     nc1, R, CH = ZP3.shape
@@ -347,30 +338,6 @@ class _BlockLaunch:
             launches_block += 1
 
 
-def fused_estep_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b, O,
-                      E, fast_ent: bool, out, J_glob: int, Rw=None,
-                      lo: int = 0, R3=None):
-    """Block b of a round alone (the per-block entry of K1, its r window or
-    K2), from O, E at the block's start: writes the rows of the block's
-    slots into out = (cache, ybuf, kbuf) (the round's per-chunk buffers),
-    r of the chunks lo..lo+width-1 into Rw (width, K, CH) (lo may be
-    negative: Rw holds a window of global chunks that starts before this
-    shard) or r of every slotted chunk into R3 (nc1, K, CH), fp32 or bf16.
-    J_glob = J_fix + 1 sets the units per slot (kernel_geometry). Returns
-    (O, E) with the block's cached stats removed; the caller re-adds the
-    block. See `ops.update_r_fused.fused_update_block`."""
-    ln = _BlockLaunch(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                      fast_ent, out, J_glob, Rw, lo, R3)
-    if ZP3.device.type == "cpu":
-        if not 0 <= b < slots.shape[0]:
-            raise ValueError(f"block {b} outside [0, {slots.shape[0]})")
-        return fused_update_block(b, slots, removal, ZP3, Y, sigma, theta,
-                                  Pr_b, O, E, fast_ent, out, Rw=Rw, lo=lo,
-                                  R3=R3)
-    ln.launch(b)
-    return ln.O1, ln.E1
-
-
 class _Readd:
     """The re-add launches of a round on the lead device: rows[s] (J_s, K,
     B+1) hold shard s's block rows (on the lead device), granks[s] (nb,
@@ -429,77 +396,53 @@ class _Readd:
 
 
 class _Exchange:
-    """The streams of a mesh pass's shards beside the lead stream (shard 0's)
-    and what crosses between cards at each block: `fork()` lets every
-    shard's stream wait for the lead stream's work so far and copies the
-    block's start O|E to each shard on another card; `join()` copies those
-    shards' block rows to the lead card and lets the lead stream wait for
-    every shard's stream. Events and copies on the streams: the host never
-    waits. A shard on the lead card gets a stream of its own, so the
-    shards of one card run at once; a shard on another card runs on that
-    card's current stream."""
+    """The streams of a mesh pass and what crosses between cards at each
+    block. Shard 0 runs on the lead card's current stream (the lead
+    stream), which also runs the re-add; every other shard runs on a
+    stream of its own on its card, so the shards of one card run at once.
+    `start()` lets each side stream wait for its card's current stream
+    (the pass's inputs and scratch); `fork()` lets it wait for the lead
+    stream's work so far and copies the block's start O|E to a shard on
+    another card; `join()` copies such a shard's block rows to the lead
+    card and lets the lead stream wait for every side stream; `end()` lets
+    each card's current stream wait for its side streams (the pass's
+    outputs, and the reuse of its scratch). torch's events and copies set
+    each stream's device: the host never waits."""
 
-    def __init__(self, lead, shards, oe, rows):
+    def __init__(self, lead, shards, oe, oes, rows):
         """shards: the `_BlockLaunch`es of shards 1.., oe: the lead card's
-        (2, K, B) O|E, rows: per shard the lead card's block rows (the
-        shard's own `brows` on the lead card, else a copy's target)."""
-        self.lead = torch.cuda.current_stream(lead)
-        n = len(shards)
-        self.streams = [ln.stream for ln in shards]
-        fork_ev = torch.cuda.Event()
-        fork_ev.record(self.lead)                     # creates the event
-        self._evs = [fork_ev] + [torch.cuda.Event() for _ in shards]
-        for ev, st in zip(self._evs[1:], self.streams):
-            ev.record(st)                   # creates it on the stream's card
-        P = ctypes.c_void_p * max(n, 1)
-        remote = [ln.device != lead for ln in shards]
-        self._side = P(*[st.cuda_stream for st in self.streams])
-        self._join_evs = P(*[ev._as_parameter_.value
-                             for ev in self._evs[1:]])
-        self._oe_dst = P(*[ln.O0.data_ptr() if far else None
-                           for ln, far in zip(shards, remote)])
-        self._rows_dst = P(*[r.data_ptr() if far else None
-                             for r, far in zip(rows, remote)])
-        self._rows_src = P(*[ln.brows.data_ptr() for ln in shards])
-        self._rows_bytes = (ctypes.c_longlong * max(n, 1))(
-            *[ln.brows.numel() * 4 for ln in shards])
-        self._fork = (self.lead.cuda_stream, fork_ev._as_parameter_.value,
-                      n, self._side, self._oe_dst, oe.data_ptr(),
-                      oe.numel() * 4)
-        self._join = (self.lead.cuda_stream, n, self._side, self._join_evs,
-                      self._rows_dst, self._rows_src, self._rows_bytes)
-        self._lib = _frame_readd_lib()
-        self._keep = (oe, rows)
+        (2, K, B) O|E, oes / rows: per shard its O|E and the lead card's
+        block rows (the shard's own on the lead card, else copies)."""
+        self.lead, self.oe = torch.cuda.current_stream(lead), oe
+        self._fork_ev = torch.cuda.Event()
+        self._side = [(ln.stream, torch.cuda.Event(),
+                       o if ln.device != lead else None,
+                       r if ln.device != lead else None, ln.brows)
+                      for ln, o, r in zip(shards, oes, rows)]
+
+    def start(self) -> None:
+        for st, *_ in self._side:
+            st.wait_stream(torch.cuda.current_stream(st.device))
 
     def fork(self) -> None:
-        if self.streams:
-            err = self._lib.mesh_fork(*self._fork)
-            if err != 0:
-                raise RuntimeError(f"mesh_fork failed: CUDA error {err}")
+        self._fork_ev.record(self.lead)
+        for st, _, oe, _, _ in self._side:
+            st.wait_event(self._fork_ev)
+            if oe is not None:
+                with torch.cuda.stream(st):
+                    oe.copy_(self.oe, non_blocking=True)
 
     def join(self) -> None:
-        if self.streams:
-            err = self._lib.mesh_join(*self._join)
-            if err != 0:
-                raise RuntimeError(f"mesh_join failed: CUDA error {err}")
+        for st, ev, _, rows, brows in self._side:
+            if rows is not None:
+                with torch.cuda.stream(st):
+                    rows.copy_(brows, non_blocking=True)
+            ev.record(st)
+            self.lead.wait_event(ev)
 
-
-def fused_frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
-    """One block's re-add across the shards of a mesh by the re-add kernel
-    (one launch) on the device of Or: rows[s] (J_s, K, B+1) shard s's
-    block rows in slot order, granks[s] (J_s,) their ranks (J_fix: none).
-    Returns (O, E); see `ops.update_r_fused.frame_readd`, its plain
-    version, which runs on the CPU."""
-    lead = Or.device
-    if lead.type == "cpu":
-        return frame_readd(rows, granks, Or, Er, Pr_b, J_fix)
-    K, B = Or.shape
-    O = torch.empty((K, B), dtype=torch.float32, device=lead)
-    E = torch.empty_like(O)
-    rows = [r.to(lead).contiguous() for r in rows]
-    _Readd(rows, [g.reshape(1, -1) for g in granks], Or.contiguous(),
-           Er.contiguous(), Pr_b.contiguous(), J_fix, O, E).launch(0)
-    return O, E
+    def end(self) -> None:
+        for st, *_ in self._side:
+            torch.cuda.current_stream(st.device).wait_stream(st)
 
 
 def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
@@ -512,8 +455,9 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     pass) reading the block's start O, E from one buffer on the lead card,
     which the re-add kernel overwrites after each block (a shard on
     another card reads its own copy); per block the exchange's fork, one
-    launch per shard, its join and one re-add launch (`_Exchange`: streams,
-    events and the copies between cards; the host never waits)."""
+    launch per shard, its join and one re-add launch (`_Exchange`: a stream
+    for each shard after the first, events and the copies between cards;
+    the host never waits)."""
     lead = O.device
     if lead.type == "cpu":
         for s, ZP3 in enumerate(ZP3s):
@@ -526,7 +470,7 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     # O|E at each block's start, which the re-add overwrites (one buffer,
     # so one copy reaches a shard on another card).
     OE = torch.stack([O, E])
-    shards, rows, outs, Rws = [], [], [], []
+    shards, oes, rows, outs, Rws = [], [], [], [], []
     for s, ZP3 in enumerate(ZP3s):
         dev, nc1, CH = ZP3.device, ZP3.shape[0], ZP3.shape[2]
         out = (torch.zeros((nc1, K, B + 1), device=dev, **f32),
@@ -541,22 +485,24 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
             sigma.to(dev), theta.to(dev), Pr_b.to(dev), OEs[0], OEs[1],
             fast_ent, out, J_fix + 1, Rw, 0 if win is None else win[0],
             None if R3s is None else R3s[s],
-            torch.cuda.Stream(device=lead) if 0 < s and dev == lead
-            else None)
+            torch.cuda.Stream(device=dev) if s else None)
         rows.append(ln.brows if dev == lead
                     else torch.empty_like(ln.brows, device=lead))
+        oes.append(OEs)
         shards.append(ln)
         outs.append(out)
         Rws.append(Rw)
-    exchange = _Exchange(lead, shards[1:], OE, rows[1:])
+    exchange = _Exchange(lead, shards[1:], OE, oes[1:], rows[1:])
     readd = _Readd(rows, [g.to(lead) for g in tables.granks], shards[0].O1,
                    shards[0].E1, Pr_b.contiguous(), J_fix, OE[0], OE[1])
+    exchange.start()
     for b in range(tables.removal.shape[0]):
         exchange.fork()
         for ln in shards:
             ln.launch(b)
         exchange.join()
         readd.launch(b)
+    exchange.end()
     return (OE[0], OE[1], [o[0] for o in outs], [o[1] for o in outs],
             [o[2] for o in outs], Rws)
 

@@ -115,7 +115,7 @@ def fused_update_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b,
                        O, E, fast_ent: bool, out, Rw=None, lo: int = 0,
                        R3=None):
     """Block b of a round alone — the plain version of the per-block entry
-    (`ops.cuda.fused_estep.fused_estep_block`), with its signature: from O,
+    (`ops.cuda.fused_estep._BlockLaunch`), with its arguments: from O,
     E at the block's start, write the rows of the block's slots into out =
     (cache, ybuf, kbuf), r of chunks lo..lo+width-1 into Rw (width, K, CH)
     or r of every slotted chunk into R3 in its dtype; return (O, E) with
@@ -196,7 +196,7 @@ def frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
     """Re-add one block across the shards of a mesh (the JAX package's
     `_block_readd`, ops/update_r_fused_xla.py:104-114) — the plain version
     of the re-add kernel (csrc/frame_readd.cu, `ops.cuda.fused_estep.
-    fused_frame_readd`). rows[s] (J_s, K, B+1) are shard s's block stats in
+    _Readd`). rows[s] (J_s, K, B+1) are shard s's block stats in
     slot order and granks[s] (J_s,) their within-block ranks (J_fix: no
     rank). The rows go to the (J_fix, K, B+1) rank frame on the device of
     Or (ranks no shard holds stay zero), the frame is summed one row after

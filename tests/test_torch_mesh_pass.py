@@ -2,7 +2,9 @@
 package's `_block_readd` on its CPU mesh, the k-means sample gathered from
 its owner shards, no one-device-wide cell array and no (d, N) gather on a
 mesh shard during a fit, the memory model's per-card terms, and the
-wrapper's input checks once per pass."""
+wrapper's input checks once per pass. On the card: the re-add kernel
+against its plain version, and a mesh of several cards whose lead card is
+not the current device against a mesh on one card."""
 
 import dataclasses
 import types
@@ -56,8 +58,8 @@ def _frame_case(shards, J_fix, Js, seed):
 @pytest.mark.parametrize("shards,J_fix,Js", [(2, 11, 7), (4, 22, 7),
                                              (4, 9, 4)])
 def test_frame_readd_equals_jax_block_readd(shards, J_fix, Js):
-    """frame_readd (the re-add kernel's plain version and the CPU path) and
-    the CPU wrapper against the JAX package's _block_readd
+    """frame_readd (the re-add kernel's plain version and the CPU path)
+    against the JAX package's _block_readd
     (ops/update_r_fused_xla.py:104-114) under shard_map on as many virtual
     CPU devices: the frame sums (O' = E' = 0, Pr_b = 1) and O bit for bit,
     and E bit for bit with Pr_b = 1. With another Pr_b XLA:CPU contracts
@@ -81,12 +83,11 @@ def test_frame_readd_equals_jax_block_readd(shards, J_fix, Js):
         args = ([torch.as_tensor(r) for r in rows],
                 [torch.as_tensor(g) for g in granks],
                 *(torch.as_tensor(x) for x in (o, e, prb)), J_fix)
-        for fn in (frame_readd, fe.fused_frame_readd):
-            O, E = (x.numpy() for x in fn(*args))
-            np.testing.assert_array_equal(O, Oj)
-            if prb is one:
-                np.testing.assert_array_equal(E, Ej)
-                continue
+        O, E = (x.numpy() for x in frame_readd(*args))
+        np.testing.assert_array_equal(O, Oj)
+        if prb is one:
+            np.testing.assert_array_equal(E, Ej)
+        else:
             np.testing.assert_array_max_ulp(E, Ej, maxulp=1)
             np.testing.assert_array_equal(
                 E, e + (sum0 * prb[None, :]).astype(np.float32))
@@ -194,20 +195,25 @@ def test_memory_model_per_card_falls_with_the_mesh(N, d, B, kw):
 
 
 @pytest.mark.parametrize("n_dev", [2, 4])
-def test_mesh_pass_checks_inputs_once_per_shard(n_dev):
+def test_mesh_pass_checks_inputs_once_per_shard(monkeypatch, n_dev):
     """fused_estep_mesh checks each shard's inputs once per pass, whatever
     the blocks: n_dev checks for a round of nb blocks, and a mesh fit
     n_dev per E-step pass."""
     X, meta = _problem()
     g1, g, _, tabs, ZP3s, common = _round_inputs(n_dev, X, meta)
     assert g.nb > 1
-    n0 = fe.checks
+    check, calls = fe._check_round, []
+
+    def counted(*a):
+        calls.append(1)
+        return check(*a)
+    monkeypatch.setattr(fe, "_check_round", counted)
     fe.fused_estep_mesh(tabs, ZP3s, *common, False, g.J_fix)
-    assert fe.checks - n0 == n_dev
-    n0 = fe.checks
+    assert len(calls) == n_dev
+    calls.clear()
     ho = ht.run_harmony(X, meta, ["batch"], mesh=make_mesh(["cpu"] * n_dev),
                         **FIT)
-    assert fe.checks - n0 == n_dev * ho.state.n_passes
+    assert len(calls) == n_dev * ho.state.n_passes
 
 
 @pytest.fixture
@@ -228,11 +234,57 @@ def test_readd_kernel_equals_frame_readd_on_the_card(cuda_device):
         return torch.as_tensor(x, device=cuda_device)
     args = ([t(r) for r in rows], [t(g) for g in granks], t(Or), t(Er),
             t(Pr_b), 22)
+    O, E = torch.empty_like(args[2]), torch.empty_like(args[3])
     n0 = fe.launches_readd
-    O, E = fe.fused_frame_readd(*args)
+    fe._Readd(args[0], [g.reshape(1, -1) for g in args[1]], *args[2:], O,
+              E).launch(0)
     assert fe.launches_readd == n0 + 1
     Op, Ep = frame_readd(*args)
     assert torch.equal(O, Op) and torch.equal(E, Ep)
+
+
+def _tables_on(tabs, devices):
+    return tabs._replace(
+        slots=[s.to(dv) for s, dv in zip(tabs.slots, devices)],
+        granks=[g.to(dv) for g, dv in zip(tabs.granks, devices)],
+        removal=tabs.removal.to(devices[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["round", "r_window", "float32"])
+def test_mesh_of_cards_with_lead_not_current_equals_one_card(cuda_device,
+                                                             kind):
+    """fused_estep_mesh on two cards whose lead is not the current device
+    (shard 0 on cuda:1; shard 1, and the current device, cuda:0) equals the
+    same round on two logical shards of cuda:0 bit for bit: O, E, the
+    per-chunk rows, the r windows and the stored R (the streams, events
+    and copies between cards order every shard's launch)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    X, meta = _problem()
+    g1, g, _, tabs, ZP3s, common = _round_inputs(2, X, meta)
+    fast = kind == "r_window"
+    lo, width = 5, 9
+    wins = ([(lo - s * g.nc_cap, width)
+             if sharding.window_rows(g, s, lo, width)[2] else None
+             for s in range(2)] if fast else None)
+    got = []
+    for devs in ([torch.device("cuda:0")] * 2,
+                 [torch.device("cuda:1"), torch.device("cuda:0")]):
+        torch.cuda.set_device(0)
+        R3s = (None if kind in ("round", "r_window") else
+               [torch.zeros((g.nc_cap + 1, 12, g.CH), device=dv)
+                for dv in devs])
+        out = fe.fused_estep_mesh(
+            _tables_on(tabs, devs), [z.to(dv) for z, dv in zip(ZP3s, devs)],
+            *(c.to(devs[0]) for c in common), fast, g.J_fix, windows=wins,
+            R3s=R3s)
+        got.append([t.cpu() for t in (*out[:2], *out[2], *out[3], *out[4],
+                                      *(r for r in out[5] if r is not None),
+                                      *(R3s or ()))])
+    assert len(got[0]) == len(got[1])
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n_dev", [1, 4])
