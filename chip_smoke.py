@@ -38,6 +38,15 @@ line per phase:
               busy time by kernel, the device's idle share, and the host and
               device spans of the engine's ranges (harmony::init,
               ::cluster, ::ridge_replay or ::ridge);
+  3d. profile_fit  utils.profiling.profile_fit(split_init=True) on the
+              858k deferred config (K1; its A/B against the stored round,
+              K2) and stored config (K2): dispatch, init (seeding, stats),
+              one k-means round by differencing, the ridge, the round
+              against its H100 floor (the bound of phase kernel) and HBM
+              rate, the K1 / K2 launches the probes made; then trace()
+              around a pbmc fit names the estep_round kernel;
+  3e. io      the native TSV parser on pbmc_3500_pcs.tsv.gz: bitwise at 1
+              and all threads, equal to pandas, both parse times;
   4. golden   pbmc_3500 with chunk_size=128 on the card: per-PC Pearson r
               against the R package's output >= 0.99;
   4b. golden_default  pbmc_3500 at default settings (the per-cell fit) and
@@ -106,11 +115,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # synthesized as bench.py does (24 groups, 3 batches, seed 0).
 N_CELLS, N_PCS, N_BATCHES, N_GROUPS, K = 858_000, 29, 3, 24, 100
 CHUNK = 2048
-# H100 SXM published peaks (NVIDIA H100 datasheet): fp32 on CUDA cores,
-# TF32 on tensor cores (dense), HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_S = 3.35e12
 # Kernel vs plain tolerances (rtol, atol): both sum the same fp32 products
 # in a different order (tile partials vs one batched matmul), over 2048-cell
 # chunks for cache/ybuf/kbuf and ~43k-cell blocks for O/E; r is in [0, 1].
@@ -175,11 +179,9 @@ def diff(a, b, rtol, atol):
             float((d / (atol + rtol * bb)).max()))
 
 
-def round_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK,
-                 with_state=False):
-    """The main path's own inputs of one E-step round (the full shape by
-    default): init statistics and one round's tables. with_state: also
-    return (cfg, the round's blocks, the init state)."""
+def fit_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK):
+    """(cfg, data, params) of the deferred fused fit of X on the card, one
+    device: the engine's own inputs, as run_harmony builds them."""
     import numpy as np
     import torch
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
@@ -188,7 +190,6 @@ def round_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK,
     cfg = config.EngineConfig(N=N, d=d, K=n_clusters, B=B, n_devices=1,
                               use_fused_xla=True, defer_r=True,
                               chunk_size=chunk)
-    geom = partition.partition_geometry(cfg)
     Phi = (batches[None, :] == np.arange(B)[:, None]).astype(np.float32)
 
     def t(x):
@@ -200,7 +201,19 @@ def round_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK,
     params = state_mod.HarmonyParams(
         theta=t(np.full(B, 2.0)), sigma=t(np.full(n_clusters, 0.1)),
         lamb=t([0.0] + [1.0] * B), Pr_b=t(Phi.mean(axis=1)))
-    gen = torch.Generator(device=dev)
+    return cfg, data, params
+
+
+def round_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK,
+                 with_state=False):
+    """The main path's own inputs of one E-step round (the full shape by
+    default): init statistics and one round's tables. with_state: also
+    return (cfg, the round's blocks, the init state)."""
+    import torch
+    (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
+    cfg, data, params = fit_inputs(ht_mods, X, batches, n_clusters, chunk)
+    geom = partition.partition_geometry(cfg)
+    gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(0)
     # The main path's own inputs: init statistics, one round's tables.
     st = engine.init_defer(data, params, cfg, gen)
@@ -213,31 +226,6 @@ def round_inputs(ht_mods, X, batches, n_clusters=K, chunk=CHUNK,
     if with_state:
         return geom, args, (cfg, blocks, st)
     return geom, args
-
-
-def round_bound(geom, r_bytes=0):
-    """Least work of one round: every real cell once; K2 also writes R
-    (r_bytes per element of the (nc1, K, CH) store). bound_ms takes the
-    products and the wdiv Phi weights at the fp32 CUDA-core rate (the bound
-    kept since PR 1); bound_tc_ms takes the two products as 3xTF32 on the
-    tensor cores (3 passes at the dense TF32 rate) and wdiv Phi at the fp32
-    rate, against the same bytes."""
-    R = 1 + N_BATCHES + N_PCS
-    products = N_CELLS * (2 * N_PCS * K + 2 * K * R)
-    weights = N_CELLS * 2 * K * N_BATCHES
-    flops = products + weights
-    nbytes = (4 * (N_CELLS * R + (geom.nc_cap + 1) * (K * R + 2))
-              + r_bytes * (geom.nc_cap + 1) * K * geom.CH)
-    bound = dict(flop=flops, bytes=nbytes,
-                 ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
-                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
-                 ops_tc_ms=(3 * products / PEAK_TF32_FLOPS
-                            + weights / PEAK_FP32_FLOPS) * 1e3)
-    bound["bound_ms"] = max(bound["ops_ms"], bound["bytes_ms"])
-    bound["bound_by"] = ("operations" if bound["ops_ms"] >= bound["bytes_ms"]
-                         else "bytes")
-    bound["bound_tc_ms"] = max(bound["ops_tc_ms"], bound["bytes_ms"])
-    return bound
 
 
 def device_ms(fn, reps=10):
@@ -346,7 +334,10 @@ def timing(fe, fn, bound, reps=20):
                 roofline_share_tc=bound["bound_tc_ms"] / ms)
 
 
-def phase_kernel(ht_mods, geom, args):
+def phase_kernel(ht_mods, cfg, geom, args):
+    """K1 against its plain version at the full shape; its times, launches
+    and bounds. Returns (the kernels line's numbers, profiler device ms)."""
+    from harmonypy_tpu_torch.utils.profiling import round_bound
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     lo, width = 200, 16
     res = {}
@@ -356,7 +347,7 @@ def phase_kernel(ht_mods, geom, args):
             max_abs={n: e[0] for n, e in errs.items()},
             max_rel={n: e[1] for n, e in errs.items()},
             repeat_bitwise=True, replay_equals_round_bitwise=True)
-    bound = round_bound(geom)
+    bound = round_bound(cfg)
     t = timing(fe, lambda: fe.fused_estep(*args, False), bound)
     check(t["launches_per_round"] == 1,
           f"K1 launched {t['launches_per_round']} kernels per round")
@@ -374,7 +365,8 @@ def phase_kernel(ht_mods, geom, args):
                                                if k not in ("ms", "device_ms")},
               bound=bound))
     return dict(ms=t["ms"], plain_ms=plain_ms, max_abs_err=max_abs,
-                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+                bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"]), t["device_ms"]
 
 
 def bf16_ulps(a, b) -> int:
@@ -386,10 +378,12 @@ def bf16_ulps(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
-def phase_kernel2(ht_mods, geom, args):
+def phase_kernel2(ht_mods, cfg, geom, args):
     """K2 on the round of phase kernel, fp32 and bf16 R, both objective
-    forms: against its plain version, and bitwise against K1."""
+    forms: against its plain version, and bitwise against K1. Returns (the
+    kernels line's numbers, fp32 profiler device ms)."""
     import torch
+    from harmonypy_tpu_torch.utils.profiling import round_bound
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     dev = torch.device("cuda")
     nc, CH = geom.nc_cap, geom.CH
@@ -429,7 +423,7 @@ def phase_kernel2(ht_mods, geom, args):
     times = {n: dict(ms=sorted(v)[1], ms_samples=v) for n, v in samples.items()}
     for name, R3 in R3s.items():
         fn = runs[name]
-        bound = round_bound(geom, r_bytes=R3.element_size())
+        bound = round_bound(cfg, r_bytes=R3.element_size())
         t = timing(fe, fn, bound)
         check(t["launches_per_round"] == 1,
               f"K2 {name} launched {t['launches_per_round']} kernels")
@@ -449,7 +443,7 @@ def phase_kernel2(ht_mods, geom, args):
     t32 = times["float32"]
     return dict(ms=t32["ms"], plain_ms=t32["plain_ms"], max_abs_err=max_abs,
                 bound_ms=t32["bound"]["bound_ms"],
-                bound_by=t32["bound"]["bound_by"])
+                bound_by=t32["bound"]["bound_by"]), t32["device_ms"]
 
 
 # Shapes of phase shapes: (N, d, K, B, CH). Every K in {7, 100, 200}, d in
@@ -664,6 +658,168 @@ def phase_profile(ht, X, meta, label, **kw):
               host_ranges_ms=host, device_ranges_ms=dev_ranges,
               top_device=[dict(name=k[:80], ms=ms, count=n)
                           for k, (ms, n) in top]))
+
+
+def phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms, k2_dev_ms,
+                      k1_bound_ms):
+    """utils.profiling.profile_fit(split_init=True) through the engine at
+    858k on the card: the deferred config (K1, and the stored round's A/B,
+    K2) and the stored config (K2), with the launches its probes made; the
+    profiler's floor equal to phase kernel's bound; a differenced round no
+    shorter than its kernel's device time (x 0.9). Then trace() around a
+    pbmc fit (chunk 128, deferred) names the estep_round kernel."""
+    import dataclasses
+    import glob
+    import tempfile
+
+    import pandas as pd
+    import torch
+    from harmonypy_tpu_torch.parallel.mesh import make_mesh
+    from harmonypy_tpu_torch.utils.profiling import (estep_vpu_floor_s,
+                                                     profile_fit, trace)
+    fe = mods[4]
+    cfg, data, params = fit_inputs(mods, X, batches)
+    check(abs(estep_vpu_floor_s(cfg) * 1e3 - k1_bound_ms) <= 1e-12,
+          f"profiler floor {estep_vpu_floor_s(cfg)} s != K1 bound "
+          f"{k1_bound_ms} ms")
+    mesh = make_mesh(["cuda:0"])
+    out = {}
+    for name, cfg_v, kernel_ms in (
+            ("deferred", cfg, k1_dev_ms),
+            ("stored", dataclasses.replace(cfg, defer_r=False), k2_dev_ms)):
+        fe.launches = fe.launches_write_r = 0
+        t0 = time.perf_counter()
+        res = profile_fit(cfg_v, mesh, data, params, split_init=True)
+        wall_s = time.perf_counter() - t0
+        k1, k2 = fe.launches, fe.launches_write_r
+        tag = f"profile_fit {name}"
+        check("phases_truncated" not in res, f"{tag}: {res}")
+        check(res.get("estep_vpu_floor_frac", 0.0) <= 1.05
+              and res.get("estep_hbm_frac_of_peak", 0.0) <= 1.05,
+              f"{tag}: a round past its floor: {res}")
+        check(res["phase_kmeans_round_s"] * 1e3 >= 0.9 * kernel_ms,
+              f"{tag}: round {res['phase_kmeans_round_s']} s under its "
+              f"kernel's {kernel_ms} ms")
+        if name == "deferred":
+            check(k1 > 0 and "pallas_stored_round_s" in res,
+                  f"{tag}: K1 launches {k1}, keys {sorted(res)}")
+            check(res["pallas_stored_round_s"] * 1e3 >= 0.9 * k2_dev_ms,
+                  f"{tag}: stored round {res['pallas_stored_round_s']} s "
+                  f"under K2's {k2_dev_ms} ms")
+        check(k2 > 0, f"{tag}: K2 launches {k2}")
+        out[name] = dict(result=res, k1_launches=k1, k2_launches=k2,
+                         wall_s=wall_s, kernel_device_ms=kernel_ms)
+    rounds = 17
+    host = iteration_profile(mods[1], dataclasses.replace(
+        cfg, max_iter_kmeans=rounds, epsilon_kmeans=0.0, max_iter_harmony=1),
+        data, params)
+    del data
+
+    meta = pd.read_csv(os.path.join(DATA, "pbmc_3500_meta.tsv.gz"), sep="\t")
+    pcs = pd.read_csv(os.path.join(DATA, "pbmc_3500_pcs.tsv.gz"), sep="\t")
+    with tempfile.TemporaryDirectory() as td:
+        with trace(td):
+            ho = ht.run_harmony(pcs, meta, ["donor"], device="cuda:0",
+                                verbose=False, chunk_size=128)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(td, "*.json"))
+        check(ho.cfg.defer_r and files, f"trace: defer_r {ho.cfg.defer_r}, "
+                                        f"files {os.listdir(td)}")
+        named = 0
+        for f in files:
+            with open(f) as fh:
+                named += fh.read().count("estep_round")
+        check(named > 0, f"trace {files}: no estep_round kernel")
+        trace_mb = sum(os.path.getsize(f) for f in files) / 1e6
+    emit(dict(phase="profile_fit", nvidia_smi=smi, N=N_CELLS, d=N_PCS, K=K,
+              B=N_BATCHES, reps=16, fits=out,
+              deferred_iteration_profiled=dict(kmeans_rounds=rounds, **host),
+              trace=dict(fit="pbmc_3500 chunk_size=128", files=len(files),
+                         mb=trace_mb, estep_round_mentions=named)))
+
+
+def iteration_profile(engine, cfg, data, params):
+    """One harmony iteration of cfg (pinned rounds) under torch.profiler:
+    wall ms, device busy ms, the host ms of harmony::cluster and
+    harmony::ridge_replay, the host's waits for the device (CUDA
+    synchronize calls and scalar reads: count, ms) and the host ops of
+    most self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    st = engine.init_defer(data, params, cfg, gen)
+    step = engine.HarmonyStep(data, params, cfg, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, ranges, waits = [], {}, {}
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.device_type == DeviceType.CUDA:
+            if not (e.name.startswith("harmony::")
+                    or getattr(e, "is_user_annotation", False)):
+                spans.append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith("harmony::"):
+            ranges[e.name] = ranges.get(e.name, 0.0) + ms
+        elif "Synchronize" in e.name or e.name == "aten::_local_scalar_dense":
+            n, t = waits.get(e.name, (0, 0.0))
+            waits[e.name] = (n + 1, t + ms)
+    top = sorted((a for a in prof.key_averages()
+                  if a.device_type != DeviceType.CUDA),
+                 key=lambda a: -a.self_cpu_time_total)[:12]
+    return dict(wall_ms=wall_ms, device_busy_ms=_union_us(spans) / 1e3,
+                host_ranges_ms=ranges,
+                host_waits={k: dict(count=n, ms=t)
+                            for k, (n, t) in waits.items()},
+                top_host_self=[dict(name=a.key[:60], count=a.count,
+                                    self_ms=a.self_cpu_time_total / 1e3)
+                               for a in top])
+
+
+def phase_io():
+    """The port's native TSV parser on pbmc_3500_pcs.tsv.gz: bitwise equal
+    at one thread and at one per core, equal to the pandas path at rtol
+    1e-6; both parse times. Without it, the build's message."""
+    import numpy as np
+    from harmonypy_tpu_torch.io import loader
+    path = os.path.join(DATA, "pbmc_3500_pcs.tsv.gz")
+    ok = loader.native_available()
+    res = dict(native_available=ok)
+    if not ok:
+        res["build_error"] = loader._build_error
+        emit(dict(phase="io", **res))
+        return
+
+    def best_s(fn, reps=5):
+        out, best = None, float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        return out, best
+
+    a0, native_s = best_s(lambda: loader.load_matrix_tsv(path))
+    a1, native1_s = best_s(lambda: loader.load_matrix_tsv(path, n_threads=1))
+    lib = loader._lib
+    loader._lib = None              # the pandas path alone
+    try:
+        b, pandas_s = best_s(lambda: loader.load_matrix_tsv(path))
+    finally:
+        loader._lib = lib
+    check(np.array_equal(a0, a1), "native parse differs across threads")
+    err = float(np.abs(a0 - b).max())
+    check(a0.shape == b.shape and np.allclose(a0, b, rtol=1e-6, atol=0),
+          f"native vs pandas max |diff| {err}")
+    emit(dict(phase="io", **res, shape=list(a0.shape), library=lib._name,
+              native_s=native_s, native_one_thread_s=native1_s,
+              pandas_s=pandas_s, max_abs_diff_vs_pandas=err,
+              threads_bitwise=True))
 
 
 def golden_fit(ht, **kw):
@@ -888,6 +1044,7 @@ def phase_lisi(ht, Z, batches, groups):
     del bd, bi, Xc
 
     # One profiled pruned call, and the scan's bounds for this run's index.
+    from harmonypy_tpu_torch.utils.profiling import PEAK_BYTES_S
     wall_p, busy_ms, kinds, top = profile_device(
         lambda: ht.compute_lisi(Z, meta, labels, perplexity,
                                 device="cuda:0"))
@@ -1060,28 +1217,17 @@ def block_bound(n_cells, n_slots, r_bytes=0):
     """Least work of one per-block launch: its real cells read once (the
     slab), its slots' rows written once (cache, ybuf, kbuf, and r with
     r_bytes per element), the products of round_bound on those cells."""
-    R = 1 + N_BATCHES + N_PCS
-    products = n_cells * (2 * N_PCS * K + 2 * K * R)
-    weights = n_cells * 2 * K * N_BATCHES
-    flops = products + weights
-    nbytes = (4 * (n_cells * R + n_slots * (K * R + 2))
-              + r_bytes * n_slots * K * CHUNK)
-    bound = dict(flop=flops, bytes=nbytes, cells=n_cells, slots=n_slots,
-                 ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
-                 bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
-                 ops_tc_ms=(3 * products / PEAK_TF32_FLOPS
-                            + weights / PEAK_FP32_FLOPS) * 1e3)
-    bound["bound_ms"] = max(bound["ops_ms"], bound["bytes_ms"])
-    bound["bound_by"] = ("operations" if bound["ops_ms"] >= bound["bytes_ms"]
-                         else "bytes")
-    bound["bound_tc_ms"] = max(bound["ops_tc_ms"], bound["bytes_ms"])
-    return bound
+    from harmonypy_tpu_torch.utils.profiling import estep_bound
+    return dict(estep_bound(n_cells, n_slots, N_PCS, K, N_BATCHES, CHUNK,
+                            r_bytes), cells=n_cells, slots=n_slots)
 
 
 def readd_bound(J_fix):
     """Least work of one re-add launch: the block's J_fix frame rows (K,
     B+1) and the rank row read once, O', E' read and O, E written once;
     J_fix (B+1) K adds and 2 K B operations to form O, E."""
+    from harmonypy_tpu_torch.utils.profiling import (PEAK_BYTES_S,
+                                                     PEAK_FP32_FLOPS)
     B1 = N_BATCHES + 1
     nbytes = 4 * (J_fix * K * B1 + J_fix + 4 * K * N_BATCHES + N_BATCHES)
     flops = J_fix * K * B1 + 2 * K * N_BATCHES
@@ -1721,9 +1867,11 @@ def main() -> int:
               build_s=build_s, ptxas=build.build_log))
     X, batches, groups = synthetic()
     mods = (config, engine, layout, partition, fe, update_r_fused, state)
-    geom, args = round_inputs(mods, X, batches)
-    kinfo = phase_kernel(mods, geom, args)
-    k2info = phase_kernel2(mods, geom, args)
+    geom, args, (cfg, _, st) = round_inputs(mods, X, batches,
+                                            with_state=True)
+    del st
+    kinfo, k1_dev_ms = phase_kernel(mods, cfg, geom, args)
+    k2info, k2_dev_ms = phase_kernel2(mods, cfg, geom, args)
     del args
     phase_shapes(mods)
     launches, meta, fit_ho, fit_peak = phase_fit(ht, fe, X, batches)
@@ -1731,6 +1879,9 @@ def main() -> int:
     fits["deferred"] = (fit_ho.cfg, fit_peak)
     phase_profile(ht, X, meta, "deferred")
     phase_profile(ht, X, meta, "stored", defer_r=False)
+    phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms, k2_dev_ms,
+                      kinfo["bound_ms"])
+    phase_io()
     phase_golden(ht)
     phase_golden_default(ht)
     phase_lisi_golden(ht)

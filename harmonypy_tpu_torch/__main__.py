@@ -82,14 +82,17 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_correct(sub)
     _add_lisi(sub)
-    sub.add_parser("bench", help="not ported (ROADMAP.md §1 item 10)"
+    sub.add_parser("bench", help="not ported (ROADMAP.md §1 item 1)"
                    ).add_argument("tiers", nargs="*")
     args = parser.parse_args(argv)
 
     if args.cmd == "bench":
-        sys.exit("harmonypy_tpu_torch: the bench subcommand is not ported "
-                 "yet (ROADMAP.md §1 item 10, utils/profiling.py and bench); "
-                 "on a CUDA card, python3 chip_smoke.py measures the port")
+        sys.exit("harmonypy_tpu_torch: the bench subcommand is not ported: "
+                 "it runs the JAX package's benchmark folder "
+                 "(benchmarks/run_benchmarks.py), which stays unported "
+                 "(ROADMAP.md §1 item 1). utils.profiling.profile_fit "
+                 "profiles a fit; on a CUDA card, python3 chip_smoke.py "
+                 "measures the port")
 
     import numpy as np
     import pandas as pd

@@ -441,6 +441,51 @@ def iterate_stored(st: HarmonyState, data: HarmonyData,
     st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
 
 
+class HarmonyStep:
+    """One harmony iteration of a fit's state on the path cfg selects
+    (deferred-R `iterate`, else `iterate_stored`), each round's partition
+    drawn from `gen` (the stripes of the fused paths, the iid cells of the
+    per-cell path) or, as a test hook, given by `blocks_fn(i)`. n_drawn
+    counts the draws, from the count a resumed fit had reached. `fit` and
+    utils/profiling.profile_fit both step a state through it."""
+
+    def __init__(self, data: HarmonyData, params: HarmonyParams,
+                 cfg: EngineConfig, gen: torch.Generator,
+                 blocks_fn: Optional[Callable[[int], torch.Tensor]] = None,
+                 n_drawn: int = 0):
+        self.data, self.params, self.cfg = data, params, cfg
+        self.gen, self.blocks_fn, self.n_drawn = gen, blocks_fn, n_drawn
+        self.dev = _devices(data)[0]
+        self.ZO3s = None        # the deferred ridge's chunk-major Z_orig
+
+    def draw_blocks(self) -> torch.Tensor:
+        cfg = self.cfg
+        if self.blocks_fn is not None:
+            blocks = torch.as_tensor(self.blocks_fn(self.n_drawn),
+                                     dtype=torch.int64, device=self.dev)
+        elif cfg.fused_estep:
+            geom = partition_geometry(cfg)
+            blocks = stripe_blocks(self.gen, geom.NC_fixed, geom.L, geom.nb)
+        else:
+            blocks = iid_blocks(self.gen, cfg.N, cell_partition_len(cfg),
+                                cfg.n_blocks)
+        self.n_drawn += 1
+        return blocks
+
+    def __call__(self, st: HarmonyState) -> None:
+        cfg = self.cfg
+        if cfg.defer_r:
+            if self.ZO3s is None:
+                geom = partition_geometry(cfg)
+                self.ZO3s = [z.reshape(cfg.d, geom.nc_cap + 1, geom.CH)
+                             .permute(1, 0, 2).contiguous()
+                             for z in parts(self.data.Z_orig)]
+            iterate(st, self.data, self.params, cfg, self.draw_blocks,
+                    self.ZO3s)
+        else:
+            iterate_stored(st, self.data, self.params, cfg, self.draw_blocks)
+
+
 def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         gen: torch.Generator, verbose: bool = False, init_Y=None,
         blocks_fn: Optional[Callable[[int], torch.Tensor]] = None,
@@ -454,39 +499,14 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     already holds; the fit continues from its iteration n_rounds + 1 (JAX
     package api.py:395-436)."""
     cfg.validate()
-    dev = _devices(data)[0]
-    n_drawn = 0 if resume is None else resume[1].n_drawn
-
-    def draw_blocks():
-        nonlocal n_drawn
-        if blocks_fn is not None:
-            blocks = torch.as_tensor(blocks_fn(n_drawn), dtype=torch.int64,
-                                     device=dev)
-        elif cfg.fused_estep:
-            geom = partition_geometry(cfg)
-            blocks = stripe_blocks(gen, geom.NC_fixed, geom.L, geom.nb)
-        else:
-            blocks = iid_blocks(gen, cfg.N, cell_partition_len(cfg),
-                                cfg.n_blocks)
-        n_drawn += 1
-        return blocks
-
+    step = HarmonyStep(data, params, cfg, gen, blocks_fn,
+                       0 if resume is None else resume[1].n_drawn)
     if resume is not None:
         st = resume[0]
     elif cfg.defer_r:
         st = init_defer(data, params, cfg, gen, init_Y)
     else:
         st = init_stored(data, params, cfg, gen, init_Y)
-    if cfg.defer_r:
-        geom = partition_geometry(cfg)
-        ZO3s = [z.reshape(cfg.d, geom.nc_cap + 1, geom.CH).permute(
-            1, 0, 2).contiguous() for z in parts(data.Z_orig)]
-
-        def step():
-            iterate(st, data, params, cfg, draw_blocks, ZO3s)
-    else:
-        def step():
-            iterate_stored(st, data, params, cfg, draw_blocks)
 
     resumed = " (resumed)" if resume is not None else ""
     for i in range(st.n_rounds + 1, cfg.max_iter_harmony + 1):
@@ -494,11 +514,11 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
             break
         if verbose:
             logger.info(f"Iteration {i} of {cfg.max_iter_harmony}{resumed}")
-        step()
+        step(st)
         if checkpoint_dir is not None:
             save_state(os.path.join(checkpoint_dir, f"harmony_iter_{i}.npz"),
                        st, RngState(gen.get_state(), gen.device.type,
-                                    n_drawn), cfg)
+                                    step.n_drawn), cfg)
         if st.converged:
             if verbose:
                 logger.info(f"Converged after {i} iteration"
