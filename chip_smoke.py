@@ -96,6 +96,19 @@ line per phase:
               card when there are several, and there the mesh round on the
               cards in reverse order (its lead not the current device)
               bitwise equal to the one-launch round;
+  5g. multiprocess  multi-process runs at 858k, worker processes of this
+              script (each with a time limit; one failing fails the run):
+              2 ranks on cuda:0 under gloo with 2 shards each (NCCL
+              refuses two ranks on one card) — the deferred, stored and
+              low_memory fits, .R and a checkpoint resume; 1 NCCL rank
+              with 4 shards, whose blocks cross through a real NCCL
+              all-gather — the deferred and stored fits; one NCCL rank per
+              card when there are several — the deferred fit. Each bitwise
+              equal to phases fit / fit_stored (so to the one-process mesh
+              of phase mesh), with every worker's per-block and re-add
+              launches, the ms per mesh pass (CUDA events), one profiled
+              pass, and the host's waits per pass: under NCCL the host
+              must not wait inside the block loop;
   6. kernels  every kernel (K1, K2, their per-block entries, the re-add)
               with its launches on its path's fit, error against the plain
               version, time, and bound.
@@ -1249,7 +1262,9 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
     pass to the last synchronise, device-busy ms per pass (union of every
     kernel, copy and fill interval), the per-block kernel's device ms per
     launch (kernels named estep_*; n_blocks x shards per pass), the re-add
-    kernel's, and the other device operations per pass by name."""
+    kernel's, the other device operations per pass by name, and the host's
+    waits per pass (CUDA runtime calls named *Synchronize, the profile's
+    closing synchronise not counted)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1265,8 +1280,10 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
             issue.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, block, readd, other = [], [], [], {}
+    spans, block, readd, other, waits = [], [], [], {}, -1
     for e in prof.events():
+        if e.device_type == DeviceType.CPU and "Synchronize" in e.name:
+            waits += 1
         if (e.device_type != DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
@@ -1293,7 +1310,8 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
         readd_kernel_device_ms=(sum(readd) / len(readd) / 1e3
                                 if readd else None),
         other_ops_per_pass=sum(other.values()) / passes,
-        other_ops=dict(sorted(other.items(), key=lambda kv: -kv[1])[:12]))
+        other_ops=dict(sorted(other.items(), key=lambda kv: -kv[1])[:12]),
+        host_waits_per_pass=waits / passes)
 
 
 def block_launch(fe, b, *args, **kw):
@@ -1834,6 +1852,294 @@ def phase_mesh(ht, mods, X, batches, groups, meta, refs, lisi_ref):
                    bound_by=kinfo["bound_readd"]["bound_by"]))
 
 
+# Multi-process runs (phase multiprocess): worker processes of this script,
+# each with a time limit; a collective waits at most MP_COLLECTIVE_S.
+MP_WORKER_S, MP_COLLECTIVE_S = 420, 300
+
+
+def digest(a) -> str:
+    """sha256 of an array's dtype, shape and bytes: bitwise equality of two
+    results compared across processes without moving them."""
+    import hashlib
+
+    import numpy as np
+    a = np.ascontiguousarray(np.asarray(a))
+    h = hashlib.sha256(f"{a.dtype}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()[:32]
+
+
+def fit_digests(ho) -> dict:
+    """digest of Z_corr, R, the five histories and kmeans_rounds."""
+    return {a: digest(getattr(ho, a)) for a in ("Z_corr", "R") + HIST}
+
+
+def _counts(fe):
+    return (fe.launches, fe.launches_write_r, fe.launches_block,
+            fe.launches_block_write_r, fe.launches_readd)
+
+
+def _zero_counts(fe):
+    fe.launches = fe.launches_write_r = 0
+    fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
+
+
+def mp_worker(spec: dict) -> None:
+    """One rank of a multi-process run (phase multiprocess): join the
+    process group, fit the 858k data on the mesh of every rank's
+    `devices` (after a warm-up fit; each fit with the five launch counts
+    set to 0 just before it), digest its Z_corr, R, histories and kmeans_rounds; the gloo run
+    also resumes the deferred fit from its first checkpoint; then one mesh
+    pass (the deferred fit's final round replayed) timed by CUDA events and
+    profiled. Writes <dir>/<tag>_<rank>.json."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    sys.path.insert(0, HERE)
+    import harmonypy_tpu_torch as ht
+    from harmonypy_tpu_torch import engine
+    from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+    from harmonypy_tpu_torch.ops.partition import (mesh_round_tables,
+                                                   partition_geometry)
+    from harmonypy_tpu_torch.ops.update_r_fused import make_zp3
+    from harmonypy_tpu_torch.parallel import mesh as pm
+    from harmonypy_tpu_torch.parallel.sharding import parts
+    tag, rank, tmp = spec["tag"], spec["rank"], spec["dir"]
+    pm.initialize_distributed(
+        f"file://{tmp}/pg_{tag}", spec["world"], rank,
+        backend=spec["backend"], device=spec["devices"][0],
+        timeout_s=MP_COLLECTIVE_S)
+    try:
+        with np.load(os.path.join(tmp, "data.npz")) as z:
+            X, batches = z["X"], z["batches"]
+        meta = pd.DataFrame({"batch": pd.Categorical.from_codes(
+            batches, [f"b{i}" for i in range(N_BATCHES)])})
+        mesh = pm.make_mesh(spec["devices"])
+        res = dict(tag=tag, rank=rank, backend=spec["backend"],
+                   devices=[str(d) for d in mesh.devices],
+                   shard_ids=list(mesh.shard_ids), shards=mesh.size,
+                   fits={})
+        ck = os.path.join(tmp, f"ck_{tag}")
+        # A first fit in a new process pays for its context, libraries and
+        # communicators: one short fit first, neither timed nor checked.
+        ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                       max_iter_harmony=1)
+        for name in spec["fits"]:
+            kw = dict(stored=dict(defer_r=False),
+                      low_memory=dict(defer_r=False, low_memory=True)
+                      ).get(name, {})
+            if name == "deferred" and spec.get("resume"):
+                kw = dict(checkpoint_dir=ck)
+            torch.cuda.synchronize()
+            _zero_counts(fe)
+            t0 = time.perf_counter()
+            ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh,
+                                verbose=False, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _counts(fe)
+            res["fits"][name] = dict(
+                wall_s=wall, launches=got, n_blocks=ho.cfg.n_blocks,
+                passes=ho.state.n_passes, rounds=sum(ho.kmeans_rounds),
+                kmeans_rounds=ho.kmeans_rounds, digests=fit_digests(ho))
+            if name == "deferred":
+                dho = ho
+        if spec.get("resume"):
+            ho = ht.run_harmony(
+                X, meta, ["batch"], mesh=mesh, verbose=False,
+                resume_from=os.path.join(ck, "harmony_iter_1.npz"))
+            res["resume"] = fit_digests(ho)
+        # One mesh pass: the deferred fit's final round, replayed.
+        st, cfg = dho.state, dho.cfg
+        geom = partition_geometry(cfg)
+        ZP3s = [make_zp3(z, p, m, cfg) for z, p, m in zip(
+            parts(st.rep_Zcos), parts(dho._data.Phi), parts(dho._data.mask))]
+        tables = mesh_round_tables(st.rep_blocks, parts(st.rep_cache), geom,
+                                   [z.device for z in ZP3s])
+        rep = (st.rep_Y, dho._params.sigma, dho._params.theta,
+               dho._params.Pr_b, st.rep_O, st.rep_E)
+        fast = engine.fast_ent(cfg)
+
+        def run():
+            return fe.fused_estep_mesh(tables, ZP3s, *rep, fast, geom.J_fix)
+
+        O, E = run()[:2]
+        check(torch.equal(O, st.O) and torch.equal(E, st.E),
+              f"{tag} rank {rank}: the replayed pass's O, E differ from the "
+              f"fit's")
+        res["ms_per_pass"] = cuda_ms(run, reps=10)
+        res["pass_profile"] = mesh_pass_profile(run, geom.nb,
+                                                len(mesh.devices))
+        # One block's all-gather alone, as the pass issues it: host us per
+        # call, and us per call to the last synchronise.
+        J = tables.slots[0].shape[1]
+        send = torch.zeros((len(ZP3s), J, cfg.K, cfg.B1), device=O.device)
+        gather = pm.gatherer(send.new_empty((mesh.size,) + send.shape[1:]),
+                             send)
+        for _ in range(10):
+            gather()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            gather()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        res["allgather_us"] = dict(host=host / 200 * 1e6,
+                                   wall=(time.perf_counter() - t0) / 200
+                                   * 1e6, bytes=send.numel() * 4)
+        with open(os.path.join(tmp, f"{tag}_{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        pm.shutdown_distributed()
+
+
+def run_workers(tag, backend, devices, fits, tmp, resume=False, env=None):
+    """Start one worker per entry of `devices` (that rank's devices), with
+    `env` added to the environment, wait for all (MP_WORKER_S), kill the
+    rest if one fails or hangs; returns their results by rank."""
+    import subprocess
+    procs, logs = [], []
+    try:
+        for rank, devs in enumerate(devices):
+            spec = dict(tag=tag, rank=rank, world=len(devices), dir=tmp,
+                        backend=backend, devices=devs, fits=fits,
+                        resume=resume)
+            log = open(os.path.join(tmp, f"{tag}_{rank}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker",
+                 json.dumps(spec)], stdout=log, stderr=subprocess.STDOUT,
+                cwd=HERE, env=dict(os.environ, **(env or {}))))
+        deadline = time.time() + MP_WORKER_S
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.time() > deadline and None in codes
+            if bad or late:
+                rank = bad[0] if bad else codes.index(None)
+                with open(os.path.join(tmp, f"{tag}_{rank}.log")) as f:
+                    tail = f.read()[-3000:]
+                why = f"exit {codes[rank]}" if bad else "timed out"
+                raise RuntimeError(f"chip_smoke: {tag} worker {rank} {why}:"
+                                   f"\n{tail}")
+            if None not in codes:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for rank in range(len(devices)):
+        with open(os.path.join(tmp, f"{tag}_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_workers(tag, results, want):
+    """Every rank's fits bitwise equal to the one-device fits (phase mesh
+    holds the one-process meshes to them), their launch counts those of a
+    mesh pass on the rank's shards, and the resume bitwise; returns the
+    phase line's summary."""
+    summary = []
+    for res in results:
+        local = len(res["devices"])
+        for name, fit in res["fits"].items():
+            check(fit["digests"] == want[name],
+                  f"{tag} rank {res['rank']}: {name} differs from the "
+                  f"one-process fit: {fit['digests']} vs {want[name]}")
+            nb = fit["n_blocks"]
+            exp = ((0, 0, nb * local * fit["passes"], 0, nb * fit["passes"])
+                   if name == "deferred"
+                   else (0, 0, 0, nb * local * fit["rounds"],
+                         nb * fit["rounds"]))
+            check(tuple(fit["launches"]) == exp and max(exp) > 0,
+                  f"{tag} rank {res['rank']} {name}: launches (K1, K2, K1 "
+                  f"per-block, K2 per-block, re-add) {fit['launches']}, "
+                  f"expected {exp}")
+        if "resume" in res:
+            check(res["resume"] == want["deferred"],
+                  f"{tag} rank {res['rank']}: the resumed fit differs")
+        prof = res["pass_profile"]
+        summary.append(dict(
+            rank=res["rank"], devices=res["devices"],
+            shard_ids=res["shard_ids"],
+            fits={k: dict(wall_s=v["wall_s"], launches=dict(zip(
+                ("k1", "k2", "k1_block", "k2_block", "readd"),
+                v["launches"])), kmeans_rounds=v["kmeans_rounds"],
+                passes=v["passes"], bitwise_equal=True)
+                for k, v in res["fits"].items()},
+            resume_bitwise="resume" in res or None,
+            ms_per_pass=res["ms_per_pass"],
+            allgather_us=res["allgather_us"],
+            host_waits_per_pass=prof["host_waits_per_pass"],
+            host_waited_in_block_loop=(prof["host_waits_per_pass"]
+                                       >= res["fits"]["deferred"]
+                                       ["n_blocks"]),
+            pass_profile=prof))
+    return summary
+
+
+def phase_multiprocess(refs, X, batches, smi):
+    """Multi-process runs at 858k, one worker process per rank: 2 ranks on
+    cuda:0 under gloo with 2 shards each (NCCL refuses two ranks on one
+    card): the deferred, stored and low_memory fits, .R and a checkpoint
+    resume; 1 rank under NCCL with 4 shards on cuda:0, whose blocks cross
+    through a real NCCL all-gather: the deferred and stored fits (and the
+    deferred fit again with torch's flight recorder on, its cost per
+    collective); on a machine with several cards one NCCL rank per card:
+    the deferred fit.
+    Each bitwise equal to the one-device fits refs (so to the one-process
+    mesh, phase mesh), with the per-block and re-add launches of every
+    worker, the ms per mesh pass, and whether the host waited inside the
+    block loop (NCCL: it must not)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    want = {name: fit_digests(ho) for name, ho in refs.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    out = {}
+    try:
+        np.savez(os.path.join(tmp, "data.npz"), X=X, batches=batches)
+        # nccl_fr: the NCCL run with torch's flight recorder at its
+        # default size, which initialize_distributed turns off.
+        runs = [("gloo", "gloo", [["cuda:0"] * 2] * 2,
+                 ["deferred", "stored", "low_memory"], True, None),
+                ("nccl", "nccl", [["cuda:0"] * 4], ["deferred", "stored"],
+                 False, None),
+                ("nccl_fr", "nccl", [["cuda:0"] * 4], ["deferred"], False,
+                 dict(TORCH_FR_BUFFER_SIZE="2000"))]
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            runs.append(("cards", "nccl", [[f"cuda:{i}"] for i in
+                                           range(cards)], ["deferred"],
+                         False, None))
+        for tag, backend, devices, fits, resume, env in runs:
+            t0 = time.perf_counter()
+            res = run_workers(tag, backend, devices, fits, tmp, resume, env)
+            out[tag] = dict(backend=backend, ranks=len(devices),
+                            shards=res[0]["shards"],
+                            command_s=time.perf_counter() - t0,
+                            workers=check_workers(tag, res, want))
+        check(not any(w["host_waited_in_block_loop"]
+                      for tag in out if tag != "gloo"
+                      for w in out[tag]["workers"]),
+              "NCCL: the host waited inside the block loop")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(dict(phase="multiprocess", nvidia_smi=smi, N=N_CELLS, d=N_PCS,
+              K=K, B=N_BATCHES, runs=out,
+              real_cards=(out["cards"]["workers"][0]["ms_per_pass"]
+                          if "cards" in out else f"skipped: {cards} card")))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1891,6 +2197,7 @@ def main() -> int:
     phase_capacity(fits)
     minfo = phase_mesh(ht, mods, X, batches, groups, meta,
                        dict(deferred=fit_ho, **stored_hos), lisi_ref)
+    phase_multiprocess(dict(deferred=fit_ho, **stored_hos), X, batches, smi)
     del fit_ho, stored_hos
     src = "harmonypy_tpu_torch/csrc/fused_estep.cu"
     pallas = "harmonypy_tpu/ops/pallas/update_r_fused.py"
@@ -1916,4 +2223,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mp-worker":
+        mp_worker(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

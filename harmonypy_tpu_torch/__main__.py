@@ -10,6 +10,20 @@ Usage:
 --device takes a torch device string ("cuda", "cuda:1", "cpu"); both
 subcommands run on default_mesh(--device) (JAX package __main__.py:111-118):
 without it, or with "cuda", every visible card, failing when there is none.
+
+A multi-process `correct` (JAX package __main__.py:133-163) starts one
+process per card, each with the same arguments and its own
+--process-id, joined through --coordinator host:port (or an init-method
+URL such as file:///path; with torchrun, --coordinator env:// and the
+rank from its environment):
+
+  torchrun --nproc-per-node 4 -m harmonypy_tpu_torch correct ... \
+      --coordinator env://
+  python -m harmonypy_tpu_torch correct ... --coordinator host:29500 \
+      --num-processes 2 --process-id 0      # and --process-id 1
+
+Each process runs on its card (--device cpu: gloo on the CPU), and rank 0
+alone writes --out.
 """
 
 from __future__ import annotations
@@ -17,10 +31,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-# The JAX package's multi-process flags (ROADMAP.md §1 item 11b).
-_MULTI = ("coordinator", "num_processes", "process_id")
-
 
 def _add_correct(sub):
     p = sub.add_parser("correct", help="run Harmony batch correction")
@@ -47,8 +57,8 @@ def _add_correct(sub):
                         "visible CUDA card")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--coordinator", default=None,
-                   help="multi-process runs: not ported (ROADMAP.md §1 "
-                        "item 11b)")
+                   help="multi-process run: host:port of rank 0 (or a "
+                        "tcp://, file:// or env:// URL)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
 
@@ -124,12 +134,27 @@ def main(argv=None):
         return
 
     # correct
-    given = [f for f in _MULTI if getattr(args, f) is not None]
-    if given:
-        sys.exit(f"harmonypy_tpu_torch: --{given[0].replace('_', '-')}: "
-                 f"multi-process runs are not ported yet (ROADMAP.md §1 "
-                 f"item 11b); one process drives every visible card")
+    from .parallel.mesh import initialize_distributed, shutdown_distributed
+    if args.coordinator is None:
+        return _correct(args)
+    try:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+    except ValueError as e:             # a malformed address or rank
+        sys.exit(f"harmonypy_tpu_torch: --coordinator: {e}")
+    try:
+        return _correct(args)
+    finally:
+        shutdown_distributed()
+
+
+def _correct(args):
+    import numpy as np
+    import pandas as pd
+
     from .api import run_harmony
+    from .io import load_matrix
+    from .parallel.mesh import default_mesh, process_index
 
     meta = pd.read_csv(args.meta, sep="\t")
     X = load_matrix(args.pcs)
@@ -145,7 +170,9 @@ def main(argv=None):
         mesh=default_mesh(args.device),
         verbose=not args.quiet,
     )
-    Z = ho.Z_corr
+    Z = ho.Z_corr                       # every rank gathers
+    if process_index() != 0:
+        return
     out = args.out
     if out.endswith(".npy"):
         np.save(out, Z)

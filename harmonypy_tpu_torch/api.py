@@ -14,6 +14,15 @@ use_pallas=True), low_memory (bf16 R), the per-cell fit (the default below
 resume_from and the capacity preflight (utils/memory.py). The fused fits
 are bitwise the same on every mesh; the per-cell fit to reduction-order
 tolerance.
+
+In a multi-process run (parallel.mesh.initialize_distributed) every rank
+calls run_harmony with the same arguments (the whole data: each uploads
+its own shards), its generator seeded alike on its own device. The fused
+fits run across processes, bitwise the one-process mesh of as many
+shards; the cells-first properties (Z_corr, Z_orig, Z_cos, R, Phi,
+Phi_moe, result()) are collectives that every rank calls, and every rank
+gets the whole (N, .) array, as the JAX package's process_allgather
+gives it.
 """
 
 from __future__ import annotations
@@ -31,9 +40,9 @@ from .config import (EngineConfig, auto_chunk_size, cell_tile_geom,
 from .ops.partition import mesh_round_tables, partition_geometry
 from .ops.replay import round_r_windows, windows
 from .ops.update_r_fused import make_zp3
-from .parallel.mesh import resolve_mesh
-from .parallel.sharding import (cat_cells, one_device, parts, shard_inputs,
-                                unpad_cells, window_rows)
+from .parallel.mesh import local_shards, resolve_mesh
+from .parallel.sharding import (gather_cells, one_device, parts,
+                                shard_inputs, unpad_cells, window_rows)
 from .state import HarmonyData, HarmonyParams, HarmonyState
 from .utils.checkpoint import load_state, state_to, validate_state
 from .utils.logging import logger
@@ -371,7 +380,7 @@ class Harmony:
 
     # ---- NumPy-view properties (reference harmony.py:288-355) -----------
     def _cells(self, t) -> np.ndarray:
-        return unpad_cells(cat_cells(t).numpy(), self.cfg).T
+        return unpad_cells(gather_cells(t, self.cfg).numpy(), self.cfg).T
 
     @property
     def Z_corr(self):
@@ -448,11 +457,11 @@ class Harmony:
 def stored_r(cfg: EngineConfig, state: HarmonyState) -> np.ndarray:
     """A stored-R fit's soft assignments as float32 cells-first (N x K),
     from the chunk-major (fused) or (K, N_local) (per-cell) stored R of
-    every shard."""
+    every shard (across processes a collective every rank calls)."""
     Rs = [R.to(torch.float32) for R in parts(state.R)]
     if cfg.fused_estep:
         Rs = [R.permute(1, 0, 2).reshape(cfg.K, cfg.N_local) for R in Rs]
-    return unpad_cells(cat_cells(Rs).numpy(), cfg).T
+    return unpad_cells(gather_cells(Rs, cfg).numpy(), cfg).T
 
 
 def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
@@ -462,7 +471,9 @@ def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
     width * chunk_size * K floats per shard) and copy each shard's chunks
     of the window out, rounded to cfg.r_dtype as the JAX package's replay
     stores it. Shard s's local chunk c is global column s * N_local + c *
-    chunk_size of the padded layout (JAX package api.py:578-606)."""
+    chunk_size of the padded layout (JAX package api.py:578-606). Across
+    processes every rank replays its own shards and the columns are
+    all-gathered: a collective every rank calls."""
     geom = partition_geometry(cfg)
     CH, K = geom.CH, cfg.K
     ZP3s = [make_zp3(z, p, m, cfg) for z, p, m in zip(
@@ -472,17 +483,18 @@ def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
     rep = (state.rep_Y, params.sigma, params.theta, params.Pr_b, state.rep_O,
            state.rep_E)
     fast = engine.fast_ent(cfg)
-    out = np.zeros((K, cfg.N_pad), np.float32)
+    ids = local_shards(cfg.n_devices)
+    out = torch.zeros((K, len(ids) * cfg.N_local))     # this process's cells
     for lo, w in windows(one_device(cfg), budget=64 * 1024 * 1024):
         Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w)
-        for s, Rw in enumerate(Rws):
+        for i, (s, Rw) in enumerate(zip(ids, Rws)):
             if Rw is None:
                 continue
             l0, p0, n = ((lo, 0, w) if cfg.n_devices == 1
                          else window_rows(geom, s, lo, w))
             Rw = Rw[p0: p0 + n].to(cfg.r_torch_dtype).to(torch.float32)
-            c0 = s * cfg.N_local + l0 * CH
-            out[:, c0: c0 + n * CH] = (
-                Rw.permute(1, 0, 2).reshape(K, n * CH).cpu().numpy())
+            c0 = i * cfg.N_local + l0 * CH
+            out[:, c0: c0 + n * CH] = Rw.permute(1, 0, 2).reshape(
+                K, n * CH).cpu()
         state.n_passes += 1
-    return unpad_cells(out, cfg).T
+    return unpad_cells(gather_cells(out, cfg).numpy(), cfg).T

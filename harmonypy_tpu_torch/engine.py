@@ -36,6 +36,13 @@ therefore the one-device fits bit for bit on any mesh, and no shard holds
 an array of the one-device width. The per-cell fit sums shard partials in
 shard order: equal to reduction-order tolerance.
 
+Across processes (parallel.mesh.initialize_distributed) each process runs
+its own shards; the frames and each block's rows are all-gathered, so every
+rank holds the same replicated state bit for bit and takes every host
+branch (the convergence checks, Lloyd's stop) on the same values, issuing
+the same collectives in the same order. The per-cell fit is not ported
+across processes (parallel.mesh.MULTIPROCESS_TODO).
+
 Profiler ranges (torch.profiler.record_function, no cost without a
 profiler beyond a few microseconds per call): harmony::init,
 harmony::kmeans_init, harmony::cluster, harmony::ridge_replay (deferred),
@@ -71,6 +78,7 @@ from .ops.replay import INIT_ELEMS, replay_apply, replay_normal_eq, windows
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
 from .ops.update_r_fused import chunk_stats, make_zp3
+from .parallel.mesh import MULTIPROCESS_TODO, local_shards, spans_processes
 from .parallel.sharding import (cells_window, holds_window, one_device,
                                 pack, parts, put_window, window_of)
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
@@ -165,11 +173,12 @@ def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
     chunk-major R) the assignments are also stored there in its dtype."""
     geom, cfg1 = partition_geometry(cfg), one_device(cfg)
     caches, ybufs, kbufs = [], [], []
-    for s, (z, p, m) in enumerate(zip(parts(Z_cos), parts(data.Phi),
-                                      parts(data.mask))):
+    for i, (s, z, p, m) in enumerate(zip(
+            local_shards(cfg.n_devices), parts(Z_cos), parts(data.Phi),
+            parts(data.mask))):
         put_r = None
         if R3s is not None:
-            def put_r(lo, w, r, R3=R3s[s], s=s):
+            def put_r(lo, w, r, R3=R3s[i], s=s):
                 put_window(R3, r.to(R3.dtype), s, geom, lo, w)
         wins = [(lo, w) for lo, w in windows(cfg1, INIT_ELEMS)
                 if holds_window(geom, s, lo, w)]
@@ -263,7 +272,7 @@ def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
     """One deferred-R round: the one-launch K1 on one device, the mesh
     round (K1's per-block entry) on a mesh. Returns (O, E, caches, ybufs,
     kbufs) with the per-chunk buffers per shard."""
-    if len(ZP3s) == 1:
+    if geom.n_devices == 1:
         O, E, cache, ybuf, kbuf, _ = fused_estep(
             tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
             params.theta, params.Pr_b, O, E, fast)
@@ -357,7 +366,7 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
     nc = 2000.0 / cfg.N
     devs = [z.device for z in ZP3s]
     y_cs = []
-    for s, (Z, R) in enumerate(zip(ZP3s, parts(st.R))):
+    for s, Z, R in zip(local_shards(cfg.n_devices), ZP3s, parts(st.R)):
         y_cs.append(torch.zeros((Z.shape[0], cfg.d, cfg.K),
                                 dtype=torch.float32, device=Z.device))
         for lo, w in windows(one_device(cfg)):
@@ -370,7 +379,7 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443
         tables = mesh_round_tables(draw_blocks(), parts(st.cache), geom, devs)
-        if len(ZP3s) == 1:
+        if geom.n_devices == 1:
             _, O, E, cache, ybuf, kbuf = fused_estep_r(
                 tables.slots[0], tables.removal, ZP3s[0], st.R, Y,
                 params.sigma, params.theta, params.Pr_b, st.O, st.E, fast)
@@ -378,7 +387,7 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
         else:
             O, E, caches, ybufs, kbufs, _ = fused_estep_mesh(
                 tables, ZP3s, Y, params.sigma, params.theta, params.Pr_b,
-                st.O, st.E, fast, geom.J_fix, R3s=st.R)
+                st.O, st.E, fast, geom.J_fix, R3s=parts(st.R))
         st.n_passes += 1
         st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
         Ysum = frame_sum(ybufs, geom).T
@@ -499,6 +508,11 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     already holds; the fit continues from its iteration n_rounds + 1 (JAX
     package api.py:395-436)."""
     cfg.validate()
+    if spans_processes(cfg.n_devices) and not cfg.fused_estep:
+        raise NotImplementedError(
+            f"the per-cell fit on a mesh of several processes is not ported "
+            f"({MULTIPROCESS_TODO}); chunk_size=128 or >= 20,480 cells "
+            f"select the fused fit, which runs across processes")
     step = HarmonyStep(data, params, cfg, gen, blocks_fn,
                        0 if resume is None else resume[1].n_drawn)
     if resume is not None:

@@ -8,9 +8,9 @@
                           data, e.g. data/pbmc_3500_pcs.tsv.gz).
   load_matrix(path)       dispatch on extension: .npy / .npz / .parquet /
                           .tsv[.gz] / .csv[.gz].
-  load_sharded_data(...)  parse once, upload each shard of a mesh to its
-                          device (JAX package io/loader.py:163-253, its
-                          single-process form).
+  load_sharded_data(...)  read this process's cells, upload each of its
+                          shards of a mesh to its device (JAX package
+                          io/loader.py:163-253).
 
 The native parser is built with `make` at first use into
 harmonypy_tpu_torch/build/libfasttsv-<hash>.so, the hash of its sources
@@ -190,19 +190,21 @@ def load_matrix(path: str, rows: tuple[int, int] | None = None) -> np.ndarray:
 
 
 def load_sharded_data(pcs_path: str, meta_data, vars_use, mesh, cfg=None):
-    """Sharded ingest on a mesh: parse the embedding file once, then upload
-    each shard's cell range (padded per shard) to its device. Returns
-    (data, cfg, N, (Pr_b, phi_n)): data a HarmonyData of per-shard tensors
-    (a tensor per field on a one-device mesh), cfg the JAX package's
-    default for this mesh when none is given (fused with the default
-    chunk size where the geometry allows it), Pr_b and phi_n
-    for the hyper-parameter broadcasting. One process drives the mesh;
-    the per-process ingest of a multi-process run is ROADMAP.md §1 item
-    11b."""
+    """Sharded ingest on a mesh: read this process's cell range of the
+    embedding file and upload each of its shards (padded per shard) to its
+    device (JAX package io/loader.py:218-247). Formats that seek rows
+    (.npy, and the native TSV parser's `rows=`, which parses the file and
+    copies the range out) read the range alone; the others parse once per
+    process. In one process the range is every cell. Returns (data, cfg, N,
+    (Pr_b, phi_n)): data a HarmonyData of this process's per-shard tensors
+    (a tensor per field for one shard), cfg the JAX package's default for
+    this mesh when none is given (fused with the default chunk size where
+    the geometry allows it), Pr_b and phi_n for the hyper-parameter
+    broadcasting."""
     import pandas as pd
 
     from ..config import EngineConfig, default_nclust, fused_geometry_ok
-    from ..parallel.sharding import shard_inputs
+    from ..parallel.sharding import cell_range, shard_local_inputs
 
     N = len(meta_data)
     if isinstance(vars_use, str):
@@ -211,14 +213,18 @@ def load_sharded_data(pcs_path: str, meta_data, vars_use, mesh, cfg=None):
     phi = pd.get_dummies(cats).to_numpy().T.astype(np.float32)   # (B, N)
     phi_n = np.asarray([len(cats[c].cat.categories) for c in cats.columns],
                        dtype=int)
-    X = load_matrix(pcs_path)
-    if X.shape[0] != N:
-        raise ValueError(f"{pcs_path}: {X.shape[0]} cells, the metadata "
-                         f"{N}")
     if cfg is None:
-        cfg = EngineConfig(N=N, d=X.shape[1], K=default_nclust(N),
+        d = load_matrix(pcs_path, rows=(0, 1)).shape[1]
+        cfg = EngineConfig(N=N, d=d, K=default_nclust(N),
                            B=phi.shape[0], n_devices=mesh.size,
                            use_fused_xla=fused_geometry_ok(N, mesh.size))
-    data = shard_inputs(X.T, phi, cfg, mesh)
+    lo, hi = cell_range(cfg, mesh)
+    X = load_matrix(pcs_path, rows=(lo, hi))
+    n = (np.load(pcs_path, mmap_mode="r").shape[0]
+         if pcs_path.endswith(".npy") else N)     # a range read counts less
+    if X.shape[0] != hi - lo or n != N:
+        raise ValueError(f"{pcs_path}: too few or too many cells for the "
+                         f"metadata's {N}")
+    data = shard_local_inputs(X.T, phi[:, lo:hi], cfg, mesh)
     Pr_b = (phi.sum(axis=1) / N).astype(np.float32)
     return data, cfg, N, (Pr_b, phi_n)

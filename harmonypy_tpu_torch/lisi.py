@@ -336,12 +336,17 @@ def compute_lisi(
     if not 0.0 < knn_recall_target <= 1.0:
         raise ValueError(f"knn_recall_target must be in (0, 1], "
                          f"got {knn_recall_target}")
-    from .parallel.mesh import Mesh, resolve_mesh
+    from .parallel.mesh import MULTIPROCESS_TODO, Mesh, resolve_mesh
     if isinstance(X, torch.Tensor) and mesh is None:
         Xd = X.detach().to(torch.float64)
         mesh = Mesh((Xd.device,))
     else:
         mesh = resolve_mesh(mesh, device)
+        if mesh.n_processes > 1:
+            raise NotImplementedError(
+                f"compute_lisi on a mesh of {mesh.n_processes} processes is "
+                f"not ported ({MULTIPROCESS_TODO}); run it in one process "
+                f"on the gathered Z_corr")
         X = np.asarray(X.values if hasattr(X, "values") else X)
         Xd = torch.tensor(X, dtype=torch.float64, device=mesh.lead)
     dev = Xd.device

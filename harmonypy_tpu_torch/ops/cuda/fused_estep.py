@@ -16,10 +16,13 @@ of K1, of its r window or of K2, an ordinary launch of one CTA per unit),
 then the re-add kernel (csrc/frame_readd.cu, `_Readd`) on the lead device.
 The inputs are checked and the scratch allocated once per pass; the block
 loop issues the launches and events and nothing else on one card (and the
-copies of O/E and of the block rows between cards on several). Its plain
-version is `ops.update_r_fused.mesh_round` (per block `fused_update_block`,
-then `frame_readd`); `launches_block` (K1 and its r window),
-`launches_block_write_r` (K2) and `launches_readd` count the launches.
+copies of O/E and of the block rows between cards on several). Across
+processes each block's rows of the process's shards cross in one
+all-gather, and every rank runs the re-add from the gathered rows. Its
+plain version is `ops.update_r_fused.mesh_round` (per block
+`fused_update_block`, then `frame_readd`); `launches_block` (K1 and its r
+window), `launches_block_write_r` (K2) and `launches_readd` count the
+launches.
 
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
@@ -33,6 +36,7 @@ import functools
 
 import torch
 
+from ...parallel.mesh import gatherer, spans_processes
 from ..update_r_fused import fused_update_nor, fused_update_r, mesh_round
 from . import build
 
@@ -259,12 +263,12 @@ class _BlockLaunch:
     once; `launch(b)` issues block b, reading the block's start O, E from
     `O0`, `E0` (written in place by the caller between blocks) and writing
     the block-removed O, E into `O1`, `E1` and the slots' cache rows into
-    `brows` (J, K, B+1) in slot order, on `stream` (default: the current
-    stream of the shard's device)."""
+    `brows` (J, K, B+1) in slot order (the caller's, when given), on
+    `stream` (default: the current stream of the shard's device)."""
 
     def __init__(self, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                  fast_ent: bool, out, J_glob: int, Rw=None, lo: int = 0,
-                 R3=None, stream=None):
+                 R3=None, stream=None, brows=None):
         nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma,
                                         theta, Pr_b, O, E)
         dev, f32 = ZP3.device, torch.float32
@@ -292,7 +296,10 @@ class _BlockLaunch:
         self.part = torch.empty(geo.part_shape, dtype=f32, device=dev)
         self.kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
         self.tickets = torch.zeros((J,), dtype=torch.int32, device=dev)
-        self.brows = torch.empty((J, K, B + 1), dtype=f32, device=dev)
+        if brows is None:
+            brows = torch.empty((J, K, B + 1), dtype=f32, device=dev)
+        _check("brows", brows, (J, K, B + 1), f32, dev)
+        self.brows = brows
         self.O0, self.E0 = O.contiguous(), E.contiguous()
         self.O1 = torch.empty((K, B), dtype=f32, device=dev)
         self.E1 = torch.empty((K, B), dtype=f32, device=dev)
@@ -457,7 +464,16 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     another card reads its own copy); per block the exchange's fork, one
     launch per shard, its join and one re-add launch (`_Exchange`: a stream
     for each shard after the first, events and the copies between cards;
-    the host never waits)."""
+    the host never waits).
+
+    Across processes (parallel.mesh.spans_processes) the process's shards
+    write their block rows into one send buffer on the lead card, and per
+    block, after the join, one all-gather moves every rank's rows into a
+    gathered buffer allocated once per pass; every rank then launches the
+    re-add, whose row pointers are fixed slices of the gathered buffer, so
+    no rank broadcasts O, E. Under NCCL the all-gather orders itself on the
+    lead card's current stream and the host does not wait; under gloo the
+    rows are staged through the host (parallel.mesh.gatherer)."""
     lead = O.device
     if lead.type == "cpu":
         for s, ZP3 in enumerate(ZP3s):
@@ -467,6 +483,13 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
                           fast_ent, J_fix, windows, R3s)
     K, d, B = Y.shape[1], Y.shape[0], theta.shape[0]
     f32 = dict(dtype=torch.float32)
+    multi = spans_processes(len(tables.granks))
+    send = None
+    if multi:
+        J = tables.slots[0].shape[1]
+        send = torch.empty((len(ZP3s), J, K, B + 1), device=lead, **f32)
+        gathered = torch.empty((len(tables.granks), J, K, B + 1),
+                               device=lead, **f32)
     # O|E at each block's start, which the re-add overwrites (one buffer,
     # so one copy reaches a shard on another card).
     OE = torch.stack([O, E])
@@ -485,15 +508,23 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
             sigma.to(dev), theta.to(dev), Pr_b.to(dev), OEs[0], OEs[1],
             fast_ent, out, J_fix + 1, Rw, 0 if win is None else win[0],
             None if R3s is None else R3s[s],
-            torch.cuda.Stream(device=dev) if s else None)
-        rows.append(ln.brows if dev == lead
-                    else torch.empty_like(ln.brows, device=lead))
+            torch.cuda.Stream(device=dev) if s else None,
+            send[s] if send is not None and dev == lead else None)
+        # The lead card's copy of the shard's block rows: the rows
+        # themselves on the lead card, else the join's copy.
+        if dev == lead:
+            rows.append(ln.brows)
+        else:
+            rows.append(send[s] if send is not None
+                        else torch.empty_like(ln.brows, device=lead))
         oes.append(OEs)
         shards.append(ln)
         outs.append(out)
         Rws.append(Rw)
     exchange = _Exchange(lead, shards[1:], OE, oes[1:], rows[1:])
-    readd = _Readd(rows, [g.to(lead) for g in tables.granks], shards[0].O1,
+    gather = gatherer(gathered, send) if multi else None
+    readd = _Readd(list(gathered.unbind(0)) if multi else rows,
+                   [g.to(lead) for g in tables.granks], shards[0].O1,
                    shards[0].E1, Pr_b.contiguous(), J_fix, OE[0], OE[1])
     exchange.start()
     for b in range(tables.removal.shape[0]):
@@ -501,6 +532,8 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
         for ln in shards:
             ln.launch(b)
         exchange.join()
+        if multi:
+            gather()
         readd.launch(b)
     exchange.end()
     return (OE[0], OE[1], [o[0] for o in outs], [o[1] for o in outs],

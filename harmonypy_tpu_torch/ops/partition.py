@@ -17,7 +17,9 @@ generator calls as on one device), and every reduction over chunks gathers
 the shards' per-chunk rows into the global frame on the lead device and
 reduces it there exactly as one device does (`frame_rows`, `frame_sum`): a
 copy with no arithmetic, so the result is the one-device result bit for
-bit (JAX package ops/partition.py:20-27, 237-250).
+bit (JAX package ops/partition.py:20-27, 237-250). Across processes the
+frame is all-gathered, and every rank sums the same rows with the same
+`torch.sum`: the same bits on every rank.
 
 Where the JAX package draws from threefry keys, the port draws from a
 `torch.Generator`; the two streams differ, so tests inject the JAX package's
@@ -33,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import EngineConfig, cdiv, cell_tile_geom, round_up
+from ..parallel.mesh import all_gather_rows, local_shards, spans_processes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,8 +219,10 @@ def round_tables(blocks, cache, geom: PartitionGeometry):
 
 
 class MeshTables(NamedTuple):
-    """round_tables on a mesh: per shard its slots (int32) and ranks on the
-    shard's device, and the replicated removal stats on the lead device."""
+    """round_tables on a mesh: per shard of this process its slots (int32)
+    on the shard's device, per shard of the whole mesh (every process's)
+    its within-block ranks on the lead device (the re-add reads every
+    shard's rows), and the replicated removal stats on the lead device."""
     slots: list
     granks: list
     removal: torch.Tensor
@@ -228,32 +233,40 @@ def mesh_round_tables(blocks, caches, geom: PartitionGeometry,
     """round_tables for every shard of a mesh (JAX package
     ops/partition.py:209-226): the slot tables cut from the global
     assignment, the removal stats from the caches gathered into the global
-    frame. On one device, round_tables' values."""
+    frame. On one device, round_tables' values. devices: this process's
+    shards' devices, `caches` their caches."""
     if geom.n_devices == 1:
         slots, removal = round_tables(blocks, caches[0], geom)
         return MeshTables([slots], [None], removal)
     ranks = block_ranks(blocks, geom.nb, geom.J_fix)
     gtbl = global_slot_table(blocks, ranks, geom)
     removal = removal_from_cache(frame_rows(caches, geom), gtbl, geom)
+    mine = local_shards(geom.n_devices)
     slots, granks = [], []
-    for s, dev in enumerate(devices):
+    for s in range(geom.n_devices):
         sl, gr = shard_slot_tables(blocks, ranks, geom, s)
-        slots.append(sl.to(device=dev, dtype=torch.int32).contiguous())
-        granks.append(gr.to(dev))
+        granks.append(gr)
+        if s in mine:
+            dev = devices[s - mine[0]]
+            slots.append(sl.to(device=dev, dtype=torch.int32).contiguous())
     return MeshTables(slots, granks, removal.contiguous())
 
 
 def frame_rows(vals, geom: PartitionGeometry) -> torch.Tensor:
     """The per-chunk rows of every real chunk in global chunk order, on the
     lead device: vals is one device's (nc_cap + 1, ...) buffer, or the list
-    of every shard's. On a mesh the rows are copied into one (NC_real, ...)
-    tensor: no arithmetic, and the one-device shape."""
+    of this process's shards'. On a mesh the rows are copied into one
+    (NC_real, ...) tensor: no arithmetic, and the one-device shape; across
+    processes every rank's rows are all-gathered (a collective every rank
+    calls)."""
     if not isinstance(vals, (list, tuple)):
         return vals[: geom.nc_cap]
-    if len(vals) == 1:
+    if geom.n_devices == 1:
         return vals[0][: geom.nc_cap]
     lead = vals[0].device
     rows = torch.cat([v[: geom.nc_cap].to(lead) for v in vals])
+    if spans_processes(geom.n_devices):
+        rows = all_gather_rows(rows)
     return rows[: geom.NC_real]
 
 
@@ -261,5 +274,5 @@ def frame_sum(vals, geom: PartitionGeometry) -> torch.Tensor:
     """Sum over the chunk axis of frame_rows(vals): one `torch.sum` over
     the (NC_real, ...) frame, the one-device shape whatever the mesh, on
     the lead device. Deterministic on the CPU and on CUDA (no atomics), so
-    the same rows give the same bits on every mesh."""
+    the same rows give the same bits on every mesh and every rank."""
     return torch.sum(frame_rows(vals, geom), dim=0)

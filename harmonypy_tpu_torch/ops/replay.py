@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
+from ..parallel.mesh import local_shards
 from ..parallel.sharding import (one_device, put_window, window_of,
                                  window_rows)
 from .cuda.fused_estep import fused_estep, fused_estep_mesh
@@ -58,15 +59,16 @@ def replay_r(tables, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
 def round_r_windows(tables, ZP3s, rep, fast_ent: bool, geom, lo: int,
                     width: int) -> list:
     """r of the global chunk window [lo, lo + width) in the replayed round,
-    per shard: a (width, K, CH) tensor holding the shard's chunks of the
-    window (zero elsewhere), or None for a shard that holds none. tables:
-    MeshTables of the round; rep = (Y, sigma, theta, Pr_b, O, E)."""
-    if len(ZP3s) == 1:
+    per shard of this process: a (width, K, CH) tensor holding the shard's
+    chunks of the window (zero elsewhere), or None for a shard that holds
+    none. tables: MeshTables of the round; rep = (Y, sigma, theta, Pr_b, O,
+    E)."""
+    if geom.n_devices == 1:
         return [replay_r((tables.slots[0], tables.removal), ZP3s[0], *rep,
                          fast_ent, lo, width)]
     wins = [(lo - s * geom.nc_cap, width)
             if window_rows(geom, s, lo, width)[2] else None
-            for s in range(len(ZP3s))]
+            for s in local_shards(geom.n_devices)]
     return fused_estep_mesh(tables, ZP3s, *rep, fast_ent, geom.J_fix,
                             windows=wins)[5]
 
@@ -108,12 +110,12 @@ def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
                          dtype=torch.float32, device=Z.device) for Z in ZP3s]
     for lo, w in windows(one_device(cfg), budget):
         rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w)
-        for s, r in enumerate(rs):
+        for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue
-            put_window(Sbufs[s], window_normal_eq(
-                window_of(ZP3s[s], s, geom, lo, w)[:, :B1, :],
-                window_of(ZO3s[s], s, geom, lo, w), r), s, geom, lo, w)
+            put_window(Sbufs[i], window_normal_eq(
+                window_of(ZP3s[i], s, geom, lo, w)[:, :B1, :],
+                window_of(ZO3s[i], s, geom, lo, w), r), s, geom, lo, w)
     return frame_sum(Sbufs, geom)
 
 
@@ -135,17 +137,17 @@ def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
                                  device=Z.device))
     for lo, w in windows(one_device(cfg), budget):
         rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w)
-        for s, r in enumerate(rs):
+        for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue
-            zc = window_apply(window_of(ZP3s[s], s, geom, lo, w)[:, :B1, :],
-                              window_of(ZO3s[s], s, geom, lo, w), r,
+            zc = window_apply(window_of(ZP3s[i], s, geom, lo, w)[:, :B1, :],
+                              window_of(ZO3s[i], s, geom, lo, w), r,
                               W.to(r.device))
             # Each cell's column normalised as the stored fit's
             # normalize_cells does it, so the two paths keep one Z_cos.
             zs = l2_normalize_cells(zc, dim=1)
-            put_window(Zc3s[s], zc, s, geom, lo, w)
-            put_window(Zs3s[s], zs, s, geom, lo, w)
-            put_window(ybufs[s], torch.einsum("jdc,jkc->jdk", zs, r), s, geom,
-                       lo, w)
+            put_window(Zc3s[i], zc, s, geom, lo, w)
+            put_window(Zs3s[i], zs, s, geom, lo, w)
+            put_window(ybufs[i], torch.einsum("jdc,jkc->jdk", zs, r), s,
+                       geom, lo, w)
     return Zc3s, Zs3s, frame_sum(ybufs, geom)

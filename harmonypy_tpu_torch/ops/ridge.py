@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
+from ..parallel.mesh import local_shards
 from ..parallel.sharding import (cells_window, holds_window, one_device,
                                  pack, parts, put_cells, put_window,
                                  window_of)
@@ -160,12 +161,13 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
     cell-axis argument is a list of the shards' and so is Z_corr."""
     shards = list(zip(parts(Z_orig), parts(Phi), parts(mask), parts(R)))
     if cfg.fused_estep:
+        ids = local_shards(cfg.n_devices)
         S = frame_sum([_fused_shard(*sh, s, cfg)
-                       for s, sh in enumerate(shards)],
+                       for s, sh in zip(ids, shards)],
                       partition_geometry(cfg))
         W = solve_w(S, E, params, cfg)
         return pack(_fused_shard(*sh, s, cfg, W.to(sh[0].device))
-                    for s, sh in enumerate(shards))
+                    for s, sh in zip(ids, shards))
     S = shard_sum([_normal_eq(z, p, m, cfg, r) for z, p, m, r in shards],
                   E.device)
     W = solve_w(S, E, params, cfg)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
+from ..parallel.mesh import all_gather_rows, spans_processes
 from .objective import chunk_objective_partials, chunk_objective_partials_fast
 from .partition import partition_geometry
 
@@ -225,6 +226,9 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
     CPU shards): for each block, every shard runs the block on its own
     chunks (`fused_update_block`), then the block is re-added on the lead
     device (the device of O) from every shard's rows of it (`frame_readd`).
+    Across processes (parallel.mesh.spans_processes) each block's rows
+    are all-gathered, and every rank re-adds the block from the gathered
+    rows, in rank order from zero: the same bits on every rank.
 
     The per-chunk rows are the one-device round's bitwise: a CPU shard pads
     its slot table to the one-device width J_fix + 1 with its dummy chunk,
@@ -232,28 +236,32 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
     the one-device order. The result equals the one-device round bit for
     bit.
 
-    tables: ops.partition.MeshTables. ZP3s: each shard's slab. windows:
-    per shard None or (lo, width), the chunks whose r to return (lo may be
-    negative). R3s: per shard the stored R to rewrite (K2).
+    tables: ops.partition.MeshTables. ZP3s: this process's shards' slabs.
+    windows: per shard None or (lo, width), the chunks whose r to return
+    (lo may be negative). R3s: per shard the stored R to rewrite (K2).
 
     Returns (O, E, caches, ybufs, kbufs, Rws) with the per-chunk buffers
     and r windows per shard (R3s are written in place)."""
     nb = tables.removal.shape[0]
     K, d, B1 = Y.shape[1], Y.shape[0], theta.shape[0] + 1
     lead = O.device
+    multi = spans_processes(len(tables.granks))
+    pad = 0
+    if ZP3s[0].device.type == "cpu":
+        pad = max(0, J_fix + 1 - tables.slots[0].shape[1])
+    granks = [g.to(lead) if not pad else torch.cat(
+        [g.to(lead), g.new_full((nb, pad), J_fix, device=lead)], 1)
+        for g in tables.granks]
     shards = []
-    for s, ZP3 in enumerate(ZP3s):
+    for i, ZP3 in enumerate(ZP3s):
         dev, nc1, CH = ZP3.device, ZP3.shape[0], ZP3.shape[2]
-        slots, granks = tables.slots[s], tables.granks[s]
-        if dev.type == "cpu" and slots.shape[1] < J_fix + 1:
-            pad = J_fix + 1 - slots.shape[1]
+        slots = tables.slots[i]
+        if pad:
             slots = torch.cat([slots, slots.new_full((nb, pad), nc1 - 1)], 1)
-            granks = torch.cat([granks, granks.new_full((nb, pad), J_fix)],
-                               1)
         f32 = dict(dtype=torch.float32, device=dev)
-        win = None if windows is None else windows[s]
+        win = None if windows is None else windows[i]
         shards.append(dict(
-            ZP3=ZP3, slots=slots, gidx=slots.long(), granks=granks.to(lead),
+            ZP3=ZP3, slots=slots, gidx=slots.long(),
             out=(torch.zeros((nc1, K, B1), **f32),
                  torch.zeros((nc1, K, d), **f32),
                  torch.zeros((nc1, 2), **f32)),
@@ -261,7 +269,7 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
             lo=0 if win is None else win[0],
             consts=[t.to(dev) for t in (tables.removal, Y, sigma, theta,
                                         Pr_b)],
-            R3=None if R3s is None else R3s[s]))
+            R3=None if R3s is None else R3s[i]))
     for b in range(nb):
         rows, Or, Er = [], None, None
         for sh in shards:
@@ -274,8 +282,10 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
             if Or is None:
                 Or, Er = Ob.to(lead), Eb.to(lead)
             rows.append(sh["out"][0][sh["gidx"][b]])
-        O, E = frame_readd(rows, [sh["granks"][b] for sh in shards], Or, Er,
-                           Pr_b, J_fix)
+        if multi:
+            rows = list(all_gather_rows(torch.stack(
+                [r.to(lead) for r in rows])).unbind(0))
+        O, E = frame_readd(rows, [g[b] for g in granks], Or, Er, Pr_b, J_fix)
     return (O, E, [sh["out"][0] for sh in shards],
             [sh["out"][1] for sh in shards], [sh["out"][2] for sh in shards],
             [sh["Rw"] for sh in shards])

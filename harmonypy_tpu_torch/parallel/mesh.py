@@ -1,14 +1,25 @@
 """Device mesh for the cell-parallel engine (JAX package parallel/mesh.py).
 
 Cells are the only scaling dimension of Harmony, so the mesh is one axis,
-"cells", over an ordered tuple of torch devices. As in the JAX package, one
-process drives every device of the mesh: shard s holds the s-th contiguous
-range of cells, and the engine launches each shard's work on its device and
-gathers the per-chunk rows of every reduction onto the lead device
-(`devices[0]`). A device may appear more than once: `make_mesh(["cuda:0"] *
-4)` is four logical shards on one card, which runs (and checks) the mesh
-path with one card, as the JAX package's tests run it on virtual CPU
-devices.
+"cells", over an ordered tuple of torch devices. Shard s holds the s-th
+contiguous range of cells; the engine launches each shard's work on its
+device and gathers the per-chunk rows of every reduction onto the lead
+device (`devices[0]`). A device may appear more than once: `make_mesh(
+["cuda:0"] * 4)` is four logical shards on one card, which runs (and
+checks) the mesh path with one card, as the JAX package's tests run it on
+virtual CPU devices.
+
+Multi-process runs (JAX package parallel/mesh.py:25-38). After
+`initialize_distributed` (torch.distributed over the default process
+group), `make_mesh` builds the global mesh: every process passes its own
+devices (the same number on each), the shards are ordered by rank, then
+by local device (the JAX process-major order), and `Mesh.devices` holds
+this process's shards, `Mesh.shard_ids` their global indices. Every
+reduction over shards then goes through a collective that every rank
+issues in the same order (`all_gather_rows`): the engine's per-chunk
+frames, the re-add of each block, k-means' sample and the readback. Which
+shards a process holds follows from the configuration alone
+(`local_shards`), so the engine takes no extra argument.
 
 A mesh is all CPU or all CUDA, and its CUDA devices are one card model:
 the fused E-step kernel splits its work by the SM count of the lead device
@@ -19,17 +30,28 @@ same way for the one-device bits.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import functools
+import os
 
 import torch
+import torch.distributed as dist
 
 AXIS = "cells"
+# What a multi-process run does not cover yet.
+MULTIPROCESS_TODO = ("ROADMAP.md §1 item 5: the per-cell fit and LISI "
+                     "across processes")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """An ordered tuple of torch devices along the "cells" axis."""
+    """An ordered tuple of torch devices along the "cells" axis: this
+    process's shards, process `process` of `n_processes` (each holding as
+    many shards)."""
 
     devices: tuple
+    n_processes: int = 1
+    process: int = 0
 
     def __post_init__(self):
         devs = tuple(torch.device(d) for d in self.devices)
@@ -51,7 +73,14 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """Shards of the whole mesh, across processes."""
+        return len(self.devices) * self.n_processes
+
+    @property
+    def shard_ids(self) -> range:
+        """Global indices of this process's shards."""
+        n = len(self.devices)
+        return range(self.process * n, (self.process + 1) * n)
 
     @property
     def lead(self) -> torch.device:
@@ -86,28 +115,58 @@ def resolve_device(device) -> torch.device:
 
 def make_mesh(devices=None, n_devices: int | None = None) -> Mesh:
     """Mesh over `devices` (torch devices or strings; repeats allowed),
-    default every visible CUDA card. n_devices: keep the first n."""
+    default every visible CUDA card. n_devices: keep the first n.
+
+    In a process group (initialize_distributed) the mesh spans every
+    process: `devices` are this process's shards (default the process's
+    device), every rank must pass as many, and the card model and SM count
+    must agree across ranks (checked by a collective: every rank calls
+    make_mesh)."""
     if devices is None:
-        if not torch.cuda.is_available():
+        if spans_processes():
+            devices = [_process_device]
+        elif not torch.cuda.is_available():
             raise RuntimeError(
                 "make_mesh() without devices takes every CUDA card and there "
                 "is none; pass devices=['cpu'] * n for a CPU mesh")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        else:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devices = [resolve_device(d) for d in devices]
     if n_devices is not None:
         if not 1 <= n_devices <= len(devices):
             raise ValueError(f"n_devices={n_devices} of {len(devices)} "
                              f"devices")
         devices = devices[:n_devices]
-    return Mesh(tuple(devices))
+    if not spans_processes():
+        return Mesh(tuple(devices))
+    mesh = Mesh(tuple(devices), process_count(), process_index())
+    mine = (len(devices), devices[0].type,
+            sorted({(torch.cuda.get_device_name(d),
+                     torch.cuda.get_device_properties(d).multi_processor_count)
+                    for d in devices if d.type == "cuda"}))
+    every = [None] * mesh.n_processes
+    dist.all_gather_object(every, mine)
+    if len({e[0] for e in every}) > 1:
+        raise ValueError(f"every process of a mesh holds as many shards: "
+                         f"{[e[0] for e in every]} by rank")
+    if len({e[1] for e in every}) > 1:
+        raise ValueError(f"a mesh is all CPU or all CUDA, across processes: "
+                         f"{[e[1] for e in every]} by rank")
+    if len({tuple(e[2]) for e in every}) > 1:
+        raise ValueError(f"a mesh of different card models or SM counts "
+                         f"{[e[2] for e in every]} by rank: the kernel's work "
+                         f"split follows the lead card's SM count")
+    return mesh
 
 
 def default_mesh(device=None) -> Mesh:
     """The mesh a `device` argument means (JAX package default_mesh): None
     and "cuda" are every visible card (raising without one), "cuda:N" that
-    card alone, "cpu" one CPU device."""
+    card alone, "cpu" one CPU device. In a process group, the global mesh
+    of one shard per process: the process's device for None and "cuda"."""
     if device is None or str(device) == "cuda":
-        resolve_device(device)          # raises when there is no card
+        if not spans_processes():
+            resolve_device(device)      # raises when there is no card
         return make_mesh()
     return make_mesh([device])
 
@@ -121,15 +180,184 @@ def resolve_mesh(mesh, device=None) -> Mesh:
         raise TypeError(f"mesh must be a harmonypy_tpu_torch Mesh "
                         f"(parallel.mesh.make_mesh), got "
                         f"{type(mesh).__name__}")
+    if mesh.n_processes != process_count():
+        raise ValueError(f"a mesh of {mesh.n_processes} process(es) in a run "
+                         f"of {process_count()}: make the mesh with "
+                         f"make_mesh after initialize_distributed")
     return mesh
+
+
+# ---- multi-process runs -------------------------------------------------
+
+_process_device: torch.device | None = None
+
+
+def _init_method(coordinator_address: str | None) -> str:
+    """torch.distributed's init method for a coordinator: "host:port" ->
+    tcp://host:port; a URL (tcp://, file://, env://) as given; None -> the
+    torchrun environment (MASTER_ADDR, MASTER_PORT)."""
+    if coordinator_address is None:
+        if "MASTER_ADDR" in os.environ and "MASTER_PORT" in os.environ:
+            return "env://"
+        raise ValueError("initialize_distributed needs a coordinator address "
+                         "(host:port) or MASTER_ADDR / MASTER_PORT")
+    addr = str(coordinator_address)
+    if addr.startswith(("tcp://", "file://", "env://")):
+        return addr
+    host, sep, port = addr.rpartition(":")
+    if not sep or not host or not port.isdigit() or not 0 < int(port) < 65536:
+        raise ValueError(f"coordinator address {addr!r} is not host:port "
+                         f"(or a tcp://, file:// or env:// URL)")
+    return f"tcp://{host}:{int(port)}"
+
+
+def _env_int(value, name: str, what: str) -> int:
+    if value is not None:
+        return int(value)
+    if name not in os.environ:
+        raise ValueError(f"initialize_distributed needs {what} (or ${name})")
+    return int(os.environ[name])
 
 
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
-                           process_id: int | None = None) -> None:
-    """Multi-process runs (one process per host over torch.distributed) are
-    ROADMAP.md §1 item 11b; a mesh here is driven by one process."""
-    raise NotImplementedError(
-        "multi-process runs over torch.distributed are not ported to "
-        "harmonypy_tpu_torch yet (ROADMAP.md §1 item 11b); one process "
-        "drives a mesh of every visible card (parallel.mesh.make_mesh)")
+                           process_id: int | None = None, *,
+                           backend: str | None = None, device=None,
+                           timeout_s: float | None = None) -> torch.device:
+    """Join this process to a multi-process run (JAX package
+    parallel/mesh.py:25-38, jax.distributed.initialize): torch.distributed's
+    default process group over `coordinator_address` ("host:port", or an
+    init-method URL such as file:///path), of `num_processes` ranks, this
+    one `process_id` (defaults: $WORLD_SIZE, $RANK, and $MASTER_ADDR /
+    $MASTER_PORT as torchrun sets them).
+
+    device: this process's device, default (None or "cuda")
+    cuda:$LOCAL_RANK, else process_id modulo the visible cards; it raises
+    without a card and
+    never falls back to the CPU; "cpu" explicitly. backend: None means
+    "nccl" for a CUDA device and "gloo" for the CPU; another may be asked
+    for (for example "gloo" for several ranks on one card, which NCCL
+    refuses). A backend that fails is not replaced by another.
+    timeout_s bounds every collective (torch's default otherwise).
+    Returns the process's device."""
+    global _process_device
+    if dist.is_initialized():
+        raise RuntimeError("initialize_distributed: this process is already "
+                           "in a process group")
+    init_method = _init_method(coordinator_address)
+    n = _env_int(num_processes, "WORLD_SIZE", "num_processes")
+    rank = _env_int(process_id, "RANK", "process_id")
+    if not 0 <= rank < n:
+        raise ValueError(f"process_id {rank} outside [0, {n})")
+    if device is None or str(device) == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "initialize_distributed: each process runs on a CUDA card by "
+                "default and none is available; pass device='cpu' (backend "
+                "gloo) to run on the CPU")
+        local = int(os.environ.get("LOCAL_RANK",
+                                   rank % torch.cuda.device_count()))
+        device = f"cuda:{local}"
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    # torch's flight recorder captures a Python stack for every collective,
+    # ~75 us of host time each (NVIDIA H100 80GB HBM3, 700 W, torch
+    # 2.11): a mesh pass issues one per block. Off unless asked for.
+    if not any(v in os.environ for v in ("TORCH_FR_BUFFER_SIZE",
+                                         "TORCH_NCCL_TRACE_BUFFER_SIZE")):
+        os.environ["TORCH_FR_BUFFER_SIZE"] = "0"
+    kw = {} if timeout_s is None else dict(
+        timeout=datetime.timedelta(seconds=float(timeout_s)))
+    dist.init_process_group(backend, init_method=init_method, world_size=n,
+                            rank=rank, **kw)
+    _process_device = dev
+    return dev
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (every rank calls it)."""
+    global _process_device
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _process_device = None
+
+
+def spans_processes(n_devices: int | None = None) -> bool:
+    """Whether meshes span the processes of a process group (and, given a
+    mesh's shard count, whether that mesh's reductions are collectives:
+    always but for one shard)."""
+    inited = dist.is_available() and dist.is_initialized()
+    return inited and (n_devices is None or n_devices > 1)
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a process group)."""
+    return dist.get_rank() if spans_processes() else 0
+
+
+def process_count() -> int:
+    """Processes of the run (1 outside a process group)."""
+    return dist.get_world_size() if spans_processes() else 1
+
+
+def local_shards(n_devices: int) -> range:
+    """Global indices of this process's shards of a mesh of n_devices
+    shards: every shard in one process, the rank's contiguous part in a
+    process group (as make_mesh orders them)."""
+    if not spans_processes(n_devices):
+        return range(n_devices)
+    P = process_count()
+    if n_devices % P:
+        raise ValueError(f"a mesh of {n_devices} shards over {P} processes")
+    n = n_devices // P
+    return range(process_index() * n, (process_index() + 1) * n)
+
+
+def gatherer(out: torch.Tensor, t: torch.Tensor):
+    """A call that all-gathers every rank's `t` (contiguous, equal shapes)
+    into `out` (process_count() * t.shape[0] rows), concatenated along dim
+    0 in rank order: one all-gather, copies only, the backend's form and
+    any staging buffer decided once (a mesh pass issues it once per
+    block, reading whatever `t` holds then). NCCL orders it on the current
+    stream (the host does not wait). torch's gloo backend gathers CPU
+    tensors only, so a CUDA tensor under gloo is staged through the host
+    (the host waits for the stream); NCCL gathers CUDA tensors only, so a
+    CPU tensor under NCCL is staged through the process's card."""
+    if not t.is_contiguous():
+        raise ValueError("gatherer: the gathered tensor must be contiguous")
+    if t.dtype == torch.bfloat16:       # moved as its bits
+        return gatherer(out.view(torch.int16), t.view(torch.int16))
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    backend = str(dist.get_backend())
+    stage = None
+    if t.is_cuda and backend == "gloo":
+        stage = torch.device("cpu")
+    elif not t.is_cuda and backend == "nccl":
+        stage = _process_device or torch.device(
+            "cuda", torch.cuda.current_device())
+    if stage is None:
+        return functools.partial(gather, out, t)
+    buf = torch.empty(out.shape, dtype=out.dtype, device=stage)
+
+    def staged():
+        gather(buf, t.to(stage))
+        out.copy_(buf)
+    return staged
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's `t` (equal shapes) concatenated along dim 0 in rank
+    order, on t's device (gatherer)."""
+    out = t.new_empty((process_count() * t.shape[0],) + tuple(t.shape[1:]))
+    gatherer(out, t.contiguous())()
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, axis: int) -> torch.Tensor:
+    """Every rank's `t` concatenated along `axis` in rank order."""
+    g = all_gather_rows(t.unsqueeze(0))
+    return torch.cat(g.unbind(0), dim=axis)

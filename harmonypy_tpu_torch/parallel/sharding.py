@@ -8,8 +8,12 @@ any mesh. Padded cells carry zero columns in Z and Phi and mask == 0.
 Outputs strip the padding again with unpad_cells.
 
 On one device a sharded quantity is a tensor; on a mesh of several shards
-it is the list of the shards' tensors, each on its shard's device (`parts`
-and `pack` convert).
+it is the list of this process's shards' tensors, each on its shard's
+device (`parts` and `pack` convert). In a multi-process run a process
+holds the shards `local_shards(cfg.n_devices)` (parallel/mesh.py), and
+every function here that takes a shard index takes its global index:
+shard s's cells start at s * N_local of the padded layout, as the JAX
+package's io/loader.py:212-214 cuts them.
 
 The one-device layout. Every N-axis computation outside the E-step kernel
 runs on a mesh shard in the shapes one device uses, so cuBLAS, the
@@ -38,20 +42,29 @@ import torch
 
 from ..config import EngineConfig
 from ..state import HarmonyData
+from .mesh import all_gather_cat, all_gather_rows, local_shards, \
+    spans_processes
 
 
-def pad_cells(arr: np.ndarray, cfg: EngineConfig) -> np.ndarray:
-    """Lay a (x, N) array out as (x, N_pad) with per-shard padding."""
+def pad_cells(arr: np.ndarray, cfg: EngineConfig,
+              shards: range | None = None) -> np.ndarray:
+    """Lay a (x, N) array out as (x, N_pad) with per-shard padding. With
+    `shards` (a range of shard ids), arr holds only their cells (from cell
+    shards[0] * N_shard_real on) and the result their (x, len(shards) *
+    N_local) part of the padded layout."""
     arr = np.asarray(arr, dtype=np.float32)
     q, Nl = cfg.N_shard_real, cfg.N_local
-    if arr.shape[-1] == cfg.N_pad and q == Nl:
-        return np.ascontiguousarray(arr)
-    out = np.zeros(arr.shape[:-1] + (cfg.N_pad,), dtype=np.float32)
-    for i in range(cfg.n_devices):
-        lo, hi = i * q, min((i + 1) * q, cfg.N)
+    if shards is None:
+        shards = range(cfg.n_devices)
+        if arr.shape[-1] == cfg.N_pad and q == Nl:
+            return np.ascontiguousarray(arr)
+    out = np.zeros(arr.shape[:-1] + (len(shards) * Nl,), dtype=np.float32)
+    base = shards[0] * q
+    for i, s in enumerate(shards):
+        lo, hi = s * q, min((s + 1) * q, cfg.N)
         if hi <= lo:
             break
-        out[..., i * Nl: i * Nl + (hi - lo)] = arr[..., lo:hi]
+        out[..., i * Nl: i * Nl + (hi - lo)] = arr[..., lo - base: hi - base]
     return out
 
 
@@ -86,25 +99,59 @@ def pack(xs):
 
 def split_cells(t: torch.Tensor, cfg: EngineConfig, mesh, axis: int = -1):
     """Cut a global padded array (cells on `axis`, N_pad long, or
-    n_devices * rows) into its shards, each on its device."""
+    n_devices * rows) into this process's shards, each on its device."""
     n = t.shape[axis] // cfg.n_devices
     return pack(t.narrow(axis, s * n, n).to(dev).contiguous()
-                for s, dev in enumerate(mesh.devices))
+                for s, dev in zip(mesh.shard_ids, mesh.devices))
 
 
 def cat_cells(x, axis: int = -1) -> torch.Tensor:
-    """The global padded array of a sharded quantity, on the CPU."""
+    """The shards of a sharded quantity held by this process, concatenated
+    on the CPU (the global padded array in one process)."""
     return torch.cat([p.detach().cpu() for p in parts(x)], dim=axis)
+
+
+def gather_cells(x, cfg: EngineConfig, axis: int = -1) -> torch.Tensor:
+    """The global padded array of a sharded quantity, on the CPU, on every
+    process (the JAX package's process_allgather(tiled=True)): in a
+    multi-process run a collective that every rank calls, gathering the
+    processes' parts in rank order (copies only)."""
+    if not spans_processes(cfg.n_devices):
+        return cat_cells(x, axis)
+    xs = [p.detach() for p in parts(x)]
+    local = torch.cat([p.to(xs[0].device) for p in xs], dim=axis)
+    return all_gather_cat(local, axis).cpu()
+
+
+def cell_range(cfg: EngineConfig, mesh) -> tuple[int, int]:
+    """[first, end) of the real cells this process's shards hold."""
+    q, ids = cfg.N_shard_real, mesh.shard_ids
+    return min(ids[0] * q, cfg.N), min((ids[-1] + 1) * q, cfg.N)
 
 
 def shard_inputs(Z: np.ndarray, Phi: np.ndarray, cfg: EngineConfig,
                  mesh) -> HarmonyData:
-    """Upload (d, N) Z and (B, N) Phi, padded per shard, each shard to its
-    device."""
+    """Upload (d, N) Z and (B, N) Phi, padded per shard, each of this
+    process's shards to its device."""
+    lo, hi = cell_range(cfg, mesh)
+    return shard_local_inputs(np.asarray(Z)[:, lo:hi],
+                              np.asarray(Phi)[:, lo:hi], cfg, mesh)
+
+
+def shard_local_inputs(Z: np.ndarray, Phi: np.ndarray, cfg: EngineConfig,
+                       mesh) -> HarmonyData:
+    """shard_inputs from this process's cells alone: Z (d, n) and Phi (B,
+    n) the cells of cell_range(cfg, mesh), so a process reads and uploads
+    only its range (JAX package io/loader.py:218-247)."""
+    ids, Nl = mesh.shard_ids, cfg.N_local
+    mask = shard_mask(cfg)[ids[0] * Nl: (ids[-1] + 1) * Nl]
+
     def up(a):
-        return split_cells(torch.as_tensor(a), cfg, mesh)
-    return HarmonyData(Z_orig=up(pad_cells(Z, cfg)), Phi=up(pad_cells(Phi,
-                       cfg)), mask=up(shard_mask(cfg)))
+        a = torch.as_tensor(a)
+        return pack(a[..., i * Nl: (i + 1) * Nl].to(dev).contiguous()
+                    for i, dev in enumerate(mesh.devices))
+    return HarmonyData(Z_orig=up(pad_cells(Z, cfg, ids)),
+                       Phi=up(pad_cells(Phi, cfg, ids)), mask=up(mask))
 
 
 def one_device(cfg: EngineConfig) -> EngineConfig:
@@ -196,16 +243,25 @@ def gather_cols(xs, ids: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
     """(rows, S) columns of a sharded array at global cell ids (each < N),
     on the lead device: on one device the columns themselves; on a mesh
     each shard's columns of the ids it owns, copied into place (the JAX
-    package's owner-scatter, ops/kmeans.py:54-64, by index copy). Copies
-    only, so the bits are one device's on any mesh."""
+    package's owner-scatter, ops/kmeans.py:54-64, by index copy); across
+    processes each rank's owned columns all-gathered, then each column
+    taken from its owner's part (every rank calls it with the same ids).
+    Copies only, so the bits are one device's on any mesh."""
     xs = parts(xs)
-    if len(xs) == 1:
+    if cfg.n_devices == 1:
         return xs[0][:, ids.to(xs[0].device)]
     lead, q = xs[0].device, cfg.N_shard_real
     ids = ids.to(lead)
-    out = xs[0].new_empty((xs[0].shape[0], ids.shape[0]))
+    multi = spans_processes(cfg.n_devices)
+    out = (xs[0].new_zeros if multi else xs[0].new_empty)(
+        (xs[0].shape[0], ids.shape[0]))
     owner = torch.div(ids, q, rounding_mode="floor")
-    for s, x in enumerate(xs):
+    for s, x in zip(local_shards(cfg.n_devices), xs):
         pos = torch.nonzero(owner == s).squeeze(1)
         out[:, pos] = x[:, (ids[pos] - s * q).to(x.device)].to(lead)
-    return out
+    if not multi:
+        return out
+    every = all_gather_rows(out[None])                   # (P, rows, S)
+    rank = torch.div(owner, len(xs), rounding_mode="floor")
+    return every[rank, :, torch.arange(ids.shape[0], device=lead)].T \
+        .contiguous()

@@ -12,9 +12,11 @@ Layout (the JAX package's, cells are COLUMNS):
   cache         : (n_chunks+1, K, B+1) per-chunk statistics (fused paths)
 
 On a mesh of several shards the cell-axis fields (Z_corr, Z_cos, a stored
-R, cache, rep_cache, rep_Zcos) are lists of the shards' tensors, each in
-the layout above at shard size (N_local cells, the shard's chunks), and the
-rest is replicated on the lead device; `n_devices` records the shards.
+R, cache, rep_cache, rep_Zcos) are lists of the shards' tensors (in a
+multi-process run, this process's shards), each in the layout above at
+shard size (N_local cells, the shard's chunks), and the rest is replicated
+on the lead device (on every rank, bit for bit); `n_devices` records the
+shards of the whole mesh.
 
 Deferred-R fits never hold R. The final k-means round's start-of-round
 inputs (rep_*) let the ridge correction and the .R property replay that

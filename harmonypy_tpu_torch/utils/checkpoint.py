@@ -14,7 +14,11 @@ named in a `bf16` sidecar: NumPy has no bfloat16.
 A mesh state is written in the JAX package's global layout: each
 cell-axis field's shards concatenated (Z (d, N_pad); caches and the
 chunk-major R n_devices * (nc_cap + 1) rows), with `n_devices` beside. A
-resume on another mesh size is refused with the mismatch listed.
+resume on another mesh size is refused with the mismatch listed. Across
+processes (JAX package utils/checkpoint.py:8-41) every rank gathers the
+sharded fields, rank 0 alone writes, and the ranks meet at a barrier
+before the fit goes on; a resume reads the global file on every rank and
+keeps each rank's own shards (state_to).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from ..config import EngineConfig
 from ..ops.partition import partition_geometry
-from ..parallel.sharding import cat_cells, split_cells
+from ..parallel.mesh import process_index, spans_processes
+from ..parallel.sharding import gather_cells, split_cells
 from ..state import HarmonyState, sharded_fields
 
 _SCALARS = ("n_kmeans", "n_harmony", "n_rounds", "converged", "n_passes",
@@ -44,13 +49,14 @@ class RngState:
 def save_state(path: str, state: HarmonyState, rng: RngState,
                cfg: EngineConfig) -> None:
     """Write `state` and `rng` to `path` (.npz). kmeans_rounds is stored
-    padded to cfg.rounds_hist_len, as the JAX state holds it."""
+    padded to cfg.rounds_hist_len, as the JAX state holds it. Across
+    processes a collective: every rank calls it, rank 0 writes."""
     arrays, bf16 = {}, []
     axes = sharded_fields(cfg)
     for f in dataclasses.fields(HarmonyState):
         x = getattr(state, f.name)
-        if f.name in axes and isinstance(x, list):
-            x = cat_cells(x, axes[f.name])
+        if f.name in axes:
+            x = gather_cells(x, cfg, axes[f.name])
         if isinstance(x, torch.Tensor):
             x = x.detach().cpu()
             if x.dtype == torch.bfloat16:
@@ -65,8 +71,11 @@ def save_state(path: str, state: HarmonyState, rng: RngState,
     arrays["gen_state"] = rng.gen_state.cpu().numpy()
     arrays["gen_device"] = np.asarray(rng.device_type)
     arrays["n_drawn"] = np.asarray(rng.n_drawn)
-    with open(path, "wb") as fh:
-        np.savez(fh, **arrays)
+    if process_index() == 0:
+        with open(path, "wb") as fh:
+            np.savez(fh, **arrays)
+    if spans_processes(cfg.n_devices):
+        torch.distributed.barrier()
 
 
 def load_state(path: str) -> tuple[HarmonyState, RngState]:
@@ -164,7 +173,8 @@ def validate_state(state: HarmonyState, cfg: EngineConfig,
 
 def state_to(state: HarmonyState, mesh, cfg: EngineConfig) -> HarmonyState:
     """A loaded (global, host) state on `mesh`: its cell-axis fields split
-    into the shards, each on its device, the rest on the lead device."""
+    into this process's shards, each on its device, the rest on the lead
+    device."""
     axes = sharded_fields(cfg)
     out = {}
     for f in dataclasses.fields(HarmonyState):

@@ -152,14 +152,29 @@ def _fmt(b: float) -> str:
 def check_capacity(cfg: EngineConfig, mesh) -> None:
     """Raise CapacityError when the modeled envelope exceeds the usable
     capacity of a card of `mesh` (a Mesh, or one device): the shards that
-    share a card are summed against that card. No-op where the capacity is
-    unknown (the CPU without $HARMONYPY_DEVICE_MEM_BYTES)."""
+    share a card are summed against that card. In a multi-process run each
+    process checks its own cards and shards (`Mesh.devices`); ranks that
+    share a card each see what is free on it when they check, and all
+    ranks raise when one does (a collective). No-op where
+    the capacity is unknown (the CPU without $HARMONYPY_DEVICE_MEM_BYTES)."""
     devices = (mesh.devices if isinstance(mesh, Mesh)
                else (torch.device(mesh),))
-    for device, shards in collections.Counter(devices).items():
-        cap = device_capacity_bytes(device)
-        if cap is not None:
-            _check_card(cfg, shards, cap, device)
+    error = None
+    try:
+        for device, shards in collections.Counter(devices).items():
+            cap = device_capacity_bytes(device)
+            if cap is not None:
+                _check_card(cfg, shards, cap, device)
+    except CapacityError as e:
+        error = str(e)
+    if isinstance(mesh, Mesh) and mesh.n_processes > 1:
+        # Every rank raises, or none does: a rank that stopped alone would
+        # leave the others waiting in the fit's first collective.
+        every = [None] * mesh.n_processes
+        torch.distributed.all_gather_object(every, error)
+        error = next((e for e in every if e is not None), None)
+    if error is not None:
+        raise CapacityError(error)
 
 
 def _check_card(cfg: EngineConfig, shards: int, cap: int, device) -> None:

@@ -155,7 +155,8 @@ def test_cli_lisi(corrected, ref_data_dir, tmp_path):
     (["bench"], "benchmark folder (benchmarks/run_benchmarks.py), which "
                 "stays unported"),
     (["correct", "--pcs", "p.npy", "--meta", "m.tsv", "--vars", "donor",
-      "--coordinator", "localhost:1234"], "item 11b"),
+      "--coordinator", "localhost", "--num-processes", "2",
+      "--process-id", "0", "--device", "cpu"], "not host:port"),
 ])
 def test_cli_unported_exit(argv, match):
     with pytest.raises(SystemExit) as exc:

@@ -437,8 +437,8 @@ def test_mesh_construction_and_errors(monkeypatch):
         resolve_mesh(object())
     with pytest.raises(ValueError, match="n_devices"):
         make_mesh(["cpu"], n_devices=2)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        initialize_distributed("localhost:1234", 2, 0)
+    with pytest.raises(ValueError, match="not host:port"):
+        initialize_distributed("localhost", 2, 0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
         make_mesh()
