@@ -108,7 +108,18 @@ line per phase:
               of phase mesh), with every worker's per-block and re-add
               launches, the ms per mesh pass (CUDA events), one profiled
               pass, and the host's waits per pass: under NCCL the host
-              must not wait inside the block loop;
+              must not wait inside the block loop. The gloo, nccl and
+              cards workers then fit the per-cell path at its full width
+              (20,000 x 29 PCs, 3 batches, K=100, default settings) and
+              pbmc_3500 at default settings, each bitwise equal to the
+              one-process mesh of as many shards on cuda:0, pbmc at the
+              golden gate: ms per k-means round, host waits per round and
+              per block of the E-step (0 under NCCL), collectives per
+              round (2 n_blocks + 2); the gloo and cards workers run
+              compute_lisi on the 858k deferred fit's Z_corr (the pruned
+              path, the index broadcast from rank 0) and brute force on
+              16,384 sampled queries, bitwise equal to phase lisi's, with
+              wall seconds and bytes received per rank;
   6. kernels  every kernel (K1, K2, their per-block entries, the re-add)
               with its launches on its path's fit, error against the plain
               version, time, and bound.
@@ -839,15 +850,8 @@ def golden_fit(ht, **kw):
     """pbmc_3500 on the card: (Harmony, per-PC Pearson r against the R
     package's output, fit seconds)."""
     import numpy as np
-    import pandas as pd
     import torch
-    d = os.path.join(HERE, "harmonypy_tpu", "data")
-    meta = pd.read_csv(os.path.join(d, "pbmc_3500_meta.tsv.gz"), sep="\t")
-    pcs = pd.read_csv(os.path.join(d, "pbmc_3500_pcs.tsv.gz"), sep="\t")
-    gold = pd.read_csv(os.path.join(d, "pbmc_3500_pcs_harmonized.tsv.gz"),
-                       sep="\t")
-    if gold.iloc[:, 0].dtype == "object":
-        gold = gold.iloc[:, 1:]
+    pcs, meta, gold = pbmc_inputs()
     t0 = time.perf_counter()
     ho = ht.run_harmony(pcs, meta, ["donor"], device="cuda:0", verbose=False,
                         **kw)
@@ -1724,7 +1728,6 @@ def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
     import tempfile
 
     import numpy as np
-    import pandas as pd
     from harmonypy_tpu_torch.parallel.mesh import make_mesh
     fits, counts, mesh_ho = mesh_fit_checks(ht, fe, X, meta, mesh, refs)
 
@@ -1771,9 +1774,7 @@ def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
           "mesh LISI (brute, sampled) differs from one device")
 
     # Checkpoint resume on the mesh; another mesh size refused.
-    d = os.path.join(HERE, "harmonypy_tpu", "data")
-    pmeta = pd.read_csv(os.path.join(d, "pbmc_3500_meta.tsv.gz"), sep="\t")
-    pcs = pd.read_csv(os.path.join(d, "pbmc_3500_pcs.tsv.gz"), sep="\t")
+    pcs, pmeta, _ = pbmc_inputs()
     args = dict(verbose=False, chunk_size=128, max_iter_harmony=3)
     other = make_mesh([mesh.lead] * (3 if mesh.size == 2 else 2))
     with tempfile.TemporaryDirectory() as td:
@@ -1884,6 +1885,192 @@ def _zero_counts(fe):
     fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
 
 
+# The per-cell fit's full width: the largest N at which a default
+# run_harmony picks it (config._PER_CELL_MAX_N is 20,480).
+PC_CELLS = 20_000
+
+
+class Collectives:
+    """Counts the process group's all-gathers and broadcasts that the port
+    issues (calls, and bytes each rank receives) while active: wraps
+    torch.distributed's functions, restored on exit. Counts nothing of the
+    timed fused passes, which run outside it."""
+
+    NAMES = ("all_gather_single", "all_gather_into_tensor", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls = self.bytes = 0
+        self.saved = {n: getattr(dist, n) for n in self.NAMES
+                      if hasattr(dist, n)}
+
+        def wrap(fn):
+            def counted(out, *a, **kw):
+                self.calls += 1
+                self.bytes += out.numel() * out.element_size()
+                return fn(out, *a, **kw)
+            return counted
+        for n, fn in self.saved.items():
+            setattr(dist, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+
+def waits_in_ranges(prof, name):
+    """(host waits inside the profiler ranges called `name`, the number of
+    such ranges): CUDA runtime calls named *Synchronize that start within
+    one of them."""
+    from torch.autograd import DeviceType
+    spans, waits = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == name:
+            spans.append((e.time_range.start, e.time_range.end))
+        elif "Synchronize" in e.name:
+            waits.append(e.time_range.start)
+    return (sum(1 for w in waits if any(a <= w < b for a, b in spans)),
+            len(spans))
+
+
+def pbmc_inputs():
+    """pbmc_3500's PCs, metadata and the R package's harmonized PCs."""
+    import pandas as pd
+    meta = pd.read_csv(os.path.join(DATA, "pbmc_3500_meta.tsv.gz"),
+                       sep="\t")
+    pcs = pd.read_csv(os.path.join(DATA, "pbmc_3500_pcs.tsv.gz"), sep="\t")
+    gold = pd.read_csv(os.path.join(DATA, "pbmc_3500_pcs_harmonized.tsv.gz"),
+                       sep="\t")
+    if gold.iloc[:, 0].dtype == "object":
+        gold = gold.iloc[:, 1:]
+    return pcs, meta, gold
+
+
+def batch_meta(batches):
+    import pandas as pd
+    return pd.DataFrame({"batch": pd.Categorical.from_codes(
+        batches, [f"b{i}" for i in range(N_BATCHES)])})
+
+
+def percell_refs(ht, size):
+    """Digests of the one-process `size`-shard mesh's per-cell fits on
+    cuda:0 (default settings): the PC_CELLS synthetic (and its wall
+    seconds, after a warm-up fit) and pbmc_3500."""
+    import torch
+    from harmonypy_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(["cuda:0"] * size)
+    X, batches, _ = synthetic(N=PC_CELLS)
+    meta = batch_meta(batches)
+    ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                   max_iter_harmony=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not ho.cfg.fused_estep and ho.cfg.n_devices == size,
+          f"per-cell reference: unexpected config {ho.cfg}")
+    pcs, meta, _ = pbmc_inputs()
+    pb = ht.run_harmony(pcs, meta, ["donor"], mesh=mesh, verbose=False)
+    return dict(percell=fit_digests(ho), pbmc=fit_digests(pb),
+                kmeans_rounds=ho.kmeans_rounds, wall_s=wall)
+
+
+def mp_percell(ht, mesh) -> dict:
+    """The per-cell task of a worker at full width (PC_CELLS x N_PCS, K =
+    100, default settings, not cut): a warm-up fit of one harmony
+    iteration under torch.profiler (host waits per k-means round, and
+    inside the E-step's block loop per block), then the fit digested with
+    each k-means loop timed to a synchronise and its collectives counted
+    (2 n_blocks + 2 per round), then pbmc_3500 at default settings
+    (digested, golden r)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from harmonypy_tpu_torch import engine
+    X, batches, _ = synthetic(N=PC_CELLS)
+    meta = batch_meta(batches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                              max_iter_harmony=1)
+        torch.cuda.synchronize()
+    rounds0, nb = warm.kmeans_rounds[0], warm.cfg.n_blocks
+    round_waits, n_loops = waits_in_ranges(prof, "harmony::cluster")
+    estep_waits, n_esteps = waits_in_ranges(prof, "harmony::estep")
+    check(n_loops == 1 and n_esteps == rounds0,
+          f"per-cell profile: {n_loops} k-means loops, {n_esteps} E-steps "
+          f"for {rounds0} rounds")
+    del prof, warm
+
+    loops = dict(ms=0.0, rounds=0, collectives=0)
+    real = engine.cluster_percell
+    with Collectives() as coll:
+        def timed(st, *a):
+            torch.cuda.synchronize()
+            c0, t0 = coll.calls, time.perf_counter()
+            n = real(st, *a)
+            torch.cuda.synchronize()
+            loops["ms"] += (time.perf_counter() - t0) * 1e3
+            loops["rounds"] += n
+            loops["collectives"] += coll.calls - c0
+            return n
+        engine.cluster_percell = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            engine.cluster_percell = real
+        check(not ho.cfg.fused_estep and ho.cfg.K == K,
+              f"per-cell task: unexpected config {ho.cfg}")
+        fit = fit_digests(ho)
+        pcs, pmeta, gold = pbmc_inputs()
+        pb = ht.run_harmony(pcs, pmeta, ["donor"], mesh=mesh, verbose=False)
+        pb_r = [float(np.corrcoef(pb.Z_corr[:, i], gold.iloc[:, i].values)
+                      [0, 1]) for i in range(pb.Z_corr.shape[1])]
+    return dict(
+        wall_s=wall, kmeans_rounds=ho.kmeans_rounds, n_blocks=nb,
+        digests=fit, ms_per_round=loops["ms"] / loops["rounds"],
+        collectives_per_round=loops["collectives"] / loops["rounds"],
+        host_waits_per_round=round_waits / rounds0,
+        host_waits_per_block=estep_waits / (rounds0 * nb),
+        pbmc=dict(digests=fit_digests(pb), min_pc_r=min(pb_r),
+                  fused=pb.cfg.fused_estep, kmeans_rounds=pb.kmeans_rounds))
+
+
+def mp_lisi(ht, mesh, Z, batches, groups) -> dict:
+    """The LISI task of a worker: compute_lisi on the deferred fit's
+    Z_corr (N_CELLS x N_PCS, labels batch and group, knn="exact": the
+    pruned path), the whole X on every rank, timed to a synchronise with
+    the bytes its collectives moved to this rank; then brute force on
+    LISI_SAMPLE sampled queries. Digests of both."""
+    import torch
+    labels, meta = ["batch", "group"], lisi_meta(batches, groups)
+    with Collectives() as coll:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm = ht.compute_lisi(Z, meta, labels, 30, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls, nbytes = coll.calls, coll.bytes
+        t0 = time.perf_counter()
+        sv, sidx = ht.compute_lisi(Z, meta, labels, 30, sample=LISI_SAMPLE,
+                                   knn="brute", mesh=mesh)
+        torch.cuda.synchronize()
+        brute_s = time.perf_counter() - t0
+    return dict(wall_s=wall, collectives=calls, bytes_received=nbytes,
+                digest=digest(lm), brute_s=brute_s,
+                brute_digests=[digest(sv), digest(sidx)],
+                brute_bytes_received=coll.bytes - nbytes)
+
+
 def mp_worker(spec: dict) -> None:
     """One rank of a multi-process run (phase multiprocess): join the
     process group, fit the 858k data on the mesh of every rank's
@@ -1891,9 +2078,10 @@ def mp_worker(spec: dict) -> None:
     set to 0 just before it), digest its Z_corr, R, histories and kmeans_rounds; the gloo run
     also resumes the deferred fit from its first checkpoint; then one mesh
     pass (the deferred fit's final round replayed) timed by CUDA events and
-    profiled. Writes <dir>/<tag>_<rank>.json."""
+    profiled; then the tasks of spec["tasks"]: "percell" (mp_percell) and
+    "lisi" (mp_lisi on the deferred fit's Z_corr). Writes
+    <dir>/<tag>_<rank>.json."""
     import numpy as np
-    import pandas as pd
     import torch
     sys.path.insert(0, HERE)
     import harmonypy_tpu_torch as ht
@@ -1911,9 +2099,8 @@ def mp_worker(spec: dict) -> None:
         timeout_s=MP_COLLECTIVE_S)
     try:
         with np.load(os.path.join(tmp, "data.npz")) as z:
-            X, batches = z["X"], z["batches"]
-        meta = pd.DataFrame({"batch": pd.Categorical.from_codes(
-            batches, [f"b{i}" for i in range(N_BATCHES)])})
+            X, batches, groups = z["X"], z["batches"], z["groups"]
+        meta = batch_meta(batches)
         mesh = pm.make_mesh(spec["devices"])
         res = dict(tag=tag, rank=rank, backend=spec["backend"],
                    devices=[str(d) for d in mesh.devices],
@@ -1987,23 +2174,30 @@ def mp_worker(spec: dict) -> None:
         res["allgather_us"] = dict(host=host / 200 * 1e6,
                                    wall=(time.perf_counter() - t0) / 200
                                    * 1e6, bytes=send.numel() * 4)
+        tasks = spec.get("tasks", ())
+        if "lisi" in tasks:
+            res["lisi"] = mp_lisi(ht, mesh, dho.Z_corr, batches, groups)
+        if "percell" in tasks:
+            res["percell"] = mp_percell(ht, mesh)
         with open(os.path.join(tmp, f"{tag}_{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         pm.shutdown_distributed()
 
 
-def run_workers(tag, backend, devices, fits, tmp, resume=False, env=None):
+def run_workers(tag, backend, devices, fits, tmp, resume=False, env=None,
+                tasks=()):
     """Start one worker per entry of `devices` (that rank's devices), with
-    `env` added to the environment, wait for all (MP_WORKER_S), kill the
-    rest if one fails or hangs; returns their results by rank."""
+    `env` added to the environment and `tasks` to run after the fits, wait
+    for all (MP_WORKER_S), kill the rest if one fails or hangs; returns
+    their results by rank."""
     import subprocess
     procs, logs = [], []
     try:
         for rank, devs in enumerate(devices):
             spec = dict(tag=tag, rank=rank, world=len(devices), dir=tmp,
                         backend=backend, devices=devs, fits=fits,
-                        resume=resume)
+                        resume=resume, tasks=list(tasks))
             log = open(os.path.join(tmp, f"{tag}_{rank}.log"), "w")
             logs.append(log)
             procs.append(subprocess.Popen(
@@ -2039,11 +2233,56 @@ def run_workers(tag, backend, devices, fits, tmp, resume=False, env=None):
     return out
 
 
-def check_workers(tag, results, want):
+def check_tasks(tag, res, want, nccl):
+    """A worker's per-cell and LISI tasks: the per-cell fits bitwise equal
+    to the one-process mesh's of as many shards (want["percell"][size]),
+    pbmc at the golden gate, 2 n_blocks + 2 collectives per k-means round,
+    no host wait inside the block loop under NCCL; LISI bitwise equal to
+    phase lisi's values and the sampled brute force's (want["lisi"]).
+    Returns the summary."""
+    out = {}
+    who = f"{tag} rank {res['rank']}"
+    if "percell" in res:
+        pc, ref = res["percell"], want["percell"][res["shards"]]
+        check(pc["digests"] == ref["percell"],
+              f"{who}: the per-cell fit differs from the one-process "
+              f"mesh's: {pc['digests']} vs {ref['percell']}")
+        check(pc["pbmc"]["digests"] == ref["pbmc"] and not
+              pc["pbmc"]["fused"], f"{who}: the per-cell pbmc fit differs "
+              f"from the one-process mesh's")
+        check(pc["pbmc"]["min_pc_r"] >= 0.99,
+              f"{who}: per-cell pbmc min r {pc['pbmc']['min_pc_r']}")
+        want_c = 2 * pc["n_blocks"] + 2
+        check(pc["collectives_per_round"] == want_c,
+              f"{who}: {pc['collectives_per_round']} collectives per "
+              f"k-means round, expected {want_c}")
+        check(not nccl or pc["host_waits_per_block"] == 0,
+              f"{who}: the host waited {pc['host_waits_per_block']} times "
+              f"per block in the per-cell E-step under NCCL")
+        out["percell"] = dict(
+            cells=PC_CELLS, wall_s=pc["wall_s"],
+            kmeans_rounds=pc["kmeans_rounds"], bitwise_equal=True,
+            ms_per_round=pc["ms_per_round"],
+            collectives_per_round=pc["collectives_per_round"],
+            host_waits_per_round=pc["host_waits_per_round"],
+            host_waits_per_block=pc["host_waits_per_block"],
+            pbmc=dict(bitwise_equal=True, min_pc_r=pc["pbmc"]["min_pc_r"],
+                      kmeans_rounds=pc["pbmc"]["kmeans_rounds"]))
+    if "lisi" in res:
+        li = res["lisi"]
+        check(li["digest"] == want["lisi"][0],
+              f"{who}: LISI differs from phase lisi's")
+        check(li["brute_digests"] == want["lisi"][1:],
+              f"{who}: the sampled brute LISI differs from phase lisi's")
+        out["lisi"] = dict(li, bitwise_equal=True)
+    return out
+
+
+def check_workers(tag, results, want, nccl=False):
     """Every rank's fits bitwise equal to the one-device fits (phase mesh
     holds the one-process meshes to them), their launch counts those of a
-    mesh pass on the rank's shards, and the resume bitwise; returns the
-    phase line's summary."""
+    mesh pass on the rank's shards, and the resume bitwise; the tasks
+    (check_tasks). Returns the phase line's summary."""
     summary = []
     for res in results:
         local = len(res["devices"])
@@ -2079,11 +2318,11 @@ def check_workers(tag, results, want):
             host_waited_in_block_loop=(prof["host_waits_per_pass"]
                                        >= res["fits"]["deferred"]
                                        ["n_blocks"]),
-            pass_profile=prof))
+            pass_profile=prof, **check_tasks(tag, res, want, nccl)))
     return summary
 
 
-def phase_multiprocess(refs, X, batches, smi):
+def phase_multiprocess(refs, X, batches, groups, smi, lisi_ref):
     """Multi-process runs at 858k, one worker process per rank: 2 ranks on
     cuda:0 under gloo with 2 shards each (NCCL refuses two ranks on one
     card): the deferred, stored and low_memory fits, .R and a checkpoint
@@ -2095,39 +2334,53 @@ def phase_multiprocess(refs, X, batches, smi):
     Each bitwise equal to the one-device fits refs (so to the one-process
     mesh, phase mesh), with the per-block and re-add launches of every
     worker, the ms per mesh pass, and whether the host waited inside the
-    block loop (NCCL: it must not)."""
+    block loop (NCCL: it must not). The gloo, nccl and cards workers also
+    run the per-cell task (PC_CELLS cells and pbmc_3500, bitwise equal to
+    the one-process mesh of as many shards on cuda:0, fitted here), the
+    gloo and cards workers the LISI task (bitwise equal to phase lisi's
+    lisi_ref = (values, sampled brute values, sampled ids))."""
     import shutil
     import tempfile
 
     import numpy as np
     import torch
+    import harmonypy_tpu_torch as ht
     want = {name: fit_digests(ho) for name, ho in refs.items()}
+    want["lisi"] = [digest(a) for a in lisi_ref]
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    want["percell"] = {n: percell_refs(ht, n) for n in sorted(
+        {MESH_SHARDS} | ({cards} if cards > 1 else set()))}
+    refs_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
     out = {}
     try:
-        np.savez(os.path.join(tmp, "data.npz"), X=X, batches=batches)
+        np.savez(os.path.join(tmp, "data.npz"), X=X, batches=batches,
+                 groups=groups)
         # nccl_fr: the NCCL run with torch's flight recorder at its
         # default size, which initialize_distributed turns off.
         runs = [("gloo", "gloo", [["cuda:0"] * 2] * 2,
-                 ["deferred", "stored", "low_memory"], True, None),
+                 ["deferred", "stored", "low_memory"], True, None,
+                 ("percell", "lisi")),
                 ("nccl", "nccl", [["cuda:0"] * 4], ["deferred", "stored"],
-                 False, None),
+                 False, None, ("percell",)),
                 ("nccl_fr", "nccl", [["cuda:0"] * 4], ["deferred"], False,
-                 dict(TORCH_FR_BUFFER_SIZE="2000"))]
-        cards = torch.cuda.device_count()
+                 dict(TORCH_FR_BUFFER_SIZE="2000"), ())]
         if cards > 1:
             runs.append(("cards", "nccl", [[f"cuda:{i}"] for i in
                                            range(cards)], ["deferred"],
-                         False, None))
-        for tag, backend, devices, fits, resume, env in runs:
+                         False, None, ("percell", "lisi")))
+        for tag, backend, devices, fits, resume, env, tasks in runs:
             t0 = time.perf_counter()
-            res = run_workers(tag, backend, devices, fits, tmp, resume, env)
+            res = run_workers(tag, backend, devices, fits, tmp, resume, env,
+                              tasks)
             out[tag] = dict(backend=backend, ranks=len(devices),
-                            shards=res[0]["shards"],
+                            shards=res[0]["shards"], tasks=list(tasks),
                             command_s=time.perf_counter() - t0,
-                            workers=check_workers(tag, res, want))
+                            workers=check_workers(tag, res, want,
+                                                  backend == "nccl"))
         check(not any(w["host_waited_in_block_loop"]
                       for tag in out if tag != "gloo"
                       for w in out[tag]["workers"]),
@@ -2135,7 +2388,11 @@ def phase_multiprocess(refs, X, batches, smi):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(dict(phase="multiprocess", nvidia_smi=smi, N=N_CELLS, d=N_PCS,
-              K=K, B=N_BATCHES, runs=out,
+              K=K, B=N_BATCHES, percell_cells=PC_CELLS, percell_refs=dict(
+                  seconds=refs_s, one_process_fit={
+                      n: dict(wall_s=r["wall_s"],
+                              kmeans_rounds=r["kmeans_rounds"])
+                      for n, r in want["percell"].items()}), runs=out,
               real_cards=(out["cards"]["workers"][0]["ms_per_pass"]
                           if "cards" in out else f"skipped: {cards} card")))
 
@@ -2197,7 +2454,8 @@ def main() -> int:
     phase_capacity(fits)
     minfo = phase_mesh(ht, mods, X, batches, groups, meta,
                        dict(deferred=fit_ho, **stored_hos), lisi_ref)
-    phase_multiprocess(dict(deferred=fit_ho, **stored_hos), X, batches, smi)
+    phase_multiprocess(dict(deferred=fit_ho, **stored_hos), X, batches,
+                       groups, smi, lisi_ref)
     del fit_ho, stored_hos
     src = "harmonypy_tpu_torch/csrc/fused_estep.cu"
     pallas = "harmonypy_tpu/ops/pallas/update_r_fused.py"

@@ -34,19 +34,21 @@ chunks that hold its cells (parallel/sharding.py), and k-means init copies
 its sample's columns from the shards that own them. The fused fits are
 therefore the one-device fits bit for bit on any mesh, and no shard holds
 an array of the one-device width. The per-cell fit sums shard partials in
-shard order: equal to reduction-order tolerance.
+shard order (ops/objective.shard_sum): equal to one device to
+reduction-order tolerance.
 
 Across processes (parallel.mesh.initialize_distributed) each process runs
-its own shards; the frames and each block's rows are all-gathered, so every
-rank holds the same replicated state bit for bit and takes every host
-branch (the convergence checks, Lloyd's stop) on the same values, issuing
-the same collectives in the same order. The per-cell fit is not ported
-across processes (parallel.mesh.MULTIPROCESS_TODO).
+its own shards; the frames, each block's rows and the per-cell fit's shard
+partials are all-gathered, so every rank holds the same replicated state
+bit for bit (the one-process mesh's) and takes every host branch (the
+convergence checks, Lloyd's stop) on the same values, issuing the same
+collectives in the same order.
 
 Profiler ranges (torch.profiler.record_function, no cost without a
 profiler beyond a few microseconds per call): harmony::init,
-harmony::kmeans_init, harmony::cluster, harmony::ridge_replay (deferred),
-harmony::ridge (stored).
+harmony::kmeans_init, harmony::cluster, harmony::estep (the per-cell
+E-step's block loop), harmony::ridge_replay (deferred), harmony::ridge
+(stored).
 
 Test hooks: `init_Y` replaces the k-means centroids, and `blocks_fn(i)`
 returns the assignment of the i-th round of the fit (counted from 0 across
@@ -78,7 +80,7 @@ from .ops.replay import INIT_ELEMS, replay_apply, replay_normal_eq, windows
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
 from .ops.update_r_fused import chunk_stats, make_zp3
-from .parallel.mesh import MULTIPROCESS_TODO, local_shards, spans_processes
+from .parallel.mesh import local_shards
 from .parallel.sharding import (cells_window, holds_window, one_device,
                                 pack, parts, put_window, window_of)
 from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
@@ -230,7 +232,7 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     deferred fit's init pass, storing each window's R; cache and partials
     come from the fp32 R. Per-cell layout: O/E and the objective from the
     storage-rounded R, since its E-step re-reads the stored values; shard
-    partials summed in shard order."""
+    partials summed in shard order (O and E packed into one)."""
     Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
     with record_function("harmony::kmeans_init"):
         Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
@@ -250,10 +252,12 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
                  * m[None, :])
             Rs.append(R.to(cfg.r_torch_dtype).to(torch.float32))
             dists.append(dist_mat)
-        E = torch.outer(shard_sum([torch.sum(R, dim=1) for R in Rs], dev),
-                        params.Pr_b)                             # :388
-        O = shard_sum([R @ p.T for R, p in zip(Rs, parts(data.Phi))],
-                      dev)                                       # :389
+        tot = shard_sum([torch.cat([torch.sum(R, dim=1)[:, None], R @ p.T],
+                                   dim=1)
+                         for R, p in zip(Rs, parts(data.Phi))], dev,
+                        cfg.n_devices)
+        E = torch.outer(tot[:, 0], params.Pr_b)                  # :388
+        O = tot[:, 1:]                                           # :389
         cache = torch.zeros((1, 1, 1), dtype=torch.float32, device=dev)
         terms = compute_objective_terms(pack(Rs), pack(dists), O, E,
                                         data.Phi, params, cfg)
@@ -399,6 +403,15 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
     return cfg.max_iter_kmeans
 
 
+def percell_slot_tables(blocks, cfg: EngineConfig, devices) -> list:
+    """The per-cell slot table of each of this process's shards (devices:
+    theirs), cut from the global (L,) cell assignment at the shard's
+    GLOBAL index (local_shards): in a process group, rank r's first shard
+    is not shard 0."""
+    return [cell_slot_table(blocks, cfg, s).to(dev)
+            for s, dev in zip(local_shards(cfg.n_devices), devices)]
+
+
 @record_function("harmony::cluster")
 def cluster_percell(st: HarmonyState, data: HarmonyData,
                     params: HarmonyParams, cfg: EngineConfig,
@@ -406,21 +419,23 @@ def cluster_percell(st: HarmonyState, data: HarmonyData,
     """Per-cell k-means loop (JAX package engine.py:351-389): centroids
     from Z_cos R^T, the distances, one per-cell E-step over iid blocks, the
     objective from R. Returns the rounds run. On a mesh the centroid
-    numerator and every block's O/E change are shard partials summed in
-    shard order."""
+    numerator, every block's O/E change and the objective are shard
+    partials summed in shard order: 2 n_blocks + 2 shard sums a round
+    (across processes, as many all-gathers)."""
     lead = st.Y.device
+    devs = [z.device for z in parts(st.Z_cos)]
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(shard_sum(                          # :443-444
             [z @ R.to(torch.float32).T
-             for z, R in zip(parts(st.Z_cos), parts(st.R))], lead))
-        blocks = draw_blocks()
-        tables = [cell_slot_table(blocks, cfg, s).to(z.device)
-                  for s, z in enumerate(parts(st.Z_cos))]
+             for z, R in zip(parts(st.Z_cos), parts(st.R))], lead,
+            cfg.n_devices))
+        tables = percell_slot_tables(draw_blocks(), cfg, devs)
         dists = [2.0 * (1.0 - Y.to(z.device).T @ z)             # harmony.py:447
                  for z in parts(st.Z_cos)]
-        st.R, st.E, st.O = update_r(pack(tables), st.R, pack(dists),
-                                    data.Phi, st.E, st.O, params, cfg,
-                                    data.mask)
+        with record_function("harmony::estep"):
+            st.R, st.E, st.O = update_r(pack(tables), st.R, pack(dists),
+                                        data.Phi, st.E, st.O, params, cfg,
+                                        data.mask)
         st.Y = Y
         if _round_end(st, i, compute_objective_terms(
                 st.R, pack(dists), st.O, st.E, data.Phi, params, cfg), cfg):
@@ -508,11 +523,6 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     already holds; the fit continues from its iteration n_rounds + 1 (JAX
     package api.py:395-436)."""
     cfg.validate()
-    if spans_processes(cfg.n_devices) and not cfg.fused_estep:
-        raise NotImplementedError(
-            f"the per-cell fit on a mesh of several processes is not ported "
-            f"({MULTIPROCESS_TODO}); chunk_size=128 or >= 20,480 cells "
-            f"select the fused fit, which runs across processes")
     step = HarmonyStep(data, params, cfg, gen, blocks_fn,
                        0 if resume is None else resume[1].n_drawn)
     if resume is not None:

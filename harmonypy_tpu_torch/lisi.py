@@ -22,7 +22,12 @@ the brute force splits the queries over the shards, each against the whole
 reference set on its device, and the pruned scan deals the cluster batches
 out to the shards, each writing its clusters' rows: no reduction, and every
 row is computed as on one device, so the values are the one-device values
-bit for bit.
+bit for bit. Across processes (parallel.mesh.initialize_distributed) every
+rank passes the whole X and metadata: each answers its own shards' queries
+or cluster batches, the rows are all-gathered (copies only), and every
+rank computes Simpson on the whole result and returns the whole lisi_df,
+the one-process mesh's bit for bit. The pruned index is built by rank 0
+and broadcast.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ import pandas as pd
 import torch
 from torch.profiler import record_function
 
-from .ops.knn_pruned import (_DEFAULT_VISIT, build_index, default_n_clusters,
-                             full_precision_matmul, pruned_knn)
+from .ops.knn_pruned import (_DEFAULT_VISIT, default_n_clusters,
+                             full_precision_matmul, mesh_index, pruned_knn)
+from .parallel.mesh import all_gather_packed
 
 _KNN_TILE = 131_072  # reference-set tile (memory cap ~ chunk x tile values)
 _KNN_BATCH = 65_536  # queries per host batch
@@ -148,28 +154,62 @@ def _knn_batched(Q, X, n_neighbors: int, chunk: int = _KNN_CHUNK, qid=None,
                  mesh=None):
     """_knn_impl in host batches of _KNN_BATCH queries; each query row is
     independent, so the values equal the one-shot computation. On a mesh
-    of several devices the queries are split into one contiguous part per
-    shard, each answered on its device against the whole of X; the results
-    come back to X's device."""
-    devices = [X.device] if mesh is None else list(mesh.devices)
-    n = -(-Q.shape[0] // len(devices))
-    dists, idxs = [], []
+    the queries are split into one contiguous part per shard of the whole
+    mesh, each answered on its device against the whole of X; the results
+    come back to X's device in shard order. Across processes each rank
+    answers its own shards' parts, and each host batch's rows of every
+    shard (distances and ids, padded to the batch) are all-gathered in one
+    collective: every rank returns every row."""
+    if mesh is None:
+        devices, ids, S, multi = [X.device], range(1), 1, False
+    else:
+        devices, ids, S = list(mesh.devices), mesh.shard_ids, mesh.size
+        multi = mesh.n_processes > 1
+    M = Q.shape[0]
+    n = -(-M // S)
+    rows = [[] for _ in range(S)]           # per shard: (dist, idx) parts
+
+    def part(s, lo, w):
+        """Shard s's queries [lo, lo + w) of its part: (first, count)."""
+        a = min(s * n + lo, M)
+        return a, max(0, min(s * n + lo + w, (s + 1) * n, M) - a)
+
     with full_precision_matmul(), record_function("lisi::brute"):
         refs = {}
-        for s, dev in enumerate(devices):
-            Qs = Q[s * n: (s + 1) * n].to(dev)
-            if Qs.shape[0] == 0:
-                continue
-            if dev not in refs:
-                refs[dev] = _reference_set(X.to(dev))
-            qs = None if qid is None else qid[s * n: (s + 1) * n].to(dev)
-            for lo in range(0, Qs.shape[0], _KNN_BATCH):
+        for lo in range(0, n, _KNN_BATCH):
+            w = min(_KNN_BATCH, n - lo)
+            mine = []
+            for s, dev in zip(ids, devices):
+                a, m = part(s, lo, w)
+                if m == 0:
+                    mine.append(None)
+                    continue
+                if dev not in refs:
+                    refs[dev] = _reference_set(X.to(dev))
                 d, i = _knn_chunks(
-                    Qs[lo: lo + _KNN_BATCH], refs[dev], n_neighbors, chunk,
-                    None if qs is None else qs[lo: lo + _KNN_BATCH])
-                dists.append(d.to(X.device))
-                idxs.append(i.to(X.device))
-    return torch.cat(dists), torch.cat(idxs)
+                    Q[a: a + m].to(dev), refs[dev], n_neighbors, chunk,
+                    None if qid is None else qid[a: a + m].to(dev))
+                mine.append((d.to(X.device), i.to(X.device)))
+            if not multi:
+                for s, got in zip(ids, mine):
+                    if got is not None:
+                        rows[s].append(got)
+                continue
+            ds = X.new_zeros((len(mine), w, n_neighbors))
+            is_ = torch.full((len(mine), w, n_neighbors), -1,
+                             dtype=torch.int64, device=X.device)
+            for j, got in enumerate(mine):
+                if got is not None:
+                    ds[j, : got[0].shape[0]] = got[0]
+                    is_[j, : got[1].shape[0]] = got[1]
+            dg, ig = all_gather_packed([ds, is_])     # (S, w, k), by shard
+            for s in range(S):
+                m = part(s, lo, w)[1]
+                if m:
+                    rows[s].append((dg[s, :m], ig[s, :m]))
+    flat = [r for rs in rows for r in rs]
+    return (torch.cat([d for d, _ in flat]),
+            torch.cat([i for _, i in flat]))
 
 
 def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
@@ -183,11 +223,12 @@ def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
 
     stats: a dict to fill with the index numbers (pruned_knn's), the
     certification rate and the fallback rows. mesh: the scan and the
-    fallback run on its shards."""
+    fallback run on its shards; across processes rank 0 builds the index
+    and broadcasts it, so every rank prunes with the same bits."""
     visit = _DEFAULT_VISIT if visit is None else visit
     with record_function("lisi::build_index"):
-        index = build_index(X, default_n_clusters(X.shape[0],
-                                                  n_neighbors + 1))
+        index = mesh_index(X, default_n_clusters(X.shape[0],
+                                                 n_neighbors + 1), mesh)
     V = min(visit, index.starts.shape[0])
     if (V * index.p_max * index.p_max * 4 > _SLAB_CAP_BYTES
             or n_neighbors + 1 > V * index.p_max):
@@ -204,7 +245,9 @@ def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
 
 def _fallback(X, dist, idx, cert, n_neighbors: int, stats=None, mesh=None):
     """Re-answer the uncertified rows of a pruned result by brute force, the
-    query count padded to a power-of-two bucket (at least 256)."""
+    query count padded to a power-of-two bucket (at least 256). Across
+    processes `cert` is the gathered certificate, the same on every rank,
+    so every rank re-answers the same rows."""
     with record_function("lisi::fallback"):
         fail = torch.nonzero(~cert).flatten()
         n = int(fail.numel())
@@ -327,7 +370,9 @@ def compute_lisi(
 
     mesh, device: as in run_harmony; the kNN runs on the mesh (default
     default_mesh(device): None = every visible card, raising without one).
-    A torch tensor X without a mesh stays on its own device alone.
+    A torch tensor X without a mesh stays on its own device alone. On a
+    mesh of several processes every rank passes the whole X and metadata
+    and gets the whole result (a collective every rank calls).
     """
     if knn not in ("exact", "brute", "pruned", "approx"):
         raise ValueError(f"knn must be 'exact', 'brute', 'pruned' or "
@@ -336,17 +381,12 @@ def compute_lisi(
     if not 0.0 < knn_recall_target <= 1.0:
         raise ValueError(f"knn_recall_target must be in (0, 1], "
                          f"got {knn_recall_target}")
-    from .parallel.mesh import MULTIPROCESS_TODO, Mesh, resolve_mesh
+    from .parallel.mesh import Mesh, resolve_mesh
     if isinstance(X, torch.Tensor) and mesh is None:
         Xd = X.detach().to(torch.float64)
         mesh = Mesh((Xd.device,))
     else:
         mesh = resolve_mesh(mesh, device)
-        if mesh.n_processes > 1:
-            raise NotImplementedError(
-                f"compute_lisi on a mesh of {mesh.n_processes} processes is "
-                f"not ported ({MULTIPROCESS_TODO}); run it in one process "
-                f"on the gathered Z_corr")
         X = np.asarray(X.values if hasattr(X, "values") else X)
         Xd = torch.tensor(X, dtype=torch.float64, device=mesh.lead)
     dev = Xd.device

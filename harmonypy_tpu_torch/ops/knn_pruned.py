@@ -30,7 +30,13 @@ built once on the lead device and copied to each shard's; the scan's
 cluster batches are dealt out to the shards in turn, and each writes its
 clusters' rows of the lead's result buffers. The rows are disjoint and
 every batch has the one-device shape, so the values are the one-device
-values bit for bit.
+values bit for bit. Across processes the batches are dealt to the shards
+of the whole mesh in the same turn, each rank scans its own shards'
+batches, and the rows are merged by owner: each rank's rows (their ids
+follow from the dealing) all-gathered and copied into place on every rank.
+The index comes from rank 0 (mesh_index), and the probe's
+certificate count is summed over the ranks before its test, so every rank
+takes the same branch.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import all_gather_packed, all_gather_rows, broadcast
 
 # Certificate slack: distances enter via two different products (query x
 # candidate vs query x centroid), and the absolute error of a squared
@@ -260,6 +268,56 @@ def index_from_numpy(Xs, sqs, ids, starts, counts, centroids, radii, p_max,
                        f(centroids), f(radii), int(p_max), f(scale))
 
 
+def broadcast_index(index: PrunedIndex | None, device) -> PrunedIndex:
+    """Rank 0's index on every rank, bit for bit (rank 0 passes its index,
+    the others None and get it on `device`): one broadcast per tensor
+    field (parallel.mesh.broadcast). A collective every rank calls."""
+    fields = {f.name: broadcast(None if index is None
+                                else getattr(index, f.name), device)
+              for f in dataclasses.fields(PrunedIndex) if f.name != "p_max"}
+    return PrunedIndex(**fields, p_max=int(torch.max(fields["counts"])))
+
+
+def mesh_index(X: torch.Tensor, n_clusters: int, mesh=None,
+               seed: int = 0) -> PrunedIndex:
+    """build_index(X, n_clusters, seed); on a mesh of several processes
+    built by rank 0 alone and broadcast (broadcast_index), so every rank
+    holds the same bits (cuBLAS may choose other algorithms on other
+    cards)."""
+    if mesh is None or mesh.n_processes == 1:
+        return build_index(X, n_clusters, seed)
+    return broadcast_index(build_index(X, n_clusters, seed)
+                           if mesh.process == 0 else None, X.device)
+
+
+def _merge_by_owner(out, index: PrunedIndex, owner_rank, mesh) -> None:
+    """Across processes: every rank's scanned rows into every rank's result
+    buffers out = (dist, idx, cert). owner_rank (C,) is the rank that
+    scanned each cluster; each rank's rows are its clusters' sorted rows,
+    gathered padded to the largest count in one collective and copied into
+    place (no sum: -0.0 stays -0.0)."""
+    row_owner = torch.repeat_interleave(owner_rank.to(index.counts.device),
+                                        index.counts)             # (N,)
+    rank = mesh.process
+    rows = [torch.nonzero(row_owner == r).squeeze(1)
+            for r in range(mesh.n_processes)]
+    width = max(1, max(int(r.numel()) for r in rows))
+    dev = out[0].device
+    send = []
+    for t in out:
+        buf = t.new_zeros((width,) + tuple(t.shape[1:]))
+        mine = rows[rank].to(dev)
+        buf[: mine.numel()] = t[mine]
+        send.append(buf)
+    every = all_gather_packed(send)
+    for r, ids in enumerate(rows):
+        if r == rank or ids.numel() == 0:
+            continue
+        ids = ids.to(dev)
+        for t, g in zip(out, every):
+            t[ids] = g[r * width: r * width + ids.numel()]
+
+
 def _cluster_neighbors(cent, V: int):
     """(C, V) ids of the V nearest clusters of each cluster, by centroid
     distance (self first)."""
@@ -368,14 +426,17 @@ def pruned_knn(X: torch.Tensor, n_neighbors: int,
     stats: a dict to fill with the index's C, p_max, the visit count used
     and the clusters per scan batch.
 
-    mesh: deal the scan's cluster batches out to its devices in turn (the
+    mesh: deal the scan's cluster batches out to its shards in turn (the
     index built on X's device, copied to the others); the result is on X's
-    device and equal to the one-device result.
+    device and equal to the one-device result. Across processes every rank
+    passes the whole X and the same index (mesh_index), scans its own
+    shards' batches and returns the whole result.
     """
     N, d = X.shape
     k = n_neighbors + 1
     if index is None:
-        index = build_index(X, n_clusters or default_n_clusters(N, k), seed)
+        index = mesh_index(X, n_clusters or default_n_clusters(N, k), mesh,
+                           seed)
     C = index.starts.shape[0]
     V = min(visit, C)
     if k > V * index.p_max:  # cannot even hold k candidates
@@ -385,6 +446,9 @@ def pruned_knn(X: torch.Tensor, n_neighbors: int,
     cb = min(_CLUSTER_BATCH, C)
     dev = X.device
     devices = [dev] if mesh is None else list(mesh.devices)
+    S = len(devices) if mesh is None else mesh.size
+    first = 0 if mesh is None else mesh.shard_ids[0]
+    multi = mesh is not None and mesh.n_processes > 1
     indexes = {d: index_to(index, d) for d in devices}
 
     def scan_all(V_try: int):
@@ -397,18 +461,28 @@ def pruned_knn(X: torch.Tensor, n_neighbors: int,
                torch.zeros((Np,), dtype=torch.bool, device=dev))
         probe = probe_min_cert is not None and C > cb
         n_batch = 0
+        owner = torch.empty((C,), dtype=torch.int64)   # scanning shard
         for seg_lo, seg_hi in ((0, cb), (cb, C)) if probe else ((0, C),):
             for lo in range(seg_lo, seg_hi, b):
-                d = devices[n_batch % len(devices)]
+                g = n_batch % S
                 n_batch += 1
+                owner[lo: min(lo + b, seg_hi)] = g
+                if not first <= g < first + len(devices):
+                    continue                  # another rank's batch
+                d = devices[g - first]
                 cids = torch.arange(lo, lo + b, device=d)
                 cids = torch.where(cids < seg_hi, cids, -1)
                 _scan_clusters(indexes[d], cids, nbrs[d], k, out)
             if probe and seg_lo == 0:
-                n_cert = float(torch.sum(out[2]))
+                n_cert = torch.sum(out[2])
+                if multi:      # every rank's rows: one branch on every rank
+                    n_cert = torch.sum(all_gather_rows(n_cert[None]))
+                n_cert = float(n_cert)
                 n_probe = float(torch.sum(index.counts[:cb]))
                 if n_probe > 0 and n_cert / n_probe < probe_min_cert:
                     return None
+        if multi:
+            _merge_by_owner(out, index, owner // len(devices), mesh)
         return out, b
 
     with full_precision_matmul():

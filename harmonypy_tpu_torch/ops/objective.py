@@ -6,7 +6,9 @@
 The fused E-step returns the first two terms as per-chunk partials; the
 cross term comes from O and E alone, because O = R Phi^T. The per-cell path
 takes all three from R (compute_objective_terms); on a mesh each shard
-sums its cells and the shard sums are added in shard order.
+sums its cells and the shard sums are added in shard order (shard_sum),
+across processes after one all-gather of every shard's partials, so every
+rank holds the one-process mesh's bits.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EngineConfig
+from ..parallel.mesh import all_gather_rows, spans_processes
 from ..state import HarmonyParams
 from .normalize import safe_entropy
 
@@ -59,12 +62,19 @@ def cross_entropy_from_stats(O, E, params: HarmonyParams, cfg: EngineConfig):
     return torch.sum(params.sigma[:, None] * theta_log * O) * norm_const
 
 
-def shard_sum(xs, device) -> torch.Tensor:
-    """Shard partials added in shard order on `device` (one shard: its
-    partial itself)."""
-    acc = xs[0].to(device)
+def shard_sum(xs, device, n_devices: int) -> torch.Tensor:
+    """This process's shard partials `xs` (equal shapes) of a mesh of
+    n_devices shards, added in shard order on `device` (one shard: its
+    partial itself). Across processes the partials are stacked and
+    all-gathered (one collective every rank calls), then every rank adds
+    all n_devices of them with the one-process sequence of `acc = acc +
+    x`: the one-process bits on every rank."""
+    xs = [x.to(device) for x in xs]
+    if spans_processes(n_devices):
+        xs = all_gather_rows(torch.stack(xs)).unbind(0)
+    acc = xs[0]
     for x in xs[1:]:
-        acc = acc + x.to(device)
+        acc = acc + x
     return acc
 
 
@@ -73,7 +83,9 @@ def compute_objective_terms(R, dist_mat, O, E, Phi, params: HarmonyParams,
     """(kmeans_error, entropy, cross_entropy), each * 2000/N, from R
     (K, N_local) in any storage dtype, summed in fp32 (JAX package
     ops/objective.py:96-110). R, dist_mat and Phi may be sharded (lists):
-    each shard's sums are added in shard order."""
+    each shard's three sums are added in shard order, stacked into one
+    partial (one collective across processes; elementwise adds, so the
+    bits of three separate sums)."""
     from ..parallel.sharding import parts
     norm_const = 2000.0 / cfg.N
     Oc, Ec = torch.clamp_min(O, CLAMP), torch.clamp_min(E, CLAMP)
@@ -83,9 +95,9 @@ def compute_objective_terms(R, dist_mat, O, E, Phi, params: HarmonyParams,
         dev = R_s.device
         sigma_col = params.sigma.to(dev)[:, None]
         R_s = R_s.to(torch.float32)
-        sums.append((torch.sum(R_s * dist_s),
-                     torch.sum(safe_entropy(R_s) * sigma_col),
-                     torch.sum((R_s * sigma_col)
-                               * (theta_log.to(dev) @ Phi_s))))
-    return tuple(shard_sum([t[i] for t in sums], O.device) * norm_const
-                 for i in range(3))
+        sums.append(torch.stack((
+            torch.sum(R_s * dist_s),
+            torch.sum(safe_entropy(R_s) * sigma_col),
+            torch.sum((R_s * sigma_col) * (theta_log.to(dev) @ Phi_s)))))
+    return tuple((shard_sum(sums, O.device, cfg.n_devices)
+                  * norm_const).unbind(0))

@@ -14,7 +14,9 @@ window's cell inputs copied into new chunk-major arrays of the window's
 shape; a mesh shard runs only the windows that hold its chunks
 (parallel/sharding.py) and the rows are reduced through the global frame
 (bitwise the one-device result, and the deferred fit's for the same r).
-The per-cell layout adds the shards' normal equations in shard order.
+The per-cell layout adds the shards' normal equations in shard order
+(ops/objective.shard_sum; across processes after one all-gather, so every
+rank solves the same S).
 """
 
 from __future__ import annotations
@@ -169,7 +171,7 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
         return pack(_fused_shard(*sh, s, cfg, W.to(sh[0].device))
                     for s, sh in zip(ids, shards))
     S = shard_sum([_normal_eq(z, p, m, cfg, r) for z, p, m, r in shards],
-                  E.device)
+                  E.device, cfg.n_devices)
     W = solve_w(S, E, params, cfg)
     return pack(_apply(z, p, m, W.to(z.device), cfg, r)
                 for z, p, m, r in shards)

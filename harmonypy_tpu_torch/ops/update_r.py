@@ -11,7 +11,11 @@ This is the default below 20,480 cells. It is plain torch on every device:
 the JAX package leaves it to XLA, and it has no kernel of its own. On a mesh
 each block's removal and re-add are shard partials summed in shard order
 (JAX ops/partition.py:29-32): equal to one device to reduction-order
-tolerance, not bitwise.
+tolerance, not bitwise. Each phase packs a shard's E partial (K,) and O
+partial (K, B) side by side, so a block makes two shard sums (across
+processes two all-gathers) and the adds are the elementwise adds of the
+separate sums. The block loop has no host wait: every index is a tensor
+(no boolean selection), and the store goes through a scratch column.
 """
 
 from __future__ import annotations
@@ -32,18 +36,28 @@ def compute_scale_dist(dist_mat, sigma) -> torch.Tensor:
     return s / torch.sum(s, dim=0, keepdim=True)
 
 
+def _stats(Rb, Phib):
+    """A shard's (K, B+1) block partial: [sum_cells R | R Phi^T]."""
+    return torch.cat([torch.sum(Rb, dim=1)[:, None], Rb @ Phib.T], dim=1)
+
+
 def update_r(slot_table, R, dist_mat, Phi, E, O, params: HarmonyParams,
              cfg: EngineConfig, mask):
     """One E-step over all blocks. slot_table (nb, W) cell ids per block
     (sentinel N_local, partition.cell_slot_table); R (K, N_local) in its
     storage dtype, updated in place; dist_mat (K, N_local); Phi (B,
     N_local); E, O (K, B); mask (N_local,). On a mesh the cell-axis
-    arguments are lists of the shards'. Returns (R, E, O).
+    arguments are lists of this process's shards'. Returns (R, E, O).
 
     The re-add uses the STORED (possibly bf16-rounded) values: the next
-    removal re-reads the stored R, so O/E stay consistent with it."""
-    Nl, lead, Pr_b = cfg.N_local, E.device, params.Pr_b
+    removal re-reads the stored R, so O/E stay consistent with it. Each
+    shard's R is worked on in a copy with one scratch column (id
+    N_local), where a block's sentinel slots store and nothing reads, and
+    copied back at the end."""
+    Nl, lead, Pr_b, S = cfg.N_local, E.device, params.Pr_b, cfg.n_devices
     shards = [dict(tbl=t, R=R_s, Phi=p, mask=m,
+                   Rw=torch.cat([R_s, R_s.new_zeros((R_s.shape[0], 1))],
+                                dim=1),
                    scale=compute_scale_dist(dm, params.sigma.to(dm.device)))
               for t, R_s, dm, p, m in zip(parts(slot_table), parts(R),
                                           parts(dist_mat), parts(Phi),
@@ -51,16 +65,16 @@ def update_r(slot_table, R, dist_mat, Phi, E, O, params: HarmonyParams,
     for b in range(cfg.n_blocks):
         for sh in shards:
             idx = sh["tbl"][b]
-            sh["valid"] = valid = idx < Nl
+            sh["idx"] = idx
             sh["idx_c"] = idx_c = torch.clamp_max(idx, Nl - 1)
-            live = valid.to(torch.float32) * sh["mask"][idx_c]    # (W,)
+            live = (idx < Nl).to(torch.float32) * sh["mask"][idx_c]  # (W,)
             sh["live"] = live
-            sh["Rb"] = sh["R"][:, idx_c].to(torch.float32) * live[None, :]
+            sh["Rb"] = sh["Rw"][:, idx_c].to(torch.float32) * live[None, :]
             sh["Phib"] = sh["Phi"][:, idx_c] * live[None, :]
-        E = E - torch.outer(shard_sum([torch.sum(sh["Rb"], dim=1)
-                                       for sh in shards], lead), Pr_b)
-        O = O - shard_sum([sh["Rb"] @ sh["Phib"].T for sh in shards],
-                          lead)                                   # :491-492
+        rem = shard_sum([_stats(sh["Rb"], sh["Phib"]) for sh in shards],
+                        lead, S)                                  # :491-492
+        E = E - torch.outer(rem[:, 0], Pr_b)
+        O = O - rem[:, 1:]
 
         w_div = diversity_weights(O, E, params.theta)[1]          # :494-499
         for sh in shards:
@@ -71,11 +85,13 @@ def update_r(slot_table, R, dist_mat, Phi, E, O, params: HarmonyParams,
             R_new = (R_new / colsum[None, :]) * live[None, :]
             sh["R_store"] = R_new.to(sh["R"].dtype)               # :506-507
             sh["R_acc"] = sh["R_store"].to(torch.float32)
-        E = E + torch.outer(shard_sum([torch.sum(sh["R_acc"], dim=1)
-                                       for sh in shards], lead), Pr_b)
-        O = O + shard_sum([sh["R_acc"] @ sh["Phib"].T for sh in shards],
-                          lead)
+        add = shard_sum([_stats(sh["R_acc"], sh["Phib"]) for sh in shards],
+                        lead, S)
+        E = E + torch.outer(add[:, 0], Pr_b)
+        O = O + add[:, 1:]
         for sh in shards:
-            idx, valid = sh["tbl"][b], sh["valid"]
-            sh["R"][:, idx[valid]] = sh["R_store"][:, valid]
+            # Real ids are unique within a block; sentinels hit column Nl.
+            sh["Rw"][:, sh["idx"]] = sh["R_store"]
+    for sh in shards:
+        sh["R"].copy_(sh["Rw"][:, :Nl])
     return pack(sh["R"] for sh in shards), E, O

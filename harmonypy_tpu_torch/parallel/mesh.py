@@ -16,9 +16,11 @@ devices (the same number on each), the shards are ordered by rank, then
 by local device (the JAX process-major order), and `Mesh.devices` holds
 this process's shards, `Mesh.shard_ids` their global indices. Every
 reduction over shards then goes through a collective that every rank
-issues in the same order (`all_gather_rows`): the engine's per-chunk
-frames, the re-add of each block, k-means' sample and the readback. Which
-shards a process holds follows from the configuration alone
+issues in the same order (`all_gather_rows`, `all_gather_packed`): the
+engine's per-chunk frames, the re-add of each block, the per-cell fit's
+shard partials, k-means' sample, LISI's rows and the readback; what one
+rank alone computes (LISI's kNN index) goes to the others by `broadcast`.
+Which shards a process holds follows from the configuration alone
 (`local_shards`), so the engine takes no extra argument.
 
 A mesh is all CPU or all CUDA, and its CUDA devices are one card model:
@@ -32,15 +34,13 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import functools
+import math
 import os
 
 import torch
 import torch.distributed as dist
 
 AXIS = "cells"
-# What a multi-process run does not cover yet.
-MULTIPROCESS_TODO = ("ROADMAP.md §1 item 5: the per-cell fit and LISI "
-                     "across processes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,6 +316,20 @@ def local_shards(n_devices: int) -> range:
     return range(process_index() * n, (process_index() + 1) * n)
 
 
+def _stage_device(t: torch.Tensor):
+    """Where a collective of the process group must see `t`: None when
+    the backend takes it where it lies, else the CPU (a CUDA tensor under
+    gloo, which takes CPU tensors only) or the process's card (a CPU
+    tensor under NCCL, which takes CUDA tensors only)."""
+    backend = str(dist.get_backend())
+    if t.is_cuda and backend == "gloo":
+        return torch.device("cpu")
+    if not t.is_cuda and backend == "nccl":
+        return _process_device or torch.device(
+            "cuda", torch.cuda.current_device())
+    return None
+
+
 def gatherer(out: torch.Tensor, t: torch.Tensor):
     """A call that all-gathers every rank's `t` (contiguous, equal shapes)
     into `out` (process_count() * t.shape[0] rows), concatenated along dim
@@ -332,13 +346,7 @@ def gatherer(out: torch.Tensor, t: torch.Tensor):
         return gatherer(out.view(torch.int16), t.view(torch.int16))
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
-    backend = str(dist.get_backend())
-    stage = None
-    if t.is_cuda and backend == "gloo":
-        stage = torch.device("cpu")
-    elif not t.is_cuda and backend == "nccl":
-        stage = _process_device or torch.device(
-            "cuda", torch.cuda.current_device())
+    stage = _stage_device(t)
     if stage is None:
         return functools.partial(gather, out, t)
     buf = torch.empty(out.shape, dtype=out.dtype, device=stage)
@@ -361,3 +369,48 @@ def all_gather_cat(t: torch.Tensor, axis: int) -> torch.Tensor:
     """Every rank's `t` concatenated along `axis` in rank order."""
     g = all_gather_rows(t.unsqueeze(0))
     return torch.cat(g.unbind(0), dim=axis)
+
+
+def all_gather_packed(ts) -> list:
+    """all_gather_rows of several tensors with equal leading dims (any
+    dtypes, e.g. distances, ids and flags of the same rows) in ONE
+    collective: each viewed as its bytes, side by side per row, gathered,
+    and cut apart again. Copies only; returns each gathered tensor, every
+    rank's rows in rank order."""
+    ts = [t.contiguous() for t in ts]
+    n = ts[0].shape[0]
+    raw = [t.reshape(n, math.prod(t.shape[1:])).view(torch.uint8)
+           for t in ts]
+    every = all_gather_rows(torch.cat(raw, dim=1) if len(raw) > 1
+                            else raw[0])
+    out, lo = [], 0
+    for t, r in zip(ts, raw):
+        w = r.shape[1]
+        out.append(every[:, lo: lo + w].contiguous().view(t.dtype)
+                   .reshape((every.shape[0],) + tuple(t.shape[1:])))
+        lo += w
+    return out
+
+
+def broadcast(t: torch.Tensor | None, device=None) -> torch.Tensor:
+    """Rank 0's tensor `t` on every rank (rank 0 gets `t` itself; the
+    others pass None and get it on `device`): its dtype and shape go first
+    (one object broadcast), then its bytes. A collective every rank
+    calls."""
+    meta = [None if t is None else (t.dtype, tuple(t.shape))]
+    dist.broadcast_object_list(meta, src=0)
+    dtype, shape = meta[0]
+    if process_index() == 0:
+        buf = t.contiguous()
+    else:
+        buf = torch.empty(shape, dtype=dtype, device=device)
+    raw = buf.reshape(-1).view(torch.uint8) if buf.numel() else \
+        buf.new_empty((0,), dtype=torch.uint8)
+    stage = _stage_device(raw)
+    if stage is None:
+        dist.broadcast(raw, src=0)
+    else:
+        tmp = raw.to(stage)
+        dist.broadcast(tmp, src=0)
+        raw.copy_(tmp)
+    return buf

@@ -117,7 +117,8 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         persistent["Z_corr, Z_cos"] = c * 2 * d * Nl * _F
         persistent["R"] = c * K * Nl * r_bytes
         phases["init (K x N temporaries)"] = 5 * c * KNl
-        # dist, scale_dist, an fp32 R and the block scatter's copy of R.
+        # dist, scale_dist, an fp32 R and the E-step's working copy of R
+        # (ops/update_r.py: R with one scratch column).
         phases["harmony iteration"] = c * (3 * KNl + K * Nl * r_bytes)
     peak = max(phases, key=phases.get)
     total = sum(persistent.values()) + phases[peak]

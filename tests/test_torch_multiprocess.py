@@ -4,12 +4,16 @@ method, each with a timeout.
 
 Two topologies of one 4-shard mesh (2 processes x 2 CPU shards, 4 x 1)
 against the one-process 4-shard CPU mesh, bitwise (the JAX package's
-tools/multihost_smoke.py:285-338 on the port): the deferred fit, its .R
-(materialize_r), the stored fit, a checkpoint then resume; per-process
-ingest (load_sharded_data); the cross-process frame_rows, gather_cols and
-plain mesh round (frame_readd of the gathered rows) against their
-one-process forms; the pbmc golden gate across 2 processes; the per-cell
-fit and compute_lisi across processes raising NotImplementedError; the
+tools/multihost_smoke.py:200-214, 285-338 on the port): the deferred fit,
+its .R (materialize_r), the stored fit, a checkpoint then resume; the
+per-cell fit, its checkpoints (rank 0 the only writer) and resume, and the
+slot tables its rounds cut at each shard's global index; compute_lisi by
+brute force and by the pruned search (probe, fallback; the index from rank
+0); per-process ingest (load_sharded_data); the cross-process frame_rows,
+gather_cols, shard_sum and plain mesh round (frame_readd of the gathered
+rows) against their one-process forms; the pbmc golden gate across 2
+processes, fused and per-cell; the 2-process per-cell fit against the JAX
+package's per-cell mesh fit with its init and partitions injected; the
 CLI's `correct --coordinator` with rank 0 the only writer. The one-process
 mesh is held against the JAX package by tests/test_torch_mesh*.py.
 
@@ -17,9 +21,11 @@ mesh is held against the JAX package by tests/test_torch_mesh*.py.
 
 runs one worker by hand."""
 
+import contextlib
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pandas as pd
@@ -35,16 +41,25 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 
 import harmonypy_tpu_torch as ht                                # noqa: E402
+import harmonypy_tpu_torch.lisi as tlisi                        # noqa: E402
+from harmonypy_tpu_torch import engine                          # noqa: E402
 from harmonypy_tpu_torch.api import materialize_r               # noqa: E402
 from harmonypy_tpu_torch.config import EngineConfig              # noqa: E402
 from harmonypy_tpu_torch.io import load_sharded_data             # noqa: E402
+from harmonypy_tpu_torch.ops import knn_pruned as tkp           # noqa: E402
 from harmonypy_tpu_torch.ops import partition as tp              # noqa: E402
+from harmonypy_tpu_torch.ops.objective import shard_sum          # noqa: E402
 from harmonypy_tpu_torch.ops.update_r_fused import mesh_round    # noqa: E402
 from harmonypy_tpu_torch.parallel import mesh as pm              # noqa: E402
 from harmonypy_tpu_torch.parallel import sharding                # noqa: E402
 
 N, D, B, SHARDS = 4000, 8, 3, 4
 FIT = dict(verbose=False, chunk_size=128, nclust=20, max_iter_harmony=3)
+# The per-cell fit: the default chunk size below 20,480 cells.
+FIT_PC = dict(verbose=False, nclust=20, max_iter_harmony=3)
+# LISI's pruned case visits 4 of the index's 10 clusters, so its
+# certificate fails for ~30% of the queries and the fallback answers them.
+LISI_VISIT = 4
 HIST = ("objective_harmony", "objective_kmeans", "objective_kmeans_dist",
         "objective_kmeans_entropy", "objective_kmeans_cross",
         "kmeans_rounds")
@@ -115,6 +130,8 @@ def _units(shard_ids):
     return dict(frame=tp.frame_rows([bufs[s] for s in mine], geom).numpy(),
                 cols=sharding.gather_cols([xs[s] for s in mine], ids,
                                           cfg).numpy(),
+                shard_sum=shard_sum([bufs[s] for s in mine],
+                                    torch.device("cpu"), SHARDS).numpy(),
                 removal=tabs.removal.numpy(), O=out[0].numpy(),
                 E=out[1].numpy(),
                 cache=tp.frame_rows(out[2], geom).numpy())
@@ -142,6 +159,98 @@ def _fits(mesh, X, meta, tmp):
     return out
 
 
+def _percell(mesh, X, meta, tmp):
+    """The per-cell fit (checkpointed) and its resume on `mesh`; the slot
+    tables the fit's first round passed to update_r, and how many
+    checkpoints this process wrote."""
+    ck = os.path.join(tmp, f"pc{pm.process_count()}")
+    tables, writes = [], []
+    update_r, savez = engine.update_r, np.savez
+
+    def spy(slot_table, *a, **kw):
+        if not tables:
+            tables.extend(t.numpy() for t in sharding.parts(slot_table))
+        return update_r(slot_table, *a, **kw)
+
+    def count(*a, **kw):
+        writes.append(a[0])
+        return savez(*a, **kw)
+    engine.update_r, np.savez = spy, count
+    try:
+        ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, checkpoint_dir=ck,
+                            **FIT_PC)
+    finally:
+        engine.update_r, np.savez = update_r, savez
+    assert not ho.cfg.fused_estep and ho.cfg.n_devices == SHARDS
+    out = _fit_arrays(ho, "percell")
+    out.update(_fit_arrays(ht.run_harmony(
+        X, meta, ["batch"], mesh=mesh,
+        resume_from=os.path.join(ck, "harmony_iter_1.npz"), **FIT_PC),
+        "percell_resumed"))
+    out["percell_tables"] = np.stack(tables)
+    out["percell_writes"] = np.asarray(len(writes))
+    return out
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _lisi(mesh, X, meta, stats=None):
+    """compute_lisi by brute force and by the pruned search (LISI_VISIT
+    clusters visited: the fallback answers the uncertified rows), and the
+    pruned scan alone (k = 6, 4 clusters visited) of a 256-cluster index of
+    X's first two columns from mesh_index, in batches of 12 clusters,
+    so the probe batches and the rest are dealt over every shard; `stats`
+    gets the scan's."""
+    out = {"lisi_brute": ht.compute_lisi(X, meta, ["batch"], mesh=mesh,
+                                         knn="brute")}
+    with _patched(tlisi, "_DEFAULT_VISIT", LISI_VISIT):
+        out["lisi_pruned"] = ht.compute_lisi(X, meta, ["batch"], mesh=mesh,
+                                             knn="pruned")
+    Xt = torch.as_tensor(X[:, :2]).contiguous()
+    index = tkp.mesh_index(Xt, 256, mesh)
+    with _patched(tkp, "_SLAB_BYTES", 1 << 20):
+        d, i, c = tkp.pruned_knn(Xt, 5, visit=4, index=index, mesh=mesh,
+                                 stats=stats)
+    out.update(lisi_scan_dist=d.numpy(), lisi_scan_idx=i.numpy(),
+               lisi_scan_cert=c.numpy())
+    return out
+
+
+def _jax_inputs(tmp):
+    """The JAX package's init centroids and per-round cell assignments,
+    written by the test process: waited for."""
+    path = os.path.join(tmp, "jax_in.npz")
+    for _ in range(WORKER_S * 10):
+        if os.path.exists(path):
+            with np.load(path) as z:
+                return z["Y0"], z["blocks"]
+        time.sleep(0.1)
+    raise TimeoutError(path)
+
+
+def _pbmc():
+    d = os.path.join(REPO, "harmonypy_tpu", "data")
+    pmeta = pd.read_csv(os.path.join(d, "pbmc_3500_meta.tsv.gz"), sep="\t")
+    pcs = pd.read_csv(os.path.join(d, "pbmc_3500_pcs.tsv.gz"), sep="\t")
+    gold = pd.read_csv(os.path.join(
+        d, "pbmc_3500_pcs_harmonized.tsv.gz"), sep="\t")
+    gold = gold.iloc[:, 1:] if gold.iloc[:, 0].dtype == "object" else gold
+    return pcs, pmeta, gold
+
+
+def _pbmc_r(ho, gold):
+    return np.array([np.corrcoef(ho.Z_corr[:, i], gold.iloc[:, i].values)
+                     [0, 1] for i in range(ho.Z_corr.shape[1])])
+
+
 def _worker(rank, world, tmp, shards):
     """One rank of a `world`-process run of `shards` CPU shards each."""
     pm.initialize_distributed(f"file://{tmp}/pg", world, rank, device="cpu",
@@ -153,6 +262,8 @@ def _worker(rank, world, tmp, shards):
         assert list(mesh.shard_ids) == list(range(rank * shards,
                                                   (rank + 1) * shards))
         out = _fits(mesh, X, meta, tmp)
+        out.update(_percell(mesh, X, meta, tmp))
+        out.update(_lisi(mesh, X, meta))
         out.update({f"unit_{k}": v
                     for k, v in _units(mesh.shard_ids).items()})
         # Per-process ingest from a seekable .npy and a TSV file.
@@ -164,34 +275,23 @@ def _worker(rank, world, tmp, shards):
                                                          cfg).numpy()
             out[f"ingest_{ext}_mask"] = sharding.gather_cells(data.mask,
                                                               cfg).numpy()
-        # Not ported across processes: each raises on every rank.
-        for name, call in (
-                ("percell", lambda: ht.run_harmony(
-                    X, meta, ["batch"], mesh=mesh, verbose=False)),
-                ("lisi", lambda: ht.compute_lisi(X, meta, ["batch"],
-                                                 mesh=mesh))):
-            try:
-                call()
-                out[f"raises_{name}"] = np.asarray("")
-            except NotImplementedError as e:
-                out[f"raises_{name}"] = np.asarray(str(e))
         if world == 2:
-            d = os.path.join(REPO, "harmonypy_tpu", "data")
-            pmeta = pd.read_csv(os.path.join(d, "pbmc_3500_meta.tsv.gz"),
-                                sep="\t")
-            pcs = pd.read_csv(os.path.join(d, "pbmc_3500_pcs.tsv.gz"),
-                              sep="\t")
-            gold = pd.read_csv(os.path.join(
-                d, "pbmc_3500_pcs_harmonized.tsv.gz"), sep="\t")
+            pcs, pmeta, gold = _pbmc()
+            one = pm.make_mesh(["cpu"])
             ho = ht.run_harmony(pcs, pmeta, ["donor"], verbose=False,
-                                chunk_size=128,
-                                mesh=pm.make_mesh(["cpu"]))
-            gold = gold.iloc[:, 1:] if gold.iloc[:, 0].dtype == "object" \
-                else gold
-            out["pbmc_r"] = np.array([
-                np.corrcoef(ho.Z_corr[:, i], gold.iloc[:, i].values)[0, 1]
-                for i in range(ho.Z_corr.shape[1])])
+                                chunk_size=128, mesh=one)
+            out["pbmc_r"] = _pbmc_r(ho, gold)
             out["pbmc_shards"] = np.asarray(ho.cfg.n_devices)
+            ho = ht.run_harmony(pcs, pmeta, ["donor"], verbose=False,
+                                mesh=one)
+            out["pbmc_pc_r"] = _pbmc_r(ho, gold)
+            out["pbmc_pc_fused"] = np.asarray(ho.cfg.fused_estep)
+            Y0, blocks = _jax_inputs(tmp)
+            ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, _init_Y=Y0,
+                                _blocks_fn=lambda i: blocks[i], **FIT_PC)
+            out.update(jax_Z=ho.Z_corr, jax_rounds=np.asarray(
+                ho.kmeans_rounds), jax_cell_len=np.asarray(
+                tp.cell_partition_len(ho.cfg)))
         np.savez(os.path.join(tmp, f"out_{rank}.npz"), **out)
     finally:
         pm.shutdown_distributed()
@@ -223,10 +323,41 @@ def _wait(procs):
     return outs
 
 
+def _jax_percell(X, meta, tmp):
+    """The JAX package's per-cell fit on a 4-device mesh (FIT_PC), its init
+    centroids and per-round cell assignments from its key splits (api.py:
+    394, engine.py:209, 361), the latter two written to tmp/jax_in.npz for
+    the 2-process workers. Returns (Z_corr, its cell_partition_len)."""
+    import jax
+
+    import harmonypy_tpu as hm
+    from harmonypy_tpu.ops import partition as jp
+    from harmonypy_tpu.ops.update_r import cell_partition_len
+    from harmonypy_tpu.parallel.mesh import make_mesh as jax_mesh
+    ho = hm.run_harmony(X, meta, ["batch"], mesh=jax_mesh(n_devices=SHARDS),
+                        random_state=0, **FIT_PC)
+    cfg = ho.cfg
+    assert not cfg.fused_estep and cfg.n_devices == SHARDS
+    st0 = ho._engine.init_fn(ho._data, ho._params, jax.random.PRNGKey(0))
+    key, _ = jax.random.split(jax.random.PRNGKey(0))
+    blocks = []
+    for _ in range(cfg.max_iter_kmeans * cfg.max_iter_harmony):
+        key, k_r = jax.random.split(key)
+        blocks.append(np.array(jp.iid_blocks(
+            k_r, cfg.N, cell_partition_len(cfg), cfg.n_blocks)))
+    part = os.path.join(tmp, "jax_in.part")
+    with open(part, "wb") as fh:
+        np.savez(fh, Y0=np.array(st0.Y), blocks=np.stack(blocks))
+    os.replace(part, os.path.join(tmp, "jax_in.npz"))
+    return ho.Z_corr, cell_partition_len(cfg)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both topologies started at once; the one-process references computed
-    meanwhile. Returns ({world: [per-rank arrays]}, reference arrays)."""
+    """Both topologies started at once; the JAX package's per-cell mesh fit
+    (whose init the 2-process workers wait for) and the one-process
+    references computed meanwhile. Returns ({world: [per-rank arrays]},
+    reference arrays)."""
     X, meta = _problem()
     dirs, procs = {}, []
     for world, shards in ((2, 2), (4, 1)):
@@ -238,8 +369,16 @@ def runs(tmp_path_factory):
                               tmp, str(shards)] for r in range(world)]))
     ref_dir = str(tmp_path_factory.mktemp("ref"))
     try:
+        jax_ref = _jax_percell(X, meta, dirs[2])
         mesh = pm.make_mesh(["cpu"] * SHARDS)
         ref = _fits(mesh, X, meta, ref_dir)
+        ref.update(_percell(mesh, X, meta, ref_dir))
+        scan = {}
+        ref.update(_lisi(mesh, X, meta, scan))
+        pruned = {}
+        tlisi._knn_pruned(torch.as_tensor(X, dtype=torch.float64), 89,
+                          torch.arange(N), visit=LISI_VISIT, stats=pruned)
+        ref.update(jax=jax_ref, lisi_stats=pruned, scan_stats=scan)
         ref.update({f"unit_{k}": v for k, v in _units(range(SHARDS)).items()})
         cfg = _unit_cfg()
         ref["ingest"] = sharding.cat_cells(sharding.shard_inputs(
@@ -270,13 +409,99 @@ def test_fits_bitwise_equal_one_process_mesh(runs, world, fit):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("what", ["frame", "cols", "removal", "O", "E",
-                                  "cache"])
+@pytest.mark.parametrize("fit", ["fit", "resumed"])
+def test_percell_fit_bitwise_equal_one_process_mesh(runs, world, fit):
+    """The per-cell fit across processes (every shard sum an all-gather
+    of the partials, then the one-process adds): Z_corr, .R, the five
+    histories and kmeans_rounds of every rank equal the one-process 4-shard
+    mesh's bit for bit; rank 0 alone writes the checkpoints, and a resume
+    from the first is the uninterrupted fit's bits."""
+    got, ref = runs
+    key = "percell" if fit == "fit" else "percell_resumed"
+    for rank, out in enumerate(got[world]):
+        for a in ("Z", "R") + HIST:
+            np.testing.assert_array_equal(
+                out[f"{key}_{a}"], ref[f"percell_{a}"],
+                err_msg=f"{world} processes, rank {rank}: {fit} {a}")
+        if fit == "fit":
+            iters = len(out["percell_kmeans_rounds"])
+            assert int(out["percell_writes"]) == (iters if rank == 0
+                                                  else 0), rank
+    assert np.all(np.isfinite(got[world][0][f"{key}_Z"]))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_percell_slot_tables_cut_at_global_shard(runs, world):
+    """The slot tables cluster_percell hands to update_r on rank r are the
+    one-process mesh's tables of the rank's GLOBAL shards: rank 1 of 2
+    holds shards 2 and 3, whose cells are not shards 0 and 1's."""
+    got, ref = runs
+    per = SHARDS // world
+    for rank, out in enumerate(got[world]):
+        np.testing.assert_array_equal(
+            out["percell_tables"],
+            ref["percell_tables"][rank * per: (rank + 1) * per])
+    assert not np.array_equal(ref["percell_tables"][0],
+                              ref["percell_tables"][2])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("knn", ["brute", "pruned"])
+def test_lisi_across_processes_bitwise(runs, world, knn):
+    """compute_lisi with the whole X on every rank returns the one-process
+    4-shard mesh's values bitwise on every rank: brute force (each rank's
+    shards' queries, rows all-gathered per host batch); pruned (the index
+    from rank 0, each rank's cluster batches, rows merged by owner, the
+    fallback re-answering the same uncertified rows everywhere), and the
+    pruned scan of a 256-cluster index with its probe batch."""
+    got, ref = runs
+    keys = [f"lisi_{knn}"]
+    if knn == "pruned":
+        keys += ["lisi_scan_dist", "lisi_scan_idx", "lisi_scan_cert"]
+        assert ref["lisi_stats"]["n_fallback"] > 0, ref["lisi_stats"]
+        sc = ref["scan_stats"]
+        assert sc["probe_ok"] and sc["visit"] == 4 and sc["scan_batch"] == 12
+        assert not ref["lisi_scan_cert"].all()
+        np.testing.assert_allclose(ref["lisi_pruned"], ref["lisi_brute"],
+                                   rtol=1e-4, atol=1e-4)
+    for rank, out in enumerate(got[world]):
+        for k in keys:
+            np.testing.assert_array_equal(out[k], ref[k],
+                                          err_msg=f"rank {rank}: {k}")
+
+
+def test_percell_golden_pbmc_across_two_processes(runs):
+    """tests/test_harmony_golden.py:33 across 2 processes at default
+    settings, which is the per-cell fit: min per-PC Pearson r >= 0.99."""
+    got, _ = runs
+    for out in got[2]:
+        assert not bool(out["pbmc_pc_fused"])
+        assert np.min(out["pbmc_pc_r"]) >= 0.99, out["pbmc_pc_r"]
+
+
+def test_percell_two_processes_against_jax_mesh(runs):
+    """The 2-process per-cell fit (2 shards each) against the JAX
+    package's 4-device per-cell fit, its init centroids and partitions
+    injected (tests/test_torch_percell.py): atol 5e-4 max|Z|, the JAX
+    package's per-cell mesh contract (tools/multihost_smoke.py:319-327)."""
+    got, ref = runs
+    Zj, cell_len = ref["jax"]
+    scale = float(np.max(np.abs(Zj)))
+    for out in got[2]:
+        assert int(out["jax_cell_len"]) == cell_len
+        np.testing.assert_allclose(out["jax_Z"], Zj, rtol=0,
+                                   atol=5e-4 * scale)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("what", ["frame", "cols", "shard_sum", "removal",
+                                  "O", "E", "cache"])
 def test_collectives_equal_one_process(runs, world, what):
     """frame_rows (the frame all-gathered), gather_cols (owned columns
-    all-gathered, taken by owner), the round tables' removal stats and the
-    plain mesh round (each block's rows all-gathered, re-added by every
-    rank through frame_readd) equal their one-process forms bitwise."""
+    all-gathered, taken by owner), shard_sum (the partials all-gathered,
+    added in shard order), the round tables' removal stats and the plain
+    mesh round (each block's rows all-gathered, re-added by every rank
+    through frame_readd) equal their one-process forms bitwise."""
     got, ref = runs
     for out in got[world]:
         np.testing.assert_array_equal(out[f"unit_{what}"],
@@ -293,16 +518,6 @@ def test_load_sharded_data_per_process(runs, world, ext):
         np.testing.assert_array_equal(out[f"ingest_{ext}"], ref["ingest"])
         np.testing.assert_array_equal(out[f"ingest_{ext}_mask"],
                                       ref["ingest_mask"])
-
-
-@pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("what", ["percell", "lisi"])
-def test_unported_across_processes_raise(runs, world, what):
-    """The per-cell fit and LISI across processes raise NotImplementedError
-    naming their ROADMAP.md item, on every rank."""
-    got, _ = runs
-    for out in got[world]:
-        assert "ROADMAP.md §1 item 5" in str(out[f"raises_{what}"])
 
 
 def test_golden_pbmc_across_two_processes(runs):
