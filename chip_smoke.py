@@ -2,10 +2,17 @@
 """Smoke test of harmonypy_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-ab PARENT   # the mesh pass of the parent
+                                             # checkout at PARENT and of this
+                                             # one, in turns (mesh_ab)
+    python3 chip_smoke.py --cards            # several cards: only what
+                                             # exists across them (cards_main)
 
 Builds the hand-written kernels from the checkout, then, printing one JSON
 line per phase:
-  1. ptxas    registers, shared memory and spills of every kernel built;
+  1. ptxas    registers, stack and spill bytes of every kernel built (the
+              one-launch round's and the per-block entry's instantiations
+              of estep_round, the re-add kernel), and ptxas's lines;
      device   the card (nvidia-smi name and power limit), torch/CUDA
               versions, the kernel build time;
   2. kernel   the deferred-R E-step kernel K1 against its plain PyTorch
@@ -78,14 +85,20 @@ line per phase:
               one-launch round's bitwise, against its plain version at TOL
               (no r, r window, K2 fp32 / bf16), a bitwise repeat, the
               re-add kernel bitwise against frame_readd, the mesh round
-              (every shard and block, the re-add kernel) equal to the
-              one-launch round bitwise, ms per launch and per pass, bounds,
-              one profiled pass (host and device ms, kernel ms per block,
-              the other device operations);
+              (every shard and block, the re-add of block b - 1 folded
+              into block b's launches, the re-add kernel after the last
+              block) equal to the one-launch round bitwise; the folded
+              launch of every block b > 0 equal to frame_readd plus the
+              unfolded launch bitwise (K1, K2 fp32 / bf16, both objective
+              forms); 50 passes of each bitwise equal (the double buffers
+              under the shards' concurrent streams); ms per launch with
+              and without the folded prologue and per pass, bounds, one
+              profiled pass (host and device ms, kernel ms per block, the
+              other device operations, one re-add per pass);
               the deferred, stored and low_memory fits bitwise equal to
               phases fit / fit_stored (Z_corr, R, histories, kmeans_rounds)
-              with blocks x shards per-block and blocks re-add launches
-              per pass and their wall clock; pbmc per-cell fit within
+              with blocks x shards per-block and one re-add launch per
+              pass and their wall clock; pbmc per-cell fit within
               5e-4 max|Z| of one device at 3 iterations, the default fit at
               the golden gate;
               compute_lisi on the mesh fit's output equal to phase lisi's
@@ -122,7 +135,8 @@ line per phase:
               wall seconds and bytes received per rank;
   6. kernels  every kernel (K1, K2, their per-block entries, the re-add)
               with its launches on its path's fit, error against the plain
-              version, time, and bound.
+              version, time, and bound (the per-block entries as a pass
+              runs them after its first block: with the folded re-add).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero without it; so does a machine without a CUDA card.
 """
@@ -157,6 +171,43 @@ def emit(obj):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ptxas_kernels(logs) -> dict:
+    """Registers, stack frame and spill bytes of every kernel in ptxas -v
+    reports ({source: report}), by a readable name: estep_round<float or
+    bf16, NRG, PRE, round or block> (block: the per-block entry's FOLD
+    instantiation) and frame_readd_kernel."""
+    import re
+    out, entry, mangled, props = {}, None, None, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Function properties for (\w+)", ln)
+            if m:
+                props = m.group(1)
+                continue
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = mangled = m.group(1)
+                t = re.search(r"estep_roundI(f|13__nv_bfloat16)Li(\d+)ELb"
+                              r"([01])E(?:Lb([01])E)?E", name)
+                if t:
+                    name = (f"estep_round<{'float' if t[1] == 'f' else 'bf16'}"
+                            f", {t[2]}, {t[3]}, "
+                            f"{'block' if t[4] == '1' else 'round'}>")
+                elif "frame_readd_kernel" in name:
+                    name = "frame_readd_kernel"
+                entry = out.setdefault(name, {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m and entry is not None and props == mangled:
+                entry.update(stack=int(m[1]), spill_stores=int(m[2]),
+                             spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and entry is not None and "registers" not in entry:
+                entry["registers"] = int(m[1])
+    return out
 
 
 def smi_line() -> str:
@@ -1222,6 +1273,12 @@ def phase_capacity(fits):
 # a device) at the 858k shape: N_shard_real 215,040, nc_cap 105 and
 # J_shard 7 slots per block, against the one-device round's J_fix + 1 = 22.
 MESH_SHARDS = 4
+# Mesh passes run back to back for each kernel, each bitwise equal to the
+# first: the parity double buffers of the folded re-add under real
+# concurrency of the shards' streams.
+MESH_REPEATS = 50
+# Passes whose host issue time mesh_timing takes the median of.
+MESH_HOST_PASSES = 31
 HIST = ("objective_harmony", "objective_kmeans", "objective_kmeans_dist",
         "objective_kmeans_entropy", "objective_kmeans_cross",
         "kmeans_rounds")
@@ -1230,13 +1287,24 @@ HIST = ("objective_harmony", "objective_kmeans", "objective_kmeans_dist",
 TOL_PERCELL_REL = 5e-4
 
 
-def block_bound(n_cells, n_slots, r_bytes=0):
+def block_bound(n_cells, n_slots, r_bytes=0, fold_J_fix=0):
     """Least work of one per-block launch: its real cells read once (the
     slab), its slots' rows written once (cache, ybuf, kbuf, and r with
-    r_bytes per element), the products of round_bound on those cells."""
+    r_bytes per element), the products of round_bound on those cells; with
+    fold_J_fix > 0 also the previous block's re-add folded into its
+    prologue (readd_bound)."""
     from harmonypy_tpu_torch.utils.profiling import estep_bound
-    return dict(estep_bound(n_cells, n_slots, N_PCS, K, N_BATCHES, CHUNK,
-                            r_bytes), cells=n_cells, slots=n_slots)
+    b = dict(estep_bound(n_cells, n_slots, N_PCS, K, N_BATCHES, CHUNK,
+                         r_bytes), cells=n_cells, slots=n_slots)
+    if fold_J_fix:
+        rb = readd_bound(fold_J_fix)
+        for k in ("flop", "bytes", "ops_ms", "bytes_ms", "ops_tc_ms"):
+            b[k] += rb[k if k != "ops_tc_ms" else "ops_ms"]
+        b["bound_ms"] = max(b["ops_ms"], b["bytes_ms"])
+        b["bound_by"] = ("operations" if b["ops_ms"] >= b["bytes_ms"]
+                         else "bytes")
+        b["bound_tc_ms"] = max(b["ops_tc_ms"], b["bytes_ms"])
+    return b
 
 
 def readd_bound(J_fix):
@@ -1274,16 +1342,23 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
-    issue = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(passes):
-            t = time.perf_counter()
-            run()
-            issue.append(time.perf_counter() - t)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    # A profile that recorded no per-block kernel at all is taken again, at
+    # most twice (torch.profiler has dropped a session's kernel records
+    # once in three runs of unchanged code; PERF.md §7).
+    for _ in range(3):
+        issue = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(passes):
+                t = time.perf_counter()
+                run()
+                issue.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(e.device_type == DeviceType.CUDA and "estep" in e.name
+               for e in prof.events()):
+            break
     spans, block, readd, other, waits = [], [], [], {}, -1
     for e in prof.events():
         if e.device_type == DeviceType.CPU and "Synchronize" in e.name:
@@ -1324,7 +1399,86 @@ def block_launch(fe, b, *args, **kw):
     E."""
     ln = fe._BlockLaunch(*args, **kw)
     ln.launch(b)
-    return ln.O1, ln.E1
+    return ln.removed(b)
+
+
+def fold_chain_checks(fe, plain_mod, tabs, ZP3s, consts, O, E, fast, J_fix,
+                      dtype=None):
+    """A mesh pass driven block by block on one stream, twice: every shard's
+    launch b > 0 starting from block b - 1's re-add in its prologue, and the
+    unfolded launch from frame_readd of block b - 1 (the plain re-add, on
+    the card). Each block's block-removed O, E and rows, then the pass's
+    per-chunk rows and stored R (dtype), bitwise equal. Returns the blocks
+    checked."""
+    import torch
+    S, (nb, J) = len(ZP3s), tabs.slots[0].shape
+    Pr_b = consts[3]
+    frame = torch.empty((2, S, J, K, N_BATCHES + 1), device="cuda")
+    src = fe.rank_table(tabs.granks, J_fix, J, "cuda")
+    start = torch.stack([O, E])
+
+    def outs():
+        return [tuple(torch.zeros(sh, device="cuda") for sh in (
+            (z.shape[0], K, N_BATCHES + 1), (z.shape[0], K, N_PCS),
+            (z.shape[0], 2))) for z in ZP3s]
+
+    def r3s():
+        return [None if dtype is None else torch.zeros(
+            (z.shape[0], K, CHUNK), dtype=dtype, device="cuda")
+            for z in ZP3s]
+    of, orf, rf, rr = outs(), outs(), r3s(), r3s()
+    fold = [fe._BlockLaunch(tabs.slots[s], tabs.removal, ZP3s[s], *consts,
+                            O, E, fast, of[s], J_fix + 1, R3=rf[s],
+                            brows=frame[:, s], frame=frame, src=src,
+                            J_fix=J_fix) for s in range(S)]
+    ref = [fe._BlockLaunch(tabs.slots[s], tabs.removal, ZP3s[s], *consts,
+                           start[0], start[1], fast, orf[s], J_fix + 1,
+                           R3=rr[s]) for s in range(S)]
+    tag = f"fast_objective={fast}, R {dtype}"
+    for b in range(nb):
+        for s in range(S):
+            fold[s].launch(b, b > 0)
+            ref[s].launch(b)
+        for s in range(S):
+            check(all(_eq(x, y) for x, y in zip(fold[s].removed(b),
+                                                 ref[s].removed(b)))
+                  and _eq(frame[b & 1, s], ref[s].brows[b & 1]),
+                  f"folded launch of block {b}, shard {s} differs from "
+                  f"frame_readd + the unfolded launch ({tag})")
+        start.copy_(torch.stack(plain_mod.frame_readd(
+            [ln.brows[b & 1] for ln in ref], [g[b] for g in tabs.granks],
+            *ref[0].removed(b), Pr_b, J_fix)))
+    for s in range(S):
+        check(all(_eq(x, y) for x, y in zip(of[s], orf[s]))
+              and (dtype is None or _eq(rf[s], rr[s])),
+              f"folded pass's per-chunk rows of shard {s} differ ({tag})")
+    return nb - 1
+
+
+def repeat_pass_checks(fe, tabs, ZP3s, consts, O, E, J_fix, want, dtype,
+                       reps):
+    """`reps` mesh passes (shards on their own streams, as a fit runs them:
+    a race on the double-buffered rows or O', E' shows here), each bitwise
+    equal to the first; the first's O, E equal to want = (O, E) of the
+    one-launch round."""
+    import torch
+    first = None
+    for _ in range(reps):
+        R3s = (None if dtype is None else [torch.zeros(
+            (z.shape[0], K, CHUNK), dtype=dtype, device="cuda")
+            for z in ZP3s])
+        m = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, False, J_fix,
+                                R3s=R3s)
+        got = [m[0], m[1], *m[2], *m[3], *m[4], *(R3s or ())]
+        if first is None:
+            first = got
+            check(_eq(m[0], want[0]) and _eq(m[1], want[1]),
+                  f"mesh pass (R {dtype}) differs from the one-launch round")
+        else:
+            check(all(_eq(a, b) for a, b in zip(got, first)),
+                  f"a repeated mesh pass (R {dtype}) is not bitwise the "
+                  f"first")
+    return reps
 
 
 def readd_launch(fe, rows, granks, Or, Er, Pr_b, J_fix):
@@ -1342,8 +1496,12 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     shards: each shard's block-0 rows equal the one-launch round's rows
     bitwise (the global work split), the entry against its plain version
     at TOL (no r, r window, K2 fp32 and bf16), a bitwise repeat, and the
-    mesh round (every shard, every block, the frame re-add) equal to the
-    one-launch round bitwise for K1, its r window and K2; times."""
+    mesh round (every shard, every block, the folded re-adds and the last
+    block's re-add kernel) equal to the one-launch round bitwise for K1,
+    its r window and K2; the folded launch of every block b > 0 equal to
+    frame_readd plus the unfolded launch bitwise (K1, K2 fp32 and bf16);
+    MESH_REPEATS passes of each bitwise equal; times, with and without the
+    folded prologue."""
     import dataclasses
 
     import torch
@@ -1373,6 +1531,7 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     # Worst error against the plain version: K1's entry (no r, r window)
     # and K2's (fp32 and bf16 R), each its own.
     errs, worst = {}, dict(k1=0.0, k2=0.0, readd=0.0)
+    folded, repeats = 0, {}
     for fast in (False, True):
         rnd = fe.fused_estep(*args, fast)
         rnd_w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
@@ -1497,49 +1656,83 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                   and _eq(partition.frame_rows(R3s, geomD),
                           R3[: geom.nc_cap]),
                   f"mesh K2 round ({dt}) differs from the round's ({tag})")
+            folded += fold_chain_checks(fe, plain_mod, tabs, ZP3s, consts,
+                                        O, E, fast, geom.J_fix, dt)
+            if not fast:
+                repeats[str(dt)] = repeat_pass_checks(
+                    fe, tabs, ZP3s, consts, O, E, geom.J_fix, k2[1:3], dt,
+                    MESH_REPEATS)
+        folded += fold_chain_checks(fe, plain_mod, tabs, ZP3s, consts, O, E,
+                                    fast, geom.J_fix)
+        if not fast:
+            repeats["K1"] = repeat_pass_checks(
+                fe, tabs, ZP3s, consts, O, E, geom.J_fix, rnd[:2], None,
+                MESH_REPEATS)
         del rnd, m
-    # Times: one per-block launch (shard 0, its block with the most real
-    # cells), K1 and K2 fp32: the launch the mesh pass issues (checks and
-    # scratch once, then launch(b) back to back) by CUDA events, and its
-    # kernel's device time alone (profiler); the plain version; the re-add
-    # kernel (launch(b) back to back) and its plain version; one mesh round
-    # (every shard and block) by CUDA events and under the profiler.
+    # Times: one per-block launch (shard 0, its block b > 0 with the most
+    # real cells), K1 and K2 fp32, without and with the folded re-add in
+    # its prologue (in turns: without, with, with, without): the launch the
+    # mesh pass issues (checks and scratch once, then launch(b) back to
+    # back) by CUDA events, and its kernel's device time alone (profiler);
+    # the plain version (fused_update_block; with the fold,
+    # fused_update_block_folded); the re-add kernel (launch(b) back to
+    # back) and its plain version; one mesh round (every shard and block)
+    # by CUDA events and under the profiler.
     out = outs(nc + 1)
     R3 = torch.zeros((nc + 1, K, CHUNK), device="cuda")
     cells = ZP3s[0][tabs.slots[0].long(), 0, :].sum(dim=(1, 2))
-    bt = int(torch.argmax(cells))
+    bt = 1 + int(torch.argmax(cells[1:]))
     n_cells = int(cells[bt])
     n_slots = int(torch.unique(tabs.slots[0][bt]).numel())
     fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
+    J = tabs.slots[0].shape[1]
+    frame = torch.zeros((2, D, J, K, N_BATCHES + 1), device="cuda")
+    fold_kw = dict(brows=frame[:, 0], frame=frame, src=fe.rank_table(
+        tabs.granks, geom.J_fix, J, "cuda"), J_fix=geom.J_fix)
     args0 = (tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out, J1)
-    ln = fe._BlockLaunch(*args0)
-    ln2 = fe._BlockLaunch(*args0, R3=R3)
-    ms_block = cuda_ms(lambda: ln.launch(bt), reps=200)
-    ms_block_k2 = cuda_ms(lambda: ln2.launch(bt), reps=200)
+    ln = fe._BlockLaunch(*args0, **fold_kw)
+    ln2 = fe._BlockLaunch(*args0, R3=R3, **fold_kw)
+    for x in (ln, ln2):     # block bt - 1's rows, O', E' for the fold
+        x.launch(bt - 1)
+    ms = {}
+    for fold in (False, True, True, False):
+        for name, x in (("k1", ln), ("k2", ln2)):
+            ms.setdefault((name, fold), []).append(
+                cuda_ms(lambda: x.launch(bt, fold), reps=200))
+    ms = {key: sum(v) / len(v) for key, v in ms.items()}
     # Device ms per kernel the profiler recorded (it may drop a few of the
     # 50 back-to-back launches' events).
-    dev_ms, per = device_ms(lambda: ln.launch(bt), reps=50)
-    dev_ms_k2, per_k2 = device_ms(lambda: ln2.launch(bt), reps=50)
-    check(0 < per <= 1 and 0 < per_k2 <= 1,
-          f"profiled {per}, {per_k2} kernels per per-block launch")
-    dev_ms, dev_ms_k2 = dev_ms / per, dev_ms_k2 / per_k2
+    dev = {}
+    for fold in (False, True):
+        for name, x in (("k1", ln), ("k2", ln2)):
+            t, per = device_ms(lambda: x.launch(bt, fold), reps=50)
+            check(0 < per <= 1, f"profiled {per} kernels per per-block "
+                                f"launch ({name}, fold {fold})")
+            dev[name, fold] = t / per
+    rows_prev = [frame[(bt - 1) & 1, s] for s in range(D)]
+    prev = (rows_prev, [g[bt - 1] for g in tabs.granks], geom.J_fix)
+    Op, Ep = ln.removed(bt - 1)
     plain_ms = cuda_ms(lambda: plain_mod.fused_update_block(
         bt, *args0[:-1]), reps=10)
     plain_ms_k2 = cuda_ms(lambda: plain_mod.fused_update_block(
         bt, *args0[:-1], R3=R3), reps=10)
-    check(fe.launches_block == 2 + 200 + 1 + 50
-          and fe.launches_block_write_r == 2 + 200 + 1 + 50,
+    plain_ms_fold = cuda_ms(lambda: plain_mod.fused_update_block_folded(
+        bt, *args0[:7], Op, Ep, False, out, prev=prev), reps=10)
+    plain_ms_fold_k2 = cuda_ms(lambda: plain_mod.fused_update_block_folded(
+        bt, *args0[:7], Op, Ep, False, out, prev=prev, R3=R3), reps=10)
+    n_launch = 1 + 4 * (2 + 200) + 2 * (1 + 50)
+    check(fe.launches_block == n_launch
+          and fe.launches_block_write_r == n_launch,
           f"per-block launches counted {fe.launches_block}, "
-          f"{fe.launches_block_write_r}")
+          f"{fe.launches_block_write_r}, not {n_launch}")
     rd_rows = [torch.zeros((int(t.shape[1]), K, N_BATCHES + 1),
                            device="cuda") for t in tabs.slots]
     Od, Ed = torch.empty_like(O), torch.empty_like(E)
-    rd = fe._Readd(rd_rows, tabs.granks, ln.O1, ln.E1, Pr_b, geom.J_fix,
-                   Od, Ed)
+    rd = fe._Readd(rd_rows, tabs.granks, Op, Ep, Pr_b, geom.J_fix, Od, Ed)
     ms_readd = cuda_ms(lambda: rd.launch(bt), reps=200)
     plain_ms_readd = cuda_ms(lambda: plain_mod.frame_readd(
-        rd_rows, [g[bt] for g in tabs.granks], ln.O1, ln.E1, Pr_b,
-        geom.J_fix), reps=20)
+        rd_rows, [g[bt] for g in tabs.granks], Op, Ep, Pr_b, geom.J_fix),
+        reps=20)
     n0, r0 = fe.launches_block, fe.launches_readd
 
     def mesh_pass():
@@ -1547,15 +1740,17 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                                    geom.J_fix)
     ms_pass = cuda_ms(mesh_pass, reps=5, warmup=1)
     per_pass = (fe.launches_block - n0) // 6
-    readd_per_pass = (fe.launches_readd - r0) // 6
-    check(per_pass == geom.nb * D and readd_per_pass == geom.nb,
+    readd_per_pass = (fe.launches_readd - r0) / 6
+    check(per_pass == geom.nb * D and readd_per_pass == 1,
           f"mesh round launched {per_pass} per-block and {readd_per_pass} "
-          f"re-add kernels, not {geom.nb * D} and {geom.nb}")
+          f"re-add kernels per pass, not {geom.nb * D} and 1")
     prof = mesh_pass_profile(mesh_pass, geom.nb, D)
-    check(prof["readd_launches_per_pass"] == geom.nb,
+    check(prof["readd_launches_per_pass"] == 1,
           f"profiled {prof['readd_launches_per_pass']} re-add kernels per "
-          f"pass, not {geom.nb}")
+          f"pass, not 1")
     b1, b2 = block_bound(n_cells, n_slots), block_bound(n_cells, n_slots, 4)
+    bf1 = block_bound(n_cells, n_slots, 0, geom.J_fix)
+    bf2 = block_bound(n_cells, n_slots, 4, geom.J_fix)
     br = readd_bound(geom.J_fix)
     return dict(
         shape=dict(shards=D, N_shard_real=geomD.nc_cap * CHUNK,
@@ -1565,16 +1760,26 @@ def mesh_kernel_checks(mods, X, batches, mesh):
                        J1).ng),
         rows_equal_round=True, repeat_bitwise=True, readd_bitwise=True,
         mesh_round_equals_round=True, max_abs=errs,
-        timed_block=bt, ms_block=ms_block, ms_block_write_r=ms_block_k2,
-        device_ms_block=dev_ms, device_ms_block_write_r=dev_ms_k2,
+        folded_blocks_bitwise=folded, repeated_passes_bitwise=repeats,
+        timed_block=bt, ms_block=ms["k1", False],
+        ms_block_write_r=ms["k2", False], ms_block_fold=ms["k1", True],
+        ms_block_write_r_fold=ms["k2", True],
+        device_ms_block=dev["k1", False],
+        device_ms_block_write_r=dev["k2", False],
+        device_ms_block_fold=dev["k1", True],
+        device_ms_block_write_r_fold=dev["k2", True],
         plain_ms_block=plain_ms, plain_ms_block_write_r=plain_ms_k2,
+        plain_ms_block_fold=plain_ms_fold,
+        plain_ms_block_write_r_fold=plain_ms_fold_k2,
         ms_readd=ms_readd, plain_ms_readd=plain_ms_readd,
         ms_per_pass=ms_pass, launches_per_pass=per_pass,
         readd_launches_per_pass=readd_per_pass, pass_profile=prof,
-        bound_block=b1, bound_block_write_r=b2, bound_readd=br,
-        roofline_share_block=b1["bound_ms"] / ms_block,
-        roofline_share_block_device=b1["bound_ms"] / dev_ms,
-        roofline_share_block_tc=b1["bound_tc_ms"] / ms_block), worst
+        bound_block=b1, bound_block_write_r=b2, bound_block_fold=bf1,
+        bound_block_write_r_fold=bf2, bound_readd=br,
+        roofline_share_block=b1["bound_ms"] / ms["k1", False],
+        roofline_share_block_device=b1["bound_ms"] / dev["k1", False],
+        roofline_share_block_fold=bf1["bound_ms"] / ms["k1", True],
+        roofline_share_block_tc=b1["bound_tc_ms"] / ms["k1", False]), worst
 
 
 def mesh_cards_round_checks(mods, X, batches, mesh):
@@ -1654,7 +1859,8 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
     Z_corr, R, the five histories and kmeans_rounds bitwise equal to the
     one-device fit refs[name]; per-block launches = blocks x shards per
     pass (deferred: every round and replay window; stored: every round),
-    re-add launches = blocks per pass, and no one-launch round; each
+    one re-add launch per pass (after its last block), and no one-launch
+    round; each
     card's peak allocation during the fit
     (above what it held before) at most memory_envelope(cfg, the shards it
     holds). Returns (results, launch counts, the deferred fit)."""
@@ -1694,9 +1900,9 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
                                    peak_phase=env["peak_phase"])
         nb = ho.cfg.n_blocks
         passes, rounds = ho.state.n_passes, sum(ho.kmeans_rounds)
-        want = ((0, 0, nb * mesh.size * passes, 0, nb * passes)
+        want = ((0, 0, nb * mesh.size * passes, 0, passes)
                 if name == "deferred"
-                else (0, 0, 0, nb * mesh.size * rounds, nb * rounds))
+                else (0, 0, 0, nb * mesh.size * rounds, rounds))
         check(got == want and max(got) > 0,
               f"mesh {name}: launches (K1, K2, K1 per-block, K2 per-block, "
               f"re-add) {got}, expected {want}")
@@ -1836,16 +2042,20 @@ def phase_mesh(ht, mods, X, batches, groups, meta, refs, lisi_ref):
             make_mesh([f"cuda:{i}" for i in reversed(range(cards))]))
     emit(dict(phase="mesh", shards=MESH_SHARDS, kernel=kinfo,
               kernel_tolerance=TOL, **res, real_cards=real))
+    # The per-block entries as a pass runs them for every block but its
+    # first: with the previous block's re-add in the prologue.
     return dict(
-        k1=dict(launches=counts["deferred"][2], ms=kinfo["ms_block"],
-                plain_ms=kinfo["plain_ms_block"], max_abs_err=worst["k1"],
-                bound_ms=kinfo["bound_block"]["bound_ms"],
-                bound_by=kinfo["bound_block"]["bound_by"]),
-        k2=dict(launches=counts["stored"][3], ms=kinfo["ms_block_write_r"],
-                plain_ms=kinfo["plain_ms_block_write_r"],
+        k1=dict(launches=counts["deferred"][2], ms=kinfo["ms_block_fold"],
+                plain_ms=kinfo["plain_ms_block_fold"],
+                max_abs_err=worst["k1"],
+                bound_ms=kinfo["bound_block_fold"]["bound_ms"],
+                bound_by=kinfo["bound_block_fold"]["bound_by"]),
+        k2=dict(launches=counts["stored"][3],
+                ms=kinfo["ms_block_write_r_fold"],
+                plain_ms=kinfo["plain_ms_block_write_r_fold"],
                 max_abs_err=worst["k2"],
-                bound_ms=kinfo["bound_block_write_r"]["bound_ms"],
-                bound_by=kinfo["bound_block_write_r"]["bound_by"]),
+                bound_ms=kinfo["bound_block_write_r_fold"]["bound_ms"],
+                bound_by=kinfo["bound_block_write_r_fold"]["bound_by"]),
         readd=dict(launches=counts["deferred"][4], ms=kinfo["ms_readd"],
                    plain_ms=kinfo["plain_ms_readd"],
                    max_abs_err=worst["readd"],
@@ -2291,10 +2501,9 @@ def check_workers(tag, results, want, nccl=False):
                   f"{tag} rank {res['rank']}: {name} differs from the "
                   f"one-process fit: {fit['digests']} vs {want[name]}")
             nb = fit["n_blocks"]
-            exp = ((0, 0, nb * local * fit["passes"], 0, nb * fit["passes"])
+            exp = ((0, 0, nb * local * fit["passes"], 0, fit["passes"])
                    if name == "deferred"
-                   else (0, 0, 0, nb * local * fit["rounds"],
-                         nb * fit["rounds"]))
+                   else (0, 0, 0, nb * local * fit["rounds"], fit["rounds"]))
             check(tuple(fit["launches"]) == exp and max(exp) > 0,
                   f"{tag} rank {res['rank']} {name}: launches (K1, K2, K1 "
                   f"per-block, K2 per-block, re-add) {fit['launches']}, "
@@ -2397,6 +2606,253 @@ def phase_multiprocess(refs, X, batches, groups, smi, lisi_ref):
                           if "cards" in out else f"skipped: {cards} card")))
 
 
+def mesh_timing(root: str) -> dict:
+    """The mesh pass of the checkout at `root` (its package and kernels,
+    built there): 858k on 4 logical shards of cuda:0, the round of phase
+    kernel; K1 and K2 (fp32) ms per pass by CUDA events, the host's ms to
+    issue a K1 pass (median of MESH_HOST_PASSES, each synchronised apart,
+    no profiler), profiled K1 passes (host issue, device busy, other
+    device operations), re-add launches per pass; then the same K1 pass
+    with the process in a one-rank NCCL group (the blocks' rows cross an
+    all-gather, as in phase multiprocess); with several cards, the
+    one-process pass over every card (ms per pass on the host's clock,
+    every card synchronised) and the deferred fit on that mesh, after a
+    warm-up fit. Runs in a process of its own (`--mesh-timing`), so two
+    checkouts' packages do not meet."""
+    import dataclasses
+
+    import torch
+    sys.path.insert(0, root)
+    import harmonypy_tpu_torch as ht
+    check(os.path.dirname(os.path.abspath(ht.__file__))
+          == os.path.join(os.path.abspath(root), "harmonypy_tpu_torch"),
+          f"harmonypy_tpu_torch imported from {ht.__file__}, not {root}")
+    from harmonypy_tpu_torch import config, engine, layout, state
+    from harmonypy_tpu_torch.ops import partition, update_r_fused
+    from harmonypy_tpu_torch.ops.cuda import build
+    from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+    from harmonypy_tpu_torch.parallel import sharding
+    build.build_all()
+    X, batches, _ = synthetic()
+    mods = (config, engine, layout, partition, fe, update_r_fused, state)
+    geom, args, (cfg, blocks, st) = round_inputs(mods, X, batches,
+                                                 with_state=True)
+    D = MESH_SHARDS
+    devs = [torch.device("cuda:0")] * D
+    geomD = partition.partition_geometry(
+        dataclasses.replace(cfg, n_devices=D))
+    ZP3s = [sharding.extract_chunks(args[2], s, geomD).contiguous()
+            for s in range(D)]
+    tabs = partition.mesh_round_tables(
+        blocks, [sharding.extract_chunks(st.cache, s, geomD)
+                 for s in range(D)], geomD, devs)
+    rest = args[3:]
+    R3s = [torch.zeros((geomD.nc_cap + 1, K, CHUNK), device="cuda")
+           for _ in range(D)]
+
+    def k1():
+        fe.fused_estep_mesh(tabs, ZP3s, *rest, False, geom.J_fix)
+
+    def k2():
+        fe.fused_estep_mesh(tabs, ZP3s, *rest, False, geom.J_fix, R3s=R3s)
+    def host_ms():
+        issue = []
+        for _ in range(MESH_HOST_PASSES):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            k1()
+            issue.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return sorted(issue)[len(issue) // 2] * 1e3
+    r0 = fe.launches_readd
+    ms_k1 = cuda_ms(k1, reps=30, warmup=3)
+    readd = (fe.launches_readd - r0) / 33
+    ms_k2 = cuda_ms(k2, reps=30, warmup=3)
+    out = dict(root=root, ms_per_pass=ms_k1, ms_per_pass_write_r=ms_k2,
+               host_issue_ms=host_ms(), readd_launches_per_pass=readd,
+               pass_profile=mesh_pass_profile(k1, geom.nb, D, passes=10))
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        from harmonypy_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh()
+        lead, cdevs = mesh.lead, list(mesh.devices)
+        gC = partition.partition_geometry(
+            dataclasses.replace(cfg, n_devices=mesh.size))
+        cZ = [sharding.extract_chunks(args[2], s, gC).to(dv).contiguous()
+              for s, dv in enumerate(cdevs)]
+        ctabs = partition.mesh_round_tables(
+            blocks.to(lead), [sharding.extract_chunks(st.cache, s, gC)
+                              .to(dv) for s, dv in enumerate(cdevs)],
+            gC, cdevs)
+        crest = [t.to(lead) for t in rest]
+
+        def sync():
+            for i in range(cards):
+                torch.cuda.synchronize(i)
+
+        def cpass():
+            fe.fused_estep_mesh(ctabs, cZ, *crest, False, geom.J_fix)
+        for _ in range(3):
+            cpass()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            cpass()
+        sync()
+        out["cards_ms_per_pass"] = (time.perf_counter() - t0) * 50
+        meta = batch_meta(batches)
+        ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                       max_iter_harmony=1)
+        sync()
+        t0 = time.perf_counter()
+        ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False)
+        sync()
+        out["cards_fit_s"] = time.perf_counter() - t0
+    import tempfile
+    from harmonypy_tpu_torch.parallel import mesh as pm
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    pm.initialize_distributed(f"file://{tmp}/pg", 1, 0, backend="nccl",
+                              device="cuda:0", timeout_s=MP_COLLECTIVE_S)
+    try:
+        check(pm.spans_processes(D), "the one-rank group does not gather")
+        out.update(nccl_ms_per_pass=cuda_ms(k1, reps=30, warmup=3),
+                   nccl_host_issue_ms=host_ms())
+    finally:
+        pm.shutdown_distributed()
+    return out
+
+
+def mesh_ab(parent: str) -> int:
+    """The one-process mesh pass of the parent checkout at `parent` and of
+    this one, each in a process of its own (mesh_timing), in the order
+    parent, this, this, parent, parent, this on one card; prints each run
+    and each checkout's means, and whether the one-launch round's
+    instantiations compiled to the same registers and spills in both."""
+    import shutil
+    import tempfile
+    from harmonypy_tpu_torch.ops.cuda import build
+    # Each checkout's one-launch round, compiled apart for its ptxas report
+    # (a run may find its kernels built already, with no report).
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+    comp = [subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(tmp, f"{i}.so"),
+         os.path.join(root, "harmonypy_tpu_torch", "csrc", "fused_estep.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, root in enumerate((parent, HERE))]
+    reports = []
+    for c in comp:
+        out = c.communicate()[0]
+        check(c.returncode == 0, f"nvcc failed:\n{out[-3000:]}")
+        reports.append(ptxas_kernels({"fused_estep": out}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    runs = []
+    for root in (parent, HERE, HERE, parent, parent, HERE):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--mesh-timing",
+             os.path.abspath(root)], capture_output=True, text=True,
+            cwd=HERE, timeout=900)
+        check(out.returncode == 0, f"mesh timing of {root} failed:\n"
+                                   f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        emit(dict(phase="mesh_ab_run", **runs[-1]))
+    keys = [k for k in ("ms_per_pass", "ms_per_pass_write_r",
+                        "host_issue_ms", "nccl_ms_per_pass",
+                        "nccl_host_issue_ms", "cards_ms_per_pass",
+                        "cards_fit_s") if k in runs[0]]
+    prof_keys = ("host_issue_ms_per_pass", "wall_ms_per_pass",
+                 "device_busy_ms_per_pass", "other_ops_per_pass",
+                 "block_kernel_device_ms")
+
+    def mean(rs):
+        m = {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+        m.update({k: sum(r["pass_profile"][k] for r in rs) / len(rs)
+                  for k in prof_keys})
+        m["readd_launches_per_pass"] = rs[0]["readd_launches_per_pass"]
+        return m
+    ptx = {name: (reports[0].get(name), reports[1].get(name))
+           for name in sorted(set(reports[0]) | set(reports[1]))
+           if name.endswith("round>")}
+    same = all(a == b for a, b in ptx.values()) and len(ptx) == 32
+    emit(dict(phase="mesh_ab", nvidia_smi=smi_line(),
+              parent=mean(runs[0::3] + runs[4:5]),
+              change=mean(runs[1:3] + runs[5:]),
+              round_ptxas_same=same, round_ptxas=ptx))
+    return 0
+
+
+def cards_main() -> int:
+    """`--cards`: on a machine with several cards, only what exists across
+    cards, and what it is compared with: the one-device 858k fits and
+    phase lisi (the references), then the mesh of every card
+    (mesh_path_checks: the three fits bitwise with their launches and
+    per-card peaks, per-cell, LISI, resume), the mesh round with the lead
+    card not the current device, and one NCCL rank per card (the deferred
+    fit, the per-cell and LISI tasks), as phases mesh and multiprocess
+    run them there. The last line is {"ok": true, ...}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        print(f"chip_smoke --cards: needs several CUDA cards, found {cards}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import harmonypy_tpu_torch as ht
+    from harmonypy_tpu_torch import config, engine, layout, state
+    from harmonypy_tpu_torch.ops import partition, update_r_fused
+    from harmonypy_tpu_torch.ops.cuda import build
+    from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+    from harmonypy_tpu_torch.parallel.mesh import make_mesh
+    smi = smi_line()
+    t0 = time.perf_counter()
+    build.build_all()
+    emit(dict(phase="device", nvidia_smi=smi, cards=cards,
+              build_s=time.perf_counter() - t0))
+    X, batches, groups = synthetic()
+    meta = batch_meta(batches)
+    refs = {}
+    for name, kw in (("deferred", {}), ("stored", dict(defer_r=False)),
+                     ("low_memory", dict(defer_r=False, low_memory=True))):
+        timed_fit(ht, fe, X, meta, **kw)
+        refs[name] = timed_fit(ht, fe, X, meta, **kw)[0]
+    lisi_ref = phase_lisi(ht, refs["deferred"].Z_corr, batches, groups)
+    mods = (config, engine, layout, partition, fe, update_r_fused, state)
+    real, counts = mesh_path_checks(ht, fe, X, batches, groups, meta,
+                                    make_mesh(), refs, lisi_ref)
+    real["lead_not_current"] = mesh_cards_round_checks(
+        mods, X, batches,
+        make_mesh([f"cuda:{i}" for i in reversed(range(cards))]))
+    emit(dict(phase="mesh_cards", nvidia_smi=smi, real_cards=real))
+    want = {name: fit_digests(ho) for name, ho in refs.items()}
+    want["lisi"] = [digest(a) for a in lisi_ref]
+    want["percell"] = {cards: percell_refs(ht, cards)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        np.savez(os.path.join(tmp, "data.npz"), X=X, batches=batches,
+                 groups=groups)
+        t0 = time.perf_counter()
+        res = run_workers("cards", "nccl", [[f"cuda:{i}"] for i in
+                                            range(cards)], ["deferred"],
+                          tmp, False, None, ("percell", "lisi"))
+        out = dict(backend="nccl", ranks=cards,
+                   command_s=time.perf_counter() - t0,
+                   workers=check_workers("cards", res, want, True))
+        check(not any(w["host_waited_in_block_loop"]
+                      for w in out["workers"]),
+              "NCCL: the host waited inside the block loop")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(dict(phase="multiprocess_cards", nvidia_smi=smi, cards=out))
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": cards}})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2416,12 +2872,14 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     fe._kernel_lib()
+    fe._block_lib()
     fe._frame_readd_lib()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in build.build_log.values()
              for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    emit(dict(phase="ptxas", lines=ptxas))
+    emit(dict(phase="ptxas", kernels=ptxas_kernels(build.build_log),
+              lines=ptxas))
     emit(dict(phase="device", nvidia_smi=smi,
               name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2458,6 +2916,7 @@ def main() -> int:
                        groups, smi, lisi_ref)
     del fit_ho, stored_hos
     src = "harmonypy_tpu_torch/csrc/fused_estep.cu"
+    block_src = "harmonypy_tpu_torch/csrc/fused_estep_block.cu"
     pallas = "harmonypy_tpu/ops/pallas/update_r_fused.py"
     emit({"kernels": [
         dict(name="fused_estep", route="cuda", source=src,
@@ -2466,10 +2925,11 @@ def main() -> int:
         dict(name="fused_estep_write_r", route="cuda", source=src,
              replaces=f"{pallas}:109", launches=launches_r, **k2info,
              library_ms=None),
-        dict(name="fused_estep_block", route="cuda", source=src,
+        dict(name="fused_estep_block", route="cuda", source=block_src,
              replaces=f"{pallas}:117", **minfo["k1"], library_ms=None),
-        dict(name="fused_estep_block_write_r", route="cuda", source=src,
-             replaces=f"{pallas}:109", **minfo["k2"], library_ms=None),
+        dict(name="fused_estep_block_write_r", route="cuda",
+             source=block_src, replaces=f"{pallas}:109", **minfo["k2"],
+             library_ms=None),
         dict(name="frame_readd", route="cuda",
              source="harmonypy_tpu_torch/csrc/frame_readd.cu",
              replaces=f"{pallas}:215", **minfo["readd"], library_ms=None)]})
@@ -2484,4 +2944,11 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--mp-worker":
         mp_worker(json.loads(sys.argv[2]))
         sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-timing":
+        emit(mesh_timing(sys.argv[2]))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-ab":
+        sys.exit(mesh_ab(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--cards":
+        sys.exit(cards_main())
     sys.exit(main())

@@ -1,25 +1,32 @@
-// Re-add of one block of a mesh E-step round, on the lead device (sm_90a).
+// Re-add of one block of a mesh E-step round (sm_90a): the last block of
+// a pass.
 //
 // The JAX package re-adds a block across its mesh with `_block_readd`
-// (harmonypy_tpu/ops/update_r_fused_xla.py:104-114): the block's per-chunk
-// stats of every shard placed in the (J_fix, K, B+1) frame of within-block
-// ranks, the frame summed row by row in ascending rank from zero, then
-// O = O' + sum[:, 1:], E = E' + sum[:, 0] Pr_b — the order the Pallas
-// kernel's in-grid accumulator (K1 / K2, ops/pallas/update_r_fused.py:
-// 117-125) takes, which makes 1 and N devices bitwise equal. The plain
-// version is harmonypy_tpu_torch/ops/update_r_fused.frame_readd.
+// (harmonypy_tpu/ops/update_r_fused_xla.py:104-114), in rank order from
+// zero (frame_sum.cuh) — the order the Pallas kernel's in-grid accumulator
+// (K1 / K2, ops/pallas/update_r_fused.py:117-125, :215-221) takes, which
+// makes 1 and N devices bitwise equal. On a mesh the port folds the re-add
+// of block b into the prologue of block b + 1's per-block launch
+// (fused_estep.cuh, FOLD): every CTA of every shard forms the block's start
+// from the previous block's rows with frame_sum. Only the last block of a
+// pass has no next launch: this kernel re-adds it, once per pass, and
+// writes the pass's O, E. The plain version is
+// harmonypy_tpu_torch/ops/update_r_fused.frame_readd.
 //
-// One launch per block. Thread (k, b) reads rank r's stats where the rank
-// table says a shard holds it (src = shard * Jmax + slot in that shard's
-// block rows; -1: no chunk, a zero row), adds rank 0, 1, ... in order and
-// forms O and E. The product and each sum are rounded on their own
-// (__fmul_rn / __fadd_rn: no contraction into an FMA), as the plain
-// version's separate torch ops round them, so the result is its bits.
+// Thread (k, b) reads rank r's stats where the rank table says a shard
+// holds it (src = shard * Jmax + slot in that shard's block rows; -1: no
+// chunk, a zero row), adds rank 0, 1, ... in order and forms O and E. The
+// product and each sum are rounded on their own (__fmul_rn / __fadd_rn: no
+// contraction into an FMA), as the plain version's separate torch ops
+// round them, so the result is its bits.
 // Bound at 858k (K = 100, B = 3, J_fix = 22): ~37 KB read and written,
-// 11 ns at 3.35 TB/s; the launch's latency is the real cost.
+// 11 ns at 3.35 TB/s; the launch's latency is the real cost, which is why
+// the mesh pass launches it once per pass and not once per block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "frame_sum.cuh"
 
 namespace {
 
@@ -39,32 +46,16 @@ __global__ void __launch_bounds__(THREADS)
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= K * B) return;
   const int k = i / B, b = i % B, B1 = B + 1;
-  float a0 = 0.0f, ab = 0.0f;
-  // RQ ranks at a time: their loads in flight, then the adds in rank order.
-  constexpr int RQ = 8;
-  for (int r0 = 0; r0 < J_fix; r0 += RQ) {
-    float v0[RQ], vb[RQ];
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      const int code = r0 + q < J_fix ? src[r0 + q] : -1;
-      v0[q] = vb[q] = 0.0f;
-      if (code >= 0) {
-        const float* p =
-            rows.p[code / Jmax] + ((size_t)(code % Jmax) * K + k) * B1;
-        v0[q] = p[0];
-        vb[q] = p[1 + b];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      if (r0 + q < J_fix) {
-        a0 = __fadd_rn(a0, v0[q]);
-        ab = __fadd_rn(ab, vb[q]);
-      }
-    }
-  }
-  O[i] = __fadd_rn(Or[i], ab);
-  E[i] = __fadd_rn(Er[i], __fmul_rn(a0, prb[b]));
+  // Column 0 and column 1 + b of cluster k's frame row, 8 ranks in flight.
+  const int off[2] = {k * B1, k * B1 + 1 + b};
+  float acc[2] = {0.0f, 0.0f};
+  frame_sum<8>(
+      [&](int code) {
+        return rows.p[code / Jmax] + (size_t)(code % Jmax) * K * B1;
+      },
+      src, 0, J_fix, off, acc);
+  O[i] = __fadd_rn(Or[i], acc[1]);
+  E[i] = __fadd_rn(Er[i], __fmul_rn(acc[0], prb[b]));
 }
 
 struct ReaddCall {

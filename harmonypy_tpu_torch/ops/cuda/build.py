@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface, `harmonypy_tpu_torch/build/lib<name>-<hash>.so`, for
-Hopper (`sm_90a`). The hash of the source names the library, so an edited
-source is rebuilt and an unchanged one is loaded as it is. All sources are
-compiled in parallel, one `nvcc` process each. Any failure raises.
+Hopper (`sm_90a`). The hash of the source and of the `csrc/` headers it
+includes (`#include "..."`, followed into their own includes) names the
+library, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. All sources are compiled in parallel, one `nvcc` process
+each. Any failure raises.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,9 +42,25 @@ def _nvcc() -> str:
                        "kernels of harmonypy_tpu_torch cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: dict) -> dict:
+    """path and every csrc/ file it includes with quotes, recursively:
+    {path: contents}."""
+    if path not in seen:
+        with open(path, "rb") as f:
+            seen[path] = f.read()
+        for inc in _INCLUDE.findall(seen[path]):
+            _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    files = _sources(os.path.join(CSRC, name + ".cu"), {})
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(files):
+        digest.update(os.path.basename(path).encode() + b"\0" + files[path])
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

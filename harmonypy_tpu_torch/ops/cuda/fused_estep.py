@@ -12,17 +12,19 @@ plain version (`ops.update_r_fused.fused_update_nor` / `fused_update_r`).
 
 `fused_estep_mesh` is the round on a mesh of several shards: for each
 block, the kernel's per-block entry on every shard (`_BlockLaunch`: block b
-of K1, of its r window or of K2, an ordinary launch of one CTA per unit),
-then the re-add kernel (csrc/frame_readd.cu, `_Readd`) on the lead device.
+of K1, of its r window or of K2, an ordinary launch of one CTA per unit,
+csrc/fused_estep_block.cu), whose prologue re-adds block b - 1 across the
+shards from every shard's rows of it; after the last block, the re-add
+kernel (csrc/frame_readd.cu, `_Readd`) on the lead device, once per pass.
 The inputs are checked and the scratch allocated once per pass; the block
 loop issues the launches and events and nothing else on one card (and the
-copies of O/E and of the block rows between cards on several). Across
-processes each block's rows of the process's shards cross in one
-all-gather, and every rank runs the re-add from the gathered rows. Its
-plain version is `ops.update_r_fused.mesh_round` (per block
-`fused_update_block`, then `frame_readd`); `launches_block` (K1 and its r
-window), `launches_block_write_r` (K2) and `launches_readd` count the
-launches.
+copies of the block rows between cards on several). Across processes each
+block's rows of the process's shards cross in one all-gather, and every
+rank's launches read the gathered rows. Its plain version is
+`ops.update_r_fused.mesh_round` (per block `fused_update_block`, then
+`frame_readd`; one folded launch is `fused_update_block_folded`);
+`launches_block` (K1 and its r window), `launches_block_write_r` (K2) and
+`launches_readd` count the launches.
 
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
@@ -51,6 +53,7 @@ UNITS_PER_SM = 2     # units per block aimed at for each SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
+_block = None
 _readd_lib = None
 
 
@@ -117,17 +120,10 @@ def _kernel_lib():
         lib.fused_estep_round.argtypes = common + tail
         lib.fused_estep_r_window.argtypes = common + [_P, _I, _I] + tail
         lib.fused_estep_write_r.argtypes = common + [_P, _I] + tail
-        lib.fused_estep_block_prepare.argtypes = (
-            common + [_P, _P, _P] + [_I] * 3 + tail + [_I, _P])
-        lib.fused_estep_block_launch.argtypes = [_P, _I]
         for fn in (lib.fused_estep_round, lib.fused_estep_r_window,
-                   lib.fused_estep_write_r, lib.fused_estep_block_prepare,
-                   lib.fused_estep_block_launch,
-                   lib.fused_estep_block_call_size):
+                   lib.fused_estep_write_r):
             fn.restype = _I
         lib.fused_estep_smem.argtypes = [_I, _I, _I]
-        lib.fused_estep_block_setup.argtypes = [_I, _I, _I]
-        lib.fused_estep_block_setup.restype = _I
         lib.fused_estep_grid.argtypes = [_I, _I, _I, _I]
         for fn in (lib.fused_estep_smem, lib.fused_estep_smem_limit,
                    lib.fused_estep_tile, lib.fused_estep_grid):
@@ -137,6 +133,23 @@ def _kernel_lib():
                                f" cells, the wrapper {TILE}")
         _lib = lib
     return _lib
+
+
+def _block_lib():
+    global _block
+    if _block is None:
+        lib = build.load("fused_estep_block")
+        lib.fused_estep_block_prepare.argtypes = (
+            [_P] * 17 + [_P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 3
+            + [_I] * 9 + [_P, _I, _P])
+        lib.fused_estep_block_launch.argtypes = [_P, _I, _I]
+        lib.fused_estep_block_setup.argtypes = [_I, _I, _I]
+        for fn in (lib.fused_estep_block_prepare, lib.fused_estep_block_launch,
+                   lib.fused_estep_block_call_size,
+                   lib.fused_estep_block_setup):
+            fn.restype = _I
+        _block = lib
+    return _block
 
 
 def _frame_readd_lib():
@@ -257,18 +270,53 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     return O1, E1, cache, ybuf, kbuf
 
 
+def rank_table(granks, J_fix: int, jmax: int, device) -> torch.Tensor:
+    """The rank table of a pass's re-adds, (nb, J_fix + 1) int32 on
+    `device`: entry [b, r] codes the row that holds rank r of block b,
+    s * jmax + j for slot j of shard s (granks[s] (nb, J_s), J_s <= jmax,
+    the ranks of shard s's slots; J_fix: no rank), or -1 where no shard
+    holds rank r (a zero row). Column J_fix takes every slot without a
+    rank: scratch, never read. The per-block prologue (`_BlockLaunch`) and
+    the re-add kernel (`_Readd`) read it."""
+    nb = granks[0].shape[0]
+    src = torch.full((nb, J_fix + 1), -1, dtype=torch.int32, device=device)
+    for s, g in enumerate(granks):
+        code = (s * jmax + torch.arange(g.shape[1], dtype=torch.int32,
+                                        device=device))
+        src.scatter_(1, g.to(device, torch.int64).clamp_(0, J_fix),
+                     code.expand(nb, -1).contiguous())
+    return src
+
+
+def _check_pair(name, t, shape, device):
+    """t: two float32 copies of `shape` by block parity, t[p] contiguous,
+    apart (or a stride-0 pair: one buffer)."""
+    _check(name, t, (2, *shape), torch.float32, device, contiguous=False)
+    if not t[0].is_contiguous() or 0 < t.stride(0) < t[0].numel():
+        raise ValueError(f"{name}: each parity copy must be contiguous, "
+                         f"the two apart or one")
+
+
 class _BlockLaunch:
     """One shard's per-block launches of a round (K1, its r window or K2):
     the inputs checked, the shared memory allowed and the scratch allocated
-    once; `launch(b)` issues block b, reading the block's start O, E from
-    `O0`, `E0` (written in place by the caller between blocks) and writing
-    the block-removed O, E into `O1`, `E1` and the slots' cache rows into
-    `brows` (J, K, B+1) in slot order (the caller's, when given), on
-    `stream` (default: the current stream of the shard's device)."""
+    once; `launch(b)` issues block b from `O0`, `E0` (the given O, E), or
+    with readd_prev from block b - 1's re-add: that block's block-removed
+    O, E plus its frame. Launch b writes the block-removed O, E into
+    `O1[b & 1]`, `E1[b & 1]` (`removed(b)`) and the slots' cache rows into
+    `brows[b & 1]` (J, K, B+1) in slot order, on `stream` (default: the
+    current stream of the shard's device).
+
+    brows: the caller's (2, J, K, B+1) rows by block parity (a stride-0
+    pair is one buffer), default a new pair. frame: (2, S, J, K, B+1), every
+    shard's block rows stacked shard-major, by parity; src: the pass's
+    `rank_table` (codes s * J + j) on the shard's device; without them no
+    launch starts from a re-add."""
 
     def __init__(self, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                  fast_ent: bool, out, J_glob: int, Rw=None, lo: int = 0,
-                 R3=None, stream=None, brows=None):
+                 R3=None, stream=None, brows=None, frame=None, src=None,
+                 J_fix: int = 0):
         nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma,
                                         theta, Pr_b, O, E)
         dev, f32 = ZP3.device, torch.float32
@@ -283,9 +331,13 @@ class _BlockLaunch:
                    dev)
         nb, J = slots.shape
         self.nb, self.write_r = nb, R3 is not None
+        self.folds = frame is not None
+        if self.folds:
+            _check_pair("frame", frame, (frame.shape[1], J, K, B + 1), dev)
+            _check("src", src, (nb, J_fix + 1), torch.int32, dev)
         if dev.type == "cpu":
             return
-        lib = _kernel_lib()
+        lib = _block_lib()
         geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0),
                               J_glob)
         with torch.cuda.device(dev):
@@ -297,24 +349,26 @@ class _BlockLaunch:
         self.kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
         self.tickets = torch.zeros((J,), dtype=torch.int32, device=dev)
         if brows is None:
-            brows = torch.empty((J, K, B + 1), dtype=f32, device=dev)
-        _check("brows", brows, (J, K, B + 1), f32, dev)
+            brows = torch.empty((2, J, K, B + 1), dtype=f32, device=dev)
+        _check_pair("brows", brows, (J, K, B + 1), dev)
         self.brows = brows
         self.O0, self.E0 = O.contiguous(), E.contiguous()
-        self.O1 = torch.empty((K, B), dtype=f32, device=dev)
-        self.E1 = torch.empty((K, B), dtype=f32, device=dev)
+        self.O1 = torch.empty((2, K, B), dtype=f32, device=dev)
+        self.E1 = torch.empty((2, K, B), dtype=f32, device=dev)
         # The kernel reads and writes these through the pointers below.
         self._keep = (slots, removal, ZP3, Y, sigma, theta, Pr_b, out, Rw,
-                      R3)
+                      R3, frame, src)
         if R3 is not None:
             store = (R3.data_ptr(), int(R3.dtype == torch.bfloat16), 0, nc1)
         elif Rw is not None:
             store = (Rw.data_ptr(), 0, lo, Rw.shape[0])
         else:
             store = (None, 0, 0, 0)
+        fold = ((frame.data_ptr(), frame.stride(0), src.data_ptr(), J_fix)
+                if self.folds else (None, 0, None, 0))
         stream = self.stream = stream or torch.cuda.current_stream(dev)
         # The launch's arguments, converted once: each launch passes the
-        # record and the block.
+        # record, the block and whether it starts from a re-add.
         self._call = ctypes.create_string_buffer(
             lib.fused_estep_block_call_size())
         err = lib.fused_estep_block_prepare(
@@ -322,20 +376,23 @@ class _BlockLaunch:
                 ZP3, Y, sigma, theta, Pr_b, removal, slots, self.O0, self.E0,
                 self.part, self.kpart)], None, *[t.data_ptr() for t in (
                     out[0], out[1], out[2], self.O1, self.E1, self.tickets,
-                    self.brows)], *store, K, B, d, CH, nb, J, geo.ng, nc1,
-            int(bool(fast_ent)), stream.cuda_stream, dev.index or 0,
-            self._call)
+                    brows)], brows.stride(0), *fold, *store, K, B, d, CH, nb,
+            J, geo.ng, nc1, int(bool(fast_ent)), stream.cuda_stream,
+            dev.index or 0, self._call)
         if err != 0:
             raise RuntimeError(f"fused_estep_block_prepare failed: CUDA "
                                f"error {err}")
         self._fn = lib.fused_estep_block_launch
         self.device = dev
 
-    def launch(self, b: int) -> None:
+    def launch(self, b: int, readd_prev: bool = False) -> None:
         global launches_block, launches_block_write_r
         if not 0 <= b < self.nb:
             raise ValueError(f"block {b} outside [0, {self.nb})")
-        err = self._fn(self._call, b)
+        if readd_prev and (b == 0 or not self.folds):
+            raise ValueError(f"block {b} cannot start from the previous "
+                             f"block's re-add (block 0, or no frame)")
+        err = self._fn(self._call, b, int(bool(readd_prev)))
         if err != 0:
             raise RuntimeError(f"fused_estep_block launch failed: CUDA "
                                f"error {err}")
@@ -344,14 +401,20 @@ class _BlockLaunch:
         else:
             launches_block += 1
 
+    def removed(self, b: int):
+        """Block b's block-removed O, E (after launch(b))."""
+        return self.O1[b & 1], self.E1[b & 1]
+
 
 class _Readd:
     """The re-add launches of a round on the lead device: rows[s] (J_s, K,
     B+1) hold shard s's block rows (on the lead device), granks[s] (nb,
-    J_s) their ranks, from which the (nb, J_fix + 1) rank table is built
-    once; `launch(b)` forms O, E of block b from Or, Er."""
+    J_s) their ranks, from which the pass's `rank_table` is built once (or
+    src, that table, given); `launch(b)` forms O, E of block b from Or,
+    Er."""
 
-    def __init__(self, rows, granks, Or, Er, Pr_b, J_fix: int, O, E):
+    def __init__(self, rows, granks, Or, Er, Pr_b, J_fix: int, O, E,
+                 src=None):
         lead = Or.device
         K, B = Or.shape
         nb = granks[0].shape[0]
@@ -369,13 +432,9 @@ class _Readd:
                              f"{_frame_readd_lib().frame_readd_max_shards()}"
                              f" shards, got {len(rows)}")
         jmax = max(r.shape[0] for r in rows)
-        src = torch.full((nb, J_fix + 1), -1, dtype=torch.int32, device=lead)
-        for s, g in enumerate(granks):
-            code = (s * jmax + torch.arange(g.shape[1], dtype=torch.int32,
-                                            device=lead))
-            # Column J_fix takes every slot without a rank: scratch.
-            src.scatter_(1, g.to(lead, torch.int64).clamp_(0, J_fix),
-                         code.expand(nb, -1).contiguous())
+        if src is None:
+            src = rank_table(granks, J_fix, jmax, lead)
+        _check("src", src, (nb, J_fix + 1), torch.int32, lead)
         lib = _frame_readd_lib()
         # The rows' pointers go to the kernel by value, in the call record
         # prepared once: each launch passes the record and the block.
@@ -405,51 +464,62 @@ class _Readd:
 class _Exchange:
     """The streams of a mesh pass and what crosses between cards at each
     block. Shard 0 runs on the lead card's current stream (the lead
-    stream), which also runs the re-add; every other shard runs on a
-    stream of its own on its card, so the shards of one card run at once.
-    `start()` lets each side stream wait for its card's current stream
-    (the pass's inputs and scratch); `fork()` lets it wait for the lead
-    stream's work so far and copies the block's start O|E to a shard on
-    another card; `join()` copies such a shard's block rows to the lead
-    card and lets the lead stream wait for every side stream; `end()` lets
-    each card's current stream wait for its side streams (the pass's
-    outputs, and the reuse of its scratch). torch's events and copies set
-    each stream's device: the host never waits."""
+    stream), which also runs the pass's last re-add; every other shard runs
+    on a stream of its own on its card, so the shards of one card run at
+    once. `start()` lets each side stream wait for its card's current
+    stream (the pass's inputs and scratch); `fork(b)` lets it wait for the
+    lead stream's work so far (every shard's block b - 1, joined) and
+    copies to a shard on another card the pass's O|E (b = 0) or the lead
+    card's frame of block b - 1; `join(b)` copies such a shard's block rows
+    into the lead card's frame and lets the lead stream wait for every
+    side stream; `end()` lets each card's current stream wait for its side
+    streams (the pass's outputs, and the reuse of its scratch). torch's
+    events and copies set each stream's device: the host never waits."""
 
-    def __init__(self, lead, shards, oe, oes, rows):
-        """shards: the `_BlockLaunch`es of shards 1.., oe: the lead card's
-        (2, K, B) O|E, oes / rows: per shard its O|E and the lead card's
-        block rows (the shard's own on the lead card, else copies)."""
-        self.lead, self.oe = torch.cuda.current_stream(lead), oe
+    def __init__(self, lead, shards, oe, frame, remote):
+        """shards: the `_BlockLaunch`es of shards 1..; oe: the lead card's
+        (2, K, B) O|E; frame: the lead card's (2, S, J, K, B+1) frame by
+        parity; remote: per shard None on the lead card, else (its O|E, its
+        copy of a block's frame, the lead card's (2, J, K, B+1) rows by
+        parity its own are copied into)."""
+        self.lead, self.oe, self.frame = (torch.cuda.current_stream(lead),
+                                          oe, frame)
         self._fork_ev = torch.cuda.Event()
-        self._side = [(ln.stream, torch.cuda.Event(),
-                       o if ln.device != lead else None,
-                       r if ln.device != lead else None, ln.brows)
-                      for ln, o, r in zip(shards, oes, rows)]
+        self._side = [(ln.stream, torch.cuda.Event(), ln.brows, r)
+                      for ln, r in zip(shards, remote)]
 
     def start(self) -> None:
         for st, *_ in self._side:
             st.wait_stream(torch.cuda.current_stream(st.device))
 
-    def fork(self) -> None:
+    def fork(self, b: int) -> None:
         self._fork_ev.record(self.lead)
-        for st, _, oe, _, _ in self._side:
+        for st, _, _, r in self._side:
             st.wait_event(self._fork_ev)
-            if oe is not None:
+            if r is not None:
                 with torch.cuda.stream(st):
-                    oe.copy_(self.oe, non_blocking=True)
+                    if b == 0:
+                        r[0].copy_(self.oe, non_blocking=True)
+                    else:
+                        r[1].copy_(self.frame[(b - 1) & 1],
+                                   non_blocking=True)
 
-    def join(self) -> None:
-        for st, ev, _, rows, brows in self._side:
-            if rows is not None:
+    def join(self, b: int) -> None:
+        for st, ev, brows, r in self._side:
+            if r is not None:
                 with torch.cuda.stream(st):
-                    rows.copy_(brows, non_blocking=True)
+                    r[2][b & 1].copy_(brows[b & 1], non_blocking=True)
             ev.record(st)
             self.lead.wait_event(ev)
 
     def end(self) -> None:
         for st, *_ in self._side:
             torch.cuda.current_stream(st.device).wait_stream(st)
+
+
+def _one_copy(t):
+    """t as a parity pair of one buffer (stride 0)."""
+    return t.expand(2, *t.shape)
 
 
 def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
@@ -459,21 +529,28 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     its plain version, which CPU shards run.
 
     On CUDA shards: per shard a `_BlockLaunch` (checks and scratch once per
-    pass) reading the block's start O, E from one buffer on the lead card,
-    which the re-add kernel overwrites after each block (a shard on
-    another card reads its own copy); per block the exchange's fork, one
-    launch per shard, its join and one re-add launch (`_Exchange`: a stream
-    for each shard after the first, events and the copies between cards;
-    the host never waits).
+    pass). Block 0 of every shard starts from O, E; block b > 0 starts from
+    block b - 1's re-add, which each launch's prologue forms from its own
+    block-removed O', E' of block b - 1 and the lead card's frame of block
+    b - 1 (every shard's rows, written there by the launches, by block
+    parity: shard t's launch b may write its rows while shard s's launch
+    b still reads t's rows of block b - 1). After the last block one
+    re-add launch (`_Readd`) writes the pass's O, E. Per block: the
+    exchange's fork, one launch per shard and its join (`_Exchange`: a
+    stream for each shard after the first, events, and for a shard on
+    another card the copies of the frame and of its rows; the host never
+    waits).
 
     Across processes (parallel.mesh.spans_processes) the process's shards
     write their block rows into one send buffer on the lead card, and per
     block, after the join, one all-gather moves every rank's rows into a
-    gathered buffer allocated once per pass; every rank then launches the
-    re-add, whose row pointers are fixed slices of the gathered buffer, so
-    no rank broadcasts O, E. Under NCCL the all-gather orders itself on the
-    lead card's current stream and the host does not wait; under gloo the
-    rows are staged through the host (parallel.mesh.gatherer)."""
+    gathered buffer allocated once per pass, which is the frame the next
+    block's launches read: it is overwritten only by the next all-gather,
+    after those launches are joined, so it needs one copy. Every rank
+    launches the last re-add from the gathered rows, so no rank broadcasts
+    O, E. Under NCCL the all-gather orders itself on the lead card's
+    current stream and the host does not wait; under gloo the rows are
+    staged through the host (parallel.mesh.gatherer)."""
     lead = O.device
     if lead.type == "cpu":
         for s, ZP3 in enumerate(ZP3s):
@@ -482,18 +559,21 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
         return mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
                           fast_ent, J_fix, windows, R3s)
     K, d, B = Y.shape[1], Y.shape[0], theta.shape[0]
-    f32 = dict(dtype=torch.float32)
+    nb, J = tables.removal.shape[0], tables.slots[0].shape[1]
+    row, f32 = (J, K, B + 1), dict(dtype=torch.float32)
     multi = spans_processes(len(tables.granks))
-    send = None
     if multi:
-        J = tables.slots[0].shape[1]
-        send = torch.empty((len(ZP3s), J, K, B + 1), device=lead, **f32)
-        gathered = torch.empty((len(tables.granks), J, K, B + 1),
-                               device=lead, **f32)
-    # O|E at each block's start, which the re-add overwrites (one buffer,
-    # so one copy reaches a shard on another card).
+        send = torch.empty((len(ZP3s),) + row, device=lead, **f32)
+        gathered = torch.empty((len(tables.granks),) + row, device=lead,
+                               **f32)
+        frame = _one_copy(gathered)
+    else:
+        frame = torch.empty((2, len(ZP3s)) + row, device=lead, **f32)
+    src = rank_table([g.to(lead) for g in tables.granks], J_fix, J, lead)
+    # O|E at the pass's start and, after the last re-add, at its end (one
+    # buffer, so one copy reaches a shard on another card).
     OE = torch.stack([O, E])
-    shards, oes, rows, outs, Rws = [], [], [], [], []
+    shards, remote, outs, Rws = [], [], [], []
     for s, ZP3 in enumerate(ZP3s):
         dev, nc1, CH = ZP3.device, ZP3.shape[0], ZP3.shape[2]
         out = (torch.zeros((nc1, K, B + 1), device=dev, **f32),
@@ -502,39 +582,45 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
         win = None if windows is None else windows[s]
         Rw = (None if win is None
               else torch.zeros((win[1], K, CH), device=dev, **f32))
-        OEs = OE if dev == lead else torch.empty_like(OE, device=dev)
+        # The shard's rows on the lead card: in the send buffer across
+        # processes, else in the frame.
+        lead_rows = _one_copy(send[s]) if multi else frame[:, s]
+        if dev == lead:
+            r, OEs, brows, fr, srcs = None, OE, lead_rows, frame, src
+        else:
+            # Its own O|E, rows and frame copy, each one buffer: the join
+            # copies its rows out, the fork the frame in, on its stream.
+            OEs = torch.empty_like(OE, device=dev)
+            fcopy = torch.empty(frame.shape[1:], device=dev, **f32)
+            r = (OEs, fcopy, lead_rows)
+            brows = _one_copy(torch.empty(row, device=dev, **f32))
+            fr, srcs = _one_copy(fcopy), src.to(dev)
         ln = _BlockLaunch(
             tables.slots[s], tables.removal.to(dev), ZP3, Y.to(dev),
             sigma.to(dev), theta.to(dev), Pr_b.to(dev), OEs[0], OEs[1],
             fast_ent, out, J_fix + 1, Rw, 0 if win is None else win[0],
             None if R3s is None else R3s[s],
-            torch.cuda.Stream(device=dev) if s else None,
-            send[s] if send is not None and dev == lead else None)
-        # The lead card's copy of the shard's block rows: the rows
-        # themselves on the lead card, else the join's copy.
-        if dev == lead:
-            rows.append(ln.brows)
-        else:
-            rows.append(send[s] if send is not None
-                        else torch.empty_like(ln.brows, device=lead))
-        oes.append(OEs)
+            torch.cuda.Stream(device=dev) if s else None, brows=brows,
+            frame=fr, src=srcs, J_fix=J_fix)
+        remote.append(r)
         shards.append(ln)
         outs.append(out)
         Rws.append(Rw)
-    exchange = _Exchange(lead, shards[1:], OE, oes[1:], rows[1:])
+    exchange = _Exchange(lead, shards[1:], OE, frame, remote[1:])
     gather = gatherer(gathered, send) if multi else None
-    readd = _Readd(list(gathered.unbind(0)) if multi else rows,
-                   [g.to(lead) for g in tables.granks], shards[0].O1,
-                   shards[0].E1, Pr_b.contiguous(), J_fix, OE[0], OE[1])
+    last = (nb - 1) & 1
+    readd = _Readd(list(frame[last].unbind(0)), tables.granks,
+                   *shards[0].removed(last), Pr_b.contiguous(), J_fix,
+                   OE[0], OE[1], src=src)
     exchange.start()
-    for b in range(tables.removal.shape[0]):
-        exchange.fork()
+    for b in range(nb):
+        exchange.fork(b)
         for ln in shards:
-            ln.launch(b)
-        exchange.join()
+            ln.launch(b, b > 0)
+        exchange.join(b)
         if multi:
             gather()
-        readd.launch(b)
+    readd.launch(nb - 1)
     exchange.end()
     return (OE[0], OE[1], [o[0] for o in outs], [o[1] for o in outs],
             [o[2] for o in outs], Rws)

@@ -217,6 +217,24 @@ def frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
     return Or + acc[:, 1:], Er + acc[:, 0:1] * Pr_b[None, :]
 
 
+def fused_update_block_folded(b: int, slots, removal, ZP3, Y, sigma, theta,
+                              Pr_b, O, E, fast_ent: bool, out, prev=None,
+                              Rw=None, lo: int = 0, R3=None):
+    """Block b of a mesh round started from block b - 1's re-add — the
+    plain version of the per-block launch with the re-add folded into its
+    prologue (`ops.cuda.fused_estep._BlockLaunch.launch(b, readd_prev=
+    True)`): prev = (rows, granks, J_fix), every shard's rows of block
+    b - 1 and their ranks, with O, E block b - 1's block-removed O', E';
+    the block starts from `frame_readd(rows, granks, O, E, Pr_b, J_fix)`.
+    Without prev it starts from O, E. Then `fused_update_block`, whose
+    arguments and results it has."""
+    if prev is not None:
+        rows, granks, J_fix = prev
+        O, E = frame_readd(rows, granks, O, E, Pr_b, J_fix)
+    return fused_update_block(b, slots, removal, ZP3, Y, sigma, theta, Pr_b,
+                              O, E, fast_ent, out, Rw, lo, R3)
+
+
 def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
                J_fix: int, windows=None, R3s=None):
     """One E-step round on a mesh of several shards (the JAX package's
@@ -226,9 +244,12 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
     CPU shards): for each block, every shard runs the block on its own
     chunks (`fused_update_block`), then the block is re-added on the lead
     device (the device of O) from every shard's rows of it (`frame_readd`).
-    Across processes (parallel.mesh.spans_processes) each block's rows
-    are all-gathered, and every rank re-adds the block from the gathered
-    rows, in rank order from zero: the same bits on every rank.
+    The kernels fold that re-add into the next block's launch on every
+    shard (`fused_update_block_folded`), which forms the same bits; only
+    the last block's is a launch of its own. Across processes
+    (parallel.mesh.spans_processes) each block's rows are all-gathered, and
+    every rank re-adds the block from the gathered rows, in rank order from
+    zero: the same bits on every rank.
 
     The per-chunk rows are the one-device round's bitwise: a CPU shard pads
     its slot table to the one-device width J_fix + 1 with its dummy chunk,
