@@ -90,15 +90,20 @@ line per phase:
               block) equal to the one-launch round bitwise; the folded
               launch of every block b > 0 equal to frame_readd plus the
               unfolded launch bitwise (K1, K2 fp32 / bf16, both objective
-              forms); 50 passes of each bitwise equal (the double buffers
-              under the shards' concurrent streams); ms per launch with
-              and without the folded prologue and per pass, bounds, one
-              profiled pass (host and device ms, kernel ms per block, the
-              other device operations, one re-add per pass);
+              forms); 50 passes of each through one plan bitwise equal
+              (the double buffers under the shards' concurrent streams;
+              one plan made, no allocation after the first pass); ms per
+              launch with and without the folded prologue and per pass,
+              bounds, one native call per pass, one profiled pass (host
+              and device ms, kernel ms per block, the other device
+              operations, one re-add per pass);
               the deferred, stored and low_memory fits bitwise equal to
               phases fit / fit_stored (Z_corr, R, histories, kmeans_rounds)
               with blocks x shards per-block and one re-add launch per
-              pass and their wall clock; pbmc per-cell fit within
+              pass and their wall clock; two short fits (deferred,
+              stored) with every mesh pass metered: one native call, and
+              no caching-allocator allocation in a pass after its plan's
+              first; pbmc per-cell fit within
               5e-4 max|Z| of one device at 3 iterations, the default fit at
               the golden gate;
               compute_lisi on the mesh fit's output equal to phase lisi's
@@ -119,9 +124,11 @@ line per phase:
               card when there are several — the deferred fit. Each bitwise
               equal to phases fit / fit_stored (so to the one-process mesh
               of phase mesh), with every worker's per-block and re-add
-              launches, the ms per mesh pass (CUDA events), one profiled
-              pass, and the host's waits per pass: under NCCL the host
-              must not wait inside the block loop. The gloo, nccl and
+              launches, each warm-up fit's passes metered (n_blocks + 1
+              native calls per pass, no allocation after a plan's first),
+              the ms per mesh pass (CUDA events), one profiled pass, and
+              the host's waits per pass: under NCCL the host must not wait
+              inside the block loop. The gloo, nccl and
               cards workers then fit the per-cell path at its full width
               (20,000 x 29 PCs, 3 batches, K=100, default settings) and
               pbmc_3500 at default settings, each bitwise equal to the
@@ -1328,6 +1335,74 @@ def _eq(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def allocations() -> int:
+    """Allocations through torch's caching allocator so far, every card."""
+    import torch
+    return sum(torch.cuda.memory_stats(i).get("allocation.all.allocated", 0)
+               for i in range(torch.cuda.device_count()))
+
+
+class PassMeter:
+    """Meter every mesh pass the engine and the replays run while active
+    (the port's fused_estep_mesh, wrapped in engine and ops.replay): per
+    pass the native calls (ops.cuda.fused_estep.native_calls), the
+    caching-allocator allocations on every card and the plans made. A
+    pass that makes no plan must allocate nothing; `summary(nb)` checks
+    that and the native calls per pass (1 in one process, nb + 1 across
+    processes: one per block and one for the last re-add)."""
+
+    def __init__(self, fe):
+        from harmonypy_tpu_torch import engine
+        from harmonypy_tpu_torch.ops import replay
+        self.fe, self.mods, self.passes = fe, (engine, replay), []
+
+    def __enter__(self):
+        fe, real = self.fe, self.fe.fused_estep_mesh
+
+        def metered(*a, **kw):
+            n0, p0, a0 = fe.native_calls, fe.plans_made, allocations()
+            out = real(*a, **kw)
+            self.passes.append((fe.native_calls - n0, allocations() - a0,
+                                fe.plans_made - p0))
+            return out
+        for m in self.mods:
+            m.fused_estep_mesh = metered
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.fused_estep_mesh = self.fe.fused_estep_mesh
+
+    def summary(self, nb: int, multi: bool, tag: str) -> dict:
+        calls = sorted({c for c, _, _ in self.passes})
+        later = [a for _, a, p in self.passes if not p]
+        want = nb + 1 if multi else 1
+        check(self.passes and calls == [want],
+              f"{tag}: native calls per mesh pass {calls}, not {want}")
+        check(max(later, default=0) == 0,
+              f"{tag}: passes after a plan's first allocated "
+              f"{max(later)} times (caching allocator)")
+        return dict(passes=len(self.passes), native_calls_per_pass=want,
+                    plans_made=sum(p for _, _, p in self.passes),
+                    allocations_first_passes=sum(
+                        a for _, a, p in self.passes if p),
+                    allocations_per_pass_after_first=0,
+                    passes_after_first=len(later))
+
+
+def host_issue_ms(fn, sync, passes=MESH_HOST_PASSES) -> float:
+    """The host's ms to issue fn() (median of `passes`, each synchronised
+    apart by sync(), no profiler)."""
+    issue = []
+    for _ in range(passes):
+        sync()
+        t = time.perf_counter()
+        fn()
+        issue.append(time.perf_counter() - t)
+    sync()
+    return sorted(issue)[len(issue) // 2] * 1e3
+
+
 def mesh_pass_profile(run, n_blocks, shards, passes=5):
     """`passes` calls of run() (one mesh pass each) under torch.profiler,
     after one warm-up: the host's ms to issue one pass and the wall ms per
@@ -1342,10 +1417,11 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
-    # A profile that recorded no per-block kernel at all is taken again, at
-    # most twice (torch.profiler has dropped a session's kernel records
-    # once in three runs of unchanged code; PERF.md §7).
-    for _ in range(3):
+    # A profile that did not record every per-block kernel is taken again,
+    # at most four times (torch.profiler has dropped a session's kernel
+    # records, all of them once in three runs of unchanged code and 7 of
+    # 400 once; PERF.md §7).
+    for _ in range(5):
         issue = []
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1356,8 +1432,8 @@ def mesh_pass_profile(run, n_blocks, shards, passes=5):
                 issue.append(time.perf_counter() - t)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        if any(e.device_type == DeviceType.CUDA and "estep" in e.name
-               for e in prof.events()):
+        if sum(e.device_type == DeviceType.CUDA and "estep" in e.name
+               for e in prof.events()) == passes * n_blocks * shards:
             break
     spans, block, readd, other, waits = [], [], [], {}, -1
     for e in prof.events():
@@ -1457,28 +1533,43 @@ def fold_chain_checks(fe, plain_mod, tabs, ZP3s, consts, O, E, fast, J_fix,
 
 def repeat_pass_checks(fe, tabs, ZP3s, consts, O, E, J_fix, want, dtype,
                        reps):
-    """`reps` mesh passes (shards on their own streams, as a fit runs them:
-    a race on the double-buffered rows or O', E' shows here), each bitwise
-    equal to the first; the first's O, E equal to want = (O, E) of the
-    one-launch round."""
+    """`reps` mesh passes through one plan (a mesh_plans block, as a fit
+    runs them: shards on their own streams, the plan's outputs used in
+    turn; a race on the double-buffered rows or O', E' shows here), each
+    bitwise equal to the first; the first's O, E equal to want = (O, E) of
+    the one-launch round. Returns (reps, plans made, allocations of the
+    passes after the first)."""
     import torch
-    first = None
-    for _ in range(reps):
-        R3s = (None if dtype is None else [torch.zeros(
-            (z.shape[0], K, CHUNK), dtype=dtype, device="cuda")
-            for z in ZP3s])
-        m = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, False, J_fix,
-                                R3s=R3s)
-        got = [m[0], m[1], *m[2], *m[3], *m[4], *(R3s or ())]
-        if first is None:
-            first = got
-            check(_eq(m[0], want[0]) and _eq(m[1], want[1]),
-                  f"mesh pass (R {dtype}) differs from the one-launch round")
-        else:
-            check(all(_eq(a, b) for a, b in zip(got, first)),
-                  f"a repeated mesh pass (R {dtype}) is not bitwise the "
-                  f"first")
-    return reps
+    first, p0 = None, fe.plans_made
+    # A fit's O, E after its first pass are a pass's outputs, contiguous
+    # (the init's O is a column slice: the pass copies such an O once).
+    O, E = O.contiguous(), E.contiguous()
+    with fe.mesh_plans():
+        for _ in range(reps):
+            R3s = (None if dtype is None else [torch.zeros(
+                (z.shape[0], K, CHUNK), dtype=dtype, device="cuda")
+                for z in ZP3s])
+            a0 = allocations()
+            m = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, False, J_fix,
+                                    R3s=R3s)
+            got = [m[0], m[1], *m[2], *m[3], *m[4], *(R3s or ())]
+            if first is None:
+                first = [t.clone() for t in got]
+                later = 0
+                check(_eq(m[0], want[0]) and _eq(m[1], want[1]),
+                      f"mesh pass (R {dtype}) differs from the one-launch "
+                      f"round")
+            else:
+                later += allocations() - a0
+                check(all(_eq(a, b) for a, b in zip(got, first)),
+                      f"a repeated mesh pass (R {dtype}) is not bitwise the "
+                      f"first")
+    plans = fe.plans_made - p0
+    check(plans == 1 and later == 0,
+          f"{reps} passes of one geometry made {plans} plans and allocated "
+          f"{later} times after the first")
+    return dict(passes=reps, plans_made=plans,
+                allocations_after_first=later)
 
 
 def readd_launch(fe, rows, granks, Or, Er, Pr_b, J_fix):
@@ -1733,18 +1824,27 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     plain_ms_readd = cuda_ms(lambda: plain_mod.frame_readd(
         rd_rows, [g[bt] for g in tabs.granks], Op, Ep, Pr_b, geom.J_fix),
         reps=20)
-    n0, r0 = fe.launches_block, fe.launches_readd
+    n0, r0, c0 = fe.launches_block, fe.launches_readd, fe.native_calls
 
     def mesh_pass():
         return fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, False,
                                    geom.J_fix)
-    ms_pass = cuda_ms(mesh_pass, reps=5, warmup=1)
-    per_pass = (fe.launches_block - n0) // 6
-    readd_per_pass = (fe.launches_readd - r0) / 6
-    check(per_pass == geom.nb * D and readd_per_pass == 1,
-          f"mesh round launched {per_pass} per-block and {readd_per_pass} "
-          f"re-add kernels per pass, not {geom.nb * D} and 1")
-    prof = mesh_pass_profile(mesh_pass, geom.nb, D)
+    # Timed as a fit runs it: through its plan, made on the first pass.
+    with fe.mesh_plans():
+        ms_pass = cuda_ms(mesh_pass, reps=5, warmup=1)
+        per_pass = (fe.launches_block - n0) // 6
+        readd_per_pass = (fe.launches_readd - r0) / 6
+        calls_per_pass = (fe.native_calls - c0) / 6
+        check(per_pass == geom.nb * D and readd_per_pass == 1
+              and calls_per_pass == 1,
+              f"mesh round launched {per_pass} per-block and "
+              f"{readd_per_pass} re-add kernels in {calls_per_pass} native "
+              f"calls per pass, not {geom.nb * D}, 1 and 1")
+    # The pass profiled in a process of its own (mesh_timing): after the
+    # profiler sessions of the earlier phases, torch.profiler dropped 7-9
+    # of a mesh profile's 400 per-block kernel records in this process.
+    timing = mesh_timing_run(HERE)
+    prof = timing["pass_profile"]
     check(prof["readd_launches_per_pass"] == 1,
           f"profiled {prof['readd_launches_per_pass']} re-add kernels per "
           f"pass, not 1")
@@ -1773,7 +1873,9 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         plain_ms_block_write_r_fold=plain_ms_fold_k2,
         ms_readd=ms_readd, plain_ms_readd=plain_ms_readd,
         ms_per_pass=ms_pass, launches_per_pass=per_pass,
-        readd_launches_per_pass=readd_per_pass, pass_profile=prof,
+        readd_launches_per_pass=readd_per_pass,
+        native_calls_per_pass=calls_per_pass, pass_profile=prof,
+        timing_process=timing,
         bound_block=b1, bound_block_write_r=b2, bound_block_fold=bf1,
         bound_block_write_r_fold=bf2, bound_readd=br,
         roofline_share_block=b1["bound_ms"] / ms["k1", False],
@@ -1841,16 +1943,18 @@ def mesh_cards_round_checks(mods, X, batches, mesh):
 
     def mesh_pass():
         fe.fused_estep_mesh(tabs, ZP3s, *consts, False, geom.J_fix)
-    mesh_pass()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(5):
+    with fe.mesh_plans():
         mesh_pass()
-    sync()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            mesh_pass()
+        sync()
+        ms = (time.perf_counter() - t0) * 200
     return dict(devices=[str(dv) for dv in devs],
                 current_device=torch.cuda.current_device(),
                 round_bitwise=True, write_r_bitwise=True,
-                ms_per_pass_host_clock=(time.perf_counter() - t0) * 200)
+                ms_per_pass_host_clock=ms)
 
 
 def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
@@ -1936,6 +2040,18 @@ def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
     import numpy as np
     from harmonypy_tpu_torch.parallel.mesh import make_mesh
     fits, counts, mesh_ho = mesh_fit_checks(ht, fe, X, meta, mesh, refs)
+    # Each pass of two short fits metered: native calls, allocations and
+    # plans (kept apart from the timed fits above).
+    metered = {}
+    for name, kw in (("deferred", {}), ("stored", dict(defer_r=False))):
+        with PassMeter(fe) as meter:
+            ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                                max_iter_harmony=2, **kw)
+        metered[name] = meter.summary(ho.cfg.n_blocks, False,
+                                      f"mesh {name} on {mesh.devices}")
+        check(metered[name]["plans_made"] == (2 if name == "deferred"
+                                              else 1),
+              f"mesh {name}: {metered[name]['plans_made']} plans made")
 
     # pbmc_3500 at default settings: the per-cell fit. Held at 3 harmony
     # iterations, as tests/test_fused_xla.py:135-150 holds it: every round
@@ -2002,7 +2118,7 @@ def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
             check("mesh:" in str(e), f"mesh resume: unexpected message {e}")
     return dict(
         devices=[str(dv) for dv in mesh.devices], fits=fits,
-        per_cell=dict(data="pbmc_3500", tolerance_over_max_Z=(
+        metered_passes=metered, per_cell=dict(data="pbmc_3500", tolerance_over_max_Z=(
             TOL_PERCELL_REL), fits=per_cell),
         lisi=dict(pruned_bitwise=True, brute_sample_bitwise=True,
                   queries=LISI_SAMPLE, ms=lisi_ms, brute_ms=brute_ms),
@@ -2318,9 +2434,12 @@ def mp_worker(spec: dict) -> None:
                    fits={})
         ck = os.path.join(tmp, f"ck_{tag}")
         # A first fit in a new process pays for its context, libraries and
-        # communicators: one short fit first, neither timed nor checked.
-        ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
-                       max_iter_harmony=1)
+        # communicators: one short fit first, not timed, its passes metered.
+        with PassMeter(fe) as meter:
+            wu = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                                max_iter_harmony=1)
+        res["metered_passes"] = meter.summary(wu.cfg.n_blocks, True,
+                                              f"{tag} rank {rank}")
         for name in spec["fits"]:
             kw = dict(stored=dict(defer_r=False),
                       low_memory=dict(defer_r=False, low_memory=True)
@@ -2360,13 +2479,15 @@ def mp_worker(spec: dict) -> None:
         def run():
             return fe.fused_estep_mesh(tables, ZP3s, *rep, fast, geom.J_fix)
 
-        O, E = run()[:2]
-        check(torch.equal(O, st.O) and torch.equal(E, st.E),
-              f"{tag} rank {rank}: the replayed pass's O, E differ from the "
-              f"fit's")
-        res["ms_per_pass"] = cuda_ms(run, reps=10)
-        res["pass_profile"] = mesh_pass_profile(run, geom.nb,
-                                                len(mesh.devices))
+        # Through one plan, as a fit runs its passes.
+        with fe.mesh_plans():
+            O, E = run()[:2]
+            check(torch.equal(O, st.O) and torch.equal(E, st.E),
+                  f"{tag} rank {rank}: the replayed pass's O, E differ from "
+                  f"the fit's")
+            res["ms_per_pass"] = cuda_ms(run, reps=10)
+            res["pass_profile"] = mesh_pass_profile(run, geom.nb,
+                                                    len(mesh.devices))
         # One block's all-gather alone, as the pass issues it: host us per
         # call, and us per call to the last synchronise.
         J = tables.slots[0].shape[1]
@@ -2521,6 +2642,7 @@ def check_workers(tag, results, want, nccl=False):
                 passes=v["passes"], bitwise_equal=True)
                 for k, v in res["fits"].items()},
             resume_bitwise="resume" in res or None,
+            metered_passes=res["metered_passes"],
             ms_per_pass=res["ms_per_pass"],
             allgather_us=res["allgather_us"],
             host_waits_per_pass=prof["host_waits_per_pass"],
@@ -2610,15 +2732,18 @@ def mesh_timing(root: str) -> dict:
     """The mesh pass of the checkout at `root` (its package and kernels,
     built there): 858k on 4 logical shards of cuda:0, the round of phase
     kernel; K1 and K2 (fp32) ms per pass by CUDA events, the host's ms to
-    issue a K1 pass (median of MESH_HOST_PASSES, each synchronised apart,
-    no profiler), profiled K1 passes (host issue, device busy, other
-    device operations), re-add launches per pass; then the same K1 pass
-    with the process in a one-rank NCCL group (the blocks' rows cross an
-    all-gather, as in phase multiprocess); with several cards, the
-    one-process pass over every card (ms per pass on the host's clock,
-    every card synchronised) and the deferred fit on that mesh, after a
-    warm-up fit. Runs in a process of its own (`--mesh-timing`), so two
-    checkouts' packages do not meet."""
+    issue a K1 pass (host_issue_ms), profiled K1 passes (host issue,
+    device busy, idle share, other device operations), re-add launches per
+    pass; then the same K1 pass with the process in a one-rank NCCL group
+    (the blocks' rows cross an all-gather, as in phase multiprocess); with
+    several cards, the one-process pass over every card (ms per pass on
+    the host's clock, every card synchronised; host issue; a profile: the
+    device busy time is the union over the cards) and the deferred, stored
+    and low_memory fits on that mesh, each after a warm-up fit. Passes run
+    as a fit runs them: in a mesh_plans block where the checkout has one.
+    Runs in a process of its own (`--mesh-timing`), so two checkouts'
+    packages do not meet."""
+    import contextlib
     import dataclasses
 
     import torch
@@ -2632,6 +2757,7 @@ def mesh_timing(root: str) -> dict:
     from harmonypy_tpu_torch.ops.cuda import build
     from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
     from harmonypy_tpu_torch.parallel import sharding
+    plans = getattr(fe, "mesh_plans", contextlib.nullcontext)
     build.build_all()
     X, batches, _ = synthetic()
     mods = (config, engine, layout, partition, fe, update_r_fused, state)
@@ -2655,22 +2781,15 @@ def mesh_timing(root: str) -> dict:
 
     def k2():
         fe.fused_estep_mesh(tabs, ZP3s, *rest, False, geom.J_fix, R3s=R3s)
-    def host_ms():
-        issue = []
-        for _ in range(MESH_HOST_PASSES):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            k1()
-            issue.append(time.perf_counter() - t)
-        torch.cuda.synchronize()
-        return sorted(issue)[len(issue) // 2] * 1e3
     r0 = fe.launches_readd
-    ms_k1 = cuda_ms(k1, reps=30, warmup=3)
-    readd = (fe.launches_readd - r0) / 33
-    ms_k2 = cuda_ms(k2, reps=30, warmup=3)
-    out = dict(root=root, ms_per_pass=ms_k1, ms_per_pass_write_r=ms_k2,
-               host_issue_ms=host_ms(), readd_launches_per_pass=readd,
-               pass_profile=mesh_pass_profile(k1, geom.nb, D, passes=10))
+    with plans():
+        ms_k1 = cuda_ms(k1, reps=30, warmup=3)
+        readd = (fe.launches_readd - r0) / 33
+        ms_k2 = cuda_ms(k2, reps=30, warmup=3)
+        out = dict(root=root, ms_per_pass=ms_k1, ms_per_pass_write_r=ms_k2,
+                   host_issue_ms=host_issue_ms(k1, torch.cuda.synchronize),
+                   readd_launches_per_pass=readd,
+                   pass_profile=mesh_pass_profile(k1, geom.nb, D, passes=10))
     cards = torch.cuda.device_count()
     if cards > 1:
         from harmonypy_tpu_torch.parallel.mesh import make_mesh
@@ -2692,22 +2811,30 @@ def mesh_timing(root: str) -> dict:
 
         def cpass():
             fe.fused_estep_mesh(ctabs, cZ, *crest, False, geom.J_fix)
-        for _ in range(3):
-            cpass()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            cpass()
-        sync()
-        out["cards_ms_per_pass"] = (time.perf_counter() - t0) * 50
+        with plans():
+            for _ in range(3):
+                cpass()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                cpass()
+            sync()
+            out["cards_ms_per_pass"] = (time.perf_counter() - t0) * 50
+            out["cards_host_issue_ms"] = host_issue_ms(cpass, sync)
+            out["cards_pass_profile"] = mesh_pass_profile(
+                cpass, geom.nb, mesh.size, passes=10)
         meta = batch_meta(batches)
-        ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
-                       max_iter_harmony=1)
-        sync()
-        t0 = time.perf_counter()
-        ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False)
-        sync()
-        out["cards_fit_s"] = time.perf_counter() - t0
+        for name, kw in (("deferred", {}), ("stored", dict(defer_r=False)),
+                         ("low_memory", dict(defer_r=False,
+                                             low_memory=True))):
+            ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                           max_iter_harmony=1, **kw)
+            sync()
+            t0 = time.perf_counter()
+            ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
+                           **kw)
+            sync()
+            out[f"cards_fit_s_{name}"] = time.perf_counter() - t0
     import tempfile
     from harmonypy_tpu_torch.parallel import mesh as pm
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
@@ -2715,19 +2842,34 @@ def mesh_timing(root: str) -> dict:
                               device="cuda:0", timeout_s=MP_COLLECTIVE_S)
     try:
         check(pm.spans_processes(D), "the one-rank group does not gather")
-        out.update(nccl_ms_per_pass=cuda_ms(k1, reps=30, warmup=3),
-                   nccl_host_issue_ms=host_ms())
+        with plans():
+            out.update(nccl_ms_per_pass=cuda_ms(k1, reps=30, warmup=3),
+                       nccl_host_issue_ms=host_issue_ms(
+                           k1, torch.cuda.synchronize))
     finally:
         pm.shutdown_distributed()
     return out
 
 
+def mesh_timing_run(root: str) -> dict:
+    """mesh_timing(root) in a process of its own."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--mesh-timing",
+         os.path.abspath(root)], capture_output=True, text=True, cwd=HERE,
+        timeout=900)
+    check(out.returncode == 0, f"mesh timing of {root} failed:\n"
+                               f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def mesh_ab(parent: str) -> int:
     """The one-process mesh pass of the parent checkout at `parent` and of
     this one, each in a process of its own (mesh_timing), in the order
-    parent, this, this, parent, parent, this on one card; prints each run
-    and each checkout's means, and whether the one-launch round's
-    instantiations compiled to the same registers and spills in both."""
+    parent, this, this, parent, parent, this: on one card 4 logical shards
+    and a one-rank NCCL group; on a machine with several cards also the
+    mesh of every card (pass and fits). Prints each run and each
+    checkout's means, and whether the one-launch round's instantiations
+    compiled to the same registers and spills in both."""
     import shutil
     import tempfile
     from harmonypy_tpu_torch.ops.cuda import build
@@ -2747,26 +2889,24 @@ def mesh_ab(parent: str) -> int:
     shutil.rmtree(tmp, ignore_errors=True)
     runs = []
     for root in (parent, HERE, HERE, parent, parent, HERE):
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--mesh-timing",
-             os.path.abspath(root)], capture_output=True, text=True,
-            cwd=HERE, timeout=900)
-        check(out.returncode == 0, f"mesh timing of {root} failed:\n"
-                                   f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
-        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        runs.append(mesh_timing_run(root))
         emit(dict(phase="mesh_ab_run", **runs[-1]))
     keys = [k for k in ("ms_per_pass", "ms_per_pass_write_r",
                         "host_issue_ms", "nccl_ms_per_pass",
                         "nccl_host_issue_ms", "cards_ms_per_pass",
-                        "cards_fit_s") if k in runs[0]]
+                        "cards_host_issue_ms", "cards_fit_s_deferred",
+                        "cards_fit_s_stored", "cards_fit_s_low_memory")
+            if k in runs[0]]
     prof_keys = ("host_issue_ms_per_pass", "wall_ms_per_pass",
-                 "device_busy_ms_per_pass", "other_ops_per_pass",
-                 "block_kernel_device_ms")
+                 "device_busy_ms_per_pass", "device_idle_share",
+                 "other_ops_per_pass", "block_kernel_device_ms")
 
     def mean(rs):
         m = {k: sum(r[k] for r in rs) / len(rs) for k in keys}
-        m.update({k: sum(r["pass_profile"][k] for r in rs) / len(rs)
-                  for k in prof_keys})
+        for pk in ("pass_profile", "cards_pass_profile"):
+            if pk in rs[0]:
+                m[pk] = {k: sum(r[pk][k] for r in rs) / len(rs)
+                         for k in prof_keys}
         m["readd_launches_per_pass"] = rs[0]["readd_launches_per_pass"]
         return m
     ptx = {name: (reports[0].get(name), reports[1].get(name))
@@ -2873,7 +3013,6 @@ def main() -> int:
     build.build_all()
     fe._kernel_lib()
     fe._block_lib()
-    fe._frame_readd_lib()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in build.build_log.values()
              for ln in log.splitlines()
@@ -2931,7 +3070,7 @@ def main() -> int:
              source=block_src, replaces=f"{pallas}:109", **minfo["k2"],
              library_ms=None),
         dict(name="frame_readd", route="cuda",
-             source="harmonypy_tpu_torch/csrc/frame_readd.cu",
+             source="harmonypy_tpu_torch/csrc/frame_readd.cuh",
              replaces=f"{pallas}:215", **minfo["readd"], library_ms=None)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -37,6 +37,7 @@ from . import engine
 from .config import (EngineConfig, auto_chunk_size, cell_tile_geom,
                      default_nclust, expected_skip_fraction,
                      fused_geometry_ok)
+from .ops.cuda.fused_estep import mesh_plans
 from .ops.partition import mesh_round_tables, partition_geometry
 from .ops.replay import round_r_windows, windows
 from .ops.update_r_fused import make_zp3
@@ -485,16 +486,17 @@ def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
     fast = engine.fast_ent(cfg)
     ids = local_shards(cfg.n_devices)
     out = torch.zeros((K, len(ids) * cfg.N_local))     # this process's cells
-    for lo, w in windows(one_device(cfg), budget=64 * 1024 * 1024):
-        Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w)
-        for i, (s, Rw) in enumerate(zip(ids, Rws)):
-            if Rw is None:
-                continue
-            l0, p0, n = ((lo, 0, w) if cfg.n_devices == 1
-                         else window_rows(geom, s, lo, w))
-            Rw = Rw[p0: p0 + n].to(cfg.r_torch_dtype).to(torch.float32)
-            c0 = i * cfg.N_local + l0 * CH
-            out[:, c0: c0 + n * CH] = Rw.permute(1, 0, 2).reshape(
-                K, n * CH).cpu()
-        state.n_passes += 1
+    with mesh_plans():      # the replays' plans, for these windows only
+        for lo, w in windows(one_device(cfg), budget=64 * 1024 * 1024):
+            Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w)
+            for i, (s, Rw) in enumerate(zip(ids, Rws)):
+                if Rw is None:
+                    continue
+                l0, p0, n = ((lo, 0, w) if cfg.n_devices == 1
+                             else window_rows(geom, s, lo, w))
+                Rw = Rw[p0: p0 + n].to(cfg.r_torch_dtype).to(torch.float32)
+                c0 = i * cfg.N_local + l0 * CH
+                out[:, c0: c0 + n * CH] = Rw.permute(1, 0, 2).reshape(
+                    K, n * CH).cpu()
+            state.n_passes += 1
     return unpad_cells(gather_cells(out, cfg).numpy(), cfg).T

@@ -11,7 +11,8 @@
 // from the previous block's rows with frame_sum. Only the last block of a
 // pass has no next launch: this kernel re-adds it, once per pass, and
 // writes the pass's O, E. The plain version is
-// harmonypy_tpu_torch/ops/update_r_fused.frame_readd.
+// harmonypy_tpu_torch/ops/update_r_fused.frame_readd. Its C entries and
+// the mesh pass that launches it are in fused_estep_block.cu.
 //
 // Thread (k, b) reads rank r's stats where the rank table says a shard
 // holds it (src = shard * Jmax + slot in that shard's block rows; -1: no
@@ -23,12 +24,14 @@
 // 11 ns at 3.35 TB/s; the launch's latency is the real cost, which is why
 // the mesh pass launches it once per pass and not once per block.
 
+#pragma once
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "frame_sum.cuh"
 
-namespace {
+namespace readd {
 
 constexpr int THREADS = 128;
 constexpr int MAX_SHARDS = 64;
@@ -58,6 +61,10 @@ __global__ void __launch_bounds__(THREADS)
   E[i] = __fadd_rn(Er[i], __fmul_rn(acc[0], prb[b]));
 }
 
+// A re-add launch prepared once: rows (S shards' (J_s, K, B+1) block rows
+// in slot order, J_s <= Jmax), src (nb, J_fix + 1) int32 (rank r of block
+// b held by shard s's slot j: s * Jmax + j, or -1; column J_fix is
+// scratch), Or, Er, O, E (K, B), prb (B), the stream and its device.
 struct ReaddCall {
   Rows rows;
   const int* src;
@@ -69,65 +76,14 @@ struct ReaddCall {
   cudaStream_t stream;
 };
 
-}  // namespace
-
-extern "C" {
-
-// Largest number of shards a launch takes.
-int frame_readd_max_shards() { return MAX_SHARDS; }
-
-// Bytes of the call record frame_readd_prepare writes.
-int frame_readd_call_size() { return (int)sizeof(ReaddCall); }
-
-// Prepare the re-adds of a pass into `call` (host memory of
-// frame_readd_call_size() bytes): rows (host array of S device pointers)
-// to each shard's (J_s, K, B+1) block rows in slot order (J_s <= Jmax);
-// src (nb, J_fix + 1) int32 (rank r of block b held by shard s's slot j:
-// s * Jmax + j, or -1; column J_fix is scratch); Or, Er, O, E (K, B); prb
-// (B); the launches go to `stream`. Returns 0 or a CUDA error.
-int frame_readd_prepare(const void* const* rows, int S, const int* src,
-                        int J_fix, int Jmax, const float* Or, const float* Er,
-                        const float* prb, float* O, float* E, int K, int B,
-                        int device, void* stream, void* call) {
-  if (S < 1 || S > MAX_SHARDS || call == nullptr)
-    return (int)cudaErrorInvalidValue;
-  ReaddCall* c = static_cast<ReaddCall*>(call);
-  for (int s = 0; s < S; ++s)
-    c->rows.p[s] = static_cast<const float*>(rows[s]);
-  c->src = src;
-  c->J_fix = J_fix;
-  c->Jmax = Jmax;
-  c->Or = Or;
-  c->Er = Er;
-  c->prb = prb;
-  c->O = O;
-  c->E = E;
-  c->K = K;
-  c->B = B;
-  c->device = device;
-  c->stream = (cudaStream_t)stream;
-  return 0;
+// Launch the re-add of block blk of c on the current device (c.device).
+// Returns 0 or the CUDA error of the launch.
+inline int launch(const ReaddCall& c, int blk) {
+  const int n = c.K * c.B;
+  frame_readd_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, c.stream>>>(
+      c.rows, c.src + (size_t)blk * (c.J_fix + 1), c.J_fix, c.Jmax, c.Or,
+      c.Er, c.prb, c.O, c.E, c.K, c.B);
+  return (int)cudaGetLastError();
 }
 
-// Launch the re-add of block blk of a prepared call, on its device (the
-// current device is restored after). Returns 0 or the CUDA error of the
-// launch.
-int frame_readd_launch(const void* call, int blk) {
-  const ReaddCall* c = static_cast<const ReaddCall*>(call);
-  const int n = c->K * c->B;
-  int prev = c->device, err = (int)cudaGetDevice(&prev);
-  if (err) return err;
-  if (prev != c->device && (err = (int)cudaSetDevice(c->device)) != 0)
-    return err;
-  frame_readd_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, c->stream>>>(
-      c->rows, c->src + (size_t)blk * (c->J_fix + 1), c->J_fix, c->Jmax,
-      c->Or, c->Er, c->prb, c->O, c->E, c->K, c->B);
-  err = (int)cudaGetLastError();
-  if (prev != c->device) {
-    const int e2 = (int)cudaSetDevice(prev);
-    if (!err) err = e2;
-  }
-  return err;
-}
-
-}  // extern "C"
+}  // namespace readd

@@ -1,5 +1,5 @@
 // The rank-ordered frame sum of a mesh block's re-add (sm_90a), shared by
-// the re-add kernel (frame_readd.cu) and the per-block entry's prologue
+// the re-add kernel (frame_readd.cuh) and the per-block entry's prologue
 // (fused_estep.cuh, FOLD), so both form O, E of a block start with the
 // same operations in the same order.
 //

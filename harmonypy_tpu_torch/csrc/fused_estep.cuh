@@ -82,7 +82,7 @@
 // slots' cache rows. The re-add of block b - 1 across shards is folded into
 // block b's prologue: every CTA of every shard forms the block's start from
 // the previous block's block-removed O', E' and every shard's rows of it
-// (frame_sum.cuh, the order and roundings of csrc/frame_readd.cu), as the
+// (frame_sum.cuh, the order and roundings of csrc/frame_readd.cuh), as the
 // one-launch round re-adds a block in the next block's prologue and the TPU
 // kernel in-grid (:215-221); the re-add kernel runs once per pass, after
 // the last block. Rows, O' and E' are double-buffered by block parity: a
@@ -649,7 +649,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   for (int blk = 0; blk < a.nb; ++blk) {
     // Prologue: O, E = the previous block's O', E' plus its block sums (the
     // round's input for block 0; FOLD with readd: O0, E0 plus the previous
-    // block's frame, each rounded as csrc/frame_readd.cu rounds them);
+    // block's frame, each rounded as csrc/frame_readd.cuh rounds them);
     // remove this block's cached stats; the diversity weights, split, as
     // the A operand of w = wdiv Phi.
     if constexpr (FOLD) {

@@ -67,7 +67,7 @@ from torch.profiler import record_function
 
 from .config import EngineConfig
 from .ops.cuda.fused_estep import (fused_estep, fused_estep_mesh,
-                                   fused_estep_r)
+                                   fused_estep_r, mesh_plans)
 from .ops.kmeans import kmeans_init
 from .ops.normalize import l2_normalize_cells, l2_normalize_cols
 from .ops.objective import (chunk_objective_partials,
@@ -190,7 +190,8 @@ def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
             buf.append(o)
     tot = frame_sum(caches, geom)                                # (K, B+1)
     E = tot[:, 0:1] * params.Pr_b[None, :]
-    O = tot[:, 1:]
+    # Contiguous, as every round's O: a mesh pass takes its O as it is.
+    O = tot[:, 1:].contiguous()
     ko = frame_sum(kbufs, geom) * (2000.0 / cfg.N)
     terms = (ko[0], ko[1], cross_entropy_from_stats(O, E, params, cfg))
     return O, E, terms, pack(caches), frame_sum(ybufs, geom)
@@ -498,16 +499,20 @@ class HarmonyStep:
 
     def __call__(self, st: HarmonyState) -> None:
         cfg = self.cfg
-        if cfg.defer_r:
-            if self.ZO3s is None:
-                geom = partition_geometry(cfg)
-                self.ZO3s = [z.reshape(cfg.d, geom.nc_cap + 1, geom.CH)
-                             .permute(1, 0, 2).contiguous()
-                             for z in parts(self.data.Z_orig)]
-            iterate(st, self.data, self.params, cfg, self.draw_blocks,
-                    self.ZO3s)
-        else:
-            iterate_stored(st, self.data, self.params, cfg, self.draw_blocks)
+        # The mesh passes' plans live through the iteration, or through
+        # the fit that holds a mesh_plans block around its steps.
+        with mesh_plans():
+            if cfg.defer_r:
+                if self.ZO3s is None:
+                    geom = partition_geometry(cfg)
+                    self.ZO3s = [z.reshape(cfg.d, geom.nc_cap + 1, geom.CH)
+                                 .permute(1, 0, 2).contiguous()
+                                 for z in parts(self.data.Z_orig)]
+                iterate(st, self.data, self.params, cfg, self.draw_blocks,
+                        self.ZO3s)
+            else:
+                iterate_stored(st, self.data, self.params, cfg,
+                               self.draw_blocks)
 
 
 def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
@@ -533,22 +538,27 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         st = init_stored(data, params, cfg, gen, init_Y)
 
     resumed = " (resumed)" if resume is not None else ""
-    for i in range(st.n_rounds + 1, cfg.max_iter_harmony + 1):
-        if st.converged:
-            break
-        if verbose:
-            logger.info(f"Iteration {i} of {cfg.max_iter_harmony}{resumed}")
-        step(st)
-        if checkpoint_dir is not None:
-            save_state(os.path.join(checkpoint_dir, f"harmony_iter_{i}.npz"),
-                       st, RngState(gen.get_state(), gen.device.type,
-                                    step.n_drawn), cfg)
-        if st.converged:
+    # One plan per mesh pass geometry for the whole fit (made on its first
+    # pass of that geometry, reused by every later one), none after it.
+    with mesh_plans():
+        for i in range(st.n_rounds + 1, cfg.max_iter_harmony + 1):
+            if st.converged:
+                break
             if verbose:
-                logger.info(f"Converged after {i} iteration"
-                            f"{'s' if i > 1 else ''}")
-            break
-    else:
-        if verbose:
-            logger.info("Stopped before convergence")
+                logger.info(f"Iteration {i} of {cfg.max_iter_harmony}"
+                            f"{resumed}")
+            step(st)
+            if checkpoint_dir is not None:
+                save_state(os.path.join(checkpoint_dir,
+                                        f"harmony_iter_{i}.npz"),
+                           st, RngState(gen.get_state(), gen.device.type,
+                                        step.n_drawn), cfg)
+            if st.converged:
+                if verbose:
+                    logger.info(f"Converged after {i} iteration"
+                                f"{'s' if i > 1 else ''}")
+                break
+        else:
+            if verbose:
+                logger.info("Stopped before convergence")
     return st

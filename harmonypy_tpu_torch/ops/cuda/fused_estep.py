@@ -15,16 +15,18 @@ block, the kernel's per-block entry on every shard (`_BlockLaunch`: block b
 of K1, of its r window or of K2, an ordinary launch of one CTA per unit,
 csrc/fused_estep_block.cu), whose prologue re-adds block b - 1 across the
 shards from every shard's rows of it; after the last block, the re-add
-kernel (csrc/frame_readd.cu, `_Readd`) on the lead device, once per pass.
-The inputs are checked and the scratch allocated once per pass; the block
-loop issues the launches and events and nothing else on one card (and the
-copies of the block rows between cards on several). Across processes each
-block's rows of the process's shards cross in one all-gather, and every
-rank's launches read the gathered rows. Its plain version is
+kernel (csrc/frame_readd.cuh, `_Readd`) on the lead device, once per pass.
+A plan (`_MeshPlan`) made once per pass geometry (`plan_key`) while a
+`mesh_plans` block is active (engine.fit holds one) holds the scratch, the
+streams, the events, the outputs and the pass's order (`pass_schedule`),
+and the whole pass is one native call that walks that order (across
+processes one per block, each followed by the block's all-gather, and one
+for the last re-add). Its plain version is
 `ops.update_r_fused.mesh_round` (per block `fused_update_block`, then
 `frame_readd`; one folded launch is `fused_update_block_folded`);
 `launches_block` (K1 and its r window), `launches_block_write_r` (K2) and
-`launches_readd` count the launches.
+`launches_readd` count the launches, `native_calls` the native calls and
+`plans_made` the plans.
 
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
@@ -32,13 +34,17 @@ units (runs of 64-cell tiles of one slot) and the shapes of the partials.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
+import weakref
 
 import torch
 
 from ...parallel.mesh import gatherer, spans_processes
+from ..partition import rank_table
 from ..update_r_fused import fused_update_nor, fused_update_r, mesh_round
 from . import build
 
@@ -47,6 +53,8 @@ launches_write_r = 0
 launches_block = 0
 launches_block_write_r = 0
 launches_readd = 0
+native_calls = 0     # mesh_plan_run calls (the native mesh pass)
+plans_made = 0       # mesh pass plans (_MeshPlan) made
 
 TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
@@ -54,7 +62,6 @@ UNITS_PER_SM = 2     # units per block aimed at for each SM
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
 _block = None
-_readd_lib = None
 
 
 def _up(x: int, m: int) -> int:
@@ -136,6 +143,8 @@ def _kernel_lib():
 
 
 def _block_lib():
+    """csrc/fused_estep_block.cu: the per-block entry, the re-add kernel
+    and the native mesh pass."""
     global _block
     if _block is None:
         lib = build.load("fused_estep_block")
@@ -144,26 +153,29 @@ def _block_lib():
             + [_I] * 9 + [_P, _I, _P])
         lib.fused_estep_block_launch.argtypes = [_P, _I, _I]
         lib.fused_estep_block_setup.argtypes = [_I, _I, _I]
-        for fn in (lib.fused_estep_block_prepare, lib.fused_estep_block_launch,
-                   lib.fused_estep_block_call_size,
-                   lib.fused_estep_block_setup):
-            fn.restype = _I
-        _block = lib
-    return _block
-
-
-def _frame_readd_lib():
-    global _readd_lib
-    if _readd_lib is None:
-        lib = build.load("frame_readd")
         lib.frame_readd_prepare.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P,
                                             _P, _P, _I, _I, _I, _P, _P]
         lib.frame_readd_launch.argtypes = [_P, _I]
-        for fn in (lib.frame_readd_prepare, lib.frame_readd_launch,
-                   lib.frame_readd_max_shards, lib.frame_readd_call_size):
+        lib.mesh_plan_create.argtypes = [_I, _P, _P, _P, _P, _I, _P, _P]
+        lib.mesh_plan_run.argtypes = [_P, _P, _I, _P, _I, _I]
+        lib.mesh_plan_destroy.argtypes = [_P]
+        lib.mesh_plan_layout.argtypes = [_P]
+        lib.mesh_plan_layout.restype = None
+        for fn in (lib.fused_estep_block_prepare, lib.fused_estep_block_launch,
+                   lib.fused_estep_block_call_size,
+                   lib.fused_estep_block_setup, lib.frame_readd_prepare,
+                   lib.frame_readd_launch, lib.frame_readd_max_shards,
+                   lib.frame_readd_call_size, lib.mesh_plan_create,
+                   lib.mesh_plan_run, lib.mesh_plan_destroy):
             fn.restype = _I
-        _readd_lib = lib
-    return _readd_lib
+        layout = (ctypes.c_int * 3)()
+        lib.mesh_plan_layout(layout)
+        want = (_OP_WIDTH, len(BLOCK_FIELDS), len(READD_FIELDS))
+        if tuple(layout) != want:
+            raise RuntimeError(f"fused_estep_block.cu's mesh plan layout "
+                               f"{tuple(layout)}, the wrapper's {want}")
+        _block = lib
+    return _block
 
 
 def launch_grid(K: int, B: int, d: int, r_bf16: bool = False) -> int:
@@ -270,24 +282,6 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     return O1, E1, cache, ybuf, kbuf
 
 
-def rank_table(granks, J_fix: int, jmax: int, device) -> torch.Tensor:
-    """The rank table of a pass's re-adds, (nb, J_fix + 1) int32 on
-    `device`: entry [b, r] codes the row that holds rank r of block b,
-    s * jmax + j for slot j of shard s (granks[s] (nb, J_s), J_s <= jmax,
-    the ranks of shard s's slots; J_fix: no rank), or -1 where no shard
-    holds rank r (a zero row). Column J_fix takes every slot without a
-    rank: scratch, never read. The per-block prologue (`_BlockLaunch`) and
-    the re-add kernel (`_Readd`) read it."""
-    nb = granks[0].shape[0]
-    src = torch.full((nb, J_fix + 1), -1, dtype=torch.int32, device=device)
-    for s, g in enumerate(granks):
-        code = (s * jmax + torch.arange(g.shape[1], dtype=torch.int32,
-                                        device=device))
-        src.scatter_(1, g.to(device, torch.int64).clamp_(0, J_fix),
-                     code.expand(nb, -1).contiguous())
-    return src
-
-
 def _check_pair(name, t, shape, device):
     """t: two float32 copies of `shape` by block parity, t[p] contiguous,
     apart (or a stride-0 pair: one buffer)."""
@@ -331,6 +325,9 @@ class _BlockLaunch:
                    dev)
         nb, J = slots.shape
         self.nb, self.write_r = nb, R3 is not None
+        self.zp3_shape, self.slots_shape = tuple(ZP3.shape), (nb, J)
+        self.r3_shape = None if R3 is None else tuple(R3.shape)
+        self.r3_dtype = None if R3 is None else R3.dtype
         self.folds = frame is not None
         if self.folds:
             _check_pair("frame", frame, (frame.shape[1], J, K, B + 1), dev)
@@ -405,6 +402,11 @@ class _BlockLaunch:
         """Block b's block-removed O, E (after launch(b))."""
         return self.O1[b & 1], self.E1[b & 1]
 
+    def release_inputs(self) -> None:
+        """Drop the inputs the record was prepared with (a mesh plan binds
+        each pass's own into its copy of the record); the scratch stays."""
+        self._keep = self.O0 = self.E0 = None
+
 
 class _Readd:
     """The re-add launches of a round on the lead device: rows[s] (J_s, K,
@@ -427,15 +429,15 @@ class _Readd:
         for name, t in (("Or", Or), ("Er", Er), ("O", O), ("E", E)):
             _check(name, t, (K, B), torch.float32, lead)
         _check("Pr_b", Pr_b, (B,), torch.float32, lead)
-        if len(rows) > _frame_readd_lib().frame_readd_max_shards():
+        if len(rows) > _block_lib().frame_readd_max_shards():
             raise ValueError(f"the re-add kernel takes at most "
-                             f"{_frame_readd_lib().frame_readd_max_shards()}"
+                             f"{_block_lib().frame_readd_max_shards()}"
                              f" shards, got {len(rows)}")
         jmax = max(r.shape[0] for r in rows)
         if src is None:
             src = rank_table(granks, J_fix, jmax, lead)
         _check("src", src, (nb, J_fix + 1), torch.int32, lead)
-        lib = _frame_readd_lib()
+        lib = _block_lib()
         # The rows' pointers go to the kernel by value, in the call record
         # prepared once: each launch passes the record and the block.
         ptrs = (ctypes.c_void_p * len(rows))(*[r.data_ptr() for r in rows])
@@ -452,6 +454,11 @@ class _Readd:
         # The kernel reads and writes these through the record's pointers.
         self._keep = (rows, src, Or, Er, Pr_b, O, E)
 
+    def release_inputs(self) -> None:
+        """Drop the tensors the record points at (a mesh plan holds the
+        rows and O', E' and binds each pass's src, Pr_b and O, E)."""
+        self._keep = None
+
     def launch(self, b: int) -> None:
         global launches_readd
         err = self._fn(self._call, b)
@@ -461,65 +468,463 @@ class _Readd:
         launches_readd += 1
 
 
-class _Exchange:
-    """The streams of a mesh pass and what crosses between cards at each
-    block. Shard 0 runs on the lead card's current stream (the lead
-    stream), which also runs the pass's last re-add; every other shard runs
-    on a stream of its own on its card, so the shards of one card run at
-    once. `start()` lets each side stream wait for its card's current
-    stream (the pass's inputs and scratch); `fork(b)` lets it wait for the
-    lead stream's work so far (every shard's block b - 1, joined) and
-    copies to a shard on another card the pass's O|E (b = 0) or the lead
-    card's frame of block b - 1; `join(b)` copies such a shard's block rows
-    into the lead card's frame and lets the lead stream wait for every
-    side stream; `end()` lets each card's current stream wait for its side
-    streams (the pass's outputs, and the reuse of its scratch). torch's
-    events and copies set each stream's device: the host never waits."""
-
-    def __init__(self, lead, shards, oe, frame, remote):
-        """shards: the `_BlockLaunch`es of shards 1..; oe: the lead card's
-        (2, K, B) O|E; frame: the lead card's (2, S, J, K, B+1) frame by
-        parity; remote: per shard None on the lead card, else (its O|E, its
-        copy of a block's frame, the lead card's (2, J, K, B+1) rows by
-        parity its own are copied into)."""
-        self.lead, self.oe, self.frame = (torch.cuda.current_stream(lead),
-                                          oe, frame)
-        self._fork_ev = torch.cuda.Event()
-        self._side = [(ln.stream, torch.cuda.Event(), ln.brows, r)
-                      for ln, r in zip(shards, remote)]
-
-    def start(self) -> None:
-        for st, *_ in self._side:
-            st.wait_stream(torch.cuda.current_stream(st.device))
-
-    def fork(self, b: int) -> None:
-        self._fork_ev.record(self.lead)
-        for st, _, _, r in self._side:
-            st.wait_event(self._fork_ev)
-            if r is not None:
-                with torch.cuda.stream(st):
-                    if b == 0:
-                        r[0].copy_(self.oe, non_blocking=True)
-                    else:
-                        r[1].copy_(self.frame[(b - 1) & 1],
-                                   non_blocking=True)
-
-    def join(self, b: int) -> None:
-        for st, ev, brows, r in self._side:
-            if r is not None:
-                with torch.cuda.stream(st):
-                    r[2][b & 1].copy_(brows[b & 1], non_blocking=True)
-            ev.record(st)
-            self.lead.wait_event(ev)
-
-    def end(self) -> None:
-        for st, *_ in self._side:
-            torch.cuda.current_stream(st.device).wait_stream(st)
-
-
 def _one_copy(t):
     """t as a parity pair of one buffer (stride 0)."""
     return t.expand(2, *t.shape)
+
+
+# ---- The mesh pass: a plan made once per pass geometry, one native call ----
+
+# The lead inputs of a pass that a shard on another card gets copies of.
+INPUTS = ("O", "E", "removal", "Y", "sigma", "theta", "Pr_b", "src")
+# The fields of a shard's per-block call record and of the re-add record
+# that the native pass binds at every pass, in csrc/fused_estep_block.cu's
+# order (F_*, R_*).
+BLOCK_FIELDS = ("ZP3", "Y", "sigma", "theta", "Pr_b", "removal", "slots",
+                "O", "E", "cache", "ybuf", "kbuf", "rw", "lo", "src",
+                "stream")
+READD_FIELDS = ("src", "Pr_b", "O", "E", "stream")
+_OP_CODES = dict(record=0, wait=1, copy=2, zero=3, launch=4, readd=5)
+_OP_WIDTH = 8
+
+
+def _stream(s: int, lead_card: int):
+    """The stream symbol of shard s: the lead card's current stream for
+    shard 0, a side stream of its own for every other shard."""
+    return ("cur", lead_card) if s == 0 else ("side", s)
+
+
+def pass_schedule(cards, nb: int, multi: bool = False, windowed=()):
+    """The order in which a mesh pass issues its work, as symbolic ops:
+    ("record", event, stream), ("wait", stream, event), ("copy", stream,
+    dst, src), ("zero", stream, buffer), ("launch", shard, block, readd),
+    ("readd", block) and ("gather", block) (across processes: the block's
+    all-gather, issued from Python between native calls). cards[s] is
+    shard s's card; shard 0 runs on the lead card's current stream
+    ("cur", cards[0]), every other shard on a stream of its own ("side",
+    s); windowed[s]: the shard returns an r window, zeroed first.
+
+    Start: each side stream waits for its card's current stream. Per block
+    b: the fork (the lead stream's event, each side stream waiting on it;
+    a shard on another card gets copies of the pass's lead inputs at b = 0,
+    else of the lead card's frame of block b - 1), one launch per shard
+    (b > 0: from block b - 1's re-add, folded into its prologue), the join
+    (such a shard's rows copied into the lead card's frame, its stream's
+    event, the lead stream waiting on it). After the last block: the
+    re-add launch on the lead stream, and the current stream of each other
+    card waits for its shards. The host never waits."""
+    S, lead = len(cards), cards[0]
+    side = range(1, S)
+    remote = [c != lead for c in cards]
+    ops = []
+    for c in dict.fromkeys(cards[s] for s in side):
+        ops.append(("record", ("start", c), ("cur", c)))
+        ops += [("wait", ("side", s), ("start", c)) for s in side
+                if cards[s] == c]
+    ops += [("zero", _stream(s, lead), ("Rw", s)) for s in range(S)
+            if s < len(windowed) and windowed[s]]
+    for b in range(nb):
+        if S > 1:
+            ops.append(("record", ("fork",), ("cur", lead)))
+        for s in side:
+            ops.append(("wait", ("side", s), ("fork",)))
+            if remote[s]:
+                if b == 0:
+                    ops += [("copy", ("side", s), ("r", x, s), ("in", x))
+                            for x in INPUTS]
+                else:
+                    ops.append(("copy", ("side", s), ("fcopy", s),
+                                ("frame", (b - 1) & 1)))
+        ops += [("launch", s, b, b > 0) for s in range(S)]
+        for s in side:
+            if remote[s]:
+                ops.append(("copy", ("side", s), ("rows", s, b & 1),
+                            ("brows", s)))
+            ops.append(("record", ("done", s), ("side", s)))
+            ops.append(("wait", ("cur", lead), ("done", s)))
+        if multi:
+            ops.append(("gather", b))
+    ops.append(("readd", nb - 1))
+    ops += [("wait", ("cur", cards[s]), ("done", s)) for s in side
+            if remote[s]]
+    return ops
+
+
+def plan_key(tables, ZP3s, Y, theta, O, fast_ent: bool, J_fix: int,
+             windows=None, R3s=None) -> tuple:
+    """What shapes a mesh pass: the lead and shard devices, the shards'
+    slabs, the mesh's shard count and whether it spans processes, the
+    blocks and slots, J_fix, d, K, B, the objective form, and the store (K1,
+    the r windows' widths, K2's R dtypes). Passes of one key share a
+    plan."""
+    S_all = len(tables.granks)
+    return (O.device, tuple(z.device for z in ZP3s),
+            tuple(tuple(z.shape) for z in ZP3s), S_all,
+            spans_processes(S_all), tuple(tables.removal.shape),
+            tuple(tables.slots[0].shape), J_fix, tuple(Y.shape),
+            theta.shape[0], bool(fast_ent),
+            None if windows is None else tuple(
+                None if w is None else w[1] for w in windows),
+            None if R3s is None else tuple(r.dtype for r in R3s))
+
+
+class _MeshPlan:
+    """Everything a mesh pass of one geometry (`plan_key`) needs that does
+    not change from pass to pass, made on its first pass: per shard the
+    per-block call record and its scratch (`_BlockLaunch`: unit partials,
+    tickets, the block-removed O', E' and block rows by block parity), the
+    lead card's frame (or, across processes, the send and gathered
+    buffers and their all-gather), the re-add record (`_Readd`), a side
+    stream for every shard after the first and the pass's events; for a
+    shard on another card its copies of the pass's lead inputs, of a
+    block's frame and its own rows; the outputs (per-chunk cache, ybuf,
+    kbuf rows per shard and O|E) twice, used by passes in turn, and each
+    windowed shard's r window; the pass's order (`pass_schedule`) as the
+    native walker's table, and the table P of values it reads.
+
+    `run` checks the pass's inputs, writes their pointers (and the output
+    set's, and the cards' current streams) into P and issues the pass in
+    one native call (across processes one per block, each followed by the
+    block's all-gather, and one for the last re-add): no allocation, no
+    new stream, no host wait. Its results are views of the plan's
+    buffers: a pass's per-chunk rows and O, E stay valid through the next
+    pass of the plan, its r windows until then.
+
+    On CPU shards the plan holds its buffers, order and bindings only (no
+    native call: the CPU runs `mesh_round`); `cards` (default: the shards'
+    card indices) lets a test lay a CPU mesh out as several cards."""
+
+    def __init__(self, tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
+                 fast_ent: bool, J_fix: int, windows, R3s, src, cards=None):
+        global plans_made
+        lead = O.device
+        S, S_all = len(ZP3s), len(tables.granks)
+        K, d, B = Y.shape[1], Y.shape[0], theta.shape[0]
+        nb, J = tables.removal.shape[0], tables.slots[0].shape[1]
+        if ZP3s[0].device != lead:
+            raise ValueError(f"shard 0 lies on {ZP3s[0].device}, the pass's "
+                             f"lead device (of O) is {lead}")
+        self.cards = list(cards or [z.device.index or 0 for z in ZP3s])
+        self.lead, self.nb, self.S, self.J_fix = lead, nb, S, J_fix
+        self.K, self.B, self.d = K, B, d
+        self.multi = spans_processes(S_all)
+        self.write_r = R3s is not None
+        windowed = [windows is not None and windows[s] is not None
+                    for s in range(S)]
+        cuda = lead.type == "cuda"
+        row, f32 = (J, K, B + 1), dict(dtype=torch.float32)
+        fixed = {("null",): 0}
+        if self.multi:
+            send = torch.zeros((S,) + row, device=lead, **f32)
+            gathered = torch.zeros((S_all,) + row, device=lead, **f32)
+            frame = _one_copy(gathered)
+            lead_rows = [_one_copy(send[s]) for s in range(S)]
+            self.gather = gatherer(gathered, send)
+        else:
+            frame = torch.zeros((2, S) + row, device=lead, **f32)
+            lead_rows = [frame[:, s] for s in range(S)]
+            self.gather = None
+        for q in (0, 1):
+            fixed["frame", q] = frame[q]
+            for s in range(S):
+                fixed["rows", s, q] = lead_rows[s][q]
+        # Rows of chunks no slot holds (a shard's padding) are never
+        # written: they stay the zeros of these first writes.
+        self.ring = [dict(out=[tuple(torch.zeros(shape, device=z.device,
+                                                 **f32) for shape in (
+            (z.shape[0], K, B + 1), (z.shape[0], K, d), (z.shape[0], 2)))
+            for z in ZP3s], OE=torch.zeros((2, K, B), device=lead, **f32))
+            for _ in range(2)]
+        self.parity = 0
+        lead_in = dict(O=O.contiguous(), E=E.contiguous(),
+                       removal=tables.removal, Y=Y, sigma=sigma, theta=theta,
+                       Pr_b=Pr_b, src=src)
+        self.binding, self.Rws, self._side, self.launchers = [], [], {}, []
+        for s, ZP3 in enumerate(ZP3s):
+            dev = ZP3.device
+            Rw = (torch.zeros((windows[s][1], K, ZP3.shape[2]), device=dev,
+                              **f32) if windowed[s] else None)
+            self.Rws.append(Rw)
+            if Rw is not None:
+                fixed["Rw", s] = Rw
+            bind = dict(ZP3=("ZP3", s), slots=("slots", s),
+                        cache=("out", "cache", s), ybuf=("out", "ybuf", s),
+                        kbuf=("out", "kbuf", s), lo=("lo", s),
+                        rw=(("R3", s) if R3s is not None else ("Rw", s)
+                            if Rw is not None else ("null",)),
+                        stream=_stream(s, self.cards[0]))
+            if self.cards[s] != self.cards[0]:
+                ins = {x: torch.empty(t.shape, dtype=t.dtype, device=dev)
+                       for x, t in lead_in.items()}
+                for x, t in ins.items():
+                    fixed["r", x, s] = t
+                    bind[x] = ("r", x, s)
+                fixed["fcopy", s] = torch.empty(frame.shape[1:], device=dev,
+                                                **f32)
+                fixed["brows", s] = torch.empty(row, device=dev, **f32)
+                fr, br = _one_copy(fixed["fcopy", s]), _one_copy(
+                    fixed["brows", s])
+            else:
+                ins = lead_in
+                bind.update({x: ("in", x) for x in INPUTS})
+                fr, br = frame, lead_rows[s]
+            self.binding.append(bind)
+            if not cuda:
+                continue
+            if s:
+                self._side["side", s] = torch.cuda.Stream(device=dev)
+            ln = _BlockLaunch(
+                tables.slots[s], ins["removal"], ZP3, ins["Y"], ins["sigma"],
+                ins["theta"], ins["Pr_b"], ins["O"], ins["E"], fast_ent,
+                self.ring[0]["out"][s], J_fix + 1, Rw,
+                windows[s][0] if windowed[s] else 0,
+                None if R3s is None else R3s[s], self._side.get(("side", s)),
+                brows=br, frame=fr, src=ins["src"], J_fix=J_fix)
+            ln.release_inputs()
+            self.launchers.append(ln)
+        self.readd_binding = dict(src=("in", "src"), Pr_b=("in", "Pr_b"),
+                                  O=("out", "O"), E=("out", "E"),
+                                  stream=("cur", self.cards[0]))
+        self.schedule = pass_schedule(self.cards, nb, self.multi, windowed)
+        self.fixed = fixed
+        self._encode()
+        plans_made += 1
+        if not cuda:
+            return
+        last = (nb - 1) & 1
+        OE = self.ring[0]["OE"]
+        self.readd = _Readd(list(frame[last].unbind(0)), tables.granks,
+                            *self.launchers[0].removed(last),
+                            lead_in["Pr_b"], J_fix, OE[0], OE[1], src=src)
+        self.readd.release_inputs()
+        self._create()
+
+    def _encode(self) -> None:
+        """Index every symbol the schedule and the bindings name into P,
+        and the schedule into the walker's table (ops) and its segments."""
+        lead = self.cards[0]
+        index, events = {}, {}
+
+        def slot(sym):
+            return index.setdefault(sym, len(index))
+
+        def dev_of(sym):
+            kind = sym[0]
+            if kind == "cur":
+                return sym[1]
+            if kind == "side":
+                return self.cards[sym[1]]
+            if kind in ("in", "out"):
+                return lead if kind == "in" or len(sym) == 2 else \
+                    self.cards[sym[2]]
+            if kind in ("ZP3", "slots", "R3", "lo", "Rw", "fcopy", "brows"):
+                return self.cards[sym[1]]
+            if kind == "r":
+                return self.cards[sym[2]]
+            return lead         # frame, rows, null
+        for bind in self.binding:
+            for f in BLOCK_FIELDS:
+                slot(bind[f])
+        for f in READD_FIELDS:
+            slot(self.readd_binding[f])
+        rows, segments, begin = [], [], 0
+        for op in self.schedule:
+            kind = op[0]
+            code = [0] * _OP_WIDTH
+            code[0] = _OP_CODES.get(kind, -1)
+            if kind == "record":
+                ev = events.setdefault(op[1], (len(events), dev_of(op[2])))
+                if ev[1] != dev_of(op[2]):
+                    raise ValueError(f"event {op[1]} recorded on two cards")
+                code[1:4] = ev[0], slot(op[2]), dev_of(op[2])
+            elif kind == "wait":
+                code[1:4] = slot(op[1]), events[op[2]][0], dev_of(op[1])
+            elif kind == "copy":
+                st, dst, src = op[1:]
+                code[1:8] = (slot(st), dev_of(st), slot(dst), dev_of(dst),
+                             slot(src), dev_of(src), self._nbytes(dst))
+            elif kind == "zero":
+                code[1:5] = (slot(op[1]), dev_of(op[1]), slot(op[2]),
+                             self._nbytes(op[2]))
+            elif kind == "launch":
+                code[1:4] = op[1], op[2], int(op[3])
+            elif kind == "readd":
+                code[1] = op[1]
+            elif kind == "gather":
+                segments.append((begin, len(rows), True))
+                begin = len(rows)
+                continue
+            rows.append(code)
+        segments.append((begin, len(rows), False))
+        self.index = index
+        self.events = [dv for _, dv in sorted(events.values())]
+        self.ops = rows
+        # Per segment: (begin, end, gather after it, per-block launches,
+        # re-add launches).
+        self.segments = [
+            (b, e, g, sum(r[0] == _OP_CODES["launch"] for r in rows[b:e]),
+             sum(r[0] == _OP_CODES["readd"] for r in rows[b:e]))
+            for b, e, g in segments]
+        self._pass_slots = [(i, sym) for sym, i in index.items()
+                            if sym not in self.fixed and sym[0] != "side"]
+
+    def _nbytes(self, sym) -> int:
+        t = self.fixed[sym]
+        return t.numel() * t.element_size()
+
+    def _create(self) -> None:
+        """The native plan: the call records, bindings and events; P with
+        the fixed values."""
+        lib = _block_lib()
+        n = len(self.index)
+        self.P = (ctypes.c_longlong * n)()
+        for sym, i in self.index.items():
+            if sym in self.fixed:
+                self.P[i] = _value(self.fixed[sym])
+            elif sym in self._side:
+                self.P[i] = self._side[sym].cuda_stream
+        self._ops = (ctypes.c_longlong * (len(self.ops) * _OP_WIDTH))(
+            *[v for r in self.ops for v in r])
+        calls = (ctypes.c_void_p * self.S)(
+            *[ctypes.addressof(ln._call) for ln in self.launchers])
+        bind = (ctypes.c_int * (self.S * len(BLOCK_FIELDS)))(
+            *[self.index[b[f]] for b in self.binding for f in BLOCK_FIELDS])
+        rbind = (ctypes.c_int * len(READD_FIELDS))(
+            *[self.index[self.readd_binding[f]] for f in READD_FIELDS])
+        evdev = (ctypes.c_int * max(1, len(self.events)))(*self.events)
+        handle = ctypes.c_void_p()
+        err = lib.mesh_plan_create(self.S, calls, bind,
+                                   ctypes.addressof(self.readd._call), rbind,
+                                   len(self.events), evdev,
+                                   ctypes.byref(handle))
+        if err != 0:
+            raise RuntimeError(f"mesh_plan_create failed: CUDA error {err}")
+        self._handle = handle.value
+        self._free = weakref.finalize(self, lib.mesh_plan_destroy,
+                                      self._handle)
+        self._cur = {c: torch.device("cuda", c) for c in set(self.cards)}
+
+    def values(self, tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows,
+               R3s, src) -> dict:
+        """The pass's symbols: its inputs, the output set in turn and the
+        cards' current streams (zero on the CPU)."""
+        out = self.ring[self.parity]
+        v = {("in", "O"): O, ("in", "E"): E, ("in", "removal"):
+             tables.removal, ("in", "Y"): Y, ("in", "sigma"): sigma,
+             ("in", "theta"): theta, ("in", "Pr_b"): Pr_b, ("in", "src"): src,
+             ("out", "O"): out["OE"][0], ("out", "E"): out["OE"][1]}
+        for s, ZP3 in enumerate(ZP3s):
+            v["ZP3", s], v["slots", s] = ZP3, tables.slots[s]
+            v["lo", s] = (0 if windows is None or windows[s] is None
+                          else windows[s][0])
+            if R3s is not None:
+                v["R3", s] = R3s[s]
+            for name, t in zip(("cache", "ybuf", "kbuf"), out["out"][s]):
+                v["out", name, s] = t
+        for c in set(self.cards):
+            v["cur", c] = (torch.cuda.current_stream(self._cur[c]).cuda_stream
+                           if self.lead.type == "cuda" else 0)
+        return v
+
+    def tensor(self, sym, values: dict):
+        """What a symbol names in a pass with these values."""
+        return self.fixed[sym] if sym in self.fixed else values[sym]
+
+    def _check(self, tables, ZP3s, Y, sigma, theta, Pr_b, O, E, R3s, src):
+        """The pass's inputs against the plan's first: the native pass reads
+        them through the shapes and layouts the plan was made for."""
+        lead, f32 = self.lead, torch.float32
+        K, B, d = self.K, self.B, self.d
+        for name, t, shape, dtype in (
+                ("O", O, (K, B), f32), ("E", E, (K, B), f32),
+                ("removal", tables.removal, (self.nb, K, B + 1), f32),
+                ("Y", Y, (d, K), f32), ("sigma", sigma, (K,), f32),
+                ("theta", theta, (B,), f32), ("Pr_b", Pr_b, (B,), f32),
+                ("src", src, (self.nb, self.J_fix + 1), torch.int32)):
+            _check(name, t, shape, dtype, lead)
+        for s, ln in enumerate(self.launchers):
+            dev = ln.device
+            _check(f"ZP3s[{s}]", ZP3s[s], ln.zp3_shape, f32, dev)
+            if ZP3s[s].data_ptr() % 16:
+                raise ValueError("fused_estep copies the slab in 16-byte "
+                                 "pieces: ZP3 must be 16-byte aligned")
+            _check(f"slots[{s}]", tables.slots[s], ln.slots_shape,
+                   torch.int32, dev)
+            if R3s is not None:
+                _check(f"R3s[{s}]", R3s[s], ln.r3_shape, ln.r3_dtype, dev)
+
+    def run(self, tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows, R3s,
+            src):
+        """One pass (the results of `fused_estep_mesh`)."""
+        global launches_block, launches_block_write_r, launches_readd
+        global native_calls
+        O, E = O.contiguous(), E.contiguous()
+        self._check(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, R3s, src)
+        v = self.values(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows,
+                        R3s, src)
+        for i, sym in self._pass_slots:
+            self.P[i] = _value(v[sym])
+        fn = _block_lib().mesh_plan_run
+        for begin, end, gather, n_block, n_readd in self.segments:
+            err = fn(self._handle, self.P, len(self.index), self._ops,
+                     begin, end)
+            native_calls += 1
+            if err != 0:
+                raise RuntimeError(f"mesh pass failed: CUDA error {err}")
+            if self.write_r:
+                launches_block_write_r += n_block
+            else:
+                launches_block += n_block
+            launches_readd += n_readd
+            if gather:
+                self.gather()
+        out = self.ring[self.parity]
+        self.parity ^= 1
+        return (out["OE"][0], out["OE"][1], [o[0] for o in out["out"]],
+                [o[1] for o in out["out"]], [o[2] for o in out["out"]],
+                list(self.Rws))
+
+
+def _value(x) -> int:
+    return x.data_ptr() if isinstance(x, torch.Tensor) else int(x)
+
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_plans():
+    """Keep the mesh passes' plans (`_MeshPlan`, one per `plan_key`) while
+    the block runs, and drop them at its end: engine.fit holds one around
+    a fit, so a fit's passes after its first of each geometry reuse their
+    plan, and no plan outlives its fit. Nested, the outermost block owns
+    them. Outside any, each pass makes a plan of its own (fresh outputs,
+    the same bits)."""
+    if getattr(_scope, "plans", None) is not None:
+        yield _scope.plans
+        return
+    _scope.plans = {}
+    try:
+        yield _scope.plans
+    finally:
+        _scope.plans = None
+
+
+def plan_for(key, make):
+    """The active `mesh_plans` block's plan of `key`, made by make() on its
+    first use; outside a block a new one each call."""
+    plans = getattr(_scope, "plans", None)
+    plan = None if plans is None else plans.get(key)
+    if plan is None:
+        plan = make()
+        if plans is not None:
+            plans[key] = plan
+    return plan
+
+
+def active_plans() -> dict:
+    """The plans of the active `mesh_plans` block, by key ({} outside)."""
+    return dict(getattr(_scope, "plans", None) or {})
 
 
 def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
@@ -528,29 +933,29 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     K2), with the signature and results of `ops.update_r_fused.mesh_round`,
     its plain version, which CPU shards run.
 
-    On CUDA shards: per shard a `_BlockLaunch` (checks and scratch once per
-    pass). Block 0 of every shard starts from O, E; block b > 0 starts from
-    block b - 1's re-add, which each launch's prologue forms from its own
+    On CUDA shards the pass runs from its plan (`_MeshPlan`, by
+    `plan_key`: the active `mesh_plans` block's, made on its first pass of
+    that geometry; outside one, a plan of its own) in one native call
+    (csrc/fused_estep_block.cu `mesh_plan_run`) that walks `pass_schedule`:
+    block 0 of every shard starts from O, E; block b > 0 starts from block
+    b - 1's re-add, which each launch's prologue forms from its own
     block-removed O', E' of block b - 1 and the lead card's frame of block
     b - 1 (every shard's rows, written there by the launches, by block
     parity: shard t's launch b may write its rows while shard s's launch
     b still reads t's rows of block b - 1). After the last block one
-    re-add launch (`_Readd`) writes the pass's O, E. Per block: the
-    exchange's fork, one launch per shard and its join (`_Exchange`: a
-    stream for each shard after the first, events, and for a shard on
-    another card the copies of the frame and of its rows; the host never
-    waits).
+    re-add launch writes the pass's O, E. The host never waits.
 
     Across processes (parallel.mesh.spans_processes) the process's shards
     write their block rows into one send buffer on the lead card, and per
-    block, after the join, one all-gather moves every rank's rows into a
-    gathered buffer allocated once per pass, which is the frame the next
-    block's launches read: it is overwritten only by the next all-gather,
-    after those launches are joined, so it needs one copy. Every rank
-    launches the last re-add from the gathered rows, so no rank broadcasts
-    O, E. Under NCCL the all-gather orders itself on the lead card's
-    current stream and the host does not wait; under gloo the rows are
-    staged through the host (parallel.mesh.gatherer)."""
+    block, after the join, one all-gather moves every rank's rows into the
+    gathered buffer, which is the frame the next block's launches read:
+    it is overwritten only by the next all-gather, after those launches
+    are joined, so it needs one copy. The pass is then one native call per
+    block, each followed by the block's all-gather, and one for the last
+    re-add, which every rank launches from the gathered rows, so no rank
+    broadcasts O, E. Under NCCL the all-gather orders itself on the lead
+    card's current stream and the host does not wait; under gloo the rows
+    are staged through the host (parallel.mesh.gatherer)."""
     lead = O.device
     if lead.type == "cpu":
         for s, ZP3 in enumerate(ZP3s):
@@ -558,72 +963,16 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
                          theta, Pr_b, O, E)
         return mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
                           fast_ent, J_fix, windows, R3s)
-    K, d, B = Y.shape[1], Y.shape[0], theta.shape[0]
-    nb, J = tables.removal.shape[0], tables.slots[0].shape[1]
-    row, f32 = (J, K, B + 1), dict(dtype=torch.float32)
-    multi = spans_processes(len(tables.granks))
-    if multi:
-        send = torch.empty((len(ZP3s),) + row, device=lead, **f32)
-        gathered = torch.empty((len(tables.granks),) + row, device=lead,
-                               **f32)
-        frame = _one_copy(gathered)
-    else:
-        frame = torch.empty((2, len(ZP3s)) + row, device=lead, **f32)
-    src = rank_table([g.to(lead) for g in tables.granks], J_fix, J, lead)
-    # O|E at the pass's start and, after the last re-add, at its end (one
-    # buffer, so one copy reaches a shard on another card).
-    OE = torch.stack([O, E])
-    shards, remote, outs, Rws = [], [], [], []
-    for s, ZP3 in enumerate(ZP3s):
-        dev, nc1, CH = ZP3.device, ZP3.shape[0], ZP3.shape[2]
-        out = (torch.zeros((nc1, K, B + 1), device=dev, **f32),
-               torch.zeros((nc1, K, d), device=dev, **f32),
-               torch.zeros((nc1, 2), device=dev, **f32))
-        win = None if windows is None else windows[s]
-        Rw = (None if win is None
-              else torch.zeros((win[1], K, CH), device=dev, **f32))
-        # The shard's rows on the lead card: in the send buffer across
-        # processes, else in the frame.
-        lead_rows = _one_copy(send[s]) if multi else frame[:, s]
-        if dev == lead:
-            r, OEs, brows, fr, srcs = None, OE, lead_rows, frame, src
-        else:
-            # Its own O|E, rows and frame copy, each one buffer: the join
-            # copies its rows out, the fork the frame in, on its stream.
-            OEs = torch.empty_like(OE, device=dev)
-            fcopy = torch.empty(frame.shape[1:], device=dev, **f32)
-            r = (OEs, fcopy, lead_rows)
-            brows = _one_copy(torch.empty(row, device=dev, **f32))
-            fr, srcs = _one_copy(fcopy), src.to(dev)
-        ln = _BlockLaunch(
-            tables.slots[s], tables.removal.to(dev), ZP3, Y.to(dev),
-            sigma.to(dev), theta.to(dev), Pr_b.to(dev), OEs[0], OEs[1],
-            fast_ent, out, J_fix + 1, Rw, 0 if win is None else win[0],
-            None if R3s is None else R3s[s],
-            torch.cuda.Stream(device=dev) if s else None, brows=brows,
-            frame=fr, src=srcs, J_fix=J_fix)
-        remote.append(r)
-        shards.append(ln)
-        outs.append(out)
-        Rws.append(Rw)
-    exchange = _Exchange(lead, shards[1:], OE, frame, remote[1:])
-    gather = gatherer(gathered, send) if multi else None
-    last = (nb - 1) & 1
-    readd = _Readd(list(frame[last].unbind(0)), tables.granks,
-                   *shards[0].removed(last), Pr_b.contiguous(), J_fix,
-                   OE[0], OE[1], src=src)
-    exchange.start()
-    for b in range(nb):
-        exchange.fork(b)
-        for ln in shards:
-            ln.launch(b, b > 0)
-        exchange.join(b)
-        if multi:
-            gather()
-    readd.launch(nb - 1)
-    exchange.end()
-    return (OE[0], OE[1], [o[0] for o in outs], [o[1] for o in outs],
-            [o[2] for o in outs], Rws)
+    src = tables.src
+    if src is None or src.device != lead:
+        src = rank_table(tables.granks, J_fix, tables.slots[0].shape[1],
+                         lead)
+    plan = plan_for(
+        plan_key(tables, ZP3s, Y, theta, O, fast_ent, J_fix, windows, R3s),
+        lambda: _MeshPlan(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
+                          fast_ent, J_fix, windows, R3s, src))
+    return plan.run(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows, R3s,
+                    src)
 
 
 def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,

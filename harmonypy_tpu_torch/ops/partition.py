@@ -30,7 +30,7 @@ through `iid_blocks_from_draw`.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -222,10 +222,31 @@ class MeshTables(NamedTuple):
     """round_tables on a mesh: per shard of this process its slots (int32)
     on the shard's device, per shard of the whole mesh (every process's)
     its within-block ranks on the lead device (the re-add reads every
-    shard's rows), and the replicated removal stats on the lead device."""
+    shard's rows), the replicated removal stats on the lead device, and
+    the re-adds' `rank_table` of the ranks on the lead device (None on one
+    device)."""
     slots: list
     granks: list
     removal: torch.Tensor
+    src: Optional[torch.Tensor] = None
+
+
+def rank_table(granks, J_fix: int, jmax: int, device) -> torch.Tensor:
+    """The rank table of a pass's re-adds, (nb, J_fix + 1) int32 on
+    `device`: entry [b, r] codes the row that holds rank r of block b,
+    s * jmax + j for slot j of shard s (granks[s] (nb, J_s), J_s <= jmax,
+    the ranks of shard s's slots; J_fix: no rank), or -1 where no shard
+    holds rank r (a zero row). Column J_fix takes every slot without a
+    rank: scratch, never read. The mesh pass's per-block prologue and its
+    re-add kernel read it (ops/cuda/fused_estep.py)."""
+    nb = granks[0].shape[0]
+    src = torch.full((nb, J_fix + 1), -1, dtype=torch.int32, device=device)
+    for s, g in enumerate(granks):
+        code = (s * jmax + torch.arange(g.shape[1], dtype=torch.int32,
+                                        device=device))
+        src.scatter_(1, g.to(device, torch.int64).clamp_(0, J_fix),
+                     code.expand(nb, -1).contiguous())
+    return src
 
 
 def mesh_round_tables(blocks, caches, geom: PartitionGeometry,
@@ -249,7 +270,8 @@ def mesh_round_tables(blocks, caches, geom: PartitionGeometry,
         if s in mine:
             dev = devices[s - mine[0]]
             slots.append(sl.to(device=dev, dtype=torch.int32).contiguous())
-    return MeshTables(slots, granks, removal.contiguous())
+    return MeshTables(slots, granks, removal.contiguous(), rank_table(
+        granks, geom.J_fix, geom.J_shard, removal.device))
 
 
 def frame_rows(vals, geom: PartitionGeometry) -> torch.Tensor:

@@ -76,10 +76,11 @@ def block_core(O, E, rem_b, slots_b, ZP3, Y, sigma, theta, Pr_b):
     g = ZP3[slots_b]                                            # (J, 1+B+d, CH)
     pb = g[:, 1:B1, :]
     zb = g[:, B1:, :]
-    dist = 2.0 * (1.0 - torch.einsum("dk,jdc->jkc", Y, zb))    # (J, K, CH)
+    J = zb.shape[0]
+    dist = 2.0 * (1.0 - torch.bmm(Y.T.expand(J, -1, -1), zb))  # (J, K, CH)
     s = torch.exp(-dist / sigma[None, :, None])
     den = torch.sum(s, dim=1, keepdim=True)
-    r = (s / den) * torch.einsum("kb,jbc->jkc", wdiv, pb)       # dummy -> 0
+    r = (s / den) * torch.bmm(wdiv.expand(J, -1, -1), pb)      # dummy -> 0
     den_r = torch.clamp_min(torch.sum(r, dim=1, keepdim=True), CLAMP)
     r = r / den_r
     logdd = (torch.log(den) + torch.log(den_r))[:, 0, :]        # (J, CH)
@@ -196,7 +197,7 @@ def fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
 def frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
     """Re-add one block across the shards of a mesh (the JAX package's
     `_block_readd`, ops/update_r_fused_xla.py:104-114) — the plain version
-    of the re-add kernel (csrc/frame_readd.cu, `ops.cuda.fused_estep.
+    of the re-add kernel (csrc/frame_readd.cuh, `ops.cuda.fused_estep.
     _Readd`). rows[s] (J_s, K, B+1) are shard s's block stats in
     slot order and granks[s] (J_s,) their within-block ranks (J_fix: no
     rank). The rows go to the (J_fix, K, B+1) rank frame on the device of

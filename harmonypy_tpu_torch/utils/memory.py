@@ -82,6 +82,11 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         units = kernel_geometry(K, B, d, CH, J, _SMS, geom.J_fix + 1).n_units
         persistent["chunk caches"] = c * nc1 * K * (
             2 * (B + 1) + 2 * d + 2 + (B + 1) * (B + 1 + d)) * _F
+        if mesh and cfg.defer_r:
+            # The replays' mesh plan holds two output sets of its own
+            # (ops/cuda/fused_estep._MeshPlan).
+            persistent["replay plan outputs"] = c * nc1 * 2 * (
+                K * (B + 1 + d) + 2) * _F
         slab = c * 2 * (1 + B + d) * Nl * _F  # ZP3 and the copy that builds it
         # Unit partials: one round's two block parities on one device, one
         # block's on each shard of a mesh.
