@@ -15,14 +15,19 @@ line per phase:
               of estep_round, the re-add kernel), and ptxas's lines;
      device   the card (nvidia-smi name and power limit), torch/CUDA
               versions, the kernel build time;
+  Every kernel phase runs both variants of the kernels' products:
+  matmul_precision "float32" (3xTF32, held at TOL) and "default" (one
+  bf16 pass, held against the one-pass plain version at RHO's derived
+  bounds, below).
   2. kernel   the deferred-R E-step kernel K1 against its plain PyTorch
               version at the full 858,000 x 29 PCs, K=100, B=3, CH=2048
               shape (data made from a seed as bench.py makes it): one round
-              and one r-window replay, tolerances below, bitwise repeat,
-              and the replay's per-chunk stats equal to the round's cache
-              bitwise; ms per round by CUDA events and by the profiler's
-              kernel time, launches per round (1), both bounds and the
-              roofline shares;
+              and one r-window replay, bitwise repeat, and the replay's
+              per-chunk stats equal to the round's cache bitwise; ms per
+              round by CUDA events and by the profiler's kernel time,
+              launches per round (1), both bounds and the roofline shares;
+              the one-pass r window of every chunk timed; the one-pass
+              outputs' distance from the 3xTF32 ones (no gate);
   2b. kernel2 the stored-R kernel K2 (write_r) on the same round inputs,
               fp32 and bf16 R: against its plain version, its stats and fp32
               r equal to K1's round and r window bitwise, its bf16 R equal
@@ -32,15 +37,17 @@ line per phase:
               {7, 100, 200, 280}, d in {5, 30, 50}, B in {1, 3, 5}, CH in
               {128, 2048}), both objective forms;
   3. fit      run_harmony on that data on the card, default parameters (the
-              deferred-R fit): wall clock of 3 fits after a warm-up fit,
-              peak device memory, k-means rounds, objective, and the kernel
+              deferred-R fit, the one-pass K1) and under "float32", in
+              turns: wall clock of 3 fits each after a warm-up fit, peak
+              device memory, k-means rounds, objective, and the kernel
               launch count, which must be one per E-step pass the engine
-              ran;
+              ran, every one of the fit's variant;
   3b. fit_stored  the stored-R fits (defer_r=False, in fp32 and with
-              low_memory=True) on that data: the same numbers, K2 launches
-              = k-means rounds; then the stored fit against the deferred fit
-              of the same seed, every round run, at the JAX package's
-              tolerances for its two paths (tests/test_defer.py:62-76);
+              low_memory=True; and fp32 under "float32") on that data: the
+              same numbers, K2 launches = k-means rounds; then the stored
+              fit against the deferred fit of the same seed, every round
+              run, under each precision, at the JAX package's tolerances
+              for its two paths (tests/test_defer.py:62-76);
   3c. profile one deferred and one stored fit under torch.profiler: device
               busy time by kernel, the device's idle share, and the host and
               device spans of the engine's ranges (harmony::init,
@@ -54,8 +61,9 @@ line per phase:
               around a pbmc fit names the estep_round kernel;
   3e. io      the native TSV parser on pbmc_3500_pcs.tsv.gz: bitwise at 1
               and all threads, equal to pandas, both parse times;
-  4. golden   pbmc_3500 with chunk_size=128 on the card: per-PC Pearson r
-              against the R package's output >= 0.99;
+  4. golden   pbmc_3500 with chunk_size=128 on the card, under each
+              precision: per-PC Pearson r against the R package's output
+              >= 0.99;
   4b. golden_default  pbmc_3500 at default settings (the per-cell fit) and
               with chunk_size=128, defer_r=False (the stored fit, K2): min
               per-PC r >= 0.99 each;
@@ -83,7 +91,9 @@ line per phase:
               J_shard 7): the kernel's per-block entry on the round of
               phase kernel cut into shards — each shard's rows equal the
               one-launch round's bitwise, against its plain version at TOL
-              (no r, r window, K2 fp32 / bf16), a bitwise repeat, the
+              (no r, r window, K2 fp32 / bf16; each precision, and the
+              one-pass rows and mesh round equal to the one-pass round's
+              bitwise), a bitwise repeat, the
               re-add kernel bitwise against frame_readd, the mesh round
               (every shard and block, the re-add of block b - 1 folded
               into block b's launches, the re-add kernel after the last
@@ -97,7 +107,8 @@ line per phase:
               bounds, one native call per pass, one profiled pass (host
               and device ms, kernel ms per block, the other device
               operations, one re-add per pass);
-              the deferred, stored and low_memory fits bitwise equal to
+              the deferred, stored and low_memory fits (and the deferred
+              and stored fits under "float32") bitwise equal to
               phases fit / fit_stored (Z_corr, R, histories, kmeans_rounds)
               with blocks x shards per-block and one re-add launch per
               pass and their wall clock; two short fits (deferred,
@@ -140,10 +151,12 @@ line per phase:
               path, the index broadcast from rank 0) and brute force on
               16,384 sampled queries, bitwise equal to phase lisi's, with
               wall seconds and bytes received per rank;
-  6. kernels  every kernel (K1, K2, their per-block entries, the re-add)
-              with its launches on its path's fit, error against the plain
-              version, time, and bound (the per-block entries as a pass
-              runs them after its first block: with the folded re-add).
+  6. kernels  every kernel (K1, K2, their per-block entries, in each
+              variant; the one-pass r window; the re-add) with its launches
+              on its path's fit (the 3xTF32 variants' on the float32 fits),
+              error against the plain version, time, and bound (the
+              per-block entries as a pass runs them after its first block:
+              with the folded re-add).
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 exits non-zero without it; so does a machine without a CUDA card.
 """
@@ -169,6 +182,33 @@ TOL = dict(O=(1e-5, 1e-3), E=(1e-5, 1e-3), cache=(1e-5, 1e-4),
 # difference of ~1e-7 at a rounding midpoint moves the stored value by one.
 # The stored fit against the deferred fit: tests/test_defer.py:62-76.
 TOL_FIT = dict(Z_corr=(2e-4, 2e-4), R=(1e-3, 2e-5))
+# The one-pass variant (matmul_precision="default") against its plain
+# version (one_pass=True) on the same inputs, derived:
+#  * Both round the same fp32 operands to bf16 by the same rule, and the
+#    product of two bf16 values is exact in fp32: apart from the order of
+#    the fp32 sums (TOL's reason), they differ only where an operand is
+#    itself a result whose fp32 value differs at rounding level and whose
+#    bf16 roundings then land one bf16 ulp apart (2^-8 to 2^-7 of it): r as
+#    the A operand of S, and the diversity weights wdiv (from O and E, whose
+#    sums run in another order after a round's first block).
+#  * r's roundings: the flip term F = sum_c (bf16(r_kernel) -
+#    bf16(r_plain)) bf16(slab), per chunk, is computed from both r in
+#    float64 (exact products) and taken out. cache - F, ybuf - F and O, E
+#    less F summed over the chunks (E through Pr_b) are then held at TOL,
+#    the order bound.
+#  * wdiv's roundings: weights w_j moved by eps_j, |eps_j| <= 2^-7, move
+#    r_k = s_k w_k / sum_j s_j w_j by at most (|eps_k| + |sum_j eps_j r_j|)
+#    / (1 - |sum_j eps_j r_j|) <= 2^-6 / (1 - 2^-7) = RHO of itself (sum_j
+#    r_j = 1), whatever the number of weights moved: r is held at rtol
+#    RHO + TOL's, atol TOL's. kbuf sums r dist (|change| <= RHO sum r dist)
+#    and sigma r log r (|d(r log r)| <= RHO r (|log r| + 1), so the chunk's
+#    entropy moves by at most RHO (|ent| + max sigma x CH), both objective
+#    forms computing the same entropy): |change| <= RHO (|kbuf| + max sigma
+#    x CH) on top of TOL's.
+#  * A stored bf16 R is bf16(r): K2's equals K1's r rounded (bitwise, as in
+#    fp32), and against the plain version it is held at r's bound plus one
+#    bf16 ulp (2^-8 of it).
+RHO = 2.0 ** -6 / (1.0 - 2.0 ** -7)
 
 
 def emit(obj):
@@ -184,7 +224,8 @@ def ptxas_kernels(logs) -> dict:
     """Registers, stack frame and spill bytes of every kernel in ptxas -v
     reports ({source: report}), by a readable name: estep_round<float or
     bf16, NRG, PRE, round or block> (block: the per-block entry's FOLD
-    instantiation) and frame_readd_kernel."""
+    instantiation), with ", one_pass" before the ">" for the one-pass
+    variant's instantiations, and frame_readd_kernel."""
     import re
     out, entry, mangled, props = {}, None, None, None
     for log in logs.values():
@@ -197,11 +238,12 @@ def ptxas_kernels(logs) -> dict:
             if m:
                 name = mangled = m.group(1)
                 t = re.search(r"estep_roundI(f|13__nv_bfloat16)Li(\d+)ELb"
-                              r"([01])E(?:Lb([01])E)?E", name)
+                              r"([01])E(?:Lb([01])E)?(?:Lb([01])E)?E", name)
                 if t:
                     name = (f"estep_round<{'float' if t[1] == 'f' else 'bf16'}"
                             f", {t[2]}, {t[3]}, "
-                            f"{'block' if t[4] == '1' else 'round'}>")
+                            f"{'block' if t[4] == '1' else 'round'}"
+                            f"{', one_pass' if t[5] == '1' else ''}>")
                 elif "frame_readd_kernel" in name:
                     name = "frame_readd_kernel"
                 entry = out.setdefault(name, {})
@@ -338,59 +380,140 @@ def launches_of(fe, fn):
     return fe.launches + fe.launches_write_r - n0
 
 
-def check_k1(fe, plain_mod, args, fast, lo, width):
-    """K1 (round with an r window) against its plain version at TOL, a
-    bitwise repeat, and the round without a window equal to it bitwise.
-    Returns (errors, K1 outputs, round outputs)."""
+def flip_term(plain_mod, rk, rp, ZP3):
+    """F (n, K, 1+B+d) float64: per chunk, sum over its cells of
+    (bf16(rk) - bf16(rp)) bf16(slab), rk and rp the kernel's and the plain
+    version's r of chunks 0..n-1 (RHO's note)."""
     import torch
-    kern = fe.fused_estep(*args, fast, lo=lo, width=width)
-    plain = plain_mod.fused_update_nor(*args, fast, lo=lo, width=width)
+    bf = plain_mod.round_bf16
+    n = rk.shape[0]
+    return torch.einsum("jkc,jxc->jkx", bf(rk).double() - bf(rp).double(),
+                        bf(ZP3[:n]).double())
+
+
+def one_pass_errs(plain_mod, kern, plain, rk, rp, ZP3, Pr_b, sigma,
+                  readded=True):
+    """The one-pass variant's errors against its plain version (RHO's
+    note): kern, plain = (O, E, cache, ybuf, kbuf); rk, rp their r of
+    chunks 0..n-1 (the chunks the outputs were written for; rows past n
+    are compared as they are). readded: O, E hold the new stats (a round),
+    else they are a block's block-removed O, E (compared at TOL). Returns
+    {name: (max abs, max rel, ratio to the bound)} and the cells whose bf16
+    r differ."""
+    import torch
+    F = flip_term(plain_mod, rk, rp, ZP3)
+    n, B1 = F.shape[0], Pr_b.shape[0] + 1
+    O, E, cache, ybuf, kbuf = (t.double() for t in kern)
+    if readded:
+        tot = F.sum(dim=0)
+        O = O - tot[:, 1:B1]
+        E = E - tot[:, 0:1] * Pr_b.double()[None, :]
+    cache, ybuf = cache.clone(), ybuf.clone()
+    cache[:n] -= F[:, :, :B1]
+    ybuf[:n] -= F[:, :, B1:]
+    errs = {nm: diff(a, b, *TOL[nm]) for nm, a, b in zip(
+        ("O", "E", "cache", "ybuf"), (O, E, cache, ybuf), plain[:4])}
+    bound_scale = float(sigma.max()) * ZP3.shape[2]
+    dk = (kbuf - plain[4].double()).abs()
+    pk = plain[4].double().abs()
+    at, rt = TOL["kbuf"][1], TOL["kbuf"][0]
+    errs["kbuf"] = (float(dk.max()), float((dk / pk.clamp_min(at)).max()),
+                    float((dk / (at + rt * pk + RHO * (pk + bound_scale)))
+                          .max()))
+    rt_r, at_r = TOL["r"]
+    errs["r"] = diff(rk, rp, rt_r + RHO, at_r)
+    errs["r_beyond_TOL_share"] = (float((
+        (rk.double() - rp.double()).abs()
+        > at_r + rt_r * rp.double().abs()).double().mean()), 0.0, 0.0)
+    flips = int((plain_mod.round_bf16(rk) != plain_mod.round_bf16(rp)).sum())
+    return errs, flips
+
+
+def check_k1(fe, plain_mod, args, fast, lo, width, precision="float32"):
+    """K1 (round with an r window) against its plain version, a bitwise
+    repeat, and the round without a window equal to it bitwise. "float32":
+    at TOL; "default" (the one-pass variant): the window is every real
+    chunk, held at RHO's bounds against the one-pass plain version.
+    Returns (errors, K1 outputs, round outputs, the plain version's r
+    window)."""
+    import torch
+    one = precision == "default"
+    if one:
+        lo, width = 0, args[2].shape[0] - 1
+    kern = fe.fused_estep(*args, fast, lo=lo, width=width,
+                          precision=precision)
+    plain = plain_mod.fused_update_nor(*args, fast, lo=lo, width=width,
+                                       one_pass=one)
     torch.cuda.synchronize()
-    names = ("O", "E", "cache", "ybuf", "kbuf", "r")
-    errs = {n: diff(a, b, *TOL[n]) for n, a, b in zip(names, kern, plain)}
+    tag = f"fast_objective={fast}, {precision}"
+    if one:
+        errs, flips = one_pass_errs(plain_mod, kern[:5], plain[:5], kern[5],
+                                    plain[5], args[2], args[6], args[4])
+        errs["bf16_r_flips"] = (flips, 0.0, 0.0)
+    else:
+        names = ("O", "E", "cache", "ybuf", "kbuf", "r")
+        errs = {n: diff(a, b, *TOL[n]) for n, a, b in zip(names, kern,
+                                                           plain)}
     for n, (_, _, ratio) in errs.items():
-        check(ratio <= 1.0, f"K1 vs plain {n} (fast_objective={fast}) beyond"
-                            f" rtol/atol {TOL[n]}: {errs}")
-    again = fe.fused_estep(*args, fast, lo=lo, width=width)
-    rnd = fe.fused_estep(*args, fast)
+        check(ratio <= 1.0, f"K1 vs plain {n} ({tag}) beyond its bound: "
+                            f"{errs}")
+    again = fe.fused_estep(*args, fast, lo=lo, width=width,
+                           precision=precision)
+    rnd = fe.fused_estep(*args, fast, precision=precision)
     check(all(torch.equal(a, b) for a, b in zip(kern, again)),
-          "K1 repeat is not bitwise equal")
+          f"K1 repeat is not bitwise equal ({tag})")
     check(all(torch.equal(a, b) for a, b in zip(kern[:5], rnd[:5])),
-          "replay stats differ from the round's bitwise")
-    return errs, kern, rnd
+          f"replay stats differ from the round's bitwise ({tag})")
+    return errs, kern, rnd, plain[5]
 
 
 def check_k2(fe, plain_mod, args, fast, dt, k1_round, k1_r, k1_w, lo,
-             width):
-    """K2 with an R3 of dtype dt against its plain version (bf16 R within
-    one ulp), and bitwise: a repeat, its stats equal to K1's round, its R
-    equal to K1's r (fp32) or K1's r rounded to bf16, its fp32 R window
-    equal to K1's r window, the dummy chunk zero. Returns the errors."""
+             width, precision="float32", plain_r=None):
+    """K2 with an R3 of dtype dt against its plain version ("float32": at
+    TOL, bf16 R within one ulp; "default": at RHO's bounds, with plain_r
+    the one-pass plain version's r of every real chunk), and bitwise: a
+    repeat, its stats equal to K1's round, its R equal to K1's r (fp32) or
+    K1's r rounded to bf16, its fp32 R window equal to K1's r window, the
+    dummy chunk zero. Returns the errors."""
     import torch
     nc1, _, CH = args[2].shape
     nc, Kc = nc1 - 1, args[3].shape[1]
+    one = precision == "default"
 
     def k2():
         R3 = torch.empty((nc1, Kc, CH), dtype=dt, device="cuda")
         return fe.fused_estep_r(args[0], args[1], args[2], R3, *args[3:],
-                                fast)
+                                fast, precision=precision)
 
     kern = k2()
     plain = plain_mod.fused_update_r(
         args[0], args[1], args[2],
-        torch.empty((nc1, Kc, CH), dtype=dt, device="cuda"), *args[3:], fast)
+        torch.empty((nc1, Kc, CH), dtype=dt, device="cuda"), *args[3:], fast,
+        one_pass=one)
     torch.cuda.synchronize()
-    names = ("r", "O", "E", "cache", "ybuf", "kbuf")
-    errs = {n: diff(a.float(), b.float(), *TOL[n])
-            for n, a, b in zip(names, kern, plain)}
-    tag = f"({dt}, fast_objective={fast})"
-    if dt == torch.bfloat16:
-        ulps = bf16_ulps(kern[0], plain[0])
-        check(ulps <= 1, f"K2 bf16 R vs plain: {ulps} bf16 ulps {tag}")
-        errs["r"] = (float((kern[0].float() - plain[0].float()).abs().max()),
-                     errs["r"][1], 0.0)
+    tag = f"({dt}, fast_objective={fast}, {precision})"
+    if one:
+        # The statistics come from fp32 r in both (K2's equals K1's,
+        # checked bitwise below): the flip term from K1's r and the plain
+        # version's.
+        errs, _ = one_pass_errs(plain_mod, kern[1:], plain[1:], k1_r,
+                                plain_r, args[2], args[6], args[4])
+        rb = diff(kern[0][:nc].float(), plain[0][:nc].float(),
+                  TOL["r"][0] + RHO + (2.0 ** -8 if dt == torch.bfloat16
+                                       else 0.0), TOL["r"][1])
+        errs["R"] = rb
+    else:
+        names = ("r", "O", "E", "cache", "ybuf", "kbuf")
+        errs = {n: diff(a.float(), b.float(), *TOL[n])
+                for n, a, b in zip(names, kern, plain)}
+        if dt == torch.bfloat16:
+            ulps = bf16_ulps(kern[0], plain[0])
+            check(ulps <= 1, f"K2 bf16 R vs plain: {ulps} bf16 ulps {tag}")
+            errs["r"] = (float((kern[0].float() - plain[0].float()).abs()
+                               .max()), errs["r"][1], 0.0)
     for n, (_, _, ratio) in errs.items():
-        check(ratio <= 1.0, f"K2 vs plain {n} {tag} beyond {TOL[n]}: {errs}")
+        check(ratio <= 1.0, f"K2 vs plain {n} {tag} beyond its bound: "
+                            f"{errs}")
     again = k2()
     for ok, what in (
             (all(torch.equal(a, b) for a, b in zip(kern, again)), "repeat"),
@@ -416,39 +539,86 @@ def timing(fe, fn, bound, reps=20):
                 roofline_share_tc=bound["bound_tc_ms"] / ms)
 
 
+PRECISIONS = ("float32", "default")
+
+
+def _max_abs(errs) -> float:
+    """Largest error against the plain version over the outputs (for the
+    one-pass variant O, E, cache and ybuf after the flip term)."""
+    return max(e[0] for n, e in errs.items()
+               if n in ("O", "E", "cache", "ybuf", "kbuf", "r", "R"))
+
+
 def phase_kernel(ht_mods, cfg, geom, args):
-    """K1 against its plain version at the full shape; its times, launches
-    and bounds. Returns (the kernels line's numbers, profiler device ms)."""
+    """K1 against its plain version at the full shape under both
+    precisions: "float32" (3xTF32) at TOL, "default" (one pass) at RHO's
+    bounds; their times, launches and bounds; the one-pass round's r
+    window over every real chunk (what a fit's replays run) timed; the
+    one-pass outputs' distance from the 3xTF32 ones, recorded without a
+    gate. Returns ({precision: the kernels line's numbers}, {precision:
+    profiler device ms}, the one-pass r window's numbers)."""
+    import torch
     from harmonypy_tpu_torch.utils.profiling import round_bound
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
-    lo, width = 200, 16
-    res = {}
-    for fast in (False, True):
-        errs, _, _ = check_k1(fe, plain_mod, args, fast, lo, width)
-        res[f"fast_objective={fast}"] = dict(
-            max_abs={n: e[0] for n, e in errs.items()},
-            max_rel={n: e[1] for n, e in errs.items()},
-            repeat_bitwise=True, replay_equals_round_bitwise=True)
-    bound = round_bound(cfg)
-    t = timing(fe, lambda: fe.fused_estep(*args, False), bound)
-    check(t["launches_per_round"] == 1,
-          f"K1 launched {t['launches_per_round']} kernels per round")
-    plain_ms = cuda_ms(lambda: plain_mod.fused_update_nor(*args, False),
-                       reps=5, warmup=1)
-    max_abs = max(v for r in res.values() for v in r["max_abs"].values())
+    lo, width, nc = 200, 16, geom.nc_cap
+    res, info, dev_ms, times = {}, {}, {}, {}
+    window = None
+    for prec in PRECISIONS:
+        one = prec == "default"
+        worst = 0.0
+        for fast in (False, True):
+            errs, kern, _, _ = check_k1(fe, plain_mod, args, fast, lo, width,
+                                        prec)
+            worst = max(worst, _max_abs(errs))
+            res[f"{prec},fast_objective={fast}"] = dict(
+                max_abs={n: e[0] for n, e in errs.items()},
+                max_rel={n: e[1] for n, e in errs.items()},
+                ratio_to_bound={n: e[2] for n, e in errs.items()},
+                repeat_bitwise=True, replay_equals_round_bitwise=True)
+            if one and not fast:
+                window = dict(max_abs_err=errs["r"][0])
+            del kern
+        bound = round_bound(cfg, one_pass=one)
+        t = timing(fe, lambda: fe.fused_estep(*args, False, precision=prec),
+                   bound)
+        check(t["launches_per_round"] == 1,
+              f"K1 ({prec}) launched {t['launches_per_round']} kernels per "
+              f"round")
+        plain_ms = cuda_ms(lambda: plain_mod.fused_update_nor(
+            *args, False, one_pass=one), reps=5, warmup=1)
+        times[prec] = dict(t, plain_ms=plain_ms, bound=bound,
+                           grid=fe.launch_grid(K, N_BATCHES, N_PCS,
+                                               precision=prec))
+        info[prec] = dict(ms=t["ms"], plain_ms=plain_ms, max_abs_err=worst,
+                          bound_ms=bound["bound_ms"],
+                          bound_by=bound["bound_by"])
+        dev_ms[prec] = t["device_ms"]
+    # The one-pass r window of every real chunk, as the fit's replays run
+    # it (one window at 858k): K1's round plus the fp32 store of r.
+    wb = round_bound(cfg, r_bytes=4, one_pass=True)
+    window.update(
+        ms=cuda_ms(lambda: fe.fused_estep(*args, False, lo=0, width=nc,
+                                          precision="default"), reps=10),
+        plain_ms=cuda_ms(lambda: plain_mod.fused_update_nor(
+            *args, False, lo=0, width=nc, one_pass=True), reps=3, warmup=1),
+        bound_ms=wb["bound_ms"], bound_by=wb["bound_by"])
+    # The one-pass variant against the 3xTF32 one (no gate).
+    a = fe.fused_estep(*args, False, lo=lo, width=width, precision="float32")
+    b = fe.fused_estep(*args, False, lo=lo, width=width, precision="default")
+    from_tf32 = {n: dict(max_abs=float((x - y).abs().max()),
+                         max_rel=float(((x - y).abs()
+                                        / y.abs().clamp_min(1e-6)).max()))
+                 for n, x, y in zip(("O", "E", "cache", "ybuf", "kbuf", "r"),
+                                    b, a)}
+    del a, b
+    torch.cuda.synchronize()
     emit(dict(phase="kernel", shape=dict(N=N_CELLS, d=N_PCS, K=K,
                                          B=N_BATCHES, CH=CHUNK,
                                          chunks=geom.nc_cap, J=geom.J_shard,
                                          n_blocks=geom.nb),
-              grid=fe.launch_grid(K, N_BATCHES, N_PCS),
-              tolerance=TOL, results=res, ms_per_round=t["ms"],
-              device_ms_per_round=t["device_ms"],
-              plain_ms_per_round=plain_ms, **{k: v for k, v in t.items()
-                                               if k not in ("ms", "device_ms")},
-              bound=bound))
-    return dict(ms=t["ms"], plain_ms=plain_ms, max_abs_err=max_abs,
-                bound_ms=bound["bound_ms"],
-                bound_by=bound["bound_by"]), t["device_ms"]
+              tolerance=TOL, one_pass_rho=RHO, results=res, times=times,
+              one_pass_r_window=window, one_pass_vs_3xtf32=from_tf32))
+    return info, dev_ms, window
 
 
 def bf16_ulps(a, b) -> int:
@@ -460,10 +630,26 @@ def bf16_ulps(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
+def k1_refs(fe, plain_mod, args, fast, lo, width, precision):
+    """K1's round, its r of every real chunk and of the window [lo, lo +
+    width), and (one pass) the plain version's r of every real chunk."""
+    nc = args[2].shape[0] - 1
+    k1 = fe.fused_estep(*args, fast, precision=precision)
+    k1r = fe.fused_estep(*args, fast, lo=0, width=nc,
+                         precision=precision)[5]
+    k1w = fe.fused_estep(*args, fast, lo=lo, width=width,
+                         precision=precision)[5]
+    plain_r = (plain_mod.fused_update_nor(*args, fast, lo=0, width=nc,
+                                          one_pass=True)[5]
+               if precision == "default" else None)
+    return k1, k1r, k1w, plain_r
+
+
 def phase_kernel2(ht_mods, cfg, geom, args):
     """K2 on the round of phase kernel, fp32 and bf16 R, both objective
-    forms: against its plain version, and bitwise against K1. Returns (the
-    kernels line's numbers, fp32 profiler device ms)."""
+    forms, both precisions: against its plain version, and bitwise against
+    K1 of its precision. Returns ({(precision, R dtype): the kernels line's
+    numbers}, {precision: fp32-R profiler device ms})."""
     import torch
     from harmonypy_tpu_torch.utils.profiling import round_bound
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
@@ -473,59 +659,77 @@ def phase_kernel2(ht_mods, cfg, geom, args):
     width = 16
     lo = min(200, nc - width)
 
-    res, max_abs = {}, 0.0
-    for fast in (False, True):
-        k1 = fe.fused_estep(*args, fast)
-        k1r = fe.fused_estep(*args, fast, lo=0, width=nc)[5]
-        k1w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
-        for name, dt in dtypes.items():
-            errs = check_k2(fe, plain_mod, args, fast, dt, k1, k1r, k1w, lo,
-                            width)
-            max_abs = max(max_abs, *(e[0] for e in errs.values()))
-            res[f"{name},fast_objective={fast}"] = dict(
-                max_abs={n: e[0] for n, e in errs.items()},
-                max_rel={n: e[1] for n, e in errs.items()},
-                repeat_bitwise=True, stats_equal_k1_round=True,
-                r_equals_k1_r=True, r_window_equals_k1=True,
-                dummy_chunk_zero=True)
-        del k1, k1r, k1w
+    res, worst = {}, {}
+    for prec in PRECISIONS:
+        for fast in (False, True):
+            k1, k1r, k1w, plain_r = k1_refs(fe, plain_mod, args, fast, lo,
+                                            width, prec)
+            for name, dt in dtypes.items():
+                errs = check_k2(fe, plain_mod, args, fast, dt, k1, k1r, k1w,
+                                lo, width, prec, plain_r)
+                key = (prec, name)
+                worst[key] = max(worst.get(key, 0.0), _max_abs(errs))
+                res[f"{prec},{name},fast_objective={fast}"] = dict(
+                    max_abs={n: e[0] for n, e in errs.items()},
+                    max_rel={n: e[1] for n, e in errs.items()},
+                    repeat_bitwise=True, stats_equal_k1_round=True,
+                    r_equals_k1_r=True, r_window_equals_k1=True,
+                    dummy_chunk_zero=True)
+            del k1, k1r, k1w, plain_r
 
-    # K1 and K2 (fp32, bf16) timed in turns, three times over: the spread
-    # within one call, and K2's cost over K1 on the same card.
+    # K1 and K2 (fp32, bf16), each precision, timed in turns, three times
+    # over: the spread within one call, and K2's cost over K1 on the same
+    # card.
     R3s = {name: torch.empty((nc + 1, K, CH), dtype=dt, device=dev)
            for name, dt in dtypes.items()}
-    runs = dict(k1=lambda: fe.fused_estep(*args, False),
-                **{name: (lambda R3=R3: fe.fused_estep_r(
-                    args[0], args[1], args[2], R3, *args[3:], False))
-                   for name, R3 in R3s.items()})
+    runs = {}
+    for prec in PRECISIONS:
+        runs[prec, "k1"] = (lambda p=prec: fe.fused_estep(*args, False,
+                                                          precision=p))
+        for name, R3 in R3s.items():
+            runs[prec, name] = (lambda R3=R3, p=prec: fe.fused_estep_r(
+                args[0], args[1], args[2], R3, *args[3:], False,
+                precision=p))
     samples = {n: [] for n in runs}
     for _ in range(3):
         for n, fn in runs.items():
             samples[n].append(cuda_ms(fn, reps=20))
-    times = {n: dict(ms=sorted(v)[1], ms_samples=v) for n, v in samples.items()}
-    for name, R3 in R3s.items():
-        fn = runs[name]
-        bound = round_bound(cfg, r_bytes=R3.element_size())
-        t = timing(fe, fn, bound)
-        check(t["launches_per_round"] == 1,
-              f"K2 {name} launched {t['launches_per_round']} kernels")
-        times[name].update(
-            device_ms=t["device_ms"],
-            launches_per_round=t["launches_per_round"],
-            profiler_launches_per_round=t["profiler_launches_per_round"],
-            roofline_share=bound["bound_ms"] / times[name]["ms"],
-            roofline_share_tc=bound["bound_tc_ms"] / times[name]["ms"],
-            bound=bound,
-            plain_ms=cuda_ms(lambda R3=R3: plain_mod.fused_update_r(
-                args[0], args[1], args[2], R3, *args[3:], False), reps=5,
-                warmup=1))
-    emit(dict(phase="kernel2", tolerance=TOL, bf16_r_tolerance="1 bf16 ulp",
-              grid_bf16=fe.launch_grid(K, N_BATCHES, N_PCS, True),
+    times = {f"{p},{n}": dict(ms=sorted(v)[1], ms_samples=v)
+             for (p, n), v in samples.items()}
+    info, dev_ms = {}, {}
+    for prec in PRECISIONS:
+        one = prec == "default"
+        for name, R3 in R3s.items():
+            fn = runs[prec, name]
+            tk = times[f"{prec},{name}"]
+            bound = round_bound(cfg, r_bytes=R3.element_size(), one_pass=one)
+            t = timing(fe, fn, bound)
+            check(t["launches_per_round"] == 1,
+                  f"K2 {name} ({prec}) launched {t['launches_per_round']} "
+                  f"kernels")
+            tk.update(
+                device_ms=t["device_ms"],
+                launches_per_round=t["launches_per_round"],
+                profiler_launches_per_round=t["profiler_launches_per_round"],
+                roofline_share=bound["bound_ms"] / tk["ms"],
+                roofline_share_tc=bound["bound_tc_ms"] / tk["ms"],
+                bound=bound,
+                plain_ms=cuda_ms(lambda R3=R3: plain_mod.fused_update_r(
+                    args[0], args[1], args[2], R3, *args[3:], False,
+                    one_pass=one), reps=5, warmup=1))
+            info[prec, name] = dict(ms=tk["ms"], plain_ms=tk["plain_ms"],
+                                    max_abs_err=worst[prec, name],
+                                    bound_ms=bound["bound_ms"],
+                                    bound_by=bound["bound_by"])
+            if name == "float32":
+                dev_ms[prec] = t["device_ms"]
+    emit(dict(phase="kernel2", tolerance=TOL, one_pass_rho=RHO,
+              bf16_r_tolerance="1 bf16 ulp (float32); one pass: r's bound "
+                               "+ 2^-8",
+              grid_bf16={p: fe.launch_grid(K, N_BATCHES, N_PCS, True, p)
+                         for p in PRECISIONS},
               results=res, times=times))
-    t32 = times["float32"]
-    return dict(ms=t32["ms"], plain_ms=t32["plain_ms"], max_abs_err=max_abs,
-                bound_ms=t32["bound"]["bound_ms"],
-                bound_by=t32["bound"]["bound_by"]), t32["device_ms"]
+    return info, dev_ms
 
 
 # Shapes of phase shapes: (N, d, K, B, CH). Every K in {7, 100, 200}, d in
@@ -540,7 +744,8 @@ SHAPES = [(6_000, 5, 7, 1, 128), (6_000, 30, 100, 3, 128),
 def phase_shapes(ht_mods):
     """K1 (round and r window), K2 fp32 and K2 bf16 against their plain
     versions and each other at small N and odd shapes, both objective
-    forms, with the checks of phases kernel and kernel2."""
+    forms and both precisions, with the checks of phases kernel and
+    kernel2."""
     import torch
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     out = []
@@ -550,90 +755,138 @@ def phase_shapes(ht_mods):
                                   chunk=CH)
         nc = geom.nc_cap
         lo, width = nc // 3, max(1, min(5, nc - nc // 3))
-        worst = 0.0
-        for fast in (False, True):
-            errs, kw, rnd = check_k1(fe, plain_mod, args, fast, lo, width)
-            k1r = fe.fused_estep(*args, fast, lo=0, width=nc)[5]
-            worst = max(worst, *(e[2] for e in errs.values()))
-            for dt in (torch.float32, torch.bfloat16):
-                e2 = check_k2(fe, plain_mod, args, fast, dt, rnd, k1r, kw[5],
-                              lo, width)
-                worst = max(worst, *(e[2] for e in e2.values()))
+        worst, flips = {}, 0
+        for prec in PRECISIONS:
+            w = 0.0
+            for fast in (False, True):
+                errs, kw, rnd, plain_r = check_k1(fe, plain_mod, args, fast,
+                                                  lo, width, prec)
+                flips += int(errs.get("bf16_r_flips", (0,))[0])
+                k1r = fe.fused_estep(*args, fast, lo=0, width=nc,
+                                     precision=prec)[5]
+                k1w = fe.fused_estep(*args, fast, lo=lo, width=width,
+                                     precision=prec)[5]
+                w = max(w, *(e[2] for e in errs.values()))
+                for dt in (torch.float32, torch.bfloat16):
+                    e2 = check_k2(fe, plain_mod, args, fast, dt, rnd, k1r,
+                                  k1w, lo, width, prec, plain_r)
+                    w = max(w, *(e[2] for e in e2.values()))
+            worst[prec] = w
         out.append(dict(N=N, d=d, K=Kc, B=B, CH=CH, chunks=nc, J=geom.J_shard,
-                        grid=fe.launch_grid(Kc, B, d),
-                        smem_bytes=fe._kernel_lib().fused_estep_smem(Kc, B, d),
-                        worst_tolerance_ratio=worst))
+                        grid={p: fe.launch_grid(Kc, B, d, precision=p)
+                              for p in PRECISIONS},
+                        smem_bytes={p: fe._kernel_lib(
+                            p == "default").fused_estep_smem(Kc, B, d)
+                            for p in PRECISIONS},
+                        worst_tolerance_ratio=worst,
+                        one_pass_bf16_r_flips=flips))
         del args
-    emit(dict(phase="shapes", tolerance=TOL, bf16_r_tolerance="1 bf16 ulp",
+    emit(dict(phase="shapes", tolerance=TOL, one_pass_rho=RHO,
+              bf16_r_tolerance="1 bf16 ulp (float32); one pass: r's bound "
+                               "+ 2^-8",
               checks="K1 round + r window, K2 fp32 and bf16 vs plain; "
                      "repeat, replay, K2 == K1 bitwise; both objective "
-                     "forms", shapes=out))
+                     "forms; both precisions", shapes=out))
 
 
 def timed_fit(ht, fe, X, meta, **kw):
-    """One fit on the card with both launch counts set to 0 just before it:
-    (Harmony, seconds, K1 launches, K2 launches). Sets ho.peak_bytes, the
-    fit's peak device allocation above what was allocated before it."""
+    """One fit on the card with every launch count set to 0 just before
+    it: (Harmony, seconds, K1 launches, K2 launches). Sets ho.peak_bytes,
+    the fit's peak device allocation above what was allocated before it,
+    and ho.one_pass_launches, the one-pass launches among K1's and K2's;
+    checks that a fit runs one variant: one pass under "default", 3xTF32
+    under "float32"."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    fe.launches = fe.launches_write_r = 0
+    _zero_counts(fe)
     t0 = time.perf_counter()
     ho = ht.run_harmony(X, meta, ["batch"], device="cuda:0", verbose=False,
                         **kw)
     torch.cuda.synchronize()
+    s = time.perf_counter() - t0
     ho.peak_bytes = torch.cuda.max_memory_allocated() - base
-    return ho, time.perf_counter() - t0, fe.launches, fe.launches_write_r
+    ho.one_pass_launches = (fe.launches_one_pass,
+                            fe.launches_write_r_one_pass)
+    one = kw.get("matmul_precision", "default") == "default"
+    want = (fe.launches, fe.launches_write_r) if one else (0, 0)
+    check(ho.one_pass_launches == want,
+          f"fit {kw}: one-pass launches {ho.one_pass_launches} of "
+          f"{(fe.launches, fe.launches_write_r)}, expected {want}")
+    return ho, s, fe.launches, fe.launches_write_r
 
 
 def phase_fit(ht, fe, X, batches):
+    """The default deferred fit (matmul_precision "default": the one-pass
+    K1) and the same fit under "float32" (3xTF32), timed in turns after a
+    warm-up fit of each. Returns ({precision: K1 launches}, meta, the
+    default fit, its peak bytes, the float32 fit)."""
     import numpy as np
     import pandas as pd
     import torch
     meta = pd.DataFrame({"batch": pd.Categorical.from_codes(
         batches, [f"b{i}" for i in range(N_BATCHES)])})
 
-    _, warm_s, _, _ = timed_fit(ht, fe, X, meta)
-    fit_s, peaks = [], []
+    warm = {p: timed_fit(ht, fe, X, meta, matmul_precision=p)[1]
+            for p in ("default", "float32")}
+    fit_s, peaks, res, hos, counts = {}, {}, {}, {}, {}
     for _ in range(3):
-        ho, s, launches, k2 = timed_fit(ht, fe, X, meta)
-        fit_s.append(s)
-        peaks.append(ho.peak_bytes)
-        nb = ho.cfg.n_blocks
-        passes = ho.state.n_passes
-        check(ho.cfg.defer_r, "default config did not select deferred-R")
-        check(launches > 0 and launches == passes,
-              f"K1 launches {launches} != {passes} E-step passes "
-              f"({nb} blocks each)")
-        check(k2 == 0, f"the deferred fit launched K2 {k2} times")
+        for prec in ("default", "float32"):
+            ho, s, launches, k2 = timed_fit(ht, fe, X, meta,
+                                            matmul_precision=prec)
+            fit_s.setdefault(prec, []).append(s)
+            peaks.setdefault(prec, []).append(ho.peak_bytes)
+            nb = ho.cfg.n_blocks
+            passes = ho.state.n_passes
+            check(ho.cfg.defer_r, "default config did not select deferred-R")
+            check(launches > 0 and launches == passes,
+                  f"K1 launches {launches} != {passes} E-step passes "
+                  f"({nb} blocks each, {prec})")
+            check(k2 == 0, f"the deferred fit launched K2 {k2} times")
+            hos[prec], counts[prec] = ho, launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    obj = ho.objective_harmony
-    check(obj[-1] < obj[0], f"objective did not decrease: {obj}")
-    Z = ho.Z_corr
-    check(Z.shape == (N_CELLS, N_PCS) and np.all(np.isfinite(Z)),
-          "Z_corr not finite / wrong shape")
-    Rm = ho.R
-    row_err = float(np.abs(Rm.sum(axis=1) - 1.0).max())
-    check(Rm.shape == (N_CELLS, K) and row_err < 1e-4,
-          f".R rows do not sum to 1: {row_err}")
+    for prec, ho in hos.items():
+        obj = ho.objective_harmony
+        check(obj[-1] < obj[0], f"objective did not decrease ({prec}): "
+                                f"{obj}")
+        Z = ho.Z_corr
+        check(Z.shape == (N_CELLS, N_PCS) and np.all(np.isfinite(Z)),
+              f"Z_corr not finite / wrong shape ({prec})")
+        Rm = ho.R
+        row_err = float(np.abs(Rm.sum(axis=1) - 1.0).max())
+        check(Rm.shape == (N_CELLS, K) and row_err < 1e-4,
+              f".R rows do not sum to 1 ({prec}): {row_err}")
+        res[prec] = dict(warmup_fit_s=warm[prec], fit_s=fit_s[prec],
+                         kmeans_rounds=ho.kmeans_rounds,
+                         objective_harmony=obj,
+                         estep_passes=ho.state.n_passes,
+                         kernel_launches=counts[prec],
+                         R_row_sum_max_err=row_err,
+                         fit_peak_bytes=peaks[prec])
+    ho = hos["default"]
     emit(dict(phase="fit", N=N_CELLS, d=N_PCS, K=ho.K, B=N_BATCHES,
               chunk_size=ho.cfg.chunk_size, defer_r=ho.cfg.defer_r,
-              warmup_fit_s=warm_s, fit_s=fit_s, peak_mem_gib=peak_gib,
-              kmeans_rounds=ho.kmeans_rounds, objective_harmony=obj,
-              estep_passes=passes, kernel_launches=launches,
-              R_row_sum_max_err=row_err, fit_peak_bytes=peaks))
-    return launches, meta, ho, max(peaks)
+              peak_mem_gib=peak_gib, fits=res,
+              default_vs_float32=dict(
+                  Z_corr_max_abs=float(np.abs(
+                      ho.Z_corr - hos["float32"].Z_corr).max()))))
+    return counts, meta, ho, max(peaks["default"]), hos["float32"]
 
 
 def phase_fit_stored(ht, fe, X, meta):
-    """The stored-R fits: fp32 (defer_r=False) and bf16 (low_memory=True),
-    then the stored fit against the deferred fit with every round run."""
+    """The stored-R fits: fp32 (defer_r=False) and bf16 (low_memory=True)
+    at default settings (the one-pass K2), and the fp32 one under
+    "float32" (3xTF32); then the stored fit against the deferred fit with
+    every round run, under each precision. Returns (K2 launches of each
+    fit, {name: (cfg, peak)}, {name: fit})."""
     import numpy as np
     import torch
-    out, launches, fits, hos = {}, None, {}, {}
+    out, launches, fits, hos = {}, {}, {}, {}
     for name, kw in (("stored", dict(defer_r=False)),
-                     ("low_memory", dict(defer_r=False, low_memory=True))):
+                     ("low_memory", dict(defer_r=False, low_memory=True)),
+                     ("stored_float32", dict(defer_r=False,
+                                             matmul_precision="float32"))):
         _, warm_s, _, _ = timed_fit(ht, fe, X, meta, **kw)
         fit_s, peaks = [], []
         for _ in range(3):
@@ -665,29 +918,35 @@ def phase_fit_stored(ht, fe, X, meta):
                          kmeans_rounds=ho.kmeans_rounds,
                          objective_harmony=obj, k2_launches=k2,
                          R_row_sum_max_err=row_err, fit_peak_bytes=peaks)
-        fits[name] = (ho.cfg, max(peaks))
+        if name != "stored_float32":
+            fits[name] = (ho.cfg, max(peaks))
         hos[name] = ho
-        if name == "stored":
-            launches = k2
+        launches[name] = k2
 
     every_round = dict(max_iter_harmony=2, epsilon_cluster=0,
                        epsilon_harmony=-1)
-    st, _, _, _ = timed_fit(ht, fe, X, meta, defer_r=False, **every_round)
-    de, _, _, _ = timed_fit(ht, fe, X, meta, **every_round)
-    check(de.cfg.defer_r and st.kmeans_rounds == de.kmeans_rounds
-          == [20, 20], f"rounds {st.kmeans_rounds} vs {de.kmeans_rounds}")
-    errs = {n: diff(torch.as_tensor(getattr(st, n)),
-                    torch.as_tensor(getattr(de, n)), *TOL_FIT[n])
-            for n in TOL_FIT}
-    for n, (_, _, ratio) in errs.items():
-        check(ratio <= 1.0, f"stored vs deferred {n} beyond {TOL_FIT[n]}: "
-                            f"{errs}")
+    vs = {}
+    for prec in ("float32", "default"):
+        st, _, _, _ = timed_fit(ht, fe, X, meta, defer_r=False,
+                                matmul_precision=prec, **every_round)
+        de, _, _, _ = timed_fit(ht, fe, X, meta, matmul_precision=prec,
+                                **every_round)
+        check(de.cfg.defer_r and st.kmeans_rounds == de.kmeans_rounds
+              == [20, 20], f"rounds {st.kmeans_rounds} vs "
+                           f"{de.kmeans_rounds} ({prec})")
+        errs = {n: diff(torch.as_tensor(getattr(st, n)),
+                        torch.as_tensor(getattr(de, n)), *TOL_FIT[n])
+                for n in TOL_FIT}
+        vs[prec] = dict(tolerance=TOL_FIT, kmeans_rounds=st.kmeans_rounds,
+                        max_abs={n: e[0] for n, e in errs.items()},
+                        ratio={n: e[2] for n, e in errs.items()},
+                        objective_stored=st.objective_harmony,
+                        objective_deferred=de.objective_harmony)
+        for n, (_, _, ratio) in errs.items():
+            check(ratio <= 1.0, f"stored vs deferred {n} ({prec}) beyond "
+                                f"{TOL_FIT[n]}: {errs}")
     emit(dict(phase="fit_stored", N=N_CELLS, fits=out,
-              stored_vs_deferred=dict(
-                  tolerance=TOL_FIT, kmeans_rounds=st.kmeans_rounds,
-                  max_abs={n: e[0] for n, e in errs.items()},
-                  objective_stored=st.objective_harmony,
-                  objective_deferred=de.objective_harmony)))
+              stored_vs_deferred=vs))
     return launches, fits, hos
 
 
@@ -747,9 +1006,12 @@ def phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms, k2_dev_ms,
     """utils.profiling.profile_fit(split_init=True) through the engine at
     858k on the card: the deferred config (K1, and the stored round's A/B,
     K2) and the stored config (K2), with the launches its probes made; the
-    profiler's floor equal to phase kernel's bound; a differenced round no
-    shorter than its kernel's device time (x 0.9). Then trace() around a
-    pbmc fit (chunk 128, deferred) names the estep_round kernel."""
+    profiler's fp32 floor equal to phase kernel's fp32 bound, and the
+    deferred profile's floor the one-pass bound (the configs run at
+    "default": the one-pass kernels, whose device ms k1_dev_ms and
+    k2_dev_ms are); a differenced round no shorter than its kernel's
+    device time (x 0.9). Then trace() around a pbmc fit (chunk 128,
+    deferred) names the estep_round kernel."""
     import dataclasses
     import glob
     import tempfile
@@ -758,7 +1020,8 @@ def phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms, k2_dev_ms,
     import torch
     from harmonypy_tpu_torch.parallel.mesh import make_mesh
     from harmonypy_tpu_torch.utils.profiling import (estep_vpu_floor_s,
-                                                     profile_fit, trace)
+                                                     profile_fit,
+                                                     round_bound, trace)
     fe = mods[4]
     cfg, data, params = fit_inputs(mods, X, batches)
     check(abs(estep_vpu_floor_s(cfg) * 1e3 - k1_bound_ms) <= 1e-12,
@@ -785,6 +1048,10 @@ def phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms, k2_dev_ms,
         if name == "deferred":
             check(k1 > 0 and "pallas_stored_round_s" in res,
                   f"{tag}: K1 launches {k1}, keys {sorted(res)}")
+            one_floor = round_bound(cfg, one_pass=True)["bound_ms"] / 1e3
+            check(res["estep_vpu_floor_s"] == one_floor,
+                  f"{tag}: floor {res['estep_vpu_floor_s']} s, not the "
+                  f"one-pass bound {one_floor} s")
             check(res["pallas_stored_round_s"] * 1e3 >= 0.9 * k2_dev_ms,
                   f"{tag}: stored round {res['pallas_stored_round_s']} s "
                   f"under K2's {k2_dev_ms} ms")
@@ -922,10 +1189,19 @@ def golden_fit(ht, **kw):
 
 
 def phase_golden(ht):
-    ho, r, fit_s = golden_fit(ht, chunk_size=128)
-    check(min(r) >= 0.99, f"golden pbmc min per-PC r {min(r)} < 0.99")
+    """pbmc_3500 with chunk_size=128 (the deferred fused fit) under each
+    precision: "default" runs the one-pass K1, "float32" the 3xTF32 one."""
+    res = {}
+    for prec in PRECISIONS:
+        ho, r, fit_s = golden_fit(ht, chunk_size=128, matmul_precision=prec)
+        check(ho.cfg.defer_r and ho.cfg.matmul_precision == prec,
+              f"golden {prec}: unexpected config {ho.cfg}")
+        check(min(r) >= 0.99, f"golden pbmc ({prec}) min per-PC r {min(r)} "
+                              f"< 0.99")
+        res[prec] = dict(min_pc_r=min(r), fit_s=fit_s,
+                         kmeans_rounds=ho.kmeans_rounds)
     emit(dict(phase="golden", data="pbmc_3500", chunk_size=128,
-              min_pc_r=min(r), fit_s=fit_s, kmeans_rounds=ho.kmeans_rounds))
+              min_pc_r=res["default"]["min_pc_r"], results=res))
 
 
 def phase_golden_default(ht):
@@ -1294,15 +1570,15 @@ HIST = ("objective_harmony", "objective_kmeans", "objective_kmeans_dist",
 TOL_PERCELL_REL = 5e-4
 
 
-def block_bound(n_cells, n_slots, r_bytes=0, fold_J_fix=0):
+def block_bound(n_cells, n_slots, r_bytes=0, fold_J_fix=0, one_pass=False):
     """Least work of one per-block launch: its real cells read once (the
     slab), its slots' rows written once (cache, ybuf, kbuf, and r with
-    r_bytes per element), the products of round_bound on those cells; with
-    fold_J_fix > 0 also the previous block's re-add folded into its
-    prologue (readd_bound)."""
+    r_bytes per element), the products of round_bound on those cells (of
+    the one-pass variant with one_pass); with fold_J_fix > 0 also the
+    previous block's re-add folded into its prologue (readd_bound)."""
     from harmonypy_tpu_torch.utils.profiling import estep_bound
     b = dict(estep_bound(n_cells, n_slots, N_PCS, K, N_BATCHES, CHUNK,
-                         r_bytes), cells=n_cells, slots=n_slots)
+                         r_bytes, one_pass), cells=n_cells, slots=n_slots)
     if fold_J_fix:
         rb = readd_bound(fold_J_fix)
         for k in ("flop", "bytes", "ops_ms", "bytes_ms", "ops_tc_ms"):
@@ -1650,18 +1926,51 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         sl = slots1[0].long()
         check(all(_eq(a[sl], b[sl]) for a, b in zip(out1, rnd[2:5])),
               f"per-block rows on the one-device table differ ({tag})")
-        # Against the plain version, shard 0, every variant.
-        for var in ("round", "r_window", "float32", "bfloat16"):
-            kw, plain_kw = {}, {}
+        # The one-pass entry's block-0 rows of every shard: the one-pass
+        # round's rows.
+        rnd1 = fe.fused_estep(*args, fast, precision="default")
+        for s in range(D):
+            out = outs(nc + 1)
+            block_launch(fe, 0, tabs.slots[s], removal, ZP3s[s], *consts, O,
+                         E, fast, out, J1, precision="default")
+            sl = tabs.slots[s][0].long()
+            n_real = sharding.shard_chunks(nc, geom.NC_real, s)[1]
+            sl = sl[sl < n_real]
+            check(all(_eq(a[sl], b[s * nc + sl])
+                      for a, b in zip(out, rnd1[2:5])),
+                  f"one-pass per-block rows of shard {s} differ from the "
+                  f"one-pass round's ({tag})")
+        m1 = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, fast, geom.J_fix,
+                                 precision="default")
+        check(_eq(m1[0], rnd1[0]) and _eq(m1[1], rnd1[1])
+              and all(_eq(partition.frame_rows(p_, geomD), f[: geom.nc_cap])
+                      for p_, f in zip(m1[2:5], rnd1[2:5])),
+              f"one-pass mesh round differs from the one-pass round ({tag})")
+        del rnd1, m1
+        # The one-pass entry's r of block 0 on shard 0 (its K2 fp32 store)
+        # and the plain version's: the flip term of RHO's note.
+        r1k = torch.zeros((nc + 1, K, CHUNK), device="cuda")
+        r1p = torch.zeros_like(r1k)
+        block_launch(fe, 0, tabs.slots[0], removal, ZP3s[0], *consts, O, E,
+                     fast, outs(nc + 1), J1, R3=r1k, precision="default")
+        plain_mod.fused_update_block(0, tabs.slots[0], removal, ZP3s[0],
+                                     *consts, O, E, fast, outs(nc + 1),
+                                     R3=r1p, one_pass=True)
+        # Against the plain version, shard 0, every variant, each
+        # precision.
+        for var, prec in [(v, p) for p in PRECISIONS for v in (
+                "round", "r_window", "float32", "bfloat16")]:
+            one = prec == "default"
+            kw, plain_kw = dict(precision=prec), dict(one_pass=one)
             if var == "r_window":
-                kw = dict(Rw=torch.zeros((width, K, CHUNK), device="cuda"),
+                kw.update(Rw=torch.zeros((width, K, CHUNK), device="cuda"),
                           lo=lo)
-                plain_kw = dict(Rw=torch.zeros_like(kw["Rw"]), lo=kw["lo"])
+                plain_kw.update(Rw=torch.zeros_like(kw["Rw"]), lo=kw["lo"])
             elif var != "round":
                 dt = getattr(torch, var)
-                kw = dict(R3=torch.zeros((nc + 1, K, CHUNK), dtype=dt,
+                kw.update(R3=torch.zeros((nc + 1, K, CHUNK), dtype=dt,
                                          device="cuda"))
-                plain_kw = dict(R3=torch.zeros_like(kw["R3"]))
+                plain_kw.update(R3=torch.zeros_like(kw["R3"]))
             ko, kp = outs(nc + 1), outs(nc + 1)
             k = block_launch(fe, 0, tabs.slots[0], removal, ZP3s[0],
                              *consts, O, E, fast, ko, J1, **kw)
@@ -1676,12 +1985,35 @@ def mesh_kernel_checks(mods, X, batches, mesh):
             check(all(_eq(a, b) for a, b in zip((*ka, *ko2, *(
                 v for v in kw2.values() if torch.is_tensor(v))), (*k, *ko, *(
                     v for v in kw.values() if torch.is_tensor(v))))),
-                  f"per-block {var} repeat not bitwise ({tag})")
+                  f"per-block {var} repeat not bitwise ({tag}, {prec})")
+            kk = ("k1" if var in ("round", "r_window") else "k2") + (
+                "_one" if one else "")
+            if one:
+                # Rows are the block's; O, E the block-removed ones.
+                e1, _ = one_pass_errs(plain_mod, (k[0], k[1], *ko),
+                                      (p_[0], p_[1], *kp), r1k, r1p,
+                                      ZP3s[0], Pr_b, sigma, readded=False)
+                if var == "r_window":
+                    e1["r_window"] = diff(kw["Rw"], plain_kw["Rw"],
+                                          TOL["r"][0] + RHO, TOL["r"][1])
+                if "R3" in kw:
+                    e1["R"] = diff(kw["R3"].float(), plain_kw["R3"].float(),
+                                   TOL["r"][0] + RHO + (
+                                       2.0 ** -8 if var == "bfloat16"
+                                       else 0.0), TOL["r"][1])
+                for name, e in e1.items():
+                    if name in ("O", "E", "cache", "ybuf", "kbuf", "r",
+                                "r_window", "R"):
+                        worst[kk] = max(worst.get(kk, 0.0), e[0])
+                    errs[f"{var},{tag},{prec},{name}"] = e[0]
+                    check(e[2] <= 1.0, f"one-pass per-block {var} vs plain "
+                                       f"{name} beyond its bound ({tag}): "
+                                       f"{e1}")
+                continue
             pairs = list(zip(("O", "E", "cache", "ybuf", "kbuf"),
                              (k[0], k[1], *ko), (p_[0], p_[1], *kp)))
             if var == "r_window":
                 pairs.append(("r", kw["Rw"], plain_kw["Rw"]))
-            kk = "k1" if var in ("round", "r_window") else "k2"
             for name, a, b in pairs:
                 e = diff(a, b, *TOL[name])
                 worst[kk] = max(worst[kk], e[0])
@@ -1775,19 +2107,29 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     bt = 1 + int(torch.argmax(cells[1:]))
     n_cells = int(cells[bt])
     n_slots = int(torch.unique(tabs.slots[0][bt]).numel())
-    fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
+    _zero_counts(fe)
     J = tabs.slots[0].shape[1]
-    frame = torch.zeros((2, D, J, K, N_BATCHES + 1), device="cuda")
-    fold_kw = dict(brows=frame[:, 0], frame=frame, src=fe.rank_table(
-        tabs.granks, geom.J_fix, J, "cuda"), J_fix=geom.J_fix)
+    # Each variant's launches, the fp32 one and the one-pass one, with its
+    # own frame (the fold reads block bt - 1's rows of its own variant).
+    frames = {p: torch.zeros((2, D, J, K, N_BATCHES + 1), device="cuda")
+              for p in PRECISIONS}
+    src = fe.rank_table(tabs.granks, geom.J_fix, J, "cuda")
     args0 = (tabs.slots[0], removal, ZP3s[0], *consts, O, E, False, out, J1)
-    ln = fe._BlockLaunch(*args0, **fold_kw)
-    ln2 = fe._BlockLaunch(*args0, R3=R3, **fold_kw)
-    for x in (ln, ln2):     # block bt - 1's rows, O', E' for the fold
+    R3s1 = {p: torch.zeros((nc + 1, K, CHUNK), device="cuda")
+            for p in PRECISIONS}
+    R3s1["float32"] = R3
+    lns = {}
+    for prec in PRECISIONS:
+        fold_kw = dict(brows=frames[prec][:, 0], frame=frames[prec], src=src,
+                       J_fix=geom.J_fix, precision=prec)
+        sfx = "" if prec == "float32" else "_one"
+        lns["k1" + sfx] = fe._BlockLaunch(*args0, **fold_kw)
+        lns["k2" + sfx] = fe._BlockLaunch(*args0, R3=R3s1[prec], **fold_kw)
+    for x in lns.values():  # block bt - 1's rows, O', E' for the fold
         x.launch(bt - 1)
     ms = {}
     for fold in (False, True, True, False):
-        for name, x in (("k1", ln), ("k2", ln2)):
+        for name, x in lns.items():
             ms.setdefault((name, fold), []).append(
                 cuda_ms(lambda: x.launch(bt, fold), reps=200))
     ms = {key: sum(v) / len(v) for key, v in ms.items()}
@@ -1795,11 +2137,13 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     # 50 back-to-back launches' events).
     dev = {}
     for fold in (False, True):
-        for name, x in (("k1", ln), ("k2", ln2)):
+        for name, x in lns.items():
             t, per = device_ms(lambda: x.launch(bt, fold), reps=50)
             check(0 < per <= 1, f"profiled {per} kernels per per-block "
                                 f"launch ({name}, fold {fold})")
             dev[name, fold] = t / per
+    ln = lns["k1"]
+    frame = frames["float32"]
     rows_prev = [frame[(bt - 1) & 1, s] for s in range(D)]
     prev = (rows_prev, [g[bt - 1] for g in tabs.granks], geom.J_fix)
     Op, Ep = ln.removed(bt - 1)
@@ -1811,11 +2155,27 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         bt, *args0[:7], Op, Ep, False, out, prev=prev), reps=10)
     plain_ms_fold_k2 = cuda_ms(lambda: plain_mod.fused_update_block_folded(
         bt, *args0[:7], Op, Ep, False, out, prev=prev, R3=R3), reps=10)
+    # The one-pass plain versions, from the one-pass variant's block bt - 1.
+    rows1 = [frames["default"][(bt - 1) & 1, s] for s in range(D)]
+    prev1 = (rows1, prev[1], geom.J_fix)
+    Op1, Ep1 = lns["k1_one"].removed(bt - 1)
+    plain_one = dict(
+        fold=cuda_ms(lambda: plain_mod.fused_update_block_folded(
+            bt, *args0[:7], Op1, Ep1, False, out, prev=prev1,
+            one_pass=True), reps=10),
+        fold_k2=cuda_ms(lambda: plain_mod.fused_update_block_folded(
+            bt, *args0[:7], Op1, Ep1, False, out, prev=prev1,
+            R3=R3s1["default"], one_pass=True), reps=10))
     n_launch = 1 + 4 * (2 + 200) + 2 * (1 + 50)
-    check(fe.launches_block == n_launch
-          and fe.launches_block_write_r == n_launch,
+    check(fe.launches_block == 2 * n_launch
+          and fe.launches_block_write_r == 2 * n_launch
+          and fe.launches_block_one_pass == n_launch
+          and fe.launches_block_write_r_one_pass == n_launch,
           f"per-block launches counted {fe.launches_block}, "
-          f"{fe.launches_block_write_r}, not {n_launch}")
+          f"{fe.launches_block_write_r} (one pass "
+          f"{fe.launches_block_one_pass}, "
+          f"{fe.launches_block_write_r_one_pass}), not {2 * n_launch} "
+          f"({n_launch})")
     rd_rows = [torch.zeros((int(t.shape[1]), K, N_BATCHES + 1),
                            device="cuda") for t in tabs.slots]
     Od, Ed = torch.empty_like(O), torch.empty_like(E)
@@ -1851,6 +2211,8 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     b1, b2 = block_bound(n_cells, n_slots), block_bound(n_cells, n_slots, 4)
     bf1 = block_bound(n_cells, n_slots, 0, geom.J_fix)
     bf2 = block_bound(n_cells, n_slots, 4, geom.J_fix)
+    bf1_one = block_bound(n_cells, n_slots, 0, geom.J_fix, one_pass=True)
+    bf2_one = block_bound(n_cells, n_slots, 4, geom.J_fix, one_pass=True)
     br = readd_bound(geom.J_fix)
     return dict(
         shape=dict(shards=D, N_shard_real=geomD.nc_cap * CHUNK,
@@ -1878,6 +2240,17 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         timing_process=timing,
         bound_block=b1, bound_block_write_r=b2, bound_block_fold=bf1,
         bound_block_write_r_fold=bf2, bound_readd=br,
+        one_pass=dict(
+            ms_block=ms["k1_one", False], ms_block_write_r=ms["k2_one", False],
+            ms_block_fold=ms["k1_one", True],
+            ms_block_write_r_fold=ms["k2_one", True],
+            device_ms_block_fold=dev["k1_one", True],
+            device_ms_block_write_r_fold=dev["k2_one", True],
+            plain_ms_block_fold=plain_one["fold"],
+            plain_ms_block_write_r_fold=plain_one["fold_k2"],
+            bound_block_fold=bf1_one, bound_block_write_r_fold=bf2_one,
+            roofline_share_block_fold=bf1_one["bound_ms"]
+            / ms["k1_one", True]),
         roofline_share_block=b1["bound_ms"] / ms["k1", False],
         roofline_share_block_device=b1["bound_ms"] / dev["k1", False],
         roofline_share_block_fold=bf1["bound_ms"] / ms["k1", True],
@@ -1957,9 +2330,20 @@ def mesh_cards_round_checks(mods, X, batches, mesh):
                 ms_per_pass_host_clock=ms)
 
 
+# The mesh fits of mesh_fit_checks: the default deferred, stored and
+# low_memory fits (the one-pass kernels), and the deferred and stored fits
+# under "float32" (3xTF32) where refs holds their one-device fits.
+MESH_FITS = (("deferred", {}), ("stored", dict(defer_r=False)),
+             ("low_memory", dict(defer_r=False, low_memory=True)),
+             ("deferred_float32", dict(matmul_precision="float32")),
+             ("stored_float32", dict(defer_r=False,
+                                     matmul_precision="float32")))
+
+
 def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
-    """The default deferred fit, the stored fit and the low_memory fit on
-    `mesh`, each with the five launch counts set to 0 just before it:
+    """The fits of MESH_FITS that refs holds on `mesh`, each with every
+    launch count set to 0 just before it (the one-pass launches all of a
+    default fit's, none of a float32 fit's):
     Z_corr, R, the five histories and kmeans_rounds bitwise equal to the
     one-device fit refs[name]; per-block launches = blocks x shards per
     pass (deferred: every round and replay window; stored: every round),
@@ -1975,22 +2359,24 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
     from harmonypy_tpu_torch.utils.memory import memory_envelope
     out, counts = {}, {}
     cards = collections.Counter(mesh.devices)
-    for name, kw in (("deferred", {}), ("stored", dict(defer_r=False)),
-                     ("low_memory", dict(defer_r=False, low_memory=True))):
+    for name, kw in MESH_FITS:
+        if name not in refs:
+            continue
         torch.cuda.synchronize()
         base = {}
         for dv in cards:
             torch.cuda.reset_peak_memory_stats(dv)
             base[dv] = torch.cuda.memory_allocated(dv)
-        fe.launches = fe.launches_write_r = 0
-        fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
+        _zero_counts(fe)
         t0 = time.perf_counter()
         ho = ht.run_harmony(X, meta, ["batch"], mesh=mesh, verbose=False,
                             **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = (fe.launches, fe.launches_write_r, fe.launches_block,
-               fe.launches_block_write_r, fe.launches_readd)
+        got = _counts(fe)
+        one = _one_pass_counts(fe)
+        check(one == (got[:4] if "float32" not in name else (0,) * 4),
+              f"mesh {name}: one-pass launches {one} of {got[:4]}")
         memory = {}
         for dv, shards in cards.items():
             peak = torch.cuda.max_memory_allocated(dv) - base[dv]
@@ -2005,7 +2391,7 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
         nb = ho.cfg.n_blocks
         passes, rounds = ho.state.n_passes, sum(ho.kmeans_rounds)
         want = ((0, 0, nb * mesh.size * passes, 0, passes)
-                if name == "deferred"
+                if name.startswith("deferred")
                 else (0, 0, 0, nb * mesh.size * rounds, rounds))
         check(got == want and max(got) > 0,
               f"mesh {name}: launches (K1, K2, K1 per-block, K2 per-block, "
@@ -2159,19 +2545,34 @@ def phase_mesh(ht, mods, X, batches, groups, meta, refs, lisi_ref):
     emit(dict(phase="mesh", shards=MESH_SHARDS, kernel=kinfo,
               kernel_tolerance=TOL, **res, real_cards=real))
     # The per-block entries as a pass runs them for every block but its
-    # first: with the previous block's re-add in the prologue.
+    # first: with the previous block's re-add in the prologue. The 3xTF32
+    # entries' launches are the float32 mesh fits', the one-pass entries'
+    # the default fits'.
+    one = kinfo["one_pass"]
     return dict(
-        k1=dict(launches=counts["deferred"][2], ms=kinfo["ms_block_fold"],
+        k1=dict(launches=counts["deferred_float32"][2],
+                ms=kinfo["ms_block_fold"],
                 plain_ms=kinfo["plain_ms_block_fold"],
                 max_abs_err=worst["k1"],
                 bound_ms=kinfo["bound_block_fold"]["bound_ms"],
                 bound_by=kinfo["bound_block_fold"]["bound_by"]),
-        k2=dict(launches=counts["stored"][3],
+        k2=dict(launches=counts["stored_float32"][3],
                 ms=kinfo["ms_block_write_r_fold"],
                 plain_ms=kinfo["plain_ms_block_write_r_fold"],
                 max_abs_err=worst["k2"],
                 bound_ms=kinfo["bound_block_write_r_fold"]["bound_ms"],
                 bound_by=kinfo["bound_block_write_r_fold"]["bound_by"]),
+        k1_one=dict(launches=counts["deferred"][2], ms=one["ms_block_fold"],
+                    plain_ms=one["plain_ms_block_fold"],
+                    max_abs_err=worst["k1_one"],
+                    bound_ms=one["bound_block_fold"]["bound_ms"],
+                    bound_by=one["bound_block_fold"]["bound_by"]),
+        k2_one=dict(launches=counts["stored"][3],
+                    ms=one["ms_block_write_r_fold"],
+                    plain_ms=one["plain_ms_block_write_r_fold"],
+                    max_abs_err=worst["k2_one"],
+                    bound_ms=one["bound_block_write_r_fold"]["bound_ms"],
+                    bound_by=one["bound_block_write_r_fold"]["bound_by"]),
         readd=dict(launches=counts["deferred"][4], ms=kinfo["ms_readd"],
                    plain_ms=kinfo["plain_ms_readd"],
                    max_abs_err=worst["readd"],
@@ -2206,9 +2607,17 @@ def _counts(fe):
             fe.launches_block_write_r, fe.launches_readd)
 
 
+def _one_pass_counts(fe):
+    """The one-pass launches among _counts' first four."""
+    return (fe.launches_one_pass, fe.launches_write_r_one_pass,
+            fe.launches_block_one_pass, fe.launches_block_write_r_one_pass)
+
+
 def _zero_counts(fe):
     fe.launches = fe.launches_write_r = 0
     fe.launches_block = fe.launches_block_write_r = fe.launches_readd = 0
+    fe.launches_one_pass = fe.launches_write_r_one_pass = 0
+    fe.launches_block_one_pass = fe.launches_block_write_r_one_pass = 0
 
 
 # The per-cell fit's full width: the largest N at which a default
@@ -2477,7 +2886,8 @@ def mp_worker(spec: dict) -> None:
         fast = engine.fast_ent(cfg)
 
         def run():
-            return fe.fused_estep_mesh(tables, ZP3s, *rep, fast, geom.J_fix)
+            return fe.fused_estep_mesh(tables, ZP3s, *rep, fast, geom.J_fix,
+                                       precision=cfg.matmul_precision)
 
         # Through one plan, as a fit runs its passes.
         with fe.mesh_plans():
@@ -3011,8 +3421,9 @@ def main() -> int:
     smi = smi_line()
     t0 = time.perf_counter()
     build.build_all()
-    fe._kernel_lib()
-    fe._block_lib()
+    for one in (False, True):
+        fe._kernel_lib(one)
+        fe._block_lib(one)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in build.build_log.values()
              for ln in log.splitlines()
@@ -3024,23 +3435,26 @@ def main() -> int:
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-              build_s=build_s, ptxas=build.build_log))
+              build_s=build_s, build_seconds=build.build_seconds,
+              ptxas=build.build_log))
     X, batches, groups = synthetic()
     mods = (config, engine, layout, partition, fe, update_r_fused, state)
     geom, args, (cfg, _, st) = round_inputs(mods, X, batches,
                                             with_state=True)
     del st
-    kinfo, k1_dev_ms = phase_kernel(mods, cfg, geom, args)
+    kinfo, k1_dev_ms, winfo = phase_kernel(mods, cfg, geom, args)
     k2info, k2_dev_ms = phase_kernel2(mods, cfg, geom, args)
     del args
     phase_shapes(mods)
-    launches, meta, fit_ho, fit_peak = phase_fit(ht, fe, X, batches)
+    launches, meta, fit_ho, fit_peak, fit32 = phase_fit(ht, fe, X, batches)
     launches_r, fits, stored_hos = phase_fit_stored(ht, fe, X, meta)
     fits["deferred"] = (fit_ho.cfg, fit_peak)
+    refs = dict(deferred=fit_ho, stored=stored_hos["stored"],
+                low_memory=stored_hos["low_memory"])
     phase_profile(ht, X, meta, "deferred")
     phase_profile(ht, X, meta, "stored", defer_r=False)
-    phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms, k2_dev_ms,
-                      kinfo["bound_ms"])
+    phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms["default"],
+                      k2_dev_ms["default"], kinfo["float32"]["bound_ms"])
     phase_io()
     phase_golden(ht)
     phase_golden_default(ht)
@@ -3050,25 +3464,51 @@ def main() -> int:
     phase_cli(ht)
     phase_capacity(fits)
     minfo = phase_mesh(ht, mods, X, batches, groups, meta,
-                       dict(deferred=fit_ho, **stored_hos), lisi_ref)
-    phase_multiprocess(dict(deferred=fit_ho, **stored_hos), X, batches,
-                       groups, smi, lisi_ref)
-    del fit_ho, stored_hos
+                       dict(refs, deferred_float32=fit32,
+                            stored_float32=stored_hos["stored_float32"]),
+                       lisi_ref)
+    phase_multiprocess(refs, X, batches, groups, smi, lisi_ref)
+    # The r window's launches on the default deferred fit: its passes
+    # that were not k-means rounds (the ridge's replays).
+    window_launches = launches["default"] - sum(fit_ho.kmeans_rounds)
+    del fit_ho, stored_hos, fit32, refs
     src = "harmonypy_tpu_torch/csrc/fused_estep.cu"
     block_src = "harmonypy_tpu_torch/csrc/fused_estep_block.cu"
     pallas = "harmonypy_tpu/ops/pallas/update_r_fused.py"
+    # Each kernel with its launches on its path's fit: the 3xTF32 variants
+    # on the float32 fits, the one-pass variants on the default fits.
     emit({"kernels": [
         dict(name="fused_estep", route="cuda", source=src,
-             replaces=f"{pallas}:117", launches=launches, **kinfo,
-             library_ms=None),
+             replaces=f"{pallas}:117", launches=launches["float32"],
+             **kinfo["float32"], library_ms=None),
         dict(name="fused_estep_write_r", route="cuda", source=src,
-             replaces=f"{pallas}:109", launches=launches_r, **k2info,
+             replaces=f"{pallas}:109",
+             launches=launches_r["stored_float32"],
+             **k2info["float32", "float32"], library_ms=None),
+        dict(name="fused_estep_one_pass", route="cuda", source=src,
+             replaces=f"{pallas}:117", launches=launches["default"],
+             **kinfo["default"], library_ms=None),
+        dict(name="fused_estep_r_window_one_pass", route="cuda", source=src,
+             replaces=f"{pallas}:117", launches=window_launches, **winfo,
              library_ms=None),
+        dict(name="fused_estep_write_r_one_pass", route="cuda", source=src,
+             replaces=f"{pallas}:109", launches=launches_r["stored"],
+             **k2info["default", "float32"], library_ms=None),
+        dict(name="fused_estep_write_r_bf16_one_pass", route="cuda",
+             source=src, replaces=f"{pallas}:109",
+             launches=launches_r["low_memory"],
+             **k2info["default", "bfloat16"], library_ms=None),
         dict(name="fused_estep_block", route="cuda", source=block_src,
              replaces=f"{pallas}:117", **minfo["k1"], library_ms=None),
         dict(name="fused_estep_block_write_r", route="cuda",
              source=block_src, replaces=f"{pallas}:109", **minfo["k2"],
              library_ms=None),
+        dict(name="fused_estep_block_one_pass", route="cuda",
+             source=block_src, replaces=f"{pallas}:117", **minfo["k1_one"],
+             library_ms=None),
+        dict(name="fused_estep_block_write_r_one_pass", route="cuda",
+             source=block_src, replaces=f"{pallas}:109",
+             **minfo["k2_one"], library_ms=None),
         dict(name="frame_readd", route="cuda",
              source="harmonypy_tpu_torch/csrc/frame_readd.cuh",
              replaces=f"{pallas}:215", **minfo["readd"], library_ms=None)]})

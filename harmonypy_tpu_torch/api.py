@@ -95,8 +95,15 @@ def run_harmony(
     the chunk size
     from (N, block_size); fast_objective selects the log-free entropy
     partials for single-covariate designs;
-    matmul_precision is accepted for signature compatibility ("default" or
-    "float32"; the port computes in float32 either way). checkpoint_dir
+    matmul_precision ("default" or "float32", the JAX package's values)
+    sets the fused E-step kernels' products on a CUDA card: "default" runs
+    them as one bf16 tensor-core pass with fp32 accumulation (each operand
+    rounded to nearest even, as the JAX package's default runs them on the
+    TPU), "float32" as 3xTF32 (error near fp32 rounding, ~3x the
+    tensor-core work). On the CPU both compute in fp32 and give the same
+    bits, as XLA computes an f32 product in f32 on the CPU. Every other
+    product (k-means seeding, the ridge, the per-cell fit, LISI) runs in
+    fp32 under both. checkpoint_dir
     writes harmony_iter_{i}.npz after every harmony iteration; resume_from
     continues from such a file bitwise as the uninterrupted fit would, under
     the settings it was written with (a mismatch raises ValueError listing
@@ -488,7 +495,8 @@ def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
     out = torch.zeros((K, len(ids) * cfg.N_local))     # this process's cells
     with mesh_plans():      # the replays' plans, for these windows only
         for lo, w in windows(one_device(cfg), budget=64 * 1024 * 1024):
-            Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w)
+            Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w,
+                                  cfg.matmul_precision)
             for i, (s, Rw) in enumerate(zip(ids, Rws)):
                 if Rw is None:
                     continue

@@ -99,6 +99,9 @@ class EngineConfig:
 
     # Storage dtype of a stored soft-assignment matrix R.
     r_dtype: str = "float32"
+    # The fused E-step kernels' products on a CUDA card: "default" one bf16
+    # tensor-core pass with fp32 accumulation, "float32" 3xTF32; on the CPU
+    # both run in fp32 (ops/cuda/fused_estep.py).
     matmul_precision: str = "default"
 
     # Fused chunk-granular E-step selection and geometry.

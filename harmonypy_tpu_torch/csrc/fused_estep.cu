@@ -1,25 +1,35 @@
 // The one-launch fused E-step round (K1, its r window, K2) for Hopper
 // (sm_90a): the C entries of the round's instantiations of estep_round
 // (fused_estep.cuh, which holds the kernel and its design notes).
+//
+// ESTEP_ONE picks the variant of the products this library holds: this
+// file builds the 3xTF32 one (matmul_precision "float32"), and
+// fused_estep_one.cu, which includes it with ESTEP_ONE true, the one-pass
+// bf16 one ("default"): two libraries with the same entries, two nvcc
+// processes in parallel.
 
 #include "fused_estep.cuh"
 
+#ifndef ESTEP_ONE
+#define ESTEP_ONE false
+#endif
+
 namespace {
 
-// CTAs of estep_round<RT, NRG, PRE> that fit on the current device at
-// once, or a negative CUDA error.
+// CTAs of estep_round<RT, NRG, PRE> (of this library's variant) that fit on
+// the current device at once, or a negative CUDA error.
 template <typename RT, int NRG, bool PRE>
 int grid_size(size_t smem) {
+  auto* kernel = estep_round<RT, NRG, PRE, false, ESTEP_ONE>;
   cudaError_t err = cudaFuncSetAttribute(
-      estep_round<RT, NRG, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   int dev = 0, nsm = 0, per = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
   err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -(int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per, estep_round<RT, NRG, PRE>, THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, THREADS,
+                                                      smem);
   if (err != cudaSuccess) return -(int)err;
   if (per < 1) return -(int)cudaErrorInvalidConfiguration;
   return per * nsm;
@@ -27,10 +37,10 @@ int grid_size(size_t smem) {
 
 template <typename RT>
 int run(const Args& a, cudaStream_t stream) {
-  const Lay L = layout(a.K, a.B, a.d);
+  const Lay L = layout<ESTEP_ONE>(a.K, a.B, a.d);
   const size_t smem = sizeof(float) * (size_t)L.total;
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  return with_variant(L, [&](auto nrg, auto pre) {
+  return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     constexpr int NRG = decltype(nrg)::value;
     constexpr bool PRE = decltype(pre)::value;
     int grid = grid_size<RT, NRG, PRE>(smem);
@@ -40,17 +50,17 @@ int run(const Args& a, cudaStream_t stream) {
     Args arg = a;
     void* params[] = {&arg};
     return (int)cudaLaunchCooperativeKernel(
-        (const void*)estep_round<RT, NRG, PRE>, dim3(grid), dim3(THREADS),
-        params, smem, stream);
+        (const void*)estep_round<RT, NRG, PRE, false, ESTEP_ONE>, dim3(grid),
+        dim3(THREADS), params, smem, stream);
   });
 }
 
 template <typename RT>
 int grid_of(int K, int B, int d) {
-  const Lay L = layout(K, B, d);
+  const Lay L = layout<ESTEP_ONE>(K, B, d);
   const size_t smem = sizeof(float) * (size_t)L.total;
   if (smem > MAX_SMEM) return -(int)cudaErrorInvalidValue;
-  return with_variant(L, [&](auto nrg, auto pre) {
+  return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     return grid_size<RT, decltype(nrg)::value, decltype(pre)::value>(smem);
   });
 }
@@ -60,7 +70,12 @@ int grid_of(int K, int B, int d) {
 extern "C" {
 
 // Dynamic shared memory one CTA needs for (K, B, d), in bytes.
-int fused_estep_smem(int K, int B, int d) { return (int)smem_bytes(K, B, d); }
+int fused_estep_smem(int K, int B, int d) {
+  return (int)smem_bytes<ESTEP_ONE>(K, B, d);
+}
+
+// Whether this library holds the one-pass variant (1) or 3xTF32 (0).
+int fused_estep_one_pass() { return ESTEP_ONE ? 1 : 0; }
 
 // Largest shared memory a CTA may take.
 int fused_estep_smem_limit() { return (int)MAX_SMEM; }

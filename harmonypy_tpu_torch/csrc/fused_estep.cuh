@@ -1,10 +1,12 @@
 #pragma once
 
 // Fused E-step round for Hopper (sm_90a): one persistent cooperative launch
-// per round, both products on tensor cores in 3xTF32. The kernel and its
+// per round, its products on tensor cores in 3xTF32 (matmul_precision
+// "float32") or in one bf16 pass ("default"). The kernel and its
 // helpers; fused_estep.cu instantiates the one-launch round (K1, its r
-// window, K2) and fused_estep_block.cu the per-block entry of a mesh, each
-// file built by its own nvcc, in parallel.
+// window, K2) and fused_estep_block.cu the per-block entry of a mesh, in
+// 3xTF32, and fused_estep_one.cu / fused_estep_block_one.cu the same in one
+// pass: four libraries, each file built by its own nvcc, in parallel.
 //
 // Replaces the JAX package's Pallas TPU kernels `_kernel_nor` (K1, the
 // deferred-R round, harmonypy_tpu/ops/pallas/update_r_fused.py:117-125) and
@@ -76,6 +78,19 @@
 //  * K2's store is packed: two adjacent cells of one cluster per float2,
 //    or per __nv_bfloat162 rounded to nearest even (__floats2bfloat162_rn,
 //    as torch's .to(bfloat16) rounds).
+//  * One pass (ONE, matmul_precision="default", as the JAX package runs its
+//    products on the TPU: single-pass bf16 inputs, fp32 accumulation): the
+//    three products run as mma.m16n8k16 bf16 with fp32 accumulators, each
+//    operand rounded to nearest even once (Y^T and wdiv when they are
+//    staged, in bf16 A-fragment order: no lo halves, one 16-byte load per
+//    fragment; the slab and r as their fragments are packed, two k-adjacent
+//    values per register: two slab rows of one cell for dist and w, two
+//    cells of one r row for S). Everything else is the 3xTF32 variant's:
+//    r, dist, the softmax and every statistic stay fp32, and r is rounded
+//    only as the A operand of S, as the TPU rounds r for its single-pass
+//    dot. The k16 steps pad d to 16 (29 -> 32) and the B+1 design rows to
+//    16. One pass does a third of the 3xTF32 tensor-core work: the round
+//    at 858k is then bound by its bytes (~0.036 ms), not its operations.
 // The per-block entry (fused_estep_block_launch: K1, its r window or K2 on
 // one block of the tables; the FOLD instantiations) is what a mesh runs,
 // one launch per shard per block, returning the block-removed O, E and the
@@ -121,6 +136,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int TILE = 8 * WARPS;   // cells per tile: 8 per warp
 constexpr int PT = TILE + 4;      // row pitch of the slab ring and r stage
 constexpr int KSC = 4;            // dist k-steps unrolled, B kept in registers
+constexpr int KSC1 = 2;           // ... of 16 in one pass (the same 32 rows)
 constexpr int NRG_MAX = 8;        // S n-tiles per A fragment, at most
 constexpr int FOLD_RQ = 24;       // frame ranks loaded ahead for a prologue
 constexpr float CLAMP = 1e-8f;
@@ -170,7 +186,8 @@ struct Args {
 // compile-time length without guards.
 struct Lay {
   int B1, R, Kp, KS, KSR, KB, NR, NRG, NRp, RR, PSA, MT;
-  bool PRE;  // Y and wdiv stored split (else split at each load)
+  bool PRE;  // Y and wdiv stored split (else split at each load); in one
+             // pass they are stored once, in bf16 (PRE false)
   int oYh, oYl, oWh, oWl, oSig, oRsig, oOr, oEr, oQ, oRing, oSacc, oCs, oRed,
       total;
 };
@@ -179,25 +196,35 @@ __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int up8(int x) { return (x + 7) & ~7; }
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// ONE: the one-pass variant's plan, whose k-steps are 16 deep (KS, KSR,
+// KB count them) and whose Y^T and wdiv fragments hold bf16: a fragment's
+// 256 values take the 128 floats of a TF32 one.
+template <bool ONE = false>
 __host__ __device__ inline Lay layout(int K, int B, int d) {
   Lay L;
   L.B1 = B + 1;
   L.R = 1 + B + d;
   L.Kp = (K + 15) & ~15;           // rows of dist, the r stage and S
   L.MT = L.Kp / 16;
-  L.KS = up8(d) / 8;               // dist k-steps over d
-  L.KSR = L.KS > KSC ? L.KS : KSC;  // ... at least the KSC unrolled ones
-  L.KB = cdiv(L.B1, 8);            // w k-steps over the design rows
+  if (ONE) {
+    L.KS = cdiv(d, 16);
+    L.KSR = L.KS > KSC1 ? L.KS : KSC1;
+    L.KB = cdiv(L.B1, 16);
+  } else {
+    L.KS = up8(d) / 8;               // dist k-steps over d
+    L.KSR = L.KS > KSC ? L.KS : KSC;  // ... at least the KSC unrolled ones
+    L.KB = cdiv(L.B1, 8);            // w k-steps over the design rows
+  }
   L.NR = up8(L.R) / 8;             // S n-tiles over [mask; Phi; Z]
   L.NRG = L.NR < NRG_MAX ? L.NR : NRG_MAX;
   L.NRp = cdiv(L.NR, L.NRG) * L.NRG;
-  const int dist_rows = L.B1 + 8 * L.KSR, s_rows = 8 * L.NRp;
+  const int dist_rows = L.B1 + (ONE ? 16 : 8) * L.KSR, s_rows = 8 * L.NRp;
   L.RR = up8(dist_rows > s_rows ? dist_rows : s_rows);  // ring rows
   // Pitch = 8 or 24 mod 32 words: conflict-free float2 accumulator access.
   L.PSA = 8 * L.NRp + ((L.NRp & 1) ? 0 : 8);
   const int kb = K * B;
   // Y and wdiv are kept split (hi and lo) where that fits, else whole.
-  for (int pre = 1; pre >= 0; --pre) {
+  for (int pre = ONE ? 0 : 1; pre >= 0; --pre) {
     L.PRE = pre;
     int o = 0;
     L.oYh = o; o += L.MT * L.KSR * 128;
@@ -254,12 +281,48 @@ __device__ __forceinline__ float fin(float hh, float x) {
   return __fadd_rn(hh, x);
 }
 
+// One pass: d += a b, bf16 operands (two per register, the lower k index in
+// the low half), fp32 accumulators in the layout of mma's.
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two values rounded to bf16 (nearest even) in one register, lo first.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(float2 v) {
+  return pack2(v.x, v.y);
+}
+
 // B fragment (8 slab rows x 8 cells): p points at row `row0` of a ring
 // stage, column = the warp's first cell.
 __device__ __forceinline__ void load_b_slab(const float* p, int t, int g,
                                             float (&bh)[2], float (&bl)[2]) {
   split(p[t * PT + g], bh[0], bl[0]);
   split(p[(t + 4) * PT + g], bh[1], bl[1]);
+}
+
+// One pass: B fragment (16 slab rows x 8 cells) from row `row0` of a ring
+// stage at p, column = the warp's first cell: rows 2t, 2t+1 and 2t+8, 2t+9
+// of cell g.
+__device__ __forceinline__ void load_b16_slab(const float* p, int t, int g,
+                                              uint32_t (&b)[2]) {
+  b[0] = pack2(p[2 * t * PT + g], p[(2 * t + 1) * PT + g]);
+  b[1] = pack2(p[(2 * t + 8) * PT + g], p[(2 * t + 9) * PT + g]);
+}
+
+// One pass: A fragment f (16 clusters x 16 rows) of a bf16 operand stored
+// in fragment order, one 16-byte load per lane.
+__device__ __forceinline__ void load_a16(const float* H, int f, int lane,
+                                         uint32_t (&a)[4]) {
+  const uint4 v = reinterpret_cast<const uint4*>(H)[f * 32 + lane];
+  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
 }
 
 // A fragment f (16 clusters x 8 rows) of an operand stored in fragment
@@ -295,6 +358,22 @@ __device__ __forceinline__ void put_frag(const Lay& L, float* H, float* Lo,
 __device__ __forceinline__ int frag_pos(int row, int col) {
   const int lane = (row & 7) * 4 + (col & 3);
   return lane * 4 + (row >> 3) + 2 * (col >> 2);
+}
+
+// One pass: offset in bf16 values of entry (row, col) of a 16 x 16 A tile
+// in fragment order: lane (row & 7) * 4 + (col & 7) / 2 holds 8 values,
+// register (row >> 3) + 2 (col >> 3), the even column in its low half.
+__device__ __forceinline__ int frag_pos16(int row, int col) {
+  const int lane = (row & 7) * 4 + ((col & 7) >> 1);
+  return lane * 8 + 2 * ((row >> 3) + 2 * (col >> 3)) + (col & 1);
+}
+
+// One pass: store entry (row, col) of tile f of a bf16 fragment-ordered
+// operand, rounded to nearest even.
+__device__ __forceinline__ void put_frag16(float* H, int f, int row, int col,
+                                           float v) {
+  reinterpret_cast<__nv_bfloat16*>(H)[f * 256 + frag_pos16(row, col)] =
+      __float2bfloat16_rn(v);
 }
 
 // Sum over the 8 lanes that share a column (lane bits 2-4): every lane
@@ -587,13 +666,15 @@ __device__ __forceinline__ float pass2(float* Q, const float* cs,
 
 // FOLD: the per-block entry, whose prologue may re-add the previous block
 // (a.readd); the one-launch round's instantiations (FOLD false) do not
-// compile that path, so its registers stay as they were.
-template <typename RT, int NRG, bool PRE, bool FOLD = false>
+// compile that path, so its registers stay as they were. ONE: the one-pass
+// bf16 products (PRE false); the 3xTF32 instantiations (ONE false) do not
+// compile them.
+template <typename RT, int NRG, bool PRE, bool FOLD = false, bool ONE = false>
 __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
-  const Lay L = layout(a.K, a.B, a.d);
+  const Lay L = layout<ONE>(a.K, a.B, a.d);
   const int K = a.K, B = a.B, B1 = L.B1, R = L.R, J = a.J, CH = a.CH;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3, cw = 8 * w;
@@ -635,11 +716,20 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   for (int i = tid; i < L.total; i += THREADS) sm[i] = 0.0f;
   __syncthreads();
   prefetch_first(a, L, 0, T, ring);
-  for (int i = tid; i < L.Kp * 8 * L.KSR; i += THREADS) {
-    const int k = i / (8 * L.KSR), x = i % (8 * L.KSR);
-    const float v = (x < a.d && k < K) ? a.Y[x * K + k] : 0.0f;
-    const int o = ((k >> 4) * L.KSR + (x >> 3)) * 128 + frag_pos(k & 15, x & 7);
-    put_frag(L, Yh, Yl, o, v);
+  if constexpr (ONE) {
+    for (int i = tid; i < L.Kp * 16 * L.KSR; i += THREADS) {
+      const int k = i / (16 * L.KSR), x = i % (16 * L.KSR);
+      const float v = (x < a.d && k < K) ? a.Y[x * K + k] : 0.0f;
+      put_frag16(Yh, (k >> 4) * L.KSR + (x >> 4), k & 15, x & 15, v);
+    }
+  } else {
+    for (int i = tid; i < L.Kp * 8 * L.KSR; i += THREADS) {
+      const int k = i / (8 * L.KSR), x = i % (8 * L.KSR);
+      const float v = (x < a.d && k < K) ? a.Y[x * K + k] : 0.0f;
+      const int o =
+          ((k >> 4) * L.KSR + (x >> 3)) * 128 + frag_pos(k & 15, x & 7);
+      put_frag(L, Yh, Yl, o, v);
+    }
   }
   for (int k = tid; k < K; k += THREADS) {
     sig[k] = a.sigma[k];
@@ -696,9 +786,14 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       Er[i] = E;
       Or[i] = O;
       const float wd = expf(__fmul_rn(a.theta[b], log_ratio(O, E)));
-      const int o = ((k >> 4) * L.KB + ((1 + b) >> 3)) * 128 +
-                    frag_pos(k & 15, (1 + b) & 7);
-      put_frag(L, Wh, Wl, o, wd);
+      if constexpr (ONE) {
+        put_frag16(Wh, (k >> 4) * L.KB + ((1 + b) >> 4), k & 15, (1 + b) & 15,
+                   wd);
+      } else {
+        const int o = ((k >> 4) * L.KB + ((1 + b) >> 3)) * 128 +
+                      frag_pos(k & 15, (1 + b) & 7);
+        put_frag(L, Wh, Wl, o, wd);
+      }
     }
     __syncthreads();
 
@@ -738,16 +833,59 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         auto pass1 = [&](auto fast_c) {
           constexpr bool FAST = decltype(fast_c)::value;
           float bh[KSC][2], bl[KSC][2], wbh[2], wbl[2];
+          uint32_t yb[KSC1][2], wb[2];  // one pass
+          if constexpr (ONE) {
 #pragma unroll
-          for (int ks = 0; ks < KSC; ++ks)
-            load_b_slab(rg + (B1 + ks * 8) * PT + cw, t, g, bh[ks], bl[ks]);
-          load_b_slab(rg + cw, t, g, wbh, wbl);
+            for (int ks = 0; ks < KSC1; ++ks)
+              load_b16_slab(rg + (B1 + ks * 16) * PT + cw, t, g, yb[ks]);
+            load_b16_slab(rg + cw, t, g, wb);
+          } else {
+#pragma unroll
+            for (int ks = 0; ks < KSC; ++ks)
+              load_b_slab(rg + (B1 + ks * 8) * PT + cw, t, g, bh[ks],
+                          bl[ks]);
+            load_b_slab(rg + cw, t, g, wbh, wbl);
+          }
           float den[2] = {0.0f, 0.0f}, qs[2] = {0.0f, 0.0f};
           float qd[2] = {0.0f, 0.0f}, qg[2] = {0.0f, 0.0f};
           auto mtiles = [&](auto np_c, int mt0) {
             constexpr int NP = decltype(np_c)::value;
             float acc[NP][4] = {}, acx[NP][4] = {};
             float wac[NP][4] = {}, wax[NP][4] = {};
+            if constexpr (ONE) {
+              uint32_t af[4];
+#pragma unroll
+              for (int ks = 0; ks < KSC1; ++ks) {
+#pragma unroll
+                for (int p = 0; p < NP; ++p) {
+                  load_a16(Yh, (mt0 + p) * L.KSR + ks, lane, af);
+                  mma16(acc[p], af, yb[ks]);
+                }
+              }
+              for (int ks = KSC1; ks < L.KSR; ++ks) {
+                uint32_t xb[2];
+                load_b16_slab(rg + (B1 + ks * 16) * PT + cw, t, g, xb);
+#pragma unroll
+                for (int p = 0; p < NP; ++p) {
+                  load_a16(Yh, (mt0 + p) * L.KSR + ks, lane, af);
+                  mma16(acc[p], af, xb);
+                }
+              }
+#pragma unroll
+              for (int p = 0; p < NP; ++p) {
+                load_a16(Wh, (mt0 + p) * L.KB, lane, af);
+                mma16(wac[p], af, wb);
+              }
+              for (int ks = 1; ks < L.KB; ++ks) {
+                uint32_t xb[2];
+                load_b16_slab(rg + ks * 16 * PT + cw, t, g, xb);
+#pragma unroll
+                for (int p = 0; p < NP; ++p) {
+                  load_a16(Wh, (mt0 + p) * L.KB + ks, lane, af);
+                  mma16(wac[p], af, xb);
+                }
+              }
+            } else {
             float ah[4], al[4];
 #pragma unroll
             for (int ks = 0; ks < KSC; ++ks) {
@@ -780,6 +918,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
                 mma3(wac[p], wax[p], ah, al, xh, xl);
               }
             }
+            }
             // Accumulator e of m-tile mt: cluster mt*16 + g + 8 (e >> 1),
             // cell 2t + (e & 1) of the warp's 8. Rows >= K get s = 0.
 #pragma unroll
@@ -787,11 +926,12 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
                 const int k = (mt0 + p) * 16 + g + 8 * (e >> 1), h = e & 1;
-                const float dist = __fmul_rn(
-                    2.0f, __fsub_rn(1.0f, fin(acc[p][e], acx[p][e])));
+                const float yz = ONE ? acc[p][e] : fin(acc[p][e], acx[p][e]);
+                const float wq = ONE ? wac[p][e] : fin(wac[p][e], wax[p][e]);
+                const float dist = __fmul_rn(2.0f, __fsub_rn(1.0f, yz));
                 const float ex = expf(__fmul_rn(-dist, rsig[k]));
                 const float s = k < K ? ex : 0.0f;
-                const float q = __fmul_rn(s, fin(wac[p][e], wax[p][e]));
+                const float q = __fmul_rn(s, wq);
                 den[h] = __fadd_rn(den[h], s);
                 qs[h] = __fadd_rn(qs[h], q);
                 qd[h] = fmaf(q, dist, qd[h]);
@@ -857,6 +997,36 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
               acc[n][2] = hi2.x; acc[n][3] = hi2.y;
               acx[n][0] = acx[n][1] = acx[n][2] = acx[n][3] = 0.0f;
             }
+            if constexpr (ONE) {
+              // A: r rows g, g + 8, cells 2t, 2t+1 (+8) of each 16; B: the
+              // slab rows' same cells, two per register.
+              const float* qa = Q + (mt * 16 + g) * PT + 2 * t;
+#pragma unroll 2
+              for (int ks = 0; ks < TILE / 16; ++ks) {
+                const int c = ks * 16;
+                const uint32_t af[4] = {
+                    pack2(*reinterpret_cast<const float2*>(qa + c)),
+                    pack2(*reinterpret_cast<const float2*>(qa + 8 * PT + c)),
+                    pack2(*reinterpret_cast<const float2*>(qa + c + 8)),
+                    pack2(*reinterpret_cast<const float2*>(qa + 8 * PT + c +
+                                                           8))};
+#pragma unroll
+                for (int n = 0; n < NRG; ++n) {
+                  const float* bp = rg + ((n0 + n) * 8 + g) * PT + c + 2 * t;
+                  const uint32_t bf[2] = {
+                      pack2(*reinterpret_cast<const float2*>(bp)),
+                      pack2(*reinterpret_cast<const float2*>(bp + 8))};
+                  mma16(acc[n], af, bf);
+                }
+              }
+#pragma unroll
+              for (int n = 0; n < NRG; ++n) {
+                *reinterpret_cast<float2*>(s0 + (n0 + n) * 8) =
+                    make_float2(acc[n][0], acc[n][1]);
+                *reinterpret_cast<float2*>(s0 + 8 * L.PSA + (n0 + n) * 8) =
+                    make_float2(acc[n][2], acc[n][3]);
+              }
+            } else {
 #pragma unroll 2
             for (int ks = 0; ks < TILE / 8; ++ks) {
               float ah[4], al[4];
@@ -882,6 +1052,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
               *reinterpret_cast<float2*>(s0 + 8 * L.PSA + (n0 + n) * 8) =
                   make_float2(fin(acc[n][2], acx[n][2]),
                               fin(acc[n][3], acx[n][3]));
+            }
             }
           }
         }
@@ -922,14 +1093,17 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   }
 }
 
-// Dynamic shared memory of one CTA for (K, B, d), in bytes.
+// Dynamic shared memory of one CTA for (K, B, d), in bytes (ONE: the
+// one-pass variant's).
+template <bool ONE = false>
 inline size_t smem_bytes(int K, int B, int d) {
-  return sizeof(float) * (size_t)layout(K, B, d).total;
+  return sizeof(float) * (size_t)layout<ONE>(K, B, d).total;
 }
 
 // The S n-tile group and the operand storage are template parameters (no
-// guards in the hot loops): f(IC<NRG>, IC<PRE>) for the layout's pair.
-template <typename F>
+// guards in the hot loops): f(IC<NRG>, IC<PRE>) for the layout's pair; in
+// one pass only PRE false is built.
+template <bool ONE = false, typename F>
 int with_variant(const Lay& L, F f) {
 #define ESTEP_NRG(PRE)                      \
   switch (L.NRG) {                          \
@@ -942,7 +1116,9 @@ int with_variant(const Lay& L, F f) {
     case 7: return f(IC<7>{}, IC<PRE>{});   \
     default: return f(IC<8>{}, IC<PRE>{});  \
   }
-  if (L.PRE) ESTEP_NRG(1)
+  if constexpr (!ONE) {
+    if (L.PRE) ESTEP_NRG(1)
+  }
   ESTEP_NRG(0)
 #undef ESTEP_NRG
 }

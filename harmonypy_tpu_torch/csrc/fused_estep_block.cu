@@ -12,6 +12,11 @@
 // the ~5 us of device time and the launch it saves. Each thread issues the
 // loads of its first two column sums at the kernel's start, so that their
 // two dependent trips to L2 overlap the kernel's setup.
+//
+// ESTEP_ONE picks the variant of the products this library holds, as in
+// fused_estep.cu: this file the 3xTF32 one, fused_estep_block_one.cu (which
+// includes it with ESTEP_ONE true) the one-pass bf16 one. A mesh pass's
+// plan, its call records and its walker all come from one library.
 
 #include <new>
 #include <vector>
@@ -19,18 +24,22 @@
 #include "frame_readd.cuh"
 #include "fused_estep.cuh"
 
+#ifndef ESTEP_ONE
+#define ESTEP_ONE false
+#endif
+
 namespace {
 
 // One block alone in per-block mode: an ordinary launch of J * ng CTAs, one
 // per unit (Args from block_args).
 template <typename RT>
 int run_block(const Args& a, cudaStream_t stream) {
-  const Lay L = layout(a.K, a.B, a.d);
+  const Lay L = layout<ESTEP_ONE>(a.K, a.B, a.d);
   const size_t smem = sizeof(float) * (size_t)L.total;
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  return with_variant(L, [&](auto nrg, auto pre) {
-    estep_round<RT, decltype(nrg)::value, decltype(pre)::value, true>
-        <<<a.J * a.ng, THREADS, smem, stream>>>(a);
+  return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
+    estep_round<RT, decltype(nrg)::value, decltype(pre)::value, true,
+                ESTEP_ONE><<<a.J * a.ng, THREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
   });
 }
@@ -39,12 +48,13 @@ int run_block(const Args& a, cudaStream_t stream) {
 // instantiations of estep_round<RT> on the current device.
 template <typename RT>
 int allow_smem(int K, int B, int d) {
-  const Lay L = layout(K, B, d);
+  const Lay L = layout<ESTEP_ONE>(K, B, d);
   const size_t smem = sizeof(float) * (size_t)L.total;
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  return with_variant(L, [&](auto nrg, auto pre) {
+  return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     return (int)cudaFuncSetAttribute(
-        estep_round<RT, decltype(nrg)::value, decltype(pre)::value, true>,
+        estep_round<RT, decltype(nrg)::value, decltype(pre)::value, true,
+                    ESTEP_ONE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   });
 }
@@ -108,6 +118,9 @@ int fused_estep_block_setup(int K, int B, int d) {
 
 // Bytes of the call record fused_estep_block_prepare writes.
 int fused_estep_block_call_size() { return (int)sizeof(BlockCall); }
+
+// Whether this library holds the one-pass variant (1) or 3xTF32 (0).
+int fused_estep_block_one_pass() { return ESTEP_ONE ? 1 : 0; }
 
 // The per-block entry (one launch per shard per block on a mesh): block blk
 // of fused_estep_round (rw null), of fused_estep_r_window (lo may be

@@ -273,17 +273,19 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
 
 
 def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
-              geom):
+              geom, precision: str):
     """One deferred-R round: the one-launch K1 on one device, the mesh
-    round (K1's per-block entry) on a mesh. Returns (O, E, caches, ybufs,
-    kbufs) with the per-chunk buffers per shard."""
+    round (K1's per-block entry) on a mesh, in the kernels' variant of
+    `precision`. Returns (O, E, caches, ybufs, kbufs) with the per-chunk
+    buffers per shard."""
     if geom.n_devices == 1:
         O, E, cache, ybuf, kbuf, _ = fused_estep(
             tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
-            params.theta, params.Pr_b, O, E, fast)
+            params.theta, params.Pr_b, O, E, fast, precision=precision)
         return O, E, [cache], [ybuf], [kbuf]
     return fused_estep_mesh(tables, ZP3s, Y, params.sigma, params.theta,
-                            params.Pr_b, O, E, fast, geom.J_fix)[:5]
+                            params.Pr_b, O, E, fast, geom.J_fix,
+                            precision=precision)[:5]
 
 
 @record_function("harmony::cluster")
@@ -304,7 +306,8 @@ def cluster(st: HarmonyState, ZP3s, params: HarmonyParams, cfg: EngineConfig,
         st.rep_Y, st.rep_O, st.rep_E = Y, st.O, st.E
         st.rep_cache, st.rep_blocks = st.cache, blocks
         O, E, caches, ybufs, kbufs = _k1_round(tables, ZP3s, Y, params,
-                                               st.O, st.E, fast, geom)
+                                               st.O, st.E, fast, geom,
+                                               cfg.matmul_precision)
         st.n_passes += 1
         st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
         Ysum = frame_sum(ybufs, geom).T
@@ -387,12 +390,14 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
         if geom.n_devices == 1:
             _, O, E, cache, ybuf, kbuf = fused_estep_r(
                 tables.slots[0], tables.removal, ZP3s[0], st.R, Y,
-                params.sigma, params.theta, params.Pr_b, st.O, st.E, fast)
+                params.sigma, params.theta, params.Pr_b, st.O, st.E, fast,
+                precision=cfg.matmul_precision)
             caches, ybufs, kbufs = [cache], [ybuf], [kbuf]
         else:
             O, E, caches, ybufs, kbufs, _ = fused_estep_mesh(
                 tables, ZP3s, Y, params.sigma, params.theta, params.Pr_b,
-                st.O, st.E, fast, geom.J_fix, R3s=parts(st.R))
+                st.O, st.E, fast, geom.J_fix, R3s=parts(st.R),
+                precision=cfg.matmul_precision)
         st.n_passes += 1
         st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
         Ysum = frame_sum(ybufs, geom).T

@@ -18,6 +18,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -29,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # ptxas report of each source built here
+build_seconds: dict[str, float] = {}  # its nvcc's wall seconds
 
 
 def _nvcc() -> str:
@@ -74,15 +76,25 @@ def build_all() -> dict[str, str]:
         os.makedirs(BUILD, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
+        t0 = time.perf_counter()
         for n, t in todo.items():
             tmp = f"{t}.{os.getpid()}.tmp"
             procs[n] = (tmp, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, n + ".cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+        def wait(n, p):
+            build_log[n] = p.communicate()[0]
+            build_seconds[n] = time.perf_counter() - t0
+        waits = [threading.Thread(target=wait, args=(n, p))
+                 for n, (_, p) in procs.items()]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         failed = []
         for n, (tmp, p) in procs.items():
-            out, _ = p.communicate()
-            build_log[n] = out
+            out = build_log[n]
             if p.returncode != 0:
                 failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{out}")
             else:

@@ -28,6 +28,19 @@ for the last re-add). Its plain version is
 `launches_readd` count the launches, `native_calls` the native calls and
 `plans_made` the plans.
 
+`precision` (EngineConfig.matmul_precision) picks the kernels' products on
+a card: "float32" runs them as 3xTF32 (error near fp32 rounding),
+"default" as one bf16 tensor-core pass with fp32 accumulation, each
+operand rounded to nearest even (the one-pass variant, as the JAX
+package's default runs its products on the TPU). Every launch of a round,
+its replays and its K2 passes one precision, and a plan serves one. CPU
+tensors run the plain fp32 version under either value, as XLA computes an
+f32 product in f32 on the CPU; `one_pass=True` of the plain functions is
+the one-pass variant's plain version, which the card's checks use.
+`launches_one_pass`, `launches_write_r_one_pass`, `launches_block_one_pass`
+and `launches_block_write_r_one_pass` count the one-pass launches among
+those of K1, K2 and their per-block entries.
+
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
 """
@@ -55,13 +68,23 @@ launches_block_write_r = 0
 launches_readd = 0
 native_calls = 0     # mesh_plan_run calls (the native mesh pass)
 plans_made = 0       # mesh pass plans (_MeshPlan) made
+# The one-pass launches among the counts above.
+launches_one_pass = 0
+launches_write_r_one_pass = 0
+launches_block_one_pass = 0
+launches_block_write_r_one_pass = 0
+
+PRECISIONS = ("default", "float32")
 
 TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_lib = None
-_block = None
+# The loaded libraries by variant (one pass or not): csrc/fused_estep.cu
+# and fused_estep_block.cu hold the 3xTF32 instantiations,
+# fused_estep_one.cu and fused_estep_block_one.cu the one-pass ones.
+_libs = {}
+_blocks = {}
 
 
 def _up(x: int, m: int) -> int:
@@ -118,10 +141,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = build.load("fused_estep")
+def one_pass(precision: str) -> bool:
+    """Whether `precision` runs the kernels' one-pass variant on a card."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return precision == "default"
+
+
+def _kernel_lib(one: bool = False):
+    """csrc/fused_estep.cu (one: fused_estep_one.cu): the one-launch
+    round."""
+    lib = _libs.get(one)
+    if lib is None:
+        name = "fused_estep_one" if one else "fused_estep"
+        lib = build.load(name)
         common = [_P] * 17
         tail = [_I] * 9 + [_P]
         lib.fused_estep_round.argtypes = common + tail
@@ -133,21 +167,25 @@ def _kernel_lib():
         lib.fused_estep_smem.argtypes = [_I, _I, _I]
         lib.fused_estep_grid.argtypes = [_I, _I, _I, _I]
         for fn in (lib.fused_estep_smem, lib.fused_estep_smem_limit,
-                   lib.fused_estep_tile, lib.fused_estep_grid):
+                   lib.fused_estep_tile, lib.fused_estep_grid,
+                   lib.fused_estep_one_pass):
             fn.restype = _I
         if lib.fused_estep_tile() != TILE:
-            raise RuntimeError(f"fused_estep.cu tiles {lib.fused_estep_tile()}"
+            raise RuntimeError(f"{name}.cu tiles {lib.fused_estep_tile()}"
                                f" cells, the wrapper {TILE}")
-        _lib = lib
-    return _lib
+        if lib.fused_estep_one_pass() != one:
+            raise RuntimeError(f"{name}.cu holds the wrong variant")
+        _libs[one] = lib
+    return lib
 
 
-def _block_lib():
-    """csrc/fused_estep_block.cu: the per-block entry, the re-add kernel
-    and the native mesh pass."""
-    global _block
-    if _block is None:
-        lib = build.load("fused_estep_block")
+def _block_lib(one: bool = False):
+    """csrc/fused_estep_block.cu (one: fused_estep_block_one.cu): the
+    per-block entry, the re-add kernel and the native mesh pass."""
+    lib = _blocks.get(one)
+    if lib is None:
+        name = "fused_estep_block_one" if one else "fused_estep_block"
+        lib = build.load(name)
         lib.fused_estep_block_prepare.argtypes = (
             [_P] * 17 + [_P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 3
             + [_I] * 9 + [_P, _I, _P])
@@ -166,22 +204,27 @@ def _block_lib():
                    lib.fused_estep_block_setup, lib.frame_readd_prepare,
                    lib.frame_readd_launch, lib.frame_readd_max_shards,
                    lib.frame_readd_call_size, lib.mesh_plan_create,
-                   lib.mesh_plan_run, lib.mesh_plan_destroy):
+                   lib.mesh_plan_run, lib.mesh_plan_destroy,
+                   lib.fused_estep_block_one_pass):
             fn.restype = _I
         layout = (ctypes.c_int * 3)()
         lib.mesh_plan_layout(layout)
         want = (_OP_WIDTH, len(BLOCK_FIELDS), len(READD_FIELDS))
         if tuple(layout) != want:
-            raise RuntimeError(f"fused_estep_block.cu's mesh plan layout "
+            raise RuntimeError(f"{name}.cu's mesh plan layout "
                                f"{tuple(layout)}, the wrapper's {want}")
-        _block = lib
-    return _block
+        if lib.fused_estep_block_one_pass() != one:
+            raise RuntimeError(f"{name}.cu holds the wrong variant")
+        _blocks[one] = lib
+    return lib
 
 
-def launch_grid(K: int, B: int, d: int, r_bf16: bool = False) -> int:
+def launch_grid(K: int, B: int, d: int, r_bf16: bool = False,
+                precision: str = "float32") -> int:
     """CTAs of one round's launch on the current card (K2 in bf16 with
-    r_bf16)."""
-    grid = _kernel_lib().fused_estep_grid(K, B, d, int(r_bf16))
+    r_bf16; the variant of `precision`)."""
+    grid = _kernel_lib(one_pass(precision)).fused_estep_grid(
+        K, B, d, int(r_bf16))
     if grid < 0:
         raise RuntimeError(f"fused_estep occupancy query failed: CUDA error "
                            f"{-grid}")
@@ -200,9 +243,12 @@ def _check(name, t, shape, dtype, device, contiguous=True):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E):
-    """Check the inputs every round takes; returns (nc1, K, B, d, CH). The
-    slot range is checked here on the CPU and by the kernel on the card."""
+def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
+                 precision: str = "float32"):
+    """Check the inputs every round takes (on a card, for the variant of
+    `precision`); returns (nc1, K, B, d, CH). The slot range is checked
+    here on the CPU and by the kernel on the card."""
+    one = one_pass(precision)
     if ZP3.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_estep runs on cuda or cpu, not {ZP3.device}")
     nc1, R, CH = ZP3.shape
@@ -226,7 +272,7 @@ def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E):
             raise ValueError(f"slot ids must lie in [0, {nc1}), got "
                              f"[{int(lo_s)}, {int(hi_s)}]")
     else:
-        lib = _kernel_lib()
+        lib = _kernel_lib(one)
         smem = lib.fused_estep_smem(K, B, d)
         if smem > lib.fused_estep_smem_limit():
             raise ValueError(
@@ -241,11 +287,12 @@ def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E):
 
 
 def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-            fast_ent, J_glob=None, out=None):
+            fast_ent, one, J_glob=None, out=None):
     """Allocate the outputs and scratch and run one round through the
     library function `entry` (extra: its arguments between the common
-    pointers and the dimensions). out: the caller's (cache, ybuf, kbuf)
-    to write into, else new ones. Returns (O, E, cache, ybuf, kbuf)."""
+    pointers and the dimensions; one: the one-pass variant). out: the
+    caller's (cache, ybuf, kbuf) to write into, else new ones. Returns (O,
+    E, cache, ybuf, kbuf)."""
     nc1, _, CH = ZP3.shape
     d, K = Y.shape
     B = theta.shape[0]
@@ -273,7 +320,7 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                                    slots, O0, E0, part, kpart, bsum, cache,
                                    ybuf, kbuf, O1, E1)]
     with torch.cuda.device(dev):
-        err = getattr(_kernel_lib(), entry)(
+        err = getattr(_kernel_lib(one), entry)(
             *ptrs, *extra, K, B, d, CH, nb, J, geo.ng, nc1,
             int(bool(fast_ent)), stream)
     if err != 0:
@@ -305,14 +352,15 @@ class _BlockLaunch:
     pair is one buffer), default a new pair. frame: (2, S, J, K, B+1), every
     shard's block rows stacked shard-major, by parity; src: the pass's
     `rank_table` (codes s * J + j) on the shard's device; without them no
-    launch starts from a re-add."""
+    launch starts from a re-add. precision: the products' variant."""
 
     def __init__(self, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                  fast_ent: bool, out, J_glob: int, Rw=None, lo: int = 0,
                  R3=None, stream=None, brows=None, frame=None, src=None,
-                 J_fix: int = 0):
+                 J_fix: int = 0, precision: str = "float32"):
         nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma,
-                                        theta, Pr_b, O, E)
+                                        theta, Pr_b, O, E, precision)
+        self.one = one_pass(precision)
         dev, f32 = ZP3.device, torch.float32
         for name, t, shape in (("cache", out[0], (nc1, K, B + 1)),
                                ("ybuf", out[1], (nc1, K, d)),
@@ -334,7 +382,7 @@ class _BlockLaunch:
             _check("src", src, (nb, J_fix + 1), torch.int32, dev)
         if dev.type == "cpu":
             return
-        lib = _block_lib()
+        lib = _block_lib(self.one)
         geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0),
                               J_glob)
         with torch.cuda.device(dev):
@@ -384,6 +432,7 @@ class _BlockLaunch:
 
     def launch(self, b: int, readd_prev: bool = False) -> None:
         global launches_block, launches_block_write_r
+        global launches_block_one_pass, launches_block_write_r_one_pass
         if not 0 <= b < self.nb:
             raise ValueError(f"block {b} outside [0, {self.nb})")
         if readd_prev and (b == 0 or not self.folds):
@@ -395,8 +444,10 @@ class _BlockLaunch:
                                f"error {err}")
         if self.write_r:
             launches_block_write_r += 1
+            launches_block_write_r_one_pass += self.one
         else:
             launches_block += 1
+            launches_block_one_pass += self.one
 
     def removed(self, b: int):
         """Block b's block-removed O, E (after launch(b))."""
@@ -413,10 +464,11 @@ class _Readd:
     B+1) hold shard s's block rows (on the lead device), granks[s] (nb,
     J_s) their ranks, from which the pass's `rank_table` is built once (or
     src, that table, given); `launch(b)` forms O, E of block b from Or,
-    Er."""
+    Er. one: from the one-pass library (a plan's records and walker come
+    from one library; the re-add's arithmetic is the same in both)."""
 
     def __init__(self, rows, granks, Or, Er, Pr_b, J_fix: int, O, E,
-                 src=None):
+                 src=None, one: bool = False):
         lead = Or.device
         K, B = Or.shape
         nb = granks[0].shape[0]
@@ -429,15 +481,15 @@ class _Readd:
         for name, t in (("Or", Or), ("Er", Er), ("O", O), ("E", E)):
             _check(name, t, (K, B), torch.float32, lead)
         _check("Pr_b", Pr_b, (B,), torch.float32, lead)
-        if len(rows) > _block_lib().frame_readd_max_shards():
+        lib = _block_lib(one)
+        if len(rows) > lib.frame_readd_max_shards():
             raise ValueError(f"the re-add kernel takes at most "
-                             f"{_block_lib().frame_readd_max_shards()}"
+                             f"{lib.frame_readd_max_shards()}"
                              f" shards, got {len(rows)}")
         jmax = max(r.shape[0] for r in rows)
         if src is None:
             src = rank_table(granks, J_fix, jmax, lead)
         _check("src", src, (nb, J_fix + 1), torch.int32, lead)
-        lib = _block_lib()
         # The rows' pointers go to the kernel by value, in the call record
         # prepared once: each launch passes the record and the block.
         ptrs = (ctypes.c_void_p * len(rows))(*[r.data_ptr() for r in rows])
@@ -551,12 +603,12 @@ def pass_schedule(cards, nb: int, multi: bool = False, windowed=()):
 
 
 def plan_key(tables, ZP3s, Y, theta, O, fast_ent: bool, J_fix: int,
-             windows=None, R3s=None) -> tuple:
+             windows=None, R3s=None, precision: str = "float32") -> tuple:
     """What shapes a mesh pass: the lead and shard devices, the shards'
     slabs, the mesh's shard count and whether it spans processes, the
-    blocks and slots, J_fix, d, K, B, the objective form, and the store (K1,
-    the r windows' widths, K2's R dtypes). Passes of one key share a
-    plan."""
+    blocks and slots, J_fix, d, K, B, the objective form, the store (K1,
+    the r windows' widths, K2's R dtypes) and the precision (the kernels'
+    variant). Passes of one key share a plan."""
     S_all = len(tables.granks)
     return (O.device, tuple(z.device for z in ZP3s),
             tuple(tuple(z.shape) for z in ZP3s), S_all,
@@ -565,7 +617,7 @@ def plan_key(tables, ZP3s, Y, theta, O, fast_ent: bool, J_fix: int,
             theta.shape[0], bool(fast_ent),
             None if windows is None else tuple(
                 None if w is None else w[1] for w in windows),
-            None if R3s is None else tuple(r.dtype for r in R3s))
+            None if R3s is None else tuple(r.dtype for r in R3s), precision)
 
 
 class _MeshPlan:
@@ -595,7 +647,8 @@ class _MeshPlan:
     card indices) lets a test lay a CPU mesh out as several cards."""
 
     def __init__(self, tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
-                 fast_ent: bool, J_fix: int, windows, R3s, src, cards=None):
+                 fast_ent: bool, J_fix: int, windows, R3s, src, cards=None,
+                 precision: str = "float32"):
         global plans_made
         lead = O.device
         S, S_all = len(ZP3s), len(tables.granks)
@@ -609,6 +662,7 @@ class _MeshPlan:
         self.K, self.B, self.d = K, B, d
         self.multi = spans_processes(S_all)
         self.write_r = R3s is not None
+        self.one = one_pass(precision)
         windowed = [windows is not None and windows[s] is not None
                     for s in range(S)]
         cuda = lead.type == "cuda"
@@ -679,7 +733,8 @@ class _MeshPlan:
                 self.ring[0]["out"][s], J_fix + 1, Rw,
                 windows[s][0] if windowed[s] else 0,
                 None if R3s is None else R3s[s], self._side.get(("side", s)),
-                brows=br, frame=fr, src=ins["src"], J_fix=J_fix)
+                brows=br, frame=fr, src=ins["src"], J_fix=J_fix,
+                precision=precision)
             ln.release_inputs()
             self.launchers.append(ln)
         self.readd_binding = dict(src=("in", "src"), Pr_b=("in", "Pr_b"),
@@ -695,7 +750,8 @@ class _MeshPlan:
         OE = self.ring[0]["OE"]
         self.readd = _Readd(list(frame[last].unbind(0)), tables.granks,
                             *self.launchers[0].removed(last),
-                            lead_in["Pr_b"], J_fix, OE[0], OE[1], src=src)
+                            lead_in["Pr_b"], J_fix, OE[0], OE[1], src=src,
+                            one=self.one)
         self.readd.release_inputs()
         self._create()
 
@@ -775,7 +831,7 @@ class _MeshPlan:
     def _create(self) -> None:
         """The native plan: the call records, bindings and events; P with
         the fixed values."""
-        lib = _block_lib()
+        lib = _block_lib(self.one)
         n = len(self.index)
         self.P = (ctypes.c_longlong * n)()
         for sym, i in self.index.items():
@@ -857,14 +913,15 @@ class _MeshPlan:
             src):
         """One pass (the results of `fused_estep_mesh`)."""
         global launches_block, launches_block_write_r, launches_readd
-        global native_calls
+        global native_calls, launches_block_one_pass
+        global launches_block_write_r_one_pass
         O, E = O.contiguous(), E.contiguous()
         self._check(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, R3s, src)
         v = self.values(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows,
                         R3s, src)
         for i, sym in self._pass_slots:
             self.P[i] = _value(v[sym])
-        fn = _block_lib().mesh_plan_run
+        fn = _block_lib(self.one).mesh_plan_run
         for begin, end, gather, n_block, n_readd in self.segments:
             err = fn(self._handle, self.P, len(self.index), self._ops,
                      begin, end)
@@ -873,8 +930,10 @@ class _MeshPlan:
                 raise RuntimeError(f"mesh pass failed: CUDA error {err}")
             if self.write_r:
                 launches_block_write_r += n_block
+                launches_block_write_r_one_pass += n_block * self.one
             else:
                 launches_block += n_block
+                launches_block_one_pass += n_block * self.one
             launches_readd += n_readd
             if gather:
                 self.gather()
@@ -928,10 +987,12 @@ def active_plans() -> dict:
 
 
 def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
-                     fast_ent: bool, J_fix: int, windows=None, R3s=None):
+                     fast_ent: bool, J_fix: int, windows=None, R3s=None,
+                     precision: str = "float32"):
     """One E-step round on a mesh of several shards (K1, its r windows or
     K2), with the signature and results of `ops.update_r_fused.mesh_round`,
-    its plain version, which CPU shards run.
+    its plain version, which CPU shards run (in fp32 under either
+    precision; on CUDA shards `precision` picks the kernels' variant).
 
     On CUDA shards the pass runs from its plan (`_MeshPlan`, by
     `plan_key`: the active `mesh_plans` block's, made on its first pass of
@@ -957,6 +1018,7 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     card's current stream and the host does not wait; under gloo the rows
     are staged through the host (parallel.mesh.gatherer)."""
     lead = O.device
+    one_pass(precision)
     if lead.type == "cpu":
         for s, ZP3 in enumerate(ZP3s):
             _check_round(tables.slots[s], tables.removal, ZP3, Y, sigma,
@@ -968,57 +1030,66 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
         src = rank_table(tables.granks, J_fix, tables.slots[0].shape[1],
                          lead)
     plan = plan_for(
-        plan_key(tables, ZP3s, Y, theta, O, fast_ent, J_fix, windows, R3s),
+        plan_key(tables, ZP3s, Y, theta, O, fast_ent, J_fix, windows, R3s,
+                 precision),
         lambda: _MeshPlan(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
-                          fast_ent, J_fix, windows, R3s, src))
+                          fast_ent, J_fix, windows, R3s, src,
+                          precision=precision))
     return plan.run(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows, R3s,
                     src)
 
 
 def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                fast_ent: bool, lo: int = 0, width: int = 0):
+                fast_ent: bool, lo: int = 0, width: int = 0,
+                precision: str = "float32"):
     """One fused E-step round (K1); see `ops.update_r_fused.fused_update_nor`
-    for the arguments and results."""
+    for the arguments and results. precision: the products' variant on a
+    card (CPU tensors: fp32 under either)."""
     _, K, _, _, CH = _check_round(slots, removal, ZP3, Y, sigma, theta,
-                                  Pr_b, O, E)
+                                  Pr_b, O, E, precision)
     if width < 0 or lo < 0:
         raise ValueError(f"bad r window lo={lo} width={width}")
     if ZP3.device.type == "cpu":
         return fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b,
                                 O, E, fast_ent, lo, width)
 
-    global launches
+    global launches, launches_one_pass
+    one = one_pass(precision)
     if width > 0:
         Rw = torch.zeros((width, K, CH), dtype=torch.float32,
                          device=ZP3.device)
         out = _launch("fused_estep_r_window", [Rw.data_ptr(), lo, width],
                       slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                      fast_ent)
+                      fast_ent, one)
     else:
         Rw = None
         out = _launch("fused_estep_round", [], slots, removal, ZP3, Y,
-                      sigma, theta, Pr_b, O, E, fast_ent)
+                      sigma, theta, Pr_b, O, E, fast_ent, one)
     launches += 1
+    launches_one_pass += one
     return (*out, Rw)
 
 
 def fused_estep_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
-                  fast_ent: bool):
+                  fast_ent: bool, precision: str = "float32"):
     """One stored-R E-step round (K2), writing r into the caller's
     chunk-major R3 (nc1, K, CH), whose dtype (float32 or bfloat16) picks
-    the store; see `ops.update_r_fused.fused_update_r`. Returns (R3, O, E,
-    cache, ybuf, kbuf)."""
+    the store; see `ops.update_r_fused.fused_update_r`. precision: as
+    fused_estep's. Returns (R3, O, E, cache, ybuf, kbuf)."""
     nc1, K, _, _, CH = _check_round(slots, removal, ZP3, Y, sigma, theta,
-                                    Pr_b, O, E)
+                                    Pr_b, O, E, precision)
     _check("R3", R3, (nc1, K, CH), (torch.float32, torch.bfloat16),
            ZP3.device)
     if ZP3.device.type == "cpu":
         return fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b,
                               O, E, fast_ent)
 
-    global launches_write_r
+    global launches_write_r, launches_write_r_one_pass
+    one = one_pass(precision)
     out = _launch("fused_estep_write_r",
                   [R3.data_ptr(), int(R3.dtype == torch.bfloat16)],
-                  slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent)
+                  slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
+                  one)
     launches_write_r += 1
+    launches_write_r_one_pass += one
     return (R3, *out)

@@ -48,29 +48,30 @@ def windows(cfg: EngineConfig, budget: int = WINDOW_ELEMS):
 
 
 def replay_r(tables, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
-             lo: int, width: int) -> torch.Tensor:
+             lo: int, width: int, precision: str = "float32") -> torch.Tensor:
     """r (width, K, CH) of chunks lo..lo+width-1 in the replayed round on
-    one device; `tables` = (slots, removal) of that round."""
+    one device; `tables` = (slots, removal) of that round; precision: the
+    round's (cfg.matmul_precision)."""
     slots, removal = tables
     return fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                       fast_ent, lo, width)[5]
+                       fast_ent, lo, width, precision=precision)[5]
 
 
 def round_r_windows(tables, ZP3s, rep, fast_ent: bool, geom, lo: int,
-                    width: int) -> list:
+                    width: int, precision: str = "float32") -> list:
     """r of the global chunk window [lo, lo + width) in the replayed round,
     per shard of this process: a (width, K, CH) tensor holding the shard's
     chunks of the window (zero elsewhere), or None for a shard that holds
     none. tables: MeshTables of the round; rep = (Y, sigma, theta, Pr_b, O,
-    E)."""
+    E); precision: the round's."""
     if geom.n_devices == 1:
         return [replay_r((tables.slots[0], tables.removal), ZP3s[0], *rep,
-                         fast_ent, lo, width)]
+                         fast_ent, lo, width, precision)]
     wins = [(lo - s * geom.nc_cap, width)
             if window_rows(geom, s, lo, width)[2] else None
             for s in local_shards(geom.n_devices)]
     return fused_estep_mesh(tables, ZP3s, *rep, fast_ent, geom.J_fix,
-                            windows=wins)[5]
+                            windows=wins, precision=precision)[5]
 
 
 def window_normal_eq(a, zo, r) -> torch.Tensor:
@@ -109,7 +110,8 @@ def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
     Sbufs = [torch.zeros((Z.shape[0], B1 * (B1 + cfg.d), cfg.K),
                          dtype=torch.float32, device=Z.device) for Z in ZP3s]
     for lo, w in windows(one_device(cfg), budget):
-        rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w)
+        rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w,
+                             cfg.matmul_precision)
         for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue
@@ -136,7 +138,8 @@ def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
         ybufs.append(torch.zeros((nc1, d, cfg.K), dtype=torch.float32,
                                  device=Z.device))
     for lo, w in windows(one_device(cfg), budget):
-        rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w)
+        rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w,
+                             cfg.matmul_precision)
         for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue

@@ -21,6 +21,13 @@ what the JAX package's Pallas `_kernel_nor` / `_kernel` and their XLA twins
 All N-scale inputs are chunk-major: ZP3 (n_chunks+1, 1+B+d, CH) holds
 [mask; Phi; Z_cos] per chunk, and the last chunk is the all-zero dummy that
 unfilled slots point at (its outputs come out exactly zero).
+
+`one_pass=True` is the plain version of the kernels' one-pass variant
+(matmul_precision="default" on a card): each operand of the three
+products (Y^T and z for dist, wdiv and Phi for the weights, r and [mask;
+Phi; Z] for S) rounded to bf16 to nearest even (`round_bf16`), the
+products taken in fp32. Everything else stays fp32. The CPU path of a fit
+never selects it.
 """
 
 from __future__ import annotations
@@ -63,34 +70,53 @@ def diversity_weights(O, E, theta):
     return logratio, torch.exp(theta[None, :] * logratio)
 
 
-def block_core(O, E, rem_b, slots_b, ZP3, Y, sigma, theta, Pr_b):
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to the nearest bf16, ties to even, as float32:
+    the rounding of the kernels' one-pass operands (__float2bfloat16_rn),
+    on the bits: add 0x7fff plus the kept part's lowest bit, clear the low
+    16 bits (finite x; an overflow rounds to infinity)."""
+    u = x.contiguous().view(torch.int32)
+    u = (u + (0x7FFF + ((u >> 16) & 1))) & -0x10000
+    return u.view(torch.float32)
+
+
+def _operand(one_pass: bool):
+    return round_bf16 if one_pass else (lambda x: x)
+
+
+def block_core(O, E, rem_b, slots_b, ZP3, Y, sigma, theta, Pr_b,
+               one_pass: bool = False):
     """One block's removal, reweighting and soft assignments. Returns
     (O_removed, E_removed, r, g, dist, logratio, logdd) with g the gathered
     (J, 1+B+d, CH) slab and logdd the per-cell log of the two softmax
-    denominators."""
+    denominators. one_pass: the products' operands rounded to bf16."""
     E = E - rem_b[:, 0:1] * Pr_b[None, :]
     O = O - rem_b[:, 1:]
     logratio, wdiv = diversity_weights(O, E, theta)
 
+    op = _operand(one_pass)
     B1 = 1 + theta.shape[0]
     g = ZP3[slots_b]                                            # (J, 1+B+d, CH)
     pb = g[:, 1:B1, :]
     zb = g[:, B1:, :]
     J = zb.shape[0]
-    dist = 2.0 * (1.0 - torch.bmm(Y.T.expand(J, -1, -1), zb))  # (J, K, CH)
+    dist = 2.0 * (1.0 - torch.bmm(op(Y.T).expand(J, -1, -1),
+                                  op(zb)))                      # (J, K, CH)
     s = torch.exp(-dist / sigma[None, :, None])
     den = torch.sum(s, dim=1, keepdim=True)
-    r = (s / den) * torch.bmm(wdiv.expand(J, -1, -1), pb)      # dummy -> 0
+    r = (s / den) * torch.bmm(op(wdiv).expand(J, -1, -1), pb)  # dummy -> 0
     den_r = torch.clamp_min(torch.sum(r, dim=1, keepdim=True), CLAMP)
     r = r / den_r
     logdd = (torch.log(den) + torch.log(den_r))[:, 0, :]        # (J, CH)
     return O, E, r, g, dist, logratio, logdd
 
 
-def block_stats(r, g, B1: int):
+def block_stats(r, g, B1: int, one_pass: bool = False):
     """All linear statistics of r in one batched contraction against the
-    slab: (stats (J, K, B+1), yk (J, K, d))."""
-    S = torch.einsum("jkc,jxc->jkx", r, g)
+    slab: (stats (J, K, B+1), yk (J, K, d)); one_pass: both operands
+    rounded to bf16 (r only here: every other use of r takes it fp32)."""
+    op = _operand(one_pass)
+    S = torch.einsum("jkc,jxc->jkx", op(r), op(g))
     return S[:, :, :B1], S[:, :, B1:]
 
 
@@ -115,19 +141,19 @@ def chunk_partials(r, dist, stats, sigma, theta, logratio, logdd,
 
 def fused_update_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b,
                        O, E, fast_ent: bool, out, Rw=None, lo: int = 0,
-                       R3=None):
+                       R3=None, one_pass: bool = False):
     """Block b of a round alone — the plain version of the per-block entry
     (`ops.cuda.fused_estep._BlockLaunch`), with its arguments: from O,
     E at the block's start, write the rows of the block's slots into out =
     (cache, ybuf, kbuf), r of chunks lo..lo+width-1 into Rw (width, K, CH)
     or r of every slotted chunk into R3 in its dtype; return (O, E) with
-    the block's cached stats removed."""
+    the block's cached stats removed. one_pass: the one-pass variant's."""
     cache, ybuf, kbuf = out
     B1 = theta.shape[0] + 1
     sl = slots[b].long()
     O, E, r, g, dist, logratio, logdd = block_core(
-        O, E, removal[b], sl, ZP3, Y, sigma, theta, Pr_b)
-    stats, yk = block_stats(r, g, B1)
+        O, E, removal[b], sl, ZP3, Y, sigma, theta, Pr_b, one_pass)
+    stats, yk = block_stats(r, g, B1, one_pass)
     kerr, ent = chunk_partials(r, dist, stats, sigma, theta, logratio,
                                logdd, fast_ent)
     cache[sl] = stats
@@ -143,7 +169,8 @@ def fused_update_block(b: int, slots, removal, ZP3, Y, sigma, theta, Pr_b,
 
 
 def _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-           fast_ent: bool, Rw=None, lo: int = 0, R3=None):
+           fast_ent: bool, Rw=None, lo: int = 0, R3=None,
+           one_pass: bool = False):
     """One round over all blocks: each block alone, then its re-add from
     its slots' cache rows. Returns (O, E, cache, ybuf, kbuf)."""
     nc1 = ZP3.shape[0]
@@ -153,20 +180,23 @@ def _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
            torch.zeros((nc1, 2), **f32))
     for b in range(slots.shape[0]):
         O, E = fused_update_block(b, slots, removal, ZP3, Y, sigma, theta,
-                                  Pr_b, O, E, fast_ent, out, Rw, lo, R3)
+                                  Pr_b, O, E, fast_ent, out, Rw, lo, R3,
+                                  one_pass)
         O, E = block_readd(O, E, out[0][slots[b].long()], Pr_b)
     return (O, E, *out)
 
 
 def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                     fast_ent: bool, lo: int = 0, width: int = 0):
+                     fast_ent: bool, lo: int = 0, width: int = 0,
+                     one_pass: bool = False):
     """One deferred-R E-step round over all blocks — the plain version of
     the kernel K1, with the kernel's signature.
 
     slots (nb, J) chunk ids per block (dummy = n_chunks); removal
     (nb, K, B+1); ZP3 (nc1, 1+B+d, CH); Y (d, K); sigma (K,); theta, Pr_b
     (B,); O, E (K, B). With width > 0 the r of the chunks lo..lo+width-1
-    is also returned (the `r_window` epilogue).
+    is also returned (the `r_window` epilogue). one_pass: the one-pass
+    variant's plain version.
 
     Returns (O, E, cache (nc1, K, B+1), ybuf (nc1, K, d), kbuf (nc1, 2),
     Rw (width, K, CH) or None)."""
@@ -174,23 +204,23 @@ def fused_update_nor(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     Rw = (torch.zeros((width, K, CH), dtype=torch.float32,
                       device=ZP3.device) if width > 0 else None)
     out = _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
-                 Rw, lo)
+                 Rw, lo, one_pass=one_pass)
     return (*out, Rw)
 
 
 def fused_update_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
-                   fast_ent: bool):
+                   fast_ent: bool, one_pass: bool = False):
     """One stored-R E-step round — the plain version of the kernel K2 (the
     Pallas `_kernel`, JAX package ops/pallas/update_r_fused.py:109-114, and
     its XLA twin fused_update_r_xla3): fused_update_nor plus
     R3[slots_b] = r.to(R3.dtype) for every block, written in place into the
     caller's chunk-major R3 (nc1, K, CH), fp32 or bf16. Every statistic
     uses the fp32 r. Every block's slots end with the dummy chunk, so the
-    dummy chunk of R3 is written with zeros.
+    dummy chunk of R3 is written with zeros. one_pass: as fused_update_nor's.
 
     Returns (R3, O, E, cache, ybuf, kbuf)."""
     out = _round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
-                 R3=R3)
+                 R3=R3, one_pass=one_pass)
     return (R3, *out)
 
 
@@ -220,7 +250,8 @@ def frame_readd(rows, granks, Or, Er, Pr_b, J_fix: int):
 
 def fused_update_block_folded(b: int, slots, removal, ZP3, Y, sigma, theta,
                               Pr_b, O, E, fast_ent: bool, out, prev=None,
-                              Rw=None, lo: int = 0, R3=None):
+                              Rw=None, lo: int = 0, R3=None,
+                              one_pass: bool = False):
     """Block b of a mesh round started from block b - 1's re-add — the
     plain version of the per-block launch with the re-add folded into its
     prologue (`ops.cuda.fused_estep._BlockLaunch.launch(b, readd_prev=
@@ -233,11 +264,11 @@ def fused_update_block_folded(b: int, slots, removal, ZP3, Y, sigma, theta,
         rows, granks, J_fix = prev
         O, E = frame_readd(rows, granks, O, E, Pr_b, J_fix)
     return fused_update_block(b, slots, removal, ZP3, Y, sigma, theta, Pr_b,
-                              O, E, fast_ent, out, Rw, lo, R3)
+                              O, E, fast_ent, out, Rw, lo, R3, one_pass)
 
 
 def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
-               J_fix: int, windows=None, R3s=None):
+               J_fix: int, windows=None, R3s=None, one_pass: bool = False):
     """One E-step round on a mesh of several shards (the JAX package's
     fused_update_nor_xla3 / fused_update_r_xla3 under shard_map,
     ops/update_r_fused_xla.py:131-238) — the plain version of the kernels'
@@ -261,6 +292,7 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
     tables: ops.partition.MeshTables. ZP3s: this process's shards' slabs.
     windows: per shard None or (lo, width), the chunks whose r to return
     (lo may be negative). R3s: per shard the stored R to rewrite (K2).
+    one_pass: the one-pass variant's plain version.
 
     Returns (O, E, caches, ybufs, kbufs, Rws) with the per-chunk buffers
     and r windows per shard (R3s are written in place)."""
@@ -300,7 +332,7 @@ def mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
             Ob, Eb = fused_update_block(
                 b, sh["slots"], removal, sh["ZP3"], Ys, sig, th, prb,
                 O.to(dev), E.to(dev), fast_ent, sh["out"], Rw=sh["Rw"],
-                lo=sh["lo"], R3=sh["R3"])
+                lo=sh["lo"], R3=sh["R3"], one_pass=one_pass)
             if Or is None:
                 Or, Er = Ob.to(lead), Eb.to(lead)
             rows.append(sh["out"][0][sh["gidx"][b]])

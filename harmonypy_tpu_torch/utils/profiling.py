@@ -22,13 +22,15 @@ import time
 
 import torch
 
+from ..ops.cuda.fused_estep import one_pass
 from ..ops.partition import partition_geometry
 from ..parallel.sharding import one_device
 
 # H100 SXM published peaks (NVIDIA H100 datasheet, dense): fp32 on the CUDA
-# cores, TF32 on the tensor cores, HBM3 bandwidth.
+# cores, TF32 and bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 
@@ -103,7 +105,7 @@ def estep_traffic_model_gb(cfg) -> float:
 
 
 def estep_bound(n_cells: int, n_rows: int, d: int, K: int, B: int, CH: int,
-                r_bytes: int = 0) -> dict:
+                r_bytes: int = 0, one_pass: bool = False) -> dict:
     """Least work of the fused E-step over n_cells real cells whose chunks
     give n_rows per-chunk output rows: each cell's [mask; Phi; Z] read once
     and each row's cache, centroid numerator and objective partials written
@@ -117,39 +119,56 @@ def estep_bound(n_cells: int, n_rows: int, d: int, K: int, B: int, CH: int,
     the same bytes. The transcendentals run on the SFUs, 16 per SM and
     clock: 2 K N of them (the softmax's exp, the entropy's log) is ~1.7e8
     at 858k x K = 100, ~0.04 ms at 132 SMs x 1.98 GHz, below the products'
-    floor at this shape, so they add no term."""
+    floor at this shape, so they add no term.
+
+    one_pass: the one-pass variant's bound (matmul_precision "default" on
+    a card), the products and the weights as one pass at the dense bf16
+    tensor-core rate (ops_ms and ops_tc_ms both), against the same bytes.
+    At 858k x 29, K = 100: 11.15 GFLOP in 0.0113 ms, under the 118.8 MB's
+    0.0355 ms: bound by bytes."""
     R = 1 + B + d
     products = n_cells * (2 * d * K + 2 * K * R)
     weights = n_cells * 2 * K * B
     flops = products + weights
     nbytes = (4 * (n_cells * R + n_rows * (K * R + 2))
               + r_bytes * n_rows * K * CH)
-    b = dict(flop=flops, bytes=nbytes,
-             ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
-             bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
-             ops_tc_ms=(3 * products / PEAK_TF32_FLOPS
-                        + weights / PEAK_FP32_FLOPS) * 1e3)
+    if one_pass:
+        ops_ms = ops_tc_ms = flops / PEAK_BF16_FLOPS * 1e3
+    else:
+        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+        ops_tc_ms = (3 * products / PEAK_TF32_FLOPS
+                     + weights / PEAK_FP32_FLOPS) * 1e3
+    b = dict(flop=flops, bytes=nbytes, ops_ms=ops_ms,
+             bytes_ms=nbytes / PEAK_BYTES_S * 1e3, ops_tc_ms=ops_tc_ms)
     b["bound_ms"] = max(b["ops_ms"], b["bytes_ms"])
     b["bound_by"] = "operations" if b["ops_ms"] >= b["bytes_ms"] else "bytes"
     b["bound_tc_ms"] = max(b["ops_tc_ms"], b["bytes_ms"])
     return b
 
 
-def round_bound(cfg, r_bytes: int = 0) -> dict:
+def round_bound(cfg, r_bytes: int = 0, one_pass: bool = False) -> dict:
     """estep_bound of one round of cfg's fit on one device: every real
     cell once, one row per chunk of the one-device geometry (the dummy
-    chunk included)."""
+    chunk included); one_pass: the one-pass variant's."""
     geom = partition_geometry(one_device(cfg))
     return estep_bound(cfg.N, geom.nc_cap + 1, cfg.d, cfg.K, cfg.B, geom.CH,
-                       r_bytes)
+                       r_bytes, one_pass)
 
 
-def estep_vpu_floor_s(cfg) -> float:
+def runs_one_pass(cfg, device) -> bool:
+    """Whether cfg's fit runs the kernels' one-pass variant on `device`:
+    matmul_precision "default" on a CUDA card (the CPU computes in fp32)."""
+    return (one_pass(cfg.matmul_precision)
+            and torch.device(device).type == "cuda")
+
+
+def estep_vpu_floor_s(cfg, one_pass: bool = False) -> float:
     """Floor of one deferred k-means round on an H100, in seconds:
     round_bound's bound_ms (the fp32 CUDA-core floor; the JAX package's
     name, whose TPU floor counted transcendentals on the vector unit).
-    858k x 29, K = 100, B = 3: 11.15 GFLOP, 118.8 MB, 0.1665 ms."""
-    return round_bound(cfg)["bound_ms"] / 1e3
+    858k x 29, K = 100, B = 3: 11.15 GFLOP, 118.8 MB, 0.1665 ms; with
+    one_pass the one-pass variant's floor, 0.0355 ms (bytes)."""
+    return round_bound(cfg, one_pass=one_pass)["bound_ms"] / 1e3
 
 
 def profile_fit(cfg, mesh, data, params, seed: int = 0, reps: int = 16,
@@ -175,7 +194,8 @@ def profile_fit(cfg, mesh, data, params, seed: int = 0, reps: int = 16,
                             against hbm_peak_gbps; estep_round_noisy
                             instead when that would pass the peak
       estep_vpu_floor_s[_frac]  (deferred) the round's H100 floor
-                            (round_bound) and its share of the round
+                            (round_bound, of the variant the fit runs:
+                            runs_one_pass) and its share of the round
       fused_xla_round_s     (use_pallas) the round with use_fused_xla: in
                             this package both flags reach the same
                             hand-written kernel
@@ -280,7 +300,7 @@ def profile_fit(cfg, mesh, data, params, seed: int = 0, reps: int = 16,
             # A differenced round past the peak bandwidth is noise.
             res["estep_round_noisy"] = True
         if cfg.defer_r:
-            vf = estep_vpu_floor_s(cfg)
+            vf = estep_vpu_floor_s(cfg, runs_one_pass(cfg, mesh.lead))
             res["estep_vpu_floor_s"] = vf
             res["estep_vpu_floor_frac"] = vf / t_round
 

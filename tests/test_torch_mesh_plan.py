@@ -276,7 +276,8 @@ def _key_args(tabs, ZP3s, common, J_fix):
 def test_plan_key_changes_with_each_field_that_shapes_a_pass(data):
     """plan_key moves with the devices, the slabs (chunks, CH, d + B), the
     mesh's shard count, the blocks, the slots, J_fix, d, K, B, the
-    objective form, the windows' widths and the R dtype; not with the
+    objective form, the windows' widths, the R dtype and the precision
+    (one plan never serves the other variant of the kernels); not with the
     values of the inputs."""
     X, meta = data
     g1, g, _, tabs, ZP3s, common = _round_inputs(4, X, meta)
@@ -296,6 +297,7 @@ def test_plan_key_changes_with_each_field_that_shapes_a_pass(data):
         dict(R3s=[torch.zeros(1)] * 4),
         dict(R3s=[torch.zeros(1, dtype=torch.bfloat16)] * 4),
         dict(O=common[4].to("meta")),
+        dict(precision="default"),
     ]
     keys = {key}
     for ch in changed:
@@ -306,6 +308,7 @@ def test_plan_key_changes_with_each_field_that_shapes_a_pass(data):
     same = fe.plan_key(**{**base, "Y": torch.randn_like(Y),
                           "ZP3s": [z.clone() for z in ZP3s]})
     assert same == key
+    assert fe.plan_key(**base, precision="float32") == key
 
 
 def test_mesh_plans_block_keeps_and_drops_plans():
@@ -340,12 +343,12 @@ def _planned_mesh_pass(record):
     plan looked up in the active block by plan_key (made on its first
     pass), then mesh_round; records (key, plan) of every pass."""
     def run(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent, J_fix,
-            windows=None, R3s=None):
+            windows=None, R3s=None, precision="float32"):
         key = fe.plan_key(tables, ZP3s, Y, theta, O, fast_ent, J_fix,
-                          windows, R3s)
+                          windows, R3s, precision)
         plan = fe.plan_for(key, lambda: fe._MeshPlan(
             tables, ZP3s, Y, sigma, theta, Pr_b, O, E, fast_ent, J_fix,
-            windows, R3s, tables.src))
+            windows, R3s, tables.src, precision=precision))
         record.append((key, plan, dict(fe.active_plans())))
         return mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
                           fast_ent, J_fix, windows, R3s)
@@ -385,7 +388,9 @@ def test_fits_of_two_shapes_in_one_process_equal_each_alone(monkeypatch,
                                                             data):
     """Two mesh fits of different shapes in one process, planned as on the
     card, then the first again: each equals itself bitwise, and the second
-    fit made its own plans (none of the first's is reused)."""
+    fit made its own plans (none of the first's is reused). The first fit's
+    plans are kept alive until that is checked: a freed plan's address,
+    and so its id(), can come back on a new plan."""
     X, meta = data
     record = []
     from harmonypy_tpu_torch import engine
@@ -395,11 +400,13 @@ def test_fits_of_two_shapes_in_one_process_equal_each_alone(monkeypatch,
                             _planned_mesh_pass(record))
     mesh = make_mesh(["cpu"] * 4)
     a = ht.run_harmony(X, meta, ["batch"], mesh=mesh, **FIT)
-    first = {id(p) for _, p, _ in record}
+    first = [p for _, p, _ in record]
     record.clear()
     b = ht.run_harmony(X[:4500, :6], meta.iloc[:4500], ["batch"], mesh=mesh,
                        **FIT)
-    assert not first & {id(p) for _, p, _ in record}
+    assert first and record
+    assert not any(p is q for p in first for _, q, _ in record)
+    del first
     a2 = ht.run_harmony(X, meta, ["batch"], mesh=mesh, **FIT)
     b2 = ht.run_harmony(X[:4500, :6], meta.iloc[:4500], ["batch"],
                         mesh=mesh, **FIT)
