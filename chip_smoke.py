@@ -48,6 +48,17 @@ line per phase:
               fit against the deferred fit of the same seed, every round
               run, under each precision, at the JAX package's tolerances
               for its two paths (tests/test_defer.py:62-76);
+  3b'. products  every torch product of the fit outside the kernels
+              (ops/products.py: k-means init, init pass, stored centroid
+              numerator, replays' and stored ridge, per-cell fit), recorded
+              at the main path's shapes from one-iteration default fits
+              (deferred and stored 858k, per-cell 20,000 x 29): the
+              one-pass cuBLAS product against its plain version at
+              product_check's derived bound and, with an operand not exact
+              in bf16, SKIP_CAST_MARGIN times nearer it than the fp32
+              product; its ms beside the fp32 and plain products'; every
+              port function of the product table
+              recorded; TF32 and the float32 matmul precision unchanged;
   3c. profile one deferred and one stored fit under torch.profiler: device
               busy time by kernel, the device's idle share, and the host and
               device spans of the engine's ranges (harmony::init,
@@ -59,6 +70,11 @@ line per phase:
               against its H100 floor (the bound of phase kernel) and HBM
               rate, the K1 / K2 launches the probes made; then trace()
               around a pbmc fit names the estep_round kernel;
+  3d'. precision  the default deferred, stored and low_memory 858k fits
+              in turns with their "float32" twins (2 each): wall s,
+              harmony iterations, k-means rounds, E-step passes beside the
+              reference's 3 / [18, 7, 5] (REFERENCE_858K); profile_fit of
+              each: init s (seeding, stats), ridge s per iteration;
   3e. io      the native TSV parser on pbmc_3500_pcs.tsv.gz: bitwise at 1
               and all threads, equal to pandas, both parse times;
   4. golden   pbmc_3500 with chunk_size=128 on the card, under each
@@ -114,9 +130,10 @@ line per phase:
               pass and their wall clock; two short fits (deferred,
               stored) with every mesh pass metered: one native call, and
               no caching-allocator allocation in a pass after its plan's
-              first; pbmc per-cell fit within
-              5e-4 max|Z| of one device at 3 iterations, the default fit at
-              the golden gate;
+              first; pbmc per-cell fit against one device at 3
+              iterations: within 5e-4 max|Z| under "float32", and under
+              "default" with every round pinned (PINNED) within
+              percell_flip_bound; the default fit at the golden gate;
               compute_lisi on the mesh fit's output equal to phase lisi's
               values bitwise (pruned, and brute on the sampled queries); a
               resume on the mesh bitwise, one on 2 shards refused; each
@@ -950,6 +967,219 @@ def phase_fit_stored(ht, fe, X, meta):
     return launches, fits, hos
 
 
+# The port's torch products outside the kernels, by the module that takes
+# them from ops/products.py and the names it imports them under.
+PRODUCT_MODULES = (("engine", ("einsum", "matmul")),
+                   ("ops.kmeans", ("matmul",)), ("ops.update_r", ("matmul",)),
+                   ("ops.objective", ("matmul",)), ("ops.replay", ("einsum",)),
+                   ("ops.ridge", ("einsum",)))
+# The port function of every product of the JAX package's four precision
+# scopes that runs outside the kernels (PERF.md's product table;
+# tests/test_torch_precision_scope.py holds the JAX scopes against it).
+PRODUCT_CALLERS = {"_first", "_greedy", "cand_d2", "kmeansbb_seed", "lloyd",
+                   "_init_pass", "init_stored", "cluster_fused",
+                   "cluster_percell", "_stats", "update_r",
+                   "compute_objective_terms", "window_normal_eq",
+                   "window_apply", "replay_apply", "_products",
+                   "_correction"}
+# The reference's default fit at 858k: the JAX package on one TPU v5e at
+# matmul_precision "default", deferred R (the last line of BENCH_r05.json,
+# bench.py:126-133). An iteration count, not a time.
+REFERENCE_858K = dict(iterations=3, kmeans_rounds=[18, 7, 5],
+                      source="BENCH_r05.json (JAX package, TPU v5e)")
+
+
+class ProductRecorder:
+    """While active, records the first one-pass call of every torch
+    product of the fit (products.matmul / einsum with `one` set, from
+    every module of PRODUCT_MODULES) per (module, calling function,
+    product, shapes): its operands, cloned with their strides; a later
+    call replaces a record whose operand is all zeros (the ridge's
+    intercept row of W). Restores the modules' names on exit."""
+
+    def __enter__(self):
+        import importlib
+        self.seen, self.zero, self.saved = {}, set(), []
+        for mod_name, names in PRODUCT_MODULES:
+            mod = importlib.import_module(f"harmonypy_tpu_torch.{mod_name}")
+            for n in names:
+                fn = getattr(mod, n)
+                self.saved.append((mod, n, fn))
+                setattr(mod, n, self._wrap(mod_name, n, fn))
+        return self
+
+    def _wrap(self, mod_name, name, fn):
+        def recorded(*args):
+            *eq, a, b, one = args
+            if one:
+                key = (mod_name, sys._getframe(1).f_code.co_name,
+                       eq[0] if eq else "@", tuple(a.shape), tuple(b.shape))
+                if key not in self.seen or key in self.zero:
+                    self.seen[key] = (a.detach().clone(), b.detach().clone())
+                    if a.any() and b.any():
+                        self.zero.discard(key)
+                    else:
+                        self.zero.add(key)
+            return fn(*args)
+        return recorded
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+
+# How much nearer its plain version a one-pass product must lie than the
+# fp32 product does (product_check).
+SKIP_CAST_MARGIN = 16
+
+
+def product_check(products, eq, a, b):
+    """One recorded product on the card: the one-pass product (bf16 cuBLAS,
+    fp32 result) against its plain version (round_bf16 operands, fp32
+    product) on the same operands, at the derived bound, and the ms of
+    the one-pass, fp32 and plain products.
+
+    Bound: every product of two bf16 values is exact in fp32, so both
+    results are fp32 sums of the same n exact terms (n the contraction
+    length) in different orders. Round-to-nearest sums are within gamma_n
+    sum|terms| of the exact sum (gamma_n = n u / (1 - n u), u = 2^-24);
+    tensor-core accumulation truncates where it aligns, at most 2u per
+    add (Fasi et al., PeerJ CS 2021), so 2 gamma_n. Together |one-pass -
+    plain| <= 3 gamma_n sum|terms|, held at 4 gamma_n (sum|terms| in
+    float64 from the rounded operands).
+
+    That bound cannot tell a one-pass product from an fp32 one at large n,
+    so where an operand is not exact in bf16 (and its rounding moves the
+    fp32 product at all) the one-pass result must also lie nearer the
+    plain version than the fp32 product does, by SKIP_CAST_MARGIN: the
+    fp32 product differs from the plain one by the operands' rounding
+    (each term by up to 2^-8 of it), the one-pass product by the order of
+    its fp32 sums (u = 2^-24 per add), some 2^15 times less."""
+    import torch
+    a32, b32 = a.float(), b.float()
+    if eq == "@":
+        def one():
+            return products.matmul(a, b, True)
+
+        def f32():
+            return products.matmul(a32, b32, False)
+
+        def plain():
+            return products.matmul_plain(a32, b32)
+        ra, rb = (products.round_bf16(x).double().abs() for x in (a32, b32))
+        mag = ra @ rb
+        n = a.shape[-1]
+    else:
+        def one():
+            return products.einsum(eq, a, b, True)
+
+        def f32():
+            return products.einsum(eq, a32, b32, False)
+
+        def plain():
+            return products.einsum_plain(eq, a32, b32)
+        ra, rb = (products.round_bf16(x).double().abs() for x in (a32, b32))
+        mag = torch.einsum(eq, ra, rb)
+        ins, out = eq.split("->")
+        sa, sb = ins.split(",")
+        size = dict(zip(sa, a.shape)) | dict(zip(sb, b.shape))
+        n = 1
+        for c in sa:
+            if c in sb and c not in out:
+                n *= size[c]
+    got, want = one(), plain()
+    check(got.dtype == torch.float32 and got.shape == want.shape,
+          f"product {eq}: {got.dtype} {tuple(got.shape)}")
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / (4 * gamma * mag).clamp_min(1e-300)).max())
+    exact = all(torch.equal(products.round_bf16(x), x) for x in (a32, b32))
+    fp32_err = float((f32().double() - want.double()).abs().max())
+    check(exact or fp32_err == 0.0
+          or float(err.max()) * SKIP_CAST_MARGIN < fp32_err,
+          f"product {eq}: the one-pass result is {float(err.max())} from "
+          f"the plain version, the fp32 product {fp32_err}: not one pass")
+    reps = 10
+    return dict(eq=eq, a=list(a.shape), b=list(b.shape), n=n,
+                max_abs_err=float(err.max()), bound_ratio=ratio,
+                operands_exact_in_bf16=exact, fp32_vs_plain_max_abs=fp32_err,
+                vs_fp32_max_abs=float((got - f32()).abs().max()),
+                one_pass_ms=cuda_ms(one, reps), fp32_ms=cuda_ms(f32, reps),
+                plain_ms=cuda_ms(plain, reps))
+
+
+def phase_products(ht, fe, X, meta):
+    """Every one-pass torch product of the fit at the shapes the main path
+    gives it: recorded from the default deferred and stored 858k fits and
+    the per-cell fit at its full width (PC_CELLS x 29, K = 100), one
+    harmony iteration each, then each held against its plain version at
+    product_check's bound and timed beside the fp32 product. The recorded
+    calling functions are PRODUCT_CALLERS, every one. No process-wide
+    matmul setting moves across the fits (TF32 off, float32 matmul
+    precision "highest")."""
+    import torch
+    from harmonypy_tpu_torch.ops import products
+    settings = (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+    Xp, bp, _ = synthetic(N=PC_CELLS)
+    with ProductRecorder() as rec:
+        for kw in (dict(), dict(defer_r=False)):
+            timed_fit(ht, fe, X, meta, max_iter_harmony=1, **kw)
+        ho = ht.run_harmony(Xp, batch_meta(bp), ["batch"], device="cuda:0",
+                            verbose=False, max_iter_harmony=1)
+        check(not ho.cfg.fused_estep, f"products: {ho.cfg} not per-cell")
+    check((torch.backends.cuda.matmul.allow_tf32,
+           torch.get_float32_matmul_precision()) == settings == (
+               False, "highest"), f"products: matmul settings {settings}")
+    callers = {k[1] for k in rec.seen}
+    check(callers == PRODUCT_CALLERS,
+          f"products: callers {sorted(callers)}, expected "
+          f"{sorted(PRODUCT_CALLERS)}")
+    res = []
+    for (mod, caller, eq, _, _), (a, b) in rec.seen.items():
+        r = product_check(products, eq, a, b)
+        check(r["bound_ratio"] <= 1.0,
+              f"product {mod}.{caller} {eq}: {r}")
+        res.append(dict(module=mod, caller=caller, **r))
+    del rec
+    emit(dict(phase="products", n=len(res), bound="4 gamma_n sum|a b|",
+              skip_cast_margin=SKIP_CAST_MARGIN, products=res))
+
+
+def phase_precision(ht, fe, X, meta, smi):
+    """The default deferred, stored and low_memory 858k fits in turns with
+    their "float32" twins (2 timed fits each): wall s, harmony iterations,
+    k-means rounds and E-step passes beside the reference's; then
+    profile_fit (8 reps, split init) of each: init s (seeding, stats) and
+    ridge s per iteration. With one-pass products on the card, the
+    default fits run every product as one bf16 pass."""
+    from harmonypy_tpu_torch.utils.profiling import profile_fit
+    paths = (("deferred", {}), ("stored", dict(defer_r=False)),
+             ("low_memory", dict(defer_r=False, low_memory=True)))
+    res, hos = {}, {}
+    for _ in range(2):
+        for name, kw in paths:
+            for prec in ("default", "float32"):
+                ho, s, k1, k2 = timed_fit(ht, fe, X, meta,
+                                          matmul_precision=prec, **kw)
+                r = res.setdefault(f"{name}/{prec}", dict(fit_s=[]))
+                r["fit_s"].append(s)
+                r.update(iterations=len(ho.kmeans_rounds),
+                         kmeans_rounds=ho.kmeans_rounds,
+                         estep_passes=ho.state.n_passes,
+                         objective_harmony=ho.objective_harmony)
+                hos[name, prec] = ho
+    for (name, prec), ho in hos.items():
+        prof = profile_fit(ho.cfg, ho.mesh, ho._data, ho._params, reps=8,
+                           split_init=True)
+        res[f"{name}/{prec}"].update(
+            {k: prof[k] for k in ("phase_init_s", "phase_init_seeding_s",
+                                  "phase_init_stats_s", "phase_ridge_s",
+                                  "phase_kmeans_round_s") if k in prof})
+    emit(dict(phase="precision", nvidia_smi=smi, N=N_CELLS,
+              reference=REFERENCE_858K, fits=res))
+
+
 def _union_us(spans):
     """Total length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -1568,6 +1798,25 @@ HIST = ("objective_harmony", "objective_kmeans", "objective_kmeans_dist",
 # Per-cell fit on a mesh against one device: shard partials summed in shard
 # order (tests/test_fused_xla.py:135-150).
 TOL_PERCELL_REL = 5e-4
+# Convergence tests that never pass: every k-means round and harmony
+# iteration runs, so two fits take the same branches.
+PINNED = dict(epsilon_cluster=0.0, epsilon_harmony=float("-inf"))
+DEFAULTS_KMEANS = 20        # run_harmony's max_iter_kmeans
+
+
+def percell_flip_bound(ho_default, ho_float32) -> float:
+    """The bound on a pinned per-cell mesh fit's distance from one device
+    under "default": max|Z_default - Z_float32| of the one-device fits, the
+    effect of rounding every product's operands to bf16. The mesh changes
+    the last bits of its shard sums only; those flip the rounding of some
+    operands by one bf16 ulp, where the one-pass products round every
+    operand by up to half of one, so a fault-free mesh drifts less than
+    that effect, and a fault of the mesh's products (a layout, a shard's
+    partial) moves the fit by more. tests/test_torch_precision_scope.py
+    holds the JAX package's per-cell fit, its DEFAULT dots rounded the
+    same way on the CPU, and the port's at the same bound."""
+    import numpy as np
+    return float(np.abs(ho_default.Z_corr - ho_float32.Z_corr).max())
 
 
 def block_bound(n_cells, n_slots, r_bytes=0, fold_J_fix=0, one_pass=False):
@@ -2415,8 +2664,10 @@ def mesh_fit_checks(ht, fe, X, meta, mesh, refs):
 def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
                      lisi_ref):
     """On `mesh`: the three 858k fits bitwise (mesh_fit_checks); the
-    per-cell pbmc fit within TOL_PERCELL_REL of one device at 3 harmony
-    iterations and at the golden gate at default settings; compute_lisi on
+    per-cell pbmc fit against one device at 3 harmony iterations: within
+    TOL_PERCELL_REL under "float32", and under "default" with every round
+    pinned (PINNED) within percell_flip_bound; at default settings at the
+    golden gate (every distance recorded); compute_lisi on
     the mesh fit's output bitwise equal to lisi_ref = (one-device values,
     sampled brute values, sampled ids); a checkpoint resume bitwise and a
     resume on another mesh size refused. Returns (results, launch
@@ -2440,32 +2691,57 @@ def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
               f"mesh {name}: {metered[name]['plans_made']} plans made")
 
     # pbmc_3500 at default settings: the per-cell fit. Held at 3 harmony
-    # iterations, as tests/test_fused_xla.py:135-150 holds it: every round
-    # of those runs (20 each), so no convergence test decides the round
-    # count from objectives that differ in the last bits; the full default
-    # fit is held at the golden gate, its distance recorded.
+    # iterations under "float32", as tests/test_fused_xla.py:135-150 holds
+    # it (fp32 products, on the CPU): every round of those runs (20 each),
+    # so no convergence test decides the round count from objectives that
+    # differ in the last bits. Under "default" the products take bf16
+    # operands: a shard sum's last-bit difference can flip an operand's
+    # rounding by one bf16 ulp, and at the default tolerances the rounds
+    # differ. So under "default" every round and iteration is pinned to run
+    # (PINNED), both fits take the same branches, and the mesh's drift is
+    # held at percell_flip_bound. The unpinned 3-iteration fit is recorded,
+    # and the default fit is held at the golden gate.
     per_cell = {}
-    for iters in (3, None):
-        kw = {} if iters is None else dict(max_iter_harmony=iters)
+    for iters, prec, pin in ((3, "float32", False), (3, "default", True),
+                             (3, "default", False),
+                             (None, "default", False)):
+        kw = dict(matmul_precision=prec, **(PINNED if pin else {}))
+        if iters is not None:
+            kw["max_iter_harmony"] = iters
         ho1, r1, _ = golden_fit(ht, **kw)
         hoD, rD, fit_s = golden_fit(ht, mesh=mesh, **kw)
         check(not hoD.cfg.fused_estep and hoD.cfg.n_devices == mesh.size,
               f"pbmc mesh: unexpected config {hoD.cfg}")
         scale = float(np.abs(ho1.Z_corr).max())
         pc_err = float(np.abs(hoD.Z_corr - ho1.Z_corr).max())
+        rec = dict(max_abs=pc_err, max_abs_over_max_Z=pc_err / scale,
+                   min_pc_r=min(rD), min_pc_r_one_device=min(r1),
+                   fit_s=fit_s, kmeans_rounds=hoD.kmeans_rounds,
+                   kmeans_rounds_one_device=ho1.kmeans_rounds)
         if iters is None:
             check(min(rD) >= 0.99, f"per-cell mesh golden min r {min(rD)}")
-        else:
+            rec["gate"] = "golden min r >= 0.99"
+        elif prec == "float32":
             check(pc_err <= TOL_PERCELL_REL * scale,
                   f"per-cell mesh vs one device {pc_err} > "
                   f"{TOL_PERCELL_REL} x {scale} (rounds "
                   f"{hoD.kmeans_rounds} vs {ho1.kmeans_rounds})")
-        per_cell["default" if iters is None else f"max_iter_harmony={iters}"
-                 ] = dict(max_abs=pc_err, max_abs_over_max_Z=pc_err / scale,
-                          gated=iters is not None, min_pc_r=min(rD),
-                          min_pc_r_one_device=min(r1), fit_s=fit_s,
-                          kmeans_rounds=hoD.kmeans_rounds,
-                          kmeans_rounds_one_device=ho1.kmeans_rounds)
+            rec["gate"] = f"max_abs <= {TOL_PERCELL_REL} max|Z|"
+        elif pin:
+            check(hoD.kmeans_rounds == ho1.kmeans_rounds
+                  == [DEFAULTS_KMEANS] * iters,
+                  f"pinned per-cell fits: rounds {hoD.kmeans_rounds} and "
+                  f"{ho1.kmeans_rounds}")
+            bound = percell_flip_bound(ho1, golden_fit(
+                ht, **dict(kw, matmul_precision="float32"))[0])
+            check(pc_err <= bound,
+                  f"pinned per-cell mesh vs one device under 'default' "
+                  f"{pc_err} > {bound}, one-pass rounding's own effect")
+            rec.update(gate="max_abs <= max|Z_default - Z_float32| on one "
+                            "device (percell_flip_bound)", bound=bound,
+                       bound_over_max_Z=bound / scale, pinned=True)
+        name = "default" if iters is None else f"max_iter_harmony={iters}"
+        per_cell[f"{prec}/{name}" + ("/pinned" if pin else "")] = rec
 
     # LISI on the mesh fit's Z_corr.
     lisi1, sv, sidx = lisi_ref
@@ -2504,8 +2780,9 @@ def mesh_path_checks(ht, fe, X, batches, groups, meta, mesh, refs,
             check("mesh:" in str(e), f"mesh resume: unexpected message {e}")
     return dict(
         devices=[str(dv) for dv in mesh.devices], fits=fits,
-        metered_passes=metered, per_cell=dict(data="pbmc_3500", tolerance_over_max_Z=(
-            TOL_PERCELL_REL), fits=per_cell),
+        metered_passes=metered, per_cell=dict(
+            data="pbmc_3500", tolerance_over_max_Z=TOL_PERCELL_REL,
+            fits=per_cell),
         lisi=dict(pruned_bitwise=True, brute_sample_bitwise=True,
                   queries=LISI_SAMPLE, ms=lisi_ms, brute_ms=brute_ms),
         checkpoint=dict(resume_bitwise=True,
@@ -3448,6 +3725,7 @@ def main() -> int:
     phase_shapes(mods)
     launches, meta, fit_ho, fit_peak, fit32 = phase_fit(ht, fe, X, batches)
     launches_r, fits, stored_hos = phase_fit_stored(ht, fe, X, meta)
+    phase_products(ht, fe, X, meta)
     fits["deferred"] = (fit_ho.cfg, fit_peak)
     refs = dict(deferred=fit_ho, stored=stored_hos["stored"],
                 low_memory=stored_hos["low_memory"])
@@ -3455,6 +3733,7 @@ def main() -> int:
     phase_profile(ht, X, meta, "stored", defer_r=False)
     phase_profile_fit(ht, mods, X, batches, smi, k1_dev_ms["default"],
                       k2_dev_ms["default"], kinfo["float32"]["bound_ms"])
+    phase_precision(ht, fe, X, meta, smi)
     phase_io()
     phase_golden(ht)
     phase_golden_default(ht)

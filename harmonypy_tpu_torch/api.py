@@ -96,14 +96,18 @@ def run_harmony(
     from (N, block_size); fast_objective selects the log-free entropy
     partials for single-covariate designs;
     matmul_precision ("default" or "float32", the JAX package's values)
-    sets the fused E-step kernels' products on a CUDA card: "default" runs
-    them as one bf16 tensor-core pass with fp32 accumulation (each operand
-    rounded to nearest even, as the JAX package's default runs them on the
-    TPU), "float32" as 3xTF32 (error near fp32 rounding, ~3x the
-    tensor-core work). On the CPU both compute in fp32 and give the same
-    bits, as XLA computes an f32 product in f32 on the CPU. Every other
-    product (k-means seeding, the ridge, the per-cell fit, LISI) runs in
-    fp32 under both. checkpoint_dir
+    sets the fit's products on a CUDA card: "default" runs every product
+    the JAX package computes inside its precision scopes as one bf16
+    tensor-core pass with fp32 accumulation and an fp32 result (each
+    operand rounded to nearest even, as the JAX package's default runs
+    them on the TPU): the fused E-step kernels' and the torch products of
+    the k-means init, the init pass, the ridge and the per-cell fit
+    (ops/products.py). "float32" runs the kernels' products as 3xTF32
+    (error near fp32 rounding, ~3x the tensor-core work) and the torch
+    products in fp32. On the CPU both compute in fp32 and give the same
+    bits, as XLA computes an f32 product in f32 on the CPU. LISI's
+    products are fp32 under both, as the JAX package's are (HIGHEST).
+    checkpoint_dir
     writes harmony_iter_{i}.npz after every harmony iteration; resume_from
     continues from such a file bitwise as the uninterrupted fit would, under
     the settings it was written with (a mismatch raises ValueError listing

@@ -44,6 +44,15 @@ bit for bit (the one-process mesh's) and takes every host branch (the
 convergence checks, Lloyd's stop) on the same values, issuing the same
 collectives in the same order.
 
+Under matmul_precision "default" on a card (ops/products.runs_one_pass)
+every product of the fit runs as one bf16 pass with fp32 accumulation, as
+the JAX package's precision scopes run them (its engine.py:175, 205, 611,
+685): the kernels' one-pass variant, and the torch products here, in the
+k-means init and in the ridge through ops/products.py. `one_pass` of
+fit / HarmonyStep / init_defer / init_stored makes that choice (None:
+runs_one_pass of cfg and the data's device); the functions below them take
+it as `one`. True on the CPU runs the torch products' plain version.
+
 Profiler ranges (torch.profiler.record_function, no cost without a
 profiler beyond a few microseconds per call): harmony::init,
 harmony::kmeans_init, harmony::cluster, harmony::estep (the per-cell
@@ -76,6 +85,7 @@ from .ops.objective import (chunk_objective_partials,
 from .ops.partition import (cell_partition_len, cell_slot_table, frame_sum,
                             iid_blocks, mesh_round_tables, partition_geometry,
                             stripe_blocks)
+from .ops.products import einsum, matmul, runs_one_pass
 from .ops.replay import INIT_ELEMS, replay_apply, replay_normal_eq, windows
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
@@ -136,14 +146,15 @@ def normalize_cells(X):
 
 
 def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, s: int,
-               wins, put_r=None):
+               wins, one: bool, put_r=None):
     """Per-chunk cache, centroid numerator and objective partials of the
     initial soft assignments (softmax of -dist/sigma, harmony.py:380-389)
     of shard s's (rows, N_local) cells (one device: s = 0), over the
     one-device windows of chunks `wins`, each window's cells copied into
     new chunk-major arrays of the one-device window shape
     (parallel/sharding.py `cells_window`); put_r(lo, w, r), when given,
-    stores each window's assignments."""
+    stores each window's assignments. one: the products as one bf16
+    pass."""
     geom = partition_geometry(cfg)
     nc1, K, d = geom.nc_cap + 1, cfg.K, cfg.d
     dev = Z_cos.device
@@ -152,7 +163,7 @@ def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, s: int,
     kbuf = torch.zeros((nc1, 2), dtype=torch.float32, device=dev)
     for lo, w in wins:
         z3 = cells_window(Z_cos, s, geom, lo, w)                    # (w,d,CH)
-        dist = 2.0 * (1.0 - torch.einsum("dk,jdc->jkc", Y, z3))
+        dist = 2.0 * (1.0 - einsum("dk,jdc->jkc", Y, z3, one))
         e = torch.exp(-dist / sigma[None, :, None])
         # In place: the bits of e / sum * mask, one window less held.
         r = e.div_(torch.sum(e, dim=1, keepdim=True)).mul_(
@@ -161,14 +172,14 @@ def _init_pass(Z_cos, Phi, mask, Y, sigma, cfg: EngineConfig, s: int,
             put_r(lo, w, r)
         put_window(cache, chunk_stats(r, cells_window(Phi, s, geom, lo, w)),
                    s, geom, lo, w)
-        put_window(ybuf, torch.einsum("jdc,jkc->jdk", z3, r), s, geom, lo, w)
+        put_window(ybuf, einsum("jdc,jkc->jdk", z3, r, one), s, geom, lo, w)
         put_window(kbuf, torch.stack(chunk_objective_partials(
             r, dist, sigma, k_axis=1, chunk_axis=0), dim=1), s, geom, lo, w)
     return cache, ybuf, kbuf
 
 
 def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
-                cfg: EngineConfig, R3s=None):
+                cfg: EngineConfig, one: bool, R3s=None):
     """The init pass on every shard, each over the one-device windows that
     hold its chunks, reduced through the frame: (O, E, objective terms,
     the shards' caches, the centroid numerator). With R3s (each shard's
@@ -185,7 +196,7 @@ def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
         wins = [(lo, w) for lo, w in windows(cfg1, INIT_ELEMS)
                 if holds_window(geom, s, lo, w)]
         out = _init_pass(z, p, m, Y.to(z.device), params.sigma.to(z.device),
-                         cfg, s, wins, put_r)
+                         cfg, s, wins, one, put_r)
         for buf, o in zip((caches, ybufs, kbufs), out):
             buf.append(o)
     tot = frame_sum(caches, geom)                                # (K, B+1)
@@ -197,20 +208,31 @@ def _init_fused(Z_cos, data: HarmonyData, Y, params: HarmonyParams,
     return O, E, terms, pack(caches), frame_sum(ybufs, geom)
 
 
+def _one(one_pass: Optional[bool], cfg: EngineConfig,
+         data: HarmonyData) -> bool:
+    """one_pass, or None: whether cfg's fit runs the one-pass products on
+    the data's device (ops/products.runs_one_pass)."""
+    if one_pass is None:
+        return runs_one_pass(cfg, _devices(data)[0])
+    return bool(one_pass)
+
+
 @record_function("harmony::init")
 def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
-               gen: torch.Generator, init_Y=None) -> HarmonyState:
+               gen: torch.Generator, init_Y=None,
+               one_pass: Optional[bool] = None) -> HarmonyState:
     """Normalize, seed the centroids, and make one pass over the chunks for
     the cache, O/E, the first objective and the first centroid numerator:
     the initial soft assignments are reduced away one window of chunks at a
     time (each shard: the windows that hold its chunks)."""
     geom = partition_geometry(cfg)
+    one = _one(one_pass, cfg, data)
     Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
     with record_function("harmony::kmeans_init"):
-        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
+        Y = kmeans_init(gen, Z_cos, cfg, one) if init_Y is None else init_Y
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev = Y.device
-    O, E, terms, cache, Ysum0 = _init_fused(Z_cos, data, Y, params, cfg)
+    O, E, terms, cache, Ysum0 = _init_fused(Z_cos, data, Y, params, cfg, one)
     hist = empty_histories(cfg, dev)
     st = HarmonyState(
         Z_corr=data.Z_orig, Z_cos=Z_cos,
@@ -226,7 +248,8 @@ def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
 
 @record_function("harmony::init")
 def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
-                gen: torch.Generator, init_Y=None) -> HarmonyState:
+                gen: torch.Generator, init_Y=None,
+                one_pass: Optional[bool] = None) -> HarmonyState:
     """Normalize, seed the centroids, and store the initial soft
     assignments R = softmax_k(-dist/sigma) (harmony.py:377-392) with O/E and
     the first objective (JAX package engine.py:221-284). Fused layout: the
@@ -234,9 +257,10 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     come from the fp32 R. Per-cell layout: O/E and the objective from the
     storage-rounded R, since its E-step re-reads the stored values; shard
     partials summed in shard order (O and E packed into one)."""
+    one = _one(one_pass, cfg, data)
     Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
     with record_function("harmony::kmeans_init"):
-        Y = kmeans_init(gen, Z_cos, cfg) if init_Y is None else init_Y
+        Y = kmeans_init(gen, Z_cos, cfg, one) if init_Y is None else init_Y
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev, K = Y.device, cfg.K
     Rs, dists = [], []
@@ -245,23 +269,25 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         Rs = [torch.zeros((geom.nc_cap + 1, K, geom.CH),
                           dtype=cfg.r_torch_dtype, device=z.device)
               for z in parts(Z_cos)]
-        O, E, terms, cache, _ = _init_fused(Z_cos, data, Y, params, cfg, Rs)
+        O, E, terms, cache, _ = _init_fused(Z_cos, data, Y, params, cfg, one,
+                                            Rs)
     else:
         for z, m in zip(parts(Z_cos), parts(data.mask)):
-            dist_mat = 2.0 * (1.0 - Y.to(z.device).T @ z)        # :380
+            dist_mat = 2.0 * (1.0 - matmul(Y.to(z.device).T, z,
+                                           one))                 # :380
             R = (compute_scale_dist(dist_mat, params.sigma.to(z.device))
                  * m[None, :])
             Rs.append(R.to(cfg.r_torch_dtype).to(torch.float32))
             dists.append(dist_mat)
-        tot = shard_sum([torch.cat([torch.sum(R, dim=1)[:, None], R @ p.T],
-                                   dim=1)
+        tot = shard_sum([torch.cat([torch.sum(R, dim=1)[:, None],
+                                    matmul(R, p.T, one)], dim=1)
                          for R, p in zip(Rs, parts(data.Phi))], dev,
                         cfg.n_devices)
         E = torch.outer(tot[:, 0], params.Pr_b)                  # :388
         O = tot[:, 1:]                                           # :389
         cache = torch.zeros((1, 1, 1), dtype=torch.float32, device=dev)
         terms = compute_objective_terms(pack(Rs), pack(dists), O, E,
-                                        data.Phi, params, cfg)
+                                        data.Phi, params, cfg, one)
     st = HarmonyState(
         Z_corr=data.Z_orig, Z_cos=Z_cos,
         R=pack(R.to(cfg.r_torch_dtype).contiguous() for R in Rs), Y=Y, O=O,
@@ -325,10 +351,11 @@ def _zp3s(st: HarmonyState, data: HarmonyData, cfg: EngineConfig) -> list:
 
 
 def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
-            cfg: EngineConfig, draw_blocks, ZO3s) -> None:
+            cfg: EngineConfig, draw_blocks, ZO3s, one: bool) -> None:
     """One harmony iteration (harmony.py:421-428): cluster, then the ridge
     correction by replaying the final round twice (normal equations;
-    apply), then the type-1 convergence check. Updates `st` in place."""
+    apply), then the type-1 convergence check. Updates `st` in place; one:
+    the ridge's products as one bf16 pass."""
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
     ZP3s = _zp3s(st, data, cfg)
@@ -343,10 +370,10 @@ def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
                                    [z.device for z in ZP3s])
         rep = (st.rep_Y, params.sigma, params.theta, params.Pr_b, st.rep_O,
                st.rep_E)
-        S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast)
+        S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast, one=one)
         W = solve_w(S, st.E, params, cfg)
         Zc3s, Zs3s, st.Ysum0 = replay_apply(tables, ZP3s, ZO3s, W, rep, cfg,
-                                            fast)
+                                            fast, one=one)
         st.n_passes += 2 * len(windows(one_device(cfg)))
     st.rep_Zcos = st.Z_cos
     st.Z_corr = pack(z.permute(1, 0, 2).reshape(cfg.d, -1) for z in Zc3s)
@@ -363,12 +390,12 @@ def _round_end(st: HarmonyState, i: int, terms, cfg: EngineConfig) -> bool:
 
 @record_function("harmony::cluster")
 def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
-                  cfg: EngineConfig, draw_blocks) -> int:
+                  cfg: EngineConfig, draw_blocks, one: bool) -> int:
     """Stored-R fused k-means loop (JAX package engine.py:391-511): every
     round runs K2, which rewrites the chunk-major R3 in place in its
     storage dtype. The first centroid numerator comes from the stored R by
-    a per-chunk product, window by window, and frame_sum. Returns the
-    rounds run."""
+    a per-chunk product, window by window, and frame_sum (one: as one bf16
+    pass). Returns the rounds run."""
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
     nc = 2000.0 / cfg.N
@@ -379,9 +406,9 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
                                 dtype=torch.float32, device=Z.device))
         for lo, w in windows(one_device(cfg)):
             if holds_window(geom, s, lo, w):
-                put_window(y_cs[-1], torch.einsum(
+                put_window(y_cs[-1], einsum(
                     "jdc,jkc->jdk", window_of(Z, s, geom, lo, w)[:, cfg.B1:],
-                    window_of(R, s, geom, lo, w).to(torch.float32)),
+                    window_of(R, s, geom, lo, w).to(torch.float32), one),
                     s, geom, lo, w)
     Ysum = frame_sum(y_cs, geom)
     for i in range(cfg.max_iter_kmeans):
@@ -421,52 +448,55 @@ def percell_slot_tables(blocks, cfg: EngineConfig, devices) -> list:
 @record_function("harmony::cluster")
 def cluster_percell(st: HarmonyState, data: HarmonyData,
                     params: HarmonyParams, cfg: EngineConfig,
-                    draw_blocks) -> int:
+                    draw_blocks, one: bool) -> int:
     """Per-cell k-means loop (JAX package engine.py:351-389): centroids
     from Z_cos R^T, the distances, one per-cell E-step over iid blocks, the
     objective from R. Returns the rounds run. On a mesh the centroid
     numerator, every block's O/E change and the objective are shard
     partials summed in shard order: 2 n_blocks + 2 shard sums a round
-    (across processes, as many all-gathers)."""
+    (across processes, as many all-gathers). one: the products as one
+    bf16 pass."""
     lead = st.Y.device
     devs = [z.device for z in parts(st.Z_cos)]
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(shard_sum(                          # :443-444
-            [z @ R.to(torch.float32).T
+            [matmul(z, R.to(torch.float32).T, one)
              for z, R in zip(parts(st.Z_cos), parts(st.R))], lead,
             cfg.n_devices))
         tables = percell_slot_tables(draw_blocks(), cfg, devs)
-        dists = [2.0 * (1.0 - Y.to(z.device).T @ z)             # harmony.py:447
+        dists = [2.0 * (1.0 - matmul(Y.to(z.device).T, z, one))  # :447
                  for z in parts(st.Z_cos)]
         with record_function("harmony::estep"):
             st.R, st.E, st.O = update_r(pack(tables), st.R, pack(dists),
                                         data.Phi, st.E, st.O, params, cfg,
-                                        data.mask)
+                                        data.mask, one)
         st.Y = Y
         if _round_end(st, i, compute_objective_terms(
-                st.R, pack(dists), st.O, st.E, data.Phi, params, cfg), cfg):
+                st.R, pack(dists), st.O, st.E, data.Phi, params, cfg, one),
+                cfg):
             return i + 1
     return cfg.max_iter_kmeans
 
 
 def iterate_stored(st: HarmonyState, data: HarmonyData,
                    params: HarmonyParams, cfg: EngineConfig,
-                   draw_blocks) -> None:
+                   draw_blocks, one: bool) -> None:
     """One stored-R harmony iteration (JAX package engine.py:685-719):
     cluster, moe_correct_ridge on the stored R, normalize, the type-1
-    convergence check. Updates `st` in place."""
+    convergence check. Updates `st` in place; one: the products outside
+    the kernels as one bf16 pass."""
     if cfg.fused_estep:
         rounds = cluster_fused(st, _zp3s(st, data, cfg), params, cfg,
-                               draw_blocks)
+                               draw_blocks, one)
     else:
-        rounds = cluster_percell(st, data, params, cfg, draw_blocks)
+        rounds = cluster_percell(st, data, params, cfg, draw_blocks, one)
     st.kmeans_rounds.append(rounds)
     st.n_rounds += 1
     st.n_harmony = append(st.obj_harmony, st.n_harmony,
                           st.obj_kmeans[st.n_kmeans - 1])
     with record_function("harmony::ridge"):
         st.Z_corr = moe_correct_ridge(data.Z_orig, data.Phi, st.R, st.E,
-                                      params, cfg, data.mask)
+                                      params, cfg, data.mask, one)
     st.Z_cos = normalize_cells(st.Z_corr)                        # :569
     st.converged = check_conv_harmony(st.obj_harmony, st.n_harmony, cfg)
 
@@ -476,15 +506,18 @@ class HarmonyStep:
     (deferred-R `iterate`, else `iterate_stored`), each round's partition
     drawn from `gen` (the stripes of the fused paths, the iid cells of the
     per-cell path) or, as a test hook, given by `blocks_fn(i)`. n_drawn
-    counts the draws, from the count a resumed fit had reached. `fit` and
+    counts the draws, from the count a resumed fit had reached. one_pass:
+    the products outside the kernels as one bf16 pass (None: as
+    runs_one_pass decides for the data's device). `fit` and
     utils/profiling.profile_fit both step a state through it."""
 
     def __init__(self, data: HarmonyData, params: HarmonyParams,
                  cfg: EngineConfig, gen: torch.Generator,
                  blocks_fn: Optional[Callable[[int], torch.Tensor]] = None,
-                 n_drawn: int = 0):
+                 n_drawn: int = 0, one_pass: Optional[bool] = None):
         self.data, self.params, self.cfg = data, params, cfg
         self.gen, self.blocks_fn, self.n_drawn = gen, blocks_fn, n_drawn
+        self.one = _one(one_pass, cfg, data)
         self.dev = _devices(data)[0]
         self.ZO3s = None        # the deferred ridge's chunk-major Z_orig
 
@@ -514,16 +547,17 @@ class HarmonyStep:
                                  .permute(1, 0, 2).contiguous()
                                  for z in parts(self.data.Z_orig)]
                 iterate(st, self.data, self.params, cfg, self.draw_blocks,
-                        self.ZO3s)
+                        self.ZO3s, self.one)
             else:
                 iterate_stored(st, self.data, self.params, cfg,
-                               self.draw_blocks)
+                               self.draw_blocks, self.one)
 
 
 def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
         gen: torch.Generator, verbose: bool = False, init_Y=None,
         blocks_fn: Optional[Callable[[int], torch.Tensor]] = None,
-        checkpoint_dir: Optional[str] = None, resume=None) -> HarmonyState:
+        checkpoint_dir: Optional[str] = None, resume=None,
+        one_pass: Optional[bool] = None) -> HarmonyState:
     """init_cluster + harmonize (harmony.py:280-282, 419-435): the
     deferred-R, stored-R fused or per-cell fit as cfg selects.
 
@@ -531,16 +565,17 @@ def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     iteration i (utils/checkpoint.py). resume: (state, RngState) of a
     validated checkpoint on the fit's device, whose generator state `gen`
     already holds; the fit continues from its iteration n_rounds + 1 (JAX
-    package api.py:395-436)."""
+    package api.py:395-436). one_pass: the products outside the kernels
+    as one bf16 pass (None: runs_one_pass of cfg and the data's device)."""
     cfg.validate()
     step = HarmonyStep(data, params, cfg, gen, blocks_fn,
-                       0 if resume is None else resume[1].n_drawn)
+                       0 if resume is None else resume[1].n_drawn, one_pass)
     if resume is not None:
         st = resume[0]
     elif cfg.defer_r:
-        st = init_defer(data, params, cfg, gen, init_Y)
+        st = init_defer(data, params, cfg, gen, init_Y, step.one)
     else:
-        st = init_stored(data, params, cfg, gen, init_Y)
+        st = init_stored(data, params, cfg, gen, init_Y, step.one)
 
     resumed = " (resumed)" if resume is not None else ""
     # One plan per mesh pass geometry for the whole fit (made on its first

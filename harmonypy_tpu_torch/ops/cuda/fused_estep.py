@@ -58,6 +58,7 @@ import torch
 
 from ...parallel.mesh import gatherer, spans_processes
 from ..partition import rank_table
+from ..products import PRECISIONS, one_pass
 from ..update_r_fused import fused_update_nor, fused_update_r, mesh_round
 from . import build
 
@@ -73,8 +74,6 @@ launches_one_pass = 0
 launches_write_r_one_pass = 0
 launches_block_one_pass = 0
 launches_block_write_r_one_pass = 0
-
-PRECISIONS = ("default", "float32")
 
 TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
@@ -139,14 +138,6 @@ def kernel_geometry(K: int, B: int, d: int, CH: int, J: int,
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def one_pass(precision: str) -> bool:
-    """Whether `precision` runs the kernels' one-pass variant on a card."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                         f"{precision!r}")
-    return precision == "default"
 
 
 def _kernel_lib(one: bool = False):

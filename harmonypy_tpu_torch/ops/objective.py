@@ -19,6 +19,7 @@ from ..config import EngineConfig
 from ..parallel.mesh import all_gather_rows, spans_processes
 from ..state import HarmonyParams
 from .normalize import safe_entropy
+from .products import matmul
 
 CLAMP = 1e-8
 
@@ -79,7 +80,7 @@ def shard_sum(xs, device, n_devices: int) -> torch.Tensor:
 
 
 def compute_objective_terms(R, dist_mat, O, E, Phi, params: HarmonyParams,
-                            cfg: EngineConfig):
+                            cfg: EngineConfig, one: bool):
     """(kmeans_error, entropy, cross_entropy), each * 2000/N, from R
     (K, N_local) in any storage dtype, summed in fp32 (JAX package
     ops/objective.py:96-110). R, dist_mat and Phi may be sharded (lists):
@@ -98,6 +99,7 @@ def compute_objective_terms(R, dist_mat, O, E, Phi, params: HarmonyParams,
         sums.append(torch.stack((
             torch.sum(R_s * dist_s),
             torch.sum(safe_entropy(R_s) * sigma_col),
-            torch.sum((R_s * sigma_col) * (theta_log.to(dev) @ Phi_s)))))
+            torch.sum((R_s * sigma_col) * matmul(
+                theta_log.to(dev), Phi_s, one)))))
     return tuple((shard_sum(sums, O.device, cfg.n_devices)
                   * norm_const).unbind(0))

@@ -28,6 +28,7 @@ from ..parallel.sharding import (one_device, put_window, window_of,
 from .cuda.fused_estep import fused_estep, fused_estep_mesh
 from .normalize import l2_normalize_cells
 from .partition import frame_sum, partition_geometry
+from .products import einsum, operand
 
 # Cap on the elements of one window of r (width * K * CH floats): 1 GiB.
 WINDOW_ELEMS = 256 * 1024 * 1024
@@ -74,33 +75,37 @@ def round_r_windows(tables, ZP3s, rep, fast_ent: bool, geom, lo: int,
                             windows=wins, precision=precision)[5]
 
 
-def window_normal_eq(a, zo, r) -> torch.Tensor:
+def window_normal_eq(a, zo, r, one: bool) -> torch.Tensor:
     """The per-chunk ridge normal equations (w, B1*(B1+d), K) of one window
     of chunks: design rows a (w, B1, CH), Z_orig zo (w, d, CH), soft
     assignments r (w, K, CH). Rows b*B1+c hold sum a_b a_c r, rows B1*B1 +
     b*d + x sum a_b z_x r. The replays and the stored ridge share it, so
-    the same r gives the same bits on both paths."""
+    the same r gives the same bits on both paths. one: the products as one
+    bf16 pass (ops/products.py), r rounded once for all of them."""
     w, B1 = a.shape[:2]
+    r = operand(r, one)
     Fa = (a[:, :, None, :] * a[:, None, :, :]).reshape(w, B1 * B1, -1)
-    Sa = torch.einsum("jfc,jkc->jfk", Fa, r)
-    Sz = [torch.einsum("jdc,jkc->jdk", a[:, b, None, :] * zo, r)
+    Sa = einsum("jfc,jkc->jfk", Fa, r, one)
+    Sz = [einsum("jdc,jkc->jdk", a[:, b, None, :] * zo, r, one)
           for b in range(B1)]
     return torch.cat([Sa] + Sz, dim=1)
 
 
-def window_apply(a, zo, r, W) -> torch.Tensor:
+def window_apply(a, zo, r, W, one: bool) -> torch.Tensor:
     """Z_orig minus the ridge correction over one window of chunks
     (harmony.py:559-569): zo - sum_b a_b (W[:, b]^T r), (w, d, CH); shared
-    by the replays and the stored ridge."""
-    corr = a[:, 0, None, :] * torch.einsum("kd,jkc->jdc", W[:, 0, :], r)
+    by the replays and the stored ridge. one: as window_normal_eq's."""
+    r = operand(r, one)
+    corr = a[:, 0, None, :] * einsum("kd,jkc->jdc", W[:, 0, :], r, one)
     for b in range(1, a.shape[1]):
         corr = corr + (a[:, b, None, :]
-                       * torch.einsum("kd,jkc->jdc", W[:, b, :], r))
+                       * einsum("kd,jkc->jdc", W[:, b, :], r, one))
     return zo - corr
 
 
 def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
-                     fast_ent: bool, budget: int = WINDOW_ELEMS):
+                     fast_ent: bool, budget: int = WINDOW_ELEMS, *,
+                     one: bool):
     """Ridge normal equations from the replayed r: S (B1*(B1+d), K), rows
     b*B1+c for cov[., b, c] and B1*B1 + b*d + x for rhs[., b, x]. The design
     rows a = [mask; Phi] are the leading B1 rows of the slab; ZO3s are the
@@ -117,12 +122,14 @@ def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
                 continue
             put_window(Sbufs[i], window_normal_eq(
                 window_of(ZP3s[i], s, geom, lo, w)[:, :B1, :],
-                window_of(ZO3s[i], s, geom, lo, w), r), s, geom, lo, w)
+                window_of(ZO3s[i], s, geom, lo, w), r,
+                one), s, geom, lo, w)
     return frame_sum(Sbufs, geom)
 
 
 def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
-                 fast_ent: bool, budget: int = WINDOW_ELEMS):
+                 fast_ent: bool, budget: int = WINDOW_ELEMS, *,
+                 one: bool):
     """Apply the ridge correction with the replayed r (harmony.py:559-569):
     returns per shard (Zc3, Zs3) (nc1, d, CH) — the corrected embedding and
     its L2-normalization, zero on the dummy chunk — and Ysum0 (d, K), the
@@ -143,14 +150,15 @@ def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
         for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue
+            r = operand(r, one)
             zc = window_apply(window_of(ZP3s[i], s, geom, lo, w)[:, :B1, :],
                               window_of(ZO3s[i], s, geom, lo, w), r,
-                              W.to(r.device))
+                              W.to(r.device), one)
             # Each cell's column normalised as the stored fit's
             # normalize_cells does it, so the two paths keep one Z_cos.
             zs = l2_normalize_cells(zc, dim=1)
             put_window(Zc3s[i], zc, s, geom, lo, w)
             put_window(Zs3s[i], zs, s, geom, lo, w)
-            put_window(ybufs[i], torch.einsum("jdc,jkc->jdk", zs, r), s,
+            put_window(ybufs[i], einsum("jdc,jkc->jdk", zs, r, one), s,
                        geom, lo, w)
     return Zc3s, Zs3s, frame_sum(ybufs, geom)

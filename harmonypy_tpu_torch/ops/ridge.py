@@ -7,8 +7,11 @@ moe_correct_ridge, harmony.py:535-569; JAX package ops/ridge.py:38-146):
 
 The deferred-R path builds the normal equations from replayed r
 (ops/replay.py) and shares solve_w; the stored-R paths read the stored R
-here. The products are plain torch matmuls, as the JAX package leaves them
-to XLA. The fused layout computes the per-chunk rows over the replays'
+here. The products are torch products, as the JAX package leaves them to
+XLA, through ops/products.py: one bf16 pass with fp32 accumulation under
+matmul_precision "default" on a card (`one`), fp32 otherwise; the
+Cholesky factor and solve stay fp32 (a decomposition, not a product, in
+the JAX package too). The fused layout computes the per-chunk rows over the replays'
 one-device windows of chunks with the replays' window functions, each
 window's cell inputs copied into new chunk-major arrays of the window's
 shape; a mesh shard runs only the windows that hold its chunks
@@ -31,6 +34,7 @@ from ..parallel.sharding import (cells_window, holds_window, one_device,
 from ..state import HarmonyParams
 from .objective import shard_sum
 from .partition import frame_sum, partition_geometry
+from .products import einsum
 from .replay import window_apply, window_normal_eq, windows
 
 # Cap per-window stacked-feature temporaries at 64M floats (256 MB).
@@ -42,23 +46,25 @@ def _col_chunk(B1: int, d: int) -> int:
     return max(65536, (_CHUNK_BUDGET_ELEMS // rows) // 8192 * 8192)
 
 
-def _products(a, z, r):
+def _products(a, z, r, one: bool):
     """Per-chunk normal-equation products (j, B1*(B1+d), K) of design rows
     a (B1, j, c), Z_orig z (d, j, c) and soft assignments r (j, K, c):
-    rows b*B1+c' hold sum a_b a_c' r, rows B1*B1 + b*d + x sum a_b z_x r."""
+    rows b*B1+c' hold sum a_b a_c' r, rows B1*B1 + b*d + x sum a_b z_x r.
+    one: as one bf16 pass (ops/products.py)."""
     B1, j, c = a.shape
     F = torch.cat([(a[:, None] * a[None, :]).reshape(B1 * B1, j, c),
                    (a[:, None] * z[None, :]).reshape(B1 * z.shape[0], j, c)])
-    return torch.einsum("fjc,jkc->jfk", F, r.to(torch.float32))
+    return einsum("fjc,jkc->jfk", F, r.to(torch.float32), one)
 
 
-def _correction(a, r, Wf):
+def _correction(a, r, Wf, one: bool):
     """sum_k sum_b W[k, b, :] a_b r_k for a (B1, j, c), r (j, K, c) and
-    Wf = W.reshape(K, B1*d): returns (d, j, c)."""
+    Wf = W.reshape(K, B1*d): returns (d, j, c); one: both products as one
+    bf16 pass."""
     B1, j, c = a.shape
-    T = torch.einsum("jkc,kf->jcf", r.to(torch.float32), Wf)
+    T = einsum("jkc,kf->jcf", r.to(torch.float32), Wf, one)
     T = T.reshape(j, c, B1, -1)
-    return torch.einsum("bjc,jcbd->djc", a, T)
+    return einsum("bjc,jcbd->djc", a, T, one)
 
 
 def solve_w(S, E, params: HarmonyParams, cfg: EngineConfig) -> torch.Tensor:
@@ -94,7 +100,7 @@ def _design(Z_orig, Phi, mask, cfg: EngineConfig):
             [(lo, min(CC, Nl - lo)) for lo in range(0, Nl, CC)])
 
 
-def _normal_eq(Z_orig, Phi, mask, cfg: EngineConfig, R):
+def _normal_eq(Z_orig, Phi, mask, cfg: EngineConfig, R, one: bool):
     """Per-cell layout: the normal equations summed over the cells in
     column-window order."""
     A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
@@ -102,11 +108,12 @@ def _normal_eq(Z_orig, Phi, mask, cfg: EngineConfig, R):
                     device=A3.device)
     for lo, n in wins:
         sl = slice(lo, lo + n)
-        S = S + _products(A3[..., sl], Z3[..., sl], R[None][..., sl])[0]
+        S = S + _products(A3[..., sl], Z3[..., sl], R[None][..., sl],
+                          one)[0]
     return S
 
 
-def _apply(Z_orig, Phi, mask, W, cfg: EngineConfig, R):
+def _apply(Z_orig, Phi, mask, W, cfg: EngineConfig, R, one: bool):
     """Per-cell layout: Z_orig minus the correction, column window by
     column window."""
     A3, Z3, wins = _design(Z_orig, Phi, mask, cfg)
@@ -115,12 +122,13 @@ def _apply(Z_orig, Phi, mask, W, cfg: EngineConfig, R):
     Zc3 = Z_corr[:, None]
     for lo, n in wins:
         sl = slice(lo, lo + n)
-        Zc3[..., sl] = Z3[..., sl] - _correction(A3[..., sl],
-                                                 R[None][..., sl], Wf)
+        Zc3[..., sl] = Z3[..., sl] - _correction(
+            A3[..., sl], R[None][..., sl], Wf, one)
     return Z_corr
 
 
-def _fused_shard(z, p, m, R3, s: int, cfg: EngineConfig, W=None):
+def _fused_shard(z, p, m, R3, s: int, cfg: EngineConfig, one: bool,
+                 W=None):
     """Shard s of the fused layout over the one-device windows of the
     replays (ops/replay.windows) that hold its chunks, each window's design
     rows and Z_orig copied into new chunk-major arrays of the window's
@@ -143,14 +151,14 @@ def _fused_shard(z, p, m, R3, s: int, cfg: EngineConfig, W=None):
         zo = cells_window(z, s, geom, lo, n)                    # (n, d, CH)
         r = window_of(R3, s, geom, lo, n).to(torch.float32)
         if W is None:
-            put_window(out, window_normal_eq(a, zo, r), s, geom, lo, n)
+            put_window(out, window_normal_eq(a, zo, r, one), s, geom, lo, n)
         else:
-            put_cells(out, window_apply(a, zo, r, W), s, geom, lo, n)
+            put_cells(out, window_apply(a, zo, r, W, one), s, geom, lo, n)
     return out
 
 
 def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
-                      cfg: EngineConfig, mask):
+                      cfg: EngineConfig, mask, one: bool):
     """Z_corr (d, N_local) = Z_orig - the ridge correction, from the stored
     R in the layout of its path:
       - fused layout (cfg.fused_estep): R3 (nc1, K, CH) chunk-major; the
@@ -160,18 +168,19 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
         column chunks in order (ridge.py:126-133).
     Both solve with solve_w and apply the correction window by window.
     mask zeroes padded cells out of the intercept row. On a mesh every
-    cell-axis argument is a list of the shards' and so is Z_corr."""
+    cell-axis argument is a list of the shards' and so is Z_corr. one: the
+    products as one bf16 pass (ops/products.py)."""
     shards = list(zip(parts(Z_orig), parts(Phi), parts(mask), parts(R)))
     if cfg.fused_estep:
         ids = local_shards(cfg.n_devices)
-        S = frame_sum([_fused_shard(*sh, s, cfg)
+        S = frame_sum([_fused_shard(*sh, s, cfg, one)
                        for s, sh in zip(ids, shards)],
                       partition_geometry(cfg))
         W = solve_w(S, E, params, cfg)
-        return pack(_fused_shard(*sh, s, cfg, W.to(sh[0].device))
+        return pack(_fused_shard(*sh, s, cfg, one, W.to(sh[0].device))
                     for s, sh in zip(ids, shards))
-    S = shard_sum([_normal_eq(z, p, m, cfg, r) for z, p, m, r in shards],
-                  E.device, cfg.n_devices)
+    S = shard_sum([_normal_eq(z, p, m, cfg, r, one)
+                   for z, p, m, r in shards], E.device, cfg.n_devices)
     W = solve_w(S, E, params, cfg)
-    return pack(_apply(z, p, m, W.to(z.device), cfg, r)
+    return pack(_apply(z, p, m, W.to(z.device), cfg, r, one)
                 for z, p, m, r in shards)

@@ -8,7 +8,10 @@ package ops/update_r.py:47-131).
      their R with the weights (E/(O+E))^theta, re-add them    (:491-507)
 
 This is the default below 20,480 cells. It is plain torch on every device:
-the JAX package leaves it to XLA, and it has no kernel of its own. On a mesh
+the JAX package leaves it to XLA, and it has no kernel of its own. Its
+products (the block stats R Phi^T, the weights wdiv Phi) go through
+ops/products.py: one bf16 pass under matmul_precision "default" on a card
+(`one`), as the JAX package's precision scope runs them. On a mesh
 each block's removal and re-add are shard partials summed in shard order
 (JAX ops/partition.py:29-32): equal to one device to reduction-order
 tolerance, not bitwise. Each phase packs a shard's E partial (K,) and O
@@ -26,6 +29,7 @@ from ..config import EngineConfig
 from ..parallel.sharding import pack, parts
 from ..state import HarmonyParams
 from .objective import shard_sum
+from .products import matmul
 from .update_r_fused import CLAMP, diversity_weights
 
 
@@ -36,13 +40,15 @@ def compute_scale_dist(dist_mat, sigma) -> torch.Tensor:
     return s / torch.sum(s, dim=0, keepdim=True)
 
 
-def _stats(Rb, Phib):
-    """A shard's (K, B+1) block partial: [sum_cells R | R Phi^T]."""
-    return torch.cat([torch.sum(Rb, dim=1)[:, None], Rb @ Phib.T], dim=1)
+def _stats(Rb, Phib, one: bool):
+    """A shard's (K, B+1) block partial: [sum_cells R | R Phi^T]; one: the
+    product as one bf16 pass (ops/products.py)."""
+    return torch.cat([torch.sum(Rb, dim=1)[:, None],
+                      matmul(Rb, Phib.T, one)], dim=1)
 
 
 def update_r(slot_table, R, dist_mat, Phi, E, O, params: HarmonyParams,
-             cfg: EngineConfig, mask):
+             cfg: EngineConfig, mask, one: bool):
     """One E-step over all blocks. slot_table (nb, W) cell ids per block
     (sentinel N_local, partition.cell_slot_table); R (K, N_local) in its
     storage dtype, updated in place; dist_mat (K, N_local); Phi (B,
@@ -71,22 +77,22 @@ def update_r(slot_table, R, dist_mat, Phi, E, O, params: HarmonyParams,
             sh["live"] = live
             sh["Rb"] = sh["Rw"][:, idx_c].to(torch.float32) * live[None, :]
             sh["Phib"] = sh["Phi"][:, idx_c] * live[None, :]
-        rem = shard_sum([_stats(sh["Rb"], sh["Phib"]) for sh in shards],
-                        lead, S)                                  # :491-492
+        rem = shard_sum([_stats(sh["Rb"], sh["Phib"], one)
+                         for sh in shards], lead, S)              # :491-492
         E = E - torch.outer(rem[:, 0], Pr_b)
         O = O - rem[:, 1:]
 
         w_div = diversity_weights(O, E, params.theta)[1]          # :494-499
         for sh in shards:
             live = sh["live"]
-            R_new = sh["scale"][:, sh["idx_c"]] * (w_div.to(live.device)
-                                                   @ sh["Phib"])
+            R_new = sh["scale"][:, sh["idx_c"]] * matmul(
+                w_div.to(live.device), sh["Phib"], one)
             colsum = torch.clamp_min(torch.sum(R_new, dim=0), CLAMP)
             R_new = (R_new / colsum[None, :]) * live[None, :]
             sh["R_store"] = R_new.to(sh["R"].dtype)               # :506-507
             sh["R_acc"] = sh["R_store"].to(torch.float32)
-        add = shard_sum([_stats(sh["R_acc"], sh["Phib"]) for sh in shards],
-                        lead, S)
+        add = shard_sum([_stats(sh["R_acc"], sh["Phib"], one)
+                         for sh in shards], lead, S)
         E = E + torch.outer(add[:, 0], Pr_b)
         O = O + add[:, 1:]
         for sh in shards:

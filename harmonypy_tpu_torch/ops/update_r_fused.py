@@ -38,6 +38,7 @@ from ..config import EngineConfig
 from ..parallel.mesh import all_gather_rows, spans_processes
 from .objective import chunk_objective_partials, chunk_objective_partials_fast
 from .partition import partition_geometry
+from .products import plain_operand, round_bf16  # noqa: F401 (re-export)
 
 CLAMP = 1e-8
 
@@ -70,20 +71,6 @@ def diversity_weights(O, E, theta):
     return logratio, torch.exp(theta[None, :] * logratio)
 
 
-def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """x (float32) rounded to the nearest bf16, ties to even, as float32:
-    the rounding of the kernels' one-pass operands (__float2bfloat16_rn),
-    on the bits: add 0x7fff plus the kept part's lowest bit, clear the low
-    16 bits (finite x; an overflow rounds to infinity)."""
-    u = x.contiguous().view(torch.int32)
-    u = (u + (0x7FFF + ((u >> 16) & 1))) & -0x10000
-    return u.view(torch.float32)
-
-
-def _operand(one_pass: bool):
-    return round_bf16 if one_pass else (lambda x: x)
-
-
 def block_core(O, E, rem_b, slots_b, ZP3, Y, sigma, theta, Pr_b,
                one_pass: bool = False):
     """One block's removal, reweighting and soft assignments. Returns
@@ -94,7 +81,9 @@ def block_core(O, E, rem_b, slots_b, ZP3, Y, sigma, theta, Pr_b,
     O = O - rem_b[:, 1:]
     logratio, wdiv = diversity_weights(O, E, theta)
 
-    op = _operand(one_pass)
+    def op(x):
+        return plain_operand(x, one_pass)
+
     B1 = 1 + theta.shape[0]
     g = ZP3[slots_b]                                            # (J, 1+B+d, CH)
     pb = g[:, 1:B1, :]
@@ -115,8 +104,8 @@ def block_stats(r, g, B1: int, one_pass: bool = False):
     """All linear statistics of r in one batched contraction against the
     slab: (stats (J, K, B+1), yk (J, K, d)); one_pass: both operands
     rounded to bf16 (r only here: every other use of r takes it fp32)."""
-    op = _operand(one_pass)
-    S = torch.einsum("jkc,jxc->jkx", op(r), op(g))
+    S = torch.einsum("jkc,jxc->jkx", plain_operand(r, one_pass),
+                     plain_operand(g, one_pass))
     return S[:, :, :B1], S[:, :, B1:]
 
 

@@ -22,8 +22,8 @@ import time
 
 import torch
 
-from ..ops.cuda.fused_estep import one_pass
 from ..ops.partition import partition_geometry
+from ..ops.products import runs_one_pass
 from ..parallel.sharding import one_device
 
 # H100 SXM published peaks (NVIDIA H100 datasheet, dense): fp32 on the CUDA
@@ -153,13 +153,6 @@ def round_bound(cfg, r_bytes: int = 0, one_pass: bool = False) -> dict:
     geom = partition_geometry(one_device(cfg))
     return estep_bound(cfg.N, geom.nc_cap + 1, cfg.d, cfg.K, cfg.B, geom.CH,
                        r_bytes, one_pass)
-
-
-def runs_one_pass(cfg, device) -> bool:
-    """Whether cfg's fit runs the kernels' one-pass variant on `device`:
-    matmul_precision "default" on a CUDA card (the CPU computes in fp32)."""
-    return (one_pass(cfg.matmul_precision)
-            and torch.device(device).type == "cuda")
 
 
 def estep_vpu_floor_s(cfg, one_pass: bool = False) -> float:
@@ -312,7 +305,8 @@ def profile_fit(cfg, mesh, data, params, seed: int = 0, reps: int = 16,
 
             def seed_only():
                 Z_cos = engine.normalize_cells(data.Z_orig)
-                return l2_normalize_cols(kmeans_init(new_gen(), Z_cos, cfg))
+                return l2_normalize_cols(kmeans_init(
+                    new_gen(), Z_cos, cfg, runs_one_pass(cfg, mesh.lead)))
 
             t_seed = max(timed(seed_only) - d0, 0.0)
             res["phase_init_seeding_s"] = t_seed

@@ -78,7 +78,7 @@ def test_theta_zero_disables_diversity():
     R_in = torch.full((K, N), 1.0 / K)                # far from the fixed point
     R2, _, _ = update_r(slots, R_in, torch.tensor(dist), torch.tensor(Phi),
                         torch.tensor(E), torch.tensor(O), params, cfg,
-                        torch.ones(N))
+                        torch.ones(N), False)
     np.testing.assert_allclose(R2.numpy(), s / s.sum(0), atol=2e-5)
 
 

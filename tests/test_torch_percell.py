@@ -128,7 +128,7 @@ def test_update_r_matches_jax(block_size, r_dtype):
     R_t, E_t, O_t = update_r(
         tbl, R0, torch.as_tensor(p["dist"]), torch.as_tensor(p["Phi"]),
         torch.as_tensor(p["E"]), torch.as_tensor(p["O"]), _tparams(p), tc,
-        torch.ones(p["N"]))
+        torch.ones(p["N"]), False)
     assert R_t.dtype == tc.r_torch_dtype
     R_t = R_t.float().numpy()
     R_j = np.asarray(R_j, np.float32)
@@ -193,7 +193,7 @@ def test_moe_correct_ridge_matches_jax(layout, lambda_estimation):
     Z_t = moe_correct_ridge(
         torch.as_tensor(p["Z"]), torch.as_tensor(p["Phi"]), R,
         torch.as_tensor(p["E"]), _tparams(p), tc,
-        torch.as_tensor(p["mask"])).numpy()
+        torch.as_tensor(p["mask"]), False).numpy()
     np.testing.assert_allclose(Z_t, Z_j, rtol=1e-5, atol=1e-5)
 
 
@@ -215,7 +215,7 @@ def test_objective_terms_match_jax(r_dtype):
     out = compute_objective_terms(
         R, torch.as_tensor(p["dist"]), torch.as_tensor(p["O"]),
         torch.as_tensor(p["E"]), torch.as_tensor(p["Phi"]), _tparams(p),
-        TConfig(N=p["N"], d=p["d"], K=p["K"], B=p["B"], n_devices=1))
+        TConfig(N=p["N"], d=p["d"], K=p["K"], B=p["B"], n_devices=1), False)
     np.testing.assert_allclose([float(x) for x in out],
                                [float(x) for x in ref], rtol=2e-5)
 

@@ -93,8 +93,8 @@ def test_kmeanspp_quality_vs_jax_and_sklearn():
     tc = TConfig(N=400, d=5, K=K, B=2, n_devices=1)
     jc = JConfig(N=400, d=5, K=K, B=2, n_devices=1)
     C_t = tk.lloyd(tk.kmeanspp_seed(torch.Generator().manual_seed(0),
-                                    torch.as_tensor(Xn), tc),
-                   torch.as_tensor(Xn), tc).numpy()
+                                    torch.as_tensor(Xn), tc, False),
+                   torch.as_tensor(Xn), tc, False).numpy()
     C_j = np.asarray(jk._lloyd(jk._kmeanspp_seed(jax.random.PRNGKey(0),
                                                  jnp.asarray(Xn), jc),
                                jnp.asarray(Xn), jc))
@@ -115,9 +115,11 @@ def test_kmeansbb_quality_vs_jax_exact_topk():
     jc = JConfig(N=S, d=d, K=16, B=3, n_devices=1)
     Xt = torch.as_tensor(X)
     p_bb = _potential(tk.lloyd(tk.kmeansbb_seed(
-        torch.Generator().manual_seed(0), Xt, tc), Xt, tc).numpy(), X)
+        torch.Generator().manual_seed(0), Xt, tc, False), Xt, tc,
+        False).numpy(), X)
     p_pp = _potential(tk.lloyd(tk.kmeanspp_seed(
-        torch.Generator().manual_seed(0), Xt, tc), Xt, tc).numpy(), X)
+        torch.Generator().manual_seed(0), Xt, tc, False), Xt, tc,
+        False).numpy(), X)
     p_j = _potential(np.asarray(jk._lloyd(jk._kmeansbb_seed(
         jax.random.PRNGKey(0), jnp.asarray(X), jc, exact_topk=True),
         jnp.asarray(X), jc)), X)
@@ -134,7 +136,8 @@ def test_kmeans_init_uses_sample_above_cap():
     Xt = torch.as_tensor(X / np.linalg.norm(X, axis=0))
 
     def run(seed):
-        return tk.kmeans_init(torch.Generator().manual_seed(seed), Xt, tc)
+        return tk.kmeans_init(torch.Generator().manual_seed(seed), Xt, tc,
+                              False)
 
     a, b, c = run(1), run(1), run(2)
     assert a.shape == (8, 16) and torch.isfinite(a).all()
