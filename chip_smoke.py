@@ -7,6 +7,9 @@
                                              # one, in turns (mesh_ab)
     python3 chip_smoke.py --cards            # several cards: only what
                                              # exists across them (cards_main)
+    python3 chip_smoke.py --round-ab PARENT  # the one-launch round of the
+                                             # parent checkout and of this
+                                             # one, in turns (round_ab)
 
 Builds the hand-written kernels from the checkout, then, printing one JSON
 line per phase:
@@ -242,7 +245,8 @@ def ptxas_kernels(logs) -> dict:
     reports ({source: report}), by a readable name: estep_round<float or
     bf16, NRG, PRE, round or block> (block: the per-block entry's FOLD
     instantiation), with ", one_pass" before the ">" for the one-pass
-    variant's instantiations, and frame_readd_kernel."""
+    variant's instantiations (and ", timed" for the stamped ones), and
+    frame_readd_kernel."""
     import re
     out, entry, mangled, props = {}, None, None, None
     for log in logs.values():
@@ -255,12 +259,14 @@ def ptxas_kernels(logs) -> dict:
             if m:
                 name = mangled = m.group(1)
                 t = re.search(r"estep_roundI(f|13__nv_bfloat16)Li(\d+)ELb"
-                              r"([01])E(?:Lb([01])E)?(?:Lb([01])E)?E", name)
+                              r"([01])E(?:Lb([01])E)?(?:Lb([01])E)?"
+                              r"(?:Lb([01])E)?E", name)
                 if t:
                     name = (f"estep_round<{'float' if t[1] == 'f' else 'bf16'}"
                             f", {t[2]}, {t[3]}, "
                             f"{'block' if t[4] == '1' else 'round'}"
-                            f"{', one_pass' if t[5] == '1' else ''}>")
+                            f"{', one_pass' if t[5] == '1' else ''}"
+                            f"{', timed' if t[6] == '1' else ''}>")
                 elif "frame_readd_kernel" in name:
                     name = "frame_readd_kernel"
                 entry = out.setdefault(name, {})
@@ -3607,6 +3613,183 @@ def mesh_ab(parent: str) -> int:
     return 0
 
 
+# --round-ab: the one-launch round's entries timed and digested in each run.
+ROUND_REPS = 20
+
+
+def round_entries(fe, args, nc, R3s):
+    """The one-launch round's entries that --round-ab times: the one-pass
+    K1 round, its r window over every real chunk (a fit's replay), K2 one
+    pass into fp32 and bf16 R, and the 3xTF32 K1 round: {name: fn(fast)}."""
+    return {
+        "k1_one_pass": lambda f: fe.fused_estep(*args, f,
+                                                precision="default"),
+        "r_window_one_pass": lambda f: fe.fused_estep(
+            *args, f, lo=0, width=nc, precision="default"),
+        "k2_one_pass_fp32": lambda f: fe.fused_estep_r(
+            args[0], args[1], args[2], R3s[0], *args[3:], f,
+            precision="default"),
+        "k2_one_pass_bf16": lambda f: fe.fused_estep_r(
+            args[0], args[1], args[2], R3s[1], *args[3:], f,
+            precision="default"),
+        "k1_3xtf32": lambda f: fe.fused_estep(*args, f, precision="float32")}
+
+
+def tensor_digest(t) -> str:
+    """digest of a card tensor (bf16 by its bit patterns)."""
+    import torch
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return digest(t.cpu().numpy())
+
+
+def round_timing(root: str) -> dict:
+    """The one-launch round of the checkout at `root` (its package and
+    kernels): on the 858k round of phase kernel, for each of round_entries
+    the digest of every output under both objective forms, ms per call by
+    CUDA events (ROUND_REPS calls) and the profiler's device ms; the
+    default 858k deferred fit's wall s after a warm-up fit (no gate); and,
+    where the checkout has the stamped round (ops/cuda/round_timing.py),
+    its phase split (round_timing.decode), its outputs' digests (which
+    must equal the round's) and its ms beside the unstamped round's. Runs
+    in a process of its own (`--round-timing`), so two checkouts' packages
+    do not meet."""
+    import importlib.util
+
+    import torch
+    sys.path.insert(0, root)
+    import harmonypy_tpu_torch as ht
+    check(os.path.dirname(os.path.abspath(ht.__file__))
+          == os.path.join(os.path.abspath(root), "harmonypy_tpu_torch"),
+          f"harmonypy_tpu_torch imported from {ht.__file__}, not {root}")
+    from harmonypy_tpu_torch import config, engine, layout, state
+    from harmonypy_tpu_torch.ops import partition, update_r_fused
+    from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+    timed = importlib.util.find_spec(
+        "harmonypy_tpu_torch.ops.cuda.round_timing") is not None
+    X, batches, _ = synthetic()
+    mods = (config, engine, layout, partition, fe, update_r_fused, state)
+    geom, args = round_inputs(mods, X, batches)
+    nc = geom.nc_cap
+    R3s = [torch.zeros((nc + 1, K, CHUNK), dtype=dt, device="cuda")
+           for dt in (torch.float32, torch.bfloat16)]
+    out = dict(root=root, digests={}, ms={}, device_ms={})
+    for name, fn in round_entries(fe, args, nc, R3s).items():
+        for fast in (False, True):
+            res = fn(fast)
+            out["digests"][f"{name},fast_objective={fast}"] = [
+                tensor_digest(t) for t in res if t is not None]
+            del res
+        out["ms"][name] = cuda_ms(lambda: fn(False), reps=ROUND_REPS)
+        out["device_ms"][name] = device_ms(lambda: fn(False))[0]
+    if timed:
+        from harmonypy_tpu_torch.ops.cuda import round_timing as rt
+        res, stamps, grid, names = rt.timed_round(*args, False)
+        out["timed_digests"] = [tensor_digest(t) for t in res]
+        check(out["timed_digests"]
+              == out["digests"]["k1_one_pass,fast_objective=False"][:5],
+              "the stamped round's outputs differ from the round's")
+        out["split"] = dict(rt.decode(stamps.cpu().numpy(), geom.nb, grid,
+                                      names), grid=grid)
+        # The stamps' own cost: stamped and unstamped rounds in turns.
+        pair = [[], []]
+        for _ in range(3):
+            pair[0].append(cuda_ms(lambda: rt.timed_round(
+                *args, False, stamps=stamps), reps=ROUND_REPS))
+            pair[1].append(cuda_ms(lambda: fe.fused_estep(
+                *args, False, precision="default"), reps=ROUND_REPS))
+        out["split"].update(timed_ms=sorted(pair[0])[1],
+                            untimed_ms=sorted(pair[1])[1])
+    meta = batch_meta(batches)
+    ht.run_harmony(X, meta, ["batch"], device="cuda:0", verbose=False,
+                   max_iter_harmony=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ho = ht.run_harmony(X, meta, ["batch"], device="cuda:0", verbose=False)
+    torch.cuda.synchronize()
+    out["fit"] = dict(s=time.perf_counter() - t0,
+                      kmeans_rounds=list(ho.kmeans_rounds),
+                      digests=fit_digests(ho))
+    return out
+
+
+def round_build(root: str) -> dict:
+    """Build every kernel source of the checkout at `root` (the stamped
+    round too, where it has one), all at once; the ptxas report of its
+    one-launch round libraries (ptxas_kernels)."""
+    sys.path.insert(0, root)
+    from harmonypy_tpu_torch.ops.cuda import build
+    names = sorted(f[:-3] for f in os.listdir(build.CSRC)
+                   if f.endswith(".cu"))
+    t0 = time.perf_counter()
+    if hasattr(build, "ON_DEMAND"):
+        build.build_all(names)
+    else:                        # a checkout that builds every source
+        build.build_all()
+    logs = {n: build.build_log.get(n, "") for n in names
+            if n.startswith("fused_estep") and "block" not in n}
+    return dict(root=root, build_s=time.perf_counter() - t0,
+                ptxas=ptxas_kernels(logs))
+
+
+def round_sub(flag: str, root: str, timeout: int) -> dict:
+    """`chip_smoke.py flag root` in a process of its own: its last line."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), flag,
+         os.path.abspath(root)], capture_output=True, text=True, cwd=HERE,
+        timeout=timeout)
+    check(out.returncode == 0, f"{flag} {root} failed:\n"
+                               f"{out.stdout[-2000:]}{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def round_ab(parent: str) -> int:
+    """The one-launch round of the parent checkout at `parent` and of this
+    one: both built at once (their ptxas reports of the round's
+    instantiations), then round_timing in the order parent, this, this,
+    parent, parent, this, each in a process of its own. Checks that every
+    digest of every run equals the first run's (the change keeps the
+    parent's bits); prints each run, each checkout's mean ms and device ms
+    per entry, the fits' wall s, and this checkout's phase split."""
+    builds = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--round-build",
+         os.path.abspath(root)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE)
+        for root in (parent, HERE)]
+    reports = []
+    for b in builds:
+        o, e = b.communicate(timeout=900)
+        check(b.returncode == 0, f"build failed:\n{o[-2000:]}{e[-3000:]}")
+        reports.append(json.loads(o.strip().splitlines()[-1]))
+    emit(dict(phase="round_ab_build", builds=reports))
+    runs = []
+    for root in (parent, HERE, HERE, parent, parent, HERE):
+        runs.append(round_sub("--round-timing", root, 600))
+        emit(dict(phase="round_ab_run", **runs[-1]))
+    for r in runs[1:]:
+        check(r["digests"] == runs[0]["digests"],
+              f"round digests of {r['root']} differ from {runs[0]['root']}")
+        check(r["fit"]["digests"] == runs[0]["fit"]["digests"],
+              f"fit digests of {r['root']} differ from {runs[0]['root']}")
+
+    def mean(rs):
+        return dict(
+            ms={k: sum(r["ms"][k] for r in rs) / len(rs) for k in rs[0]["ms"]},
+            ms_turns={k: [r["ms"][k] for r in rs] for k in rs[0]["ms"]},
+            device_ms={k: sum(r["device_ms"][k] for r in rs) / len(rs)
+                       for k in rs[0]["device_ms"]},
+            fit_s=[r["fit"]["s"] for r in rs],
+            kmeans_rounds=rs[0]["fit"]["kmeans_rounds"])
+    par, chg = mean(runs[0::3] + runs[4:5]), mean(runs[1:3] + runs[5:])
+    emit(dict(phase="round_ab", nvidia_smi=smi_line(), parent=par,
+              change=chg, digests_equal=True,
+              faster={k: chg["ms"][k] < par["ms"][k] for k in par["ms"]},
+              split=[r.get("split") for r in runs[1:3] + runs[5:]],
+              ptxas={"parent": reports[0]["ptxas"],
+                     "change": reports[1]["ptxas"]}))
+    return 0
+
+
 def cards_main() -> int:
     """`--cards`: on a machine with several cards, only what exists across
     cards, and what it is compared with: the one-device 858k fits and
@@ -3807,6 +3990,15 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-ab":
         sys.exit(mesh_ab(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--round-timing",
+                                              "--round-build"):
+        import torch
+        check(torch.cuda.is_available(), "no CUDA device")
+        emit((round_timing if sys.argv[1] == "--round-timing"
+              else round_build)(sys.argv[2]))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--round-ab":
+        sys.exit(round_ab(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--cards":
         sys.exit(cards_main())
     sys.exit(main())

@@ -13,6 +13,11 @@
 #ifndef ESTEP_ONE
 #define ESTEP_ONE false
 #endif
+// ESTEP_TIMED: the stamped instantiations (fused_estep_timed.cu), whose
+// library holds only fused_estep_round_timed and the layout queries.
+#ifndef ESTEP_TIMED
+#define ESTEP_TIMED false
+#endif
 
 namespace {
 
@@ -20,7 +25,7 @@ namespace {
 // the current device at once, or a negative CUDA error.
 template <typename RT, int NRG, bool PRE>
 int grid_size(size_t smem) {
-  auto* kernel = estep_round<RT, NRG, PRE, false, ESTEP_ONE>;
+  auto* kernel = estep_round<RT, NRG, PRE, false, ESTEP_ONE, ESTEP_TIMED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -39,19 +44,21 @@ template <typename RT>
 int run(const Args& a, cudaStream_t stream) {
   const Lay L = layout<ESTEP_ONE>(a.K, a.B, a.d);
   const size_t smem = sizeof(float) * (size_t)L.total;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM || a.sync == nullptr) return (int)cudaErrorInvalidValue;
   return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     constexpr int NRG = decltype(nrg)::value;
     constexpr bool PRE = decltype(pre)::value;
     int grid = grid_size<RT, NRG, PRE>(smem);
     if (grid < 0) return -grid;
-    // No CTA without a unit: each takes part in every block.
+    // No CTA without a unit: each arrives in every block (and every CTA is
+    // resident, as the cooperative launch guarantees: CTAs wait for each
+    // other's counts).
     if (grid > a.J * a.ng) grid = a.J * a.ng;
     Args arg = a;
     void* params[] = {&arg};
     return (int)cudaLaunchCooperativeKernel(
-        (const void*)estep_round<RT, NRG, PRE, false, ESTEP_ONE>, dim3(grid),
-        dim3(THREADS), params, smem, stream);
+        (const void*)estep_round<RT, NRG, PRE, false, ESTEP_ONE, ESTEP_TIMED>,
+        dim3(grid), dim3(THREADS), params, smem, stream);
   });
 }
 
@@ -83,31 +90,60 @@ int fused_estep_smem_limit() { return (int)MAX_SMEM; }
 // Cells per tile (the unit of the static work split).
 int fused_estep_tile() { return TILE; }
 
+#if ESTEP_TIMED
+// The grid of the stamped round's launch, or a negative CUDA error.
+int fused_estep_grid(int K, int B, int d, int r_bf16) {
+  return r_bf16 ? -(int)cudaErrorInvalidValue : grid_of<float>(K, B, d);
+}
+
+// Stamps per block and CTA, and the phase each ends (STAMP_NAMES).
+int fused_estep_stamps_per_block() { return NST; }
+const char* fused_estep_stamp_names() { return STAMP_NAMES; }
+
+// fused_estep_round with stamps: (nb, grid, NST) clock64 values, then (grid,
+// 4) globaltimer and clock64 at each CTA's start and end.
+int fused_estep_round_timed(ESTEP_PTRS, unsigned* sync,
+                            unsigned long long* stamps, ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(nullptr, 0, 0);
+  a.sync = sync;
+  a.stamps = stamps;
+  return run<float>(a, (cudaStream_t)stream);
+}
+#else
 // The grid of one round's launch (K1's and K2's instantiation: r_bf16
 // picks), or a negative CUDA error.
 int fused_estep_grid(int K, int B, int d, int r_bf16) {
   return r_bf16 ? grid_of<__nv_bfloat16>(K, B, d) : grid_of<float>(K, B, d);
 }
 
-// One round over nb blocks: one cooperative launch on `stream`. Returns 0
-// or the CUDA error of the launch.
-int fused_estep_round(ESTEP_PTRS, ESTEP_DIMS) {
-  return run<float>(ESTEP_ARGS(nullptr, 0, 0), (cudaStream_t)stream);
+// One round over nb blocks: one cooperative launch on `stream`. sync: the
+// stream's sync buffer (SY_WORDS words, Args::sync), zero before its first
+// launch; each launch leaves it fit for the next. Returns 0 or the CUDA
+// error of the launch.
+int fused_estep_round(ESTEP_PTRS, unsigned* sync, ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(nullptr, 0, 0);
+  a.sync = sync;
+  return run<float>(a, (cudaStream_t)stream);
 }
 
 // The same round, also writing r of chunks lo..lo+width-1 into rw
 // (width, K, CH).
-int fused_estep_r_window(ESTEP_PTRS, float* rw, int lo, int width,
-                         ESTEP_DIMS) {
-  return run<float>(ESTEP_ARGS(rw, lo, width), (cudaStream_t)stream);
+int fused_estep_r_window(ESTEP_PTRS, unsigned* sync, float* rw, int lo,
+                         int width, ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(rw, lo, width);
+  a.sync = sync;
+  return run<float>(a, (cudaStream_t)stream);
 }
 
 // K2: the same round, also writing r of every slotted chunk into the
 // chunk-major r3 (nc1, K, CH), as float (r_bf16 == 0) or bf16.
-int fused_estep_write_r(ESTEP_PTRS, void* r3, int r_bf16, ESTEP_DIMS) {
-  const Args a = ESTEP_ARGS(r3, 0, nc1);
+int fused_estep_write_r(ESTEP_PTRS, unsigned* sync, void* r3, int r_bf16,
+                        ESTEP_DIMS) {
+  Args a = ESTEP_ARGS(r3, 0, nc1);
+  a.sync = sync;
   return r_bf16 ? run<__nv_bfloat16>(a, (cudaStream_t)stream)
                 : run<float>(a, (cudaStream_t)stream);
 }
+#endif
 
 }  // extern "C"

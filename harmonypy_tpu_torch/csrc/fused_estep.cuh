@@ -28,12 +28,50 @@
 // operations. K2 adds the store of R, 4*K*N_pad bytes in fp32 (~0.34 GB,
 // 0.10 ms) or half that in bf16.
 //
+// What bounds the one-pass round (measured by the stamped instantiation,
+// TIMED, ops/cuda/round_timing.py; 858k on an H100 at 700 W, 264 CTAs of
+// one unit each, two per SM): its blocks' chain, ~32 us a block on the
+// earlier schedule of two grid barriers per block, of which the tile phase
+// took 23 us (pass 1 alone 12.4 for a unit's 3 tiles: issue and latency of
+// 16 warps per SM, not bytes nor tensor-core operations) and the barriers,
+// the reduce phase and the ybuf sums ~6.5. The blocks depend on each other
+// only through O, E: the diversity weights of block b need block b - 1's
+// sums, nothing else does. The schedule below takes the ybuf sums, the
+// reduce and one barrier off the CTAs that set the pace (~30 us a block).
+//
 // Design, and what each choice is for:
 //  * One launch per round. `estep_round` is a cooperative kernel whose grid
 //    is every CTA that fits on the card at once (occupancy x SMs, at most
-//    one per unit). It walks the blocks in order, with a grid barrier after
-//    each block's tile phase and after its reduce phase: no launch gaps
-//    between blocks.
+//    one per unit: every CTA has a unit in every block, and is resident, so
+//    CTAs may wait for each other). It walks the blocks in order with no
+//    launch gaps between them.
+//  * One wait per block on the chain, split into arrive and wait (arrive,
+//    wait_count; Args::sync). After writing a unit's partials a CTA
+//    arrives on a counter and goes on without waiting. The CTAs whose units
+//    have the fewest tiles (yrank: at 858k 88 of 264, two tiles against
+//    three), which arrive ~7 us early, reduce the block: they wait for
+//    every unit, each writes its share of the slots' cache design columns
+//    and of bsum (in ascending unit, then slot order, as one reduce phase
+//    between two grid barriers would), and arrives on a second counter;
+//    every CTA waits on that one before the next block's prologue. The
+//    CTAs that are the chain wait once, and the reduce runs where there
+//    was slack. (Measured against the last unit of a slot and the last slot
+//    reducing, each behind an integer ticket: 4.2 + 6.6 us a block on the
+//    chain's own CTA, against 4.1 for two grid barriers and the reduce.)
+//    Counters only grow: each launch counts from the values the previous
+//    one recorded at its end (its last CTA to end writes them), so no
+//    launch clears the buffer and none needs a value from the host.
+//  * Between its arrival and its wait a CTA does what does not depend on
+//    the block's sums: the next block's first two tiles in flight
+//    (cp.async) and its S tile cleared; the reducing CTAs also the
+//    previous block's ybuf rows and, after their share of the reduce, their
+//    slots' kbuf. Partials of S are kept by block mod 3 and of (kerr, ent)
+//    by block parity, so that a block's late readers never meet the next
+//    blocks' writers. (Also measured, and not kept: computing dist and s
+//    of the next block's first tile in that window, s kept in 28 KB of
+//    shared memory. It took 0.9 us off pass 1 but the chain's CTAs wait
+//    only ~3.5 us after arriving, and the round ran 0.632 ms against 0.616
+//    without it, with a 4-byte spill, in one call.)
 //  * Static work split. A slot's chunk is cut into 64-cell tiles; unit
 //    u = (slot u / ng, run u % ng), run i covering tiles
 //    [i T / ng, (i+1) T / ng). `ng` comes from the shape and the SM count
@@ -43,8 +81,9 @@
 //    (kerr, ent) per unit.
 //  * The slab arrives through a two-stage ring: the next tile's
 //    (1+B+d, 64) slab is copied with 16-byte cp.async (zero-filled past CH)
-//    while the CTA computes on the current one; a CTA's first tile of the
-//    next block is fetched before the barriers.
+//    while the CTA computes on the current one; a CTA's first two tiles of
+//    the next block are fetched before it waits (the tile wait measured
+//    1.5 us a block before, so no TMA).
 //  * Tensor cores, fp32-faithful. dist = Y^T z (K x cells over d), the
 //    diversity weights w = wdiv Phi (K x cells over the B+1 design rows)
 //    and S = r slab^T (K x (1+B+d) over cells) run as mma.m16n8k8 TF32
@@ -69,12 +108,6 @@
 //  * Loop bounds inside the unrolled mma loops are compile-time (template
 //    parameters, zero padding): a runtime guard there becomes a branch, and
 //    the loads, splits and mma of one fragment stop overlapping the next.
-//  * The reduce phase: the design columns of each cache row and bsum (the
-//    block's stats over its slots, ascending slot order) between the two
-//    barriers; kbuf on other CTAs in parallel. The ybuf rows are summed
-//    during the next block's tile phase from a second partial buffer. The
-//    next block's prologue adds bsum into O/E in every CTA, which keeps its
-//    own identical copy of O/E in shared memory.
 //  * K2's store is packed: two adjacent cells of one cluster per float2,
 //    or per __nv_bfloat162 rounded to nearest even (__floats2bfloat162_rn,
 //    as torch's .to(bfloat16) rounds).
@@ -89,8 +122,9 @@
 //    r, dist, the softmax and every statistic stay fp32, and r is rounded
 //    only as the A operand of S, as the TPU rounds r for its single-pass
 //    dot. The k16 steps pad d to 16 (29 -> 32) and the B+1 design rows to
-//    16. One pass does a third of the 3xTF32 tensor-core work: the round
-//    at 858k is then bound by its bytes (~0.036 ms), not its operations.
+//    16. One pass does a third of the 3xTF32 tensor-core work: the round's
+//    bound at 858k is then its bytes (~0.036 ms), not its operations; what
+//    holds it is its chain (above).
 // The per-block entry (fused_estep_block_launch: K1, its r window or K2 on
 // one block of the tables; the FOLD instantiations) is what a mesh runs,
 // one launch per shard per block, returning the block-removed O, E and the
@@ -120,14 +154,11 @@
 // R with zeros. A slot id outside [0, nc1) traps, which fails the next
 // synchronise.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "frame_sum.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -141,6 +172,20 @@ constexpr int NRG_MAX = 8;        // S n-tiles per A fragment, at most
 constexpr int FOLD_RQ = 24;       // frame ranks loaded ahead for a prologue
 constexpr float CLAMP = 1e-8f;
 constexpr size_t MAX_SMEM = 232448;
+// TIMED instantiations (a library of their own, fused_estep_timed.cu): clock64
+// stamps per block and CTA, NST each; tiles of the CTA's first unit of a
+// block are stamped up to MAXT (ST_TILE + 4 i + {ready, pass 1, pass 2, S}).
+constexpr int NST = 24;
+constexpr int MAXT = 4;
+enum {
+  ST_START = 0, ST_WAIT = 1, ST_PRO = 2, ST_TILE = 3,
+  ST_PART = ST_TILE + 4 * MAXT, ST_ARRIVE, ST_WINDOW, ST_UNITS, ST_REDUCE
+};
+// One-launch round: the words of Args::sync.
+enum { SY_UNITS, SY_REDUCED, SY_EXITS, SY_GEN, SY_WORDS = SY_GEN + 3 };
+// One-launch round: copies of the unit partials of S (by block mod NPART)
+// and of (kerr, ent) (by block parity); see the schedule below.
+constexpr int NPART = 3;
 
 template <int N>
 struct IC {
@@ -157,9 +202,10 @@ struct Args {
   const int* slots;      // (nb, J)
   const float* O0;       // (K, B) O, E at the start of the round
   const float* E0;
-  float* part;           // (2, J*ng, K, R) per-unit partials of S, by
-                         // block parity
-  float* kpart;          // (J*ng, 2)    per-unit partials of (kerr, ent)
+  float* part;           // (NPART, J*ng, K, R) per-unit partials of S, by
+                         // block mod NPART (one block alone: one copy)
+  float* kpart;          // (2, J*ng, 2) per-unit partials of (kerr, ent),
+                         // by block parity (one block alone: one copy)
   float* bsum;           // (K, B+1)     a block's stats over its slots
   float* cache;          // (nc1, K, B+1)
   float* ybuf;           // (nc1, K, d)
@@ -167,6 +213,14 @@ struct Args {
   float* O1;             // (K, B) O, E at the end of the round; one
   float* E1;             // block alone: the block-removed O, E
   void* rw;              // (width, K, CH) float or bf16 (RT), or null
+  unsigned long long* stamps;  // TIMED: (nb, grid, NST) clock64, then per
+                               // CTA globaltimer and clock64 at its start
+                               // and end (grid, 4); else null
+  unsigned* sync;        // one-launch round: (SY_WORDS) three counters
+                         // that only grow (units that wrote their partials,
+                         // reducing CTAs done, CTAs done), then their
+                         // values when the last launch ended: the
+                         // generation this launch counts from; else null
   int* tickets;          // (J) one block alone (per-block mode), else null:
                          // units of each slot done, back to 0 at the end
   float* brows;          // (J, K, B+1) per-block mode: the slots' cache
@@ -397,6 +451,23 @@ __device__ float block_sum(float v, float* red) {
   return red[0];
 }
 
+// block_sum of two values at once (the same tree, so the same bits), over
+// a scratch of THREADS float2.
+__device__ float2 block_sum2(float x, float y, float2* red) {
+  const int tid = threadIdx.x;
+  __syncthreads();
+  red[tid] = make_float2(x, y);
+  __syncthreads();
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      const float2 p = red[tid], q = red[tid + s];
+      red[tid] = make_float2(__fadd_rn(p.x, q.x), __fadd_rn(p.y, q.y));
+    }
+    __syncthreads();
+  }
+  return red[0];
+}
+
 // log clip(E/max(O+E, 1e-8), 1e-8, 1).
 __device__ __forceinline__ float log_ratio(float O, float E) {
   const float oe = fmaxf(__fadd_rn(O, E), CLAMP);
@@ -424,6 +495,34 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// TIMED: stamp i of block blk for this CTA (thread 0; after a barrier, so
+// the whole CTA has passed the point).
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+template <bool TIMED>
+__device__ __forceinline__ void stamp(const Args& a, int blk, int i) {
+  if constexpr (TIMED) {
+    if (threadIdx.x == 0)
+      a.stamps[((size_t)blk * gridDim.x + blockIdx.x) * NST + i] = clock64();
+  }
+}
+// TIMED: globaltimer and clock64 at the CTA's start (end 0) or end (1), which
+// convert its clock64 stamps to time.
+template <bool TIMED>
+__device__ __forceinline__ void stamp_span(const Args& a, int end) {
+  if constexpr (TIMED) {
+    if (threadIdx.x == 0) {
+      unsigned long long* p = a.stamps + (size_t)a.nb * gridDim.x * NST +
+                              4 * blockIdx.x + 2 * end;
+      p[0] = global_ns();
+      p[1] = clock64();
+    }
+  }
+}
+
 // Copy the (R, 64) slab tile of `slot` at cells c0.. into a ring stage;
 // cells past CH are zero-filled (CH is a multiple of 4).
 __device__ __forceinline__ void issue_tile(const Args& a, const Lay& L,
@@ -439,7 +538,8 @@ __device__ __forceinline__ void issue_tile(const Args& a, const Lay& L,
 }
 
 // Data written by other CTAs in this launch (partials, block sums) is read
-// with __ldcg, from L2, after the grid barrier.
+// with __ldcg, from L2, after the counter (the round) or ticket (the
+// per-block entry) that orders it.
 
 // Sum of slot j's unit partials at offset i of a (K, R) partial, in
 // ascending unit order: the value the reduce phase writes to cache/ybuf.
@@ -447,7 +547,8 @@ __device__ __forceinline__ void issue_tile(const Args& a, const Lay& L,
 __device__ __forceinline__ float slot_sum(const Args& a, size_t KR, int blk,
                                           int j, size_t i) {
   const float* P =
-      a.part + ((size_t)(blk & 1) * a.J * a.ng + (size_t)j * a.ng) * KR + i;
+      a.part + ((size_t)(blk % NPART) * a.J * a.ng + (size_t)j * a.ng) * KR +
+      i;
   float s = 0.0f;
   for (int q0 = 0; q0 < a.ng; q0 += 16) {
     float v[16];
@@ -470,13 +571,18 @@ __device__ __forceinline__ float lane_sum(float acc, float v, int n) {
 }
 
 // This CTA's share of block blk's ybuf rows: the unit partials of S in
-// ascending unit order, spread over the grid. It runs while the next block
-// computes (block blk + 2 overwrites these partials, after a barrier).
-__device__ void ybuf_share(const Args& a, const Lay& L, int blk) {
+// ascending unit order, spread over the grid. The round runs it after the
+// CTA's arrival in block blk + 1, before it waits for that block's sums
+// (block blk + 3 overwrites these partials, and starts only after every CTA
+// has arrived in block blk + 2).
+// rank: this CTA's place among the n CTAs that share them (negative: none).
+__device__ void ybuf_share(const Args& a, const Lay& L, int blk, int rank,
+                           int n) {
   const int K = a.K, B1 = L.B1, R = L.R, d = a.d;
   const size_t KR = (size_t)K * R, Kd = (size_t)K * d;
-  for (size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
-       e < (size_t)a.J * Kd; e += (size_t)gridDim.x * THREADS) {
+  if (rank < 0) return;
+  for (size_t e = (size_t)rank * THREADS + threadIdx.x;
+       e < (size_t)a.J * Kd; e += (size_t)n * THREADS) {
     const int j = (int)(e / Kd), i = (int)(e % Kd);
     const int slot = a.slots[(size_t)blk * a.J + j];
     a.ybuf[(size_t)slot * Kd + i] =
@@ -502,7 +608,8 @@ __device__ void slot_kbuf(const Args& a, const Lay& L, int blk, int j,
   if (tid < 32) {
     for (int q0 = 0; q0 < a.ng; q0 += 32) {
       const int q = q0 + lane;
-      const float* kp = a.kpart + ((size_t)j * a.ng + q) * 2;
+      const float* kp =
+          a.kpart + (((size_t)(blk & 1) * a.J + j) * a.ng + q) * 2;
       const float v0 = q < a.ng ? __ldcg(kp) : 0.0f;
       const float v1 = q < a.ng ? __ldcg(kp + 1) : 0.0f;
       kerr = lane_sum(kerr, v0, min(32, a.ng - q0));
@@ -528,41 +635,71 @@ __device__ void slot_kbuf(const Args& a, const Lay& L, int blk, int j,
   }
 }
 
-// The reduce phase of block blk, after its tile phase:
-//  * kbuf of slot j, by CTA grid - 1 - j (mod grid) (from the last CTA
-//    down, apart from the CTAs that take the block sums);
-//  * the design columns of each slot's cache row (its unit partials in
-//    ascending unit order; the ybuf columns: ybuf_share, next block), and
-//    bsum (K, B+1), those summed over the slots in ascending slot order.
-//    The next block's prologue adds bsum back into O/E.
-__device__ void reduce_block(const Args& a, const Lay& L, int blk,
-                             const float* sm) {
+// One-launch round: the counters of a.sync. A CTA arrives with
+// red.release.gpu from thread 0 after a CTA barrier (its threads' writes
+// are published with it), and waits by polling with ld.acquire.gpu from
+// thread 0 before a CTA barrier (then __ldcg for the data the counter
+// orders). Counts only grow; they are compared modulo 2^32. (Measured
+// against __threadfence around relaxed accesses: the wait for a block's
+// sums 2.8 against 3.4 us, the round 0.611 against 0.624 ms, one call.)
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Wait until counter *c reaches `target`; then every thread of the CTA may
+// read, from L2, what was written before the arrivals it counts.
+__device__ __forceinline__ void wait_count(const unsigned* c,
+                                           unsigned target) {
+  if (threadIdx.x == 0) {
+    while ((int)(ld_acquire(c) - target) < 0) {
+    }
+  }
+  __syncthreads();
+}
+
+// Arrive on counter *c once the CTA's writes are done (every thread).
+__device__ __forceinline__ void arrive(unsigned* c) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(c)
+                 : "memory");
+}
+
+// The share of block blk's reduce done by the `rank`-th of the n reducing
+// CTAs, once every unit of the block has written its partials: the design
+// columns of each slot's cache row (its unit partials in ascending unit
+// order) and bsum (K, B+1), those summed over the slots in ascending slot
+// order, for the CTA's entries, in rounds that fit the scratch `ss` (the S
+// tile, cleared after): the slot sums of each (entry, slot) in parallel,
+// then one thread per entry adds its slots in order. The ybuf columns:
+// ybuf_share; kbuf: slot_kbuf. The next block's prologue adds bsum back
+// into O/E.
+__device__ void reduce_share(const Args& a, const Lay& L, int blk, int rank,
+                             int n, float* ss) {
   const int K = a.K, B1 = L.B1, R = L.R, J = a.J;
   const int tid = threadIdx.x;
   const size_t KR = (size_t)K * R;
   const int* slots = a.slots + (size_t)blk * J;
-  for (int j = gridDim.x - 1 - blockIdx.x; j < J; j += gridDim.x)
-    slot_kbuf(a, L, blk, j, sm);
-  // The design columns of the cache rows and bsum: this CTA's entries, in
-  // rounds that fit the idle r stage: the slot sums of each (entry, slot)
-  // in parallel (each a cache value), then one thread per entry adds its
-  // slots in ascending order.
   const int nkb = K * B1;
-  const int per = (nkb + gridDim.x - 1) / gridDim.x;
-  const int ib = blockIdx.x * per, ie = min(nkb, ib + per);
-  float* ss = const_cast<float*>(sm) + L.oQ;
-  const int cap = min(per, (L.Kp * PT) / J);
+  const int per = (nkb + n - 1) / n;
+  const int ib = rank * per, ie = min(nkb, ib + per);
+  const int cap = min(per, (L.Kp * L.PSA) / J);
   if (cap > 0) {
     for (int r0 = ib; r0 < ie; r0 += cap) {
-      const int n = min(cap, ie - r0);
+      const int m = min(cap, ie - r0);
       __syncthreads();
-      for (int x = tid; x < n * J; x += THREADS) {
+      for (int x = tid; x < m * J; x += THREADS) {
         const int item = r0 + x / J, j = x % J;
         ss[x] = slot_sum(a, KR, blk, j, (size_t)(item / B1) * R + item % B1);
         a.cache[(size_t)slots[j] * nkb + item] = ss[x];
       }
       __syncthreads();
-      for (int it = tid; it < n; it += THREADS) {
+      for (int it = tid; it < m; it += THREADS) {
         float acc = 0.0f;
         for (int j = 0; j < J; ++j) acc = __fadd_rn(acc, ss[it * J + j]);
         a.bsum[r0 + it] = acc;
@@ -633,6 +770,21 @@ __device__ __forceinline__ void prefetch_first(const Args& a, const Lay& L,
   cp_commit();
 }
 
+// One-launch round: the first two tiles of this CTA's first unit of block
+// blk into ring stages 0 and 1, one commit group each (the slab is
+// read-only: this runs before the CTA waits for the previous block).
+__device__ __forceinline__ void prefetch_unit(const Args& a, const Lay& L,
+                                              int blk, int T, float* ring) {
+  const int j = blockIdx.x / a.ng, run = blockIdx.x % a.ng;
+  const int t0 = run * T / a.ng, t1 = (run + 1) * T / a.ng;
+  const int slot = a.slots[(size_t)blk * a.J + j];
+  if (slot < 0 || slot >= a.nc1) __trap();
+  for (int tt = t0; tt < t1 && tt < t0 + 2; ++tt) {
+    issue_tile(a, L, ring + (tt - t0) * L.RR * PT, slot, tt * TILE);
+    cp_commit();
+  }
+}
+
 // Pass 2 of a tile, over the CTA: r = q * scale in the stage, with LOG the
 // entropy sum sigma r log r, with STORE the packed store of r (two adjacent
 // cells per thread and row: a float2, or a bf16 pair rounded to nearest
@@ -669,11 +821,11 @@ __device__ __forceinline__ float pass2(float* Q, const float* cs,
 // compile that path, so its registers stay as they were. ONE: the one-pass
 // bf16 products (PRE false); the 3xTF32 instantiations (ONE false) do not
 // compile them.
-template <typename RT, int NRG, bool PRE, bool FOLD = false, bool ONE = false>
+template <typename RT, int NRG, bool PRE, bool FOLD = false, bool ONE = false,
+          bool TIMED = false>
 __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  cg::grid_group grid = cg::this_grid();
   const Lay L = layout<ONE>(a.K, a.B, a.d);
   const int K = a.K, B = a.B, B1 = L.B1, R = L.R, J = a.J, CH = a.CH;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -695,6 +847,22 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   const int U = J * a.ng;                // units per block
   const size_t KR = (size_t)K * R;
 
+  // The round: the CTAs that share a block's ybuf rows (ybuf_share) are
+  // those whose unit has the fewest tiles, which arrive first (every CTA
+  // when every unit has as many tiles, or a CTA runs several units).
+  int yrank = blockIdx.x, yhelp = gridDim.x;
+  if (!FOLD && (int)gridDim.x == U && T % a.ng != 0) {
+    const int few = T / a.ng;
+    int nl = 0, rank = -1;
+    for (int r = 0; r < a.ng; ++r) {
+      const bool light = (r + 1) * T / a.ng - r * T / a.ng == few;
+      if (light && r == (int)blockIdx.x % a.ng) rank = nl;
+      nl += light;
+    }
+    yhelp = J * nl;
+    yrank = rank < 0 ? -1 : (int)(blockIdx.x / a.ng) * nl + rank;
+  }
+
   // FOLD with readd: the previous block's frame rows for the prologue's
   // first two column sums of each thread, loaded now so that their latency
   // (two dependent trips to L2: rank codes, then rows) passes behind the
@@ -711,11 +879,23 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     if (a.readd) fold.load(fold_row, a.src, 0, a.J_fix, fold_off);
   }
 
+  stamp_span<TIMED>(a, 0);
+  // The round: the generation (the counters' values at the launch's start;
+  // thread 0 waits and arrives). The launch's last CTA to end writes the
+  // next one's, after every CTA has read these.
+  [[maybe_unused]] unsigned gen[3] = {0, 0, 0};
+  if constexpr (!FOLD) {
+    if (tid == 0)
+      for (int c = 0; c < 3; ++c) gen[c] = ld_acquire(a.sync + SY_GEN + c);
+  }
   // Zero padding everywhere (ring rows >= R, W rows, pad rows and columns),
   // then the round's constants: Y^T split once, sigma and 1/sigma.
   for (int i = tid; i < L.total; i += THREADS) sm[i] = 0.0f;
   __syncthreads();
-  prefetch_first(a, L, 0, T, ring);
+  if constexpr (FOLD)
+    prefetch_first(a, L, 0, T, ring);
+  else
+    prefetch_unit(a, L, 0, T, ring);
   if constexpr (ONE) {
     for (int i = tid; i < L.Kp * 16 * L.KSR; i += THREADS) {
       const int k = i / (16 * L.KSR), x = i % (16 * L.KSR);
@@ -737,6 +917,15 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   }
 
   for (int blk = 0; blk < a.nb; ++blk) {
+    stamp<TIMED>(a, blk, ST_START);
+    // The round: wait for the previous block's sums (every reducing CTA
+    // done), having done in the meantime what does not need them.
+    if constexpr (!FOLD) {
+      if (blk > 0) {
+        wait_count(a.sync + SY_REDUCED, gen[1] + (unsigned)(blk * yhelp));
+        stamp<TIMED>(a, blk, ST_WAIT);
+      }
+    }
     // Prologue: O, E = the previous block's O', E' plus its block sums (the
     // round's input for block 0; FOLD with readd: O0, E0 plus the previous
     // block's frame, each rounded as csrc/frame_readd.cuh rounds them);
@@ -796,6 +985,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       }
     }
     __syncthreads();
+    stamp<TIMED>(a, blk, ST_PRO);
 
     // Tile phase.
     for (int u = blockIdx.x; u < U; u += gridDim.x) {
@@ -806,25 +996,38 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       RT* rwp = nullptr;
       if (a.rw != nullptr && slot >= a.lo && slot < a.lo + a.width)
         rwp = static_cast<RT*>(a.rw) + (size_t)(slot - a.lo) * K * CH;
-      for (int i = tid; i < L.Kp * L.PSA; i += THREADS) Sacc[i] = 0.0f;
+      // (The round clears the first unit's Sacc before its wait.)
+      if (FOLD || u != (int)blockIdx.x)
+        for (int i = tid; i < L.Kp * L.PSA; i += THREADS) Sacc[i] = 0.0f;
       float kerr_t = 0.0f, ent_t = 0.0f;
 
       if (u != (int)blockIdx.x) {
         issue_tile(a, L, ring, slot, t0 * TILE);
         cp_commit();
       }
+      // TIMED: stamp k of this tile (the CTA's first unit, first MAXT).
+      [[maybe_unused]] const auto tstamp = [&](int tt, int k) {
+        if (u == (int)blockIdx.x && tt - t0 < MAXT)
+          stamp<TIMED>(a, blk, ST_TILE + 4 * (tt - t0) + k);
+      };
+      // Tiles of the CTA's first unit already in flight: the round
+      // prefetches two (prefetch_unit), the per-block entry one.
+      constexpr int PF = FOLD ? 1 : 2;
       for (int tt = t0; tt < t1; ++tt) {
         const int c0 = tt * TILE;
         const float* rg = ring + ((tt - t0) & 1) * L.RR * PT;
         if (tt + 1 < t1) {
-          issue_tile(a, L, ring + ((tt + 1 - t0) & 1) * L.RR * PT, slot,
-                     c0 + TILE);
-          cp_commit();
+          if (u != (int)blockIdx.x || tt + 1 - t0 >= PF) {
+            issue_tile(a, L, ring + ((tt + 1 - t0) & 1) * L.RR * PT, slot,
+                       c0 + TILE);
+            cp_commit();
+          }
           cp_wait<1>();
         } else {
           cp_wait<0>();
         }
         __syncthreads();
+        if constexpr (TIMED) tstamp(tt, 0);
 
         // Pass 1, per warp: dist = Y^T z and w = wdiv Phi on the tensor
         // cores for the warp's 8 cells (one n-tile) and all K rows, two
@@ -969,6 +1172,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         else
           pass1(IC<0>{});
         __syncthreads();
+        if constexpr (TIMED) tstamp(tt, 1);
 
         if (rwp != nullptr)
           ent_t = a.fast_ent
@@ -979,6 +1183,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
                       ? pass2<false, false>(Q, cs, sig, K, rwp, CH, c0, ent_t)
                       : pass2<true, false>(Q, cs, sig, K, rwp, CH, c0, ent_t);
         __syncthreads();
+        if constexpr (TIMED) tstamp(tt, 2);
 
         // S += r slab^T over the tile's 64 cells: warp w owns m-tiles w,
         // w + WARPS, ... and runs NRG n-tiles per A fragment.
@@ -1057,32 +1262,69 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
           }
         }
         __syncthreads();
+        if constexpr (TIMED) tstamp(tt, 3);
       }
 
-      float* P = a.part + ((size_t)(blk & 1) * U + u) * KR;
+      const size_t pc = FOLD ? 0 : (size_t)(blk % NPART);
+      const size_t kc = FOLD ? 0 : (size_t)(blk & 1);
+      float* P = a.part + (pc * U + u) * KR;
       for (int i = tid; i < (int)KR; i += THREADS)
         P[i] = Sacc[(i / R) * L.PSA + i % R];
-      const float ke = block_sum(kerr_t, red);
-      const float en = block_sum(ent_t, red);
+      float ke, en;
+      if constexpr (FOLD) {
+        ke = block_sum(kerr_t, red);
+        en = block_sum(ent_t, red);
+      } else {
+        // The r stage is free until the next tile: one tree for both.
+        const float2 v =
+            block_sum2(kerr_t, ent_t, reinterpret_cast<float2*>(Q));
+        ke = v.x;
+        en = v.y;
+      }
       if (tid == 0) {
-        a.kpart[(size_t)u * 2] = ke;
-        a.kpart[(size_t)u * 2 + 1] = en;
+        a.kpart[(kc * U + u) * 2] = ke;
+        a.kpart[(kc * U + u) * 2 + 1] = en;
+      }
+      if constexpr (!FOLD) {
+        const bool first = u == (int)blockIdx.x;
+        if (first) stamp<TIMED>(a, blk, ST_PART);
+        arrive(a.sync + SY_UNITS);
+        if (first) stamp<TIMED>(a, blk, ST_ARRIVE);
       }
     }
-    // Per-block mode (one unit per CTA, nb 1): every FOLD launch. The
-    // round's instantiations keep the ticket test, null on each of their
-    // launches, so that they compile as before.
-    if (FOLD || a.tickets != nullptr) {
+    // Per-block mode (one unit per CTA, nb 1): every FOLD launch.
+    if constexpr (FOLD) {
       block_tail(a, L, sm);
       return;
+    } else {
+      // The round, before it waits for this block's sums: the next
+      // block's first tiles in flight and the previous block's ybuf rows;
+      // then the reducing CTAs (yrank's, whose units have the fewest
+      // tiles) wait for every unit of the block, reduce their share (the S
+      // tile as scratch) and arrive, then write their slots' kbuf. The
+      // first unit's S tile is cleared.
+      if (blk + 1 < a.nb) prefetch_unit(a, L, blk + 1, T, ring);
+      if (blk > 0) ybuf_share(a, L, blk - 1, yrank, yhelp);
+      if constexpr (TIMED) __syncthreads();
+      stamp<TIMED>(a, blk, ST_WINDOW);
+      if (yrank >= 0) {
+        wait_count(a.sync + SY_UNITS, gen[0] + (unsigned)((blk + 1) * U));
+        stamp<TIMED>(a, blk, ST_UNITS);
+        reduce_share(a, L, blk, yrank, yhelp, Sacc);
+        arrive(a.sync + SY_REDUCED);
+        for (int j = yhelp - 1 - yrank; j < J; j += yhelp)
+          slot_kbuf(a, L, blk, j, sm);
+      }
+      __syncthreads();
+      for (int i = tid; i < L.Kp * L.PSA; i += THREADS) Sacc[i] = 0.0f;
+      if constexpr (TIMED) __syncthreads();
+      if (yrank >= 0) stamp<TIMED>(a, blk, ST_REDUCE);
     }
-    if (blk > 0) ybuf_share(a, L, blk - 1);
-    if (blk + 1 < a.nb) prefetch_first(a, L, blk + 1, T, ring);
-    grid.sync();
-    reduce_block(a, L, blk, sm);
-    grid.sync();
   }
-  ybuf_share(a, L, a.nb - 1);
+  if constexpr (!FOLD) {
+    wait_count(a.sync + SY_REDUCED, gen[1] + (unsigned)(a.nb * yhelp));
+    ybuf_share(a, L, a.nb - 1, blockIdx.x, gridDim.x);
+  }
   if (blockIdx.x == 0) {
     for (int i = tid; i < K * B; i += THREADS) {
       const int k = i / B, b = i % B;
@@ -1091,7 +1333,27 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       a.O1[i] = __fadd_rn(Or[i], __ldcg(bs + 1 + b));
     }
   }
+  if constexpr (!FOLD) {
+    // The last CTA to end records the counters' values for the next
+    // launch: every CTA has read this launch's generation by then.
+    if (tid == 0 && atomicAdd(a.sync + SY_EXITS, 1u) ==
+                        gen[2] + gridDim.x - 1) {
+      a.sync[SY_GEN] = gen[0] + (unsigned)(a.nb * U);
+      a.sync[SY_GEN + 1] = gen[1] + (unsigned)(a.nb * yhelp);
+      a.sync[SY_GEN + 2] = gen[2] + gridDim.x;
+    }
+  }
+  stamp_span<TIMED>(a, 1);
 }
+
+// TIMED: the phase each stamp ends, in stamp order ("-": unused), for
+// ops/cuda/round_timing.py. Phases named wait_* are waits for other CTAs;
+// off_* are off the block's chain (after the CTA's arrival).
+constexpr const char* STAMP_NAMES =
+    "start,wait_sums,prologue,"
+    "t0_ready,t0_pass1,t0_pass2,t0_S,t1_ready,t1_pass1,t1_pass2,t1_S,"
+    "t2_ready,t2_pass1,t2_pass2,t2_S,t3_ready,t3_pass1,t3_pass2,t3_S,"
+    "partial,arrive,off_window,wait_units,off_reduce";
 
 // Dynamic shared memory of one CTA for (K, B, d), in bytes (ONE: the
 // one-pass variant's).
@@ -1138,7 +1400,8 @@ inline Args make_args(const float* zp3, const float* Y, const float* sigma,
   a.ybuf = ybuf; a.kbuf = kbuf; a.O1 = O1; a.E1 = E1; a.rw = rw;
   a.lo = lo; a.width = width; a.K = K; a.B = B; a.d = d; a.CH = CH;
   a.nb = nb; a.J = J; a.ng = ng; a.nc1 = nc1; a.fast_ent = fast_ent;
-  a.tickets = nullptr; a.brows = nullptr;
+  a.tickets = nullptr; a.brows = nullptr; a.stamps = nullptr;
+  a.sync = nullptr;
   a.frame = nullptr; a.src = nullptr; a.J_fix = 0; a.readd = 0;
   return a;
 }

@@ -6,7 +6,8 @@ Hopper (`sm_90a`). The hash of the source and of the `csrc/` headers it
 includes (`#include "..."`, followed into their own includes) names the
 library, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. All sources are compiled in parallel, one `nvcc` process
-each. Any failure raises.
+each, except those in ON_DEMAND, which `load` builds alone when asked for.
+Any failure raises.
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Sources that no fit runs (the stamped round, ops/cuda/round_timing.py):
+# left out of build_all's default set.
+ON_DEMAND = ("fused_estep_timed",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -66,10 +71,18 @@ def _target(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build_all() -> dict[str, str]:
-    """Compile every csrc/*.cu that has no library yet, all at once.
-    Returns {name: library path}."""
-    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+def default_sources() -> list[str]:
+    """The csrc/*.cu that build_all builds by default: all but ON_DEMAND."""
+    return sorted(f[:-3] for f in os.listdir(CSRC)
+                  if f.endswith(".cu") and f[:-3] not in ON_DEMAND)
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every csrc/*.cu (or the sources `names`) that has no
+    library yet, all at once; by default default_sources(). Returns {name:
+    library path}."""
+    if names is None:
+        names = default_sources()
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not os.path.isfile(t)}
     if todo:
@@ -109,5 +122,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build_all()[name])
+            paths = build_all([name] if name in ON_DEMAND else None)
+            lib = _libs[name] = ctypes.CDLL(paths[name])
         return lib

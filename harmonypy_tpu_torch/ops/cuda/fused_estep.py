@@ -79,6 +79,7 @@ TILE = 64            # cells per tile (csrc/fused_estep.cu TILE)
 UNITS_PER_SM = 2     # units per block aimed at for each SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+N_PTRS = 17          # pointers every round entry takes first (ESTEP_PTRS)
 # The loaded libraries by variant (one pass or not): csrc/fused_estep.cu
 # and fused_estep_block.cu hold the 3xTF32 instantiations,
 # fused_estep_one.cu and fused_estep_block_one.cu the one-pass ones.
@@ -88,6 +89,45 @@ _blocks = {}
 
 def _up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# Copies of the one-launch round's scratch: unit partials of S by block
+# mod PART_COPIES (a block's ybuf rows are summed during the next block,
+# whose units may already write the partials of the one after), the
+# (kerr, ent) partials by block parity (a slot's kbuf is summed after the
+# block's sums are out, while the next block runs).
+PART_COPIES = 3
+KPART_COPIES = 2
+_syncs = {}
+
+
+def round_scratch(geo: "KernelGeometry") -> dict:
+    """Shapes of the one-launch round's scratch of geometry geo: the unit
+    partials of S (part) and of (kerr, ent) (kpart), by copy."""
+    return dict(part=(PART_COPIES, *geo.part_shape),
+                kpart=(KPART_COPIES, *geo.kpart_shape))
+
+
+# Words of the round's sync buffer (csrc/fused_estep.cuh SY_WORDS): three
+# counters that only grow (units that wrote their partials, reducing CTAs
+# done with a block, CTAs that ended), then the values they had when the
+# last launch ended, from which the next launch counts.
+SYNC_WORDS = 6
+
+
+def round_sync(device, stream: int):
+    """The one-launch round's sync buffer on `device` for its launches on
+    `stream` (a cuda_stream handle): SYNC_WORDS int32, zero when made. Each
+    launch counts from the values the previous one left and records its
+    own at its end: no launch clears the buffer, and none needs a value
+    from the host. Rounds on one stream run one at a time, so they share
+    it."""
+    key = (str(device), stream)
+    buf = _syncs.get(key)
+    if buf is None:
+        buf = _syncs[key] = torch.zeros(SYNC_WORDS, dtype=torch.int32,
+                                        device=device)
+    return buf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +187,7 @@ def _kernel_lib(one: bool = False):
     if lib is None:
         name = "fused_estep_one" if one else "fused_estep"
         lib = build.load(name)
-        common = [_P] * 17
+        common = [_P] * N_PTRS + [_P]        # ... and the sync buffer
         tail = [_I] * 9 + [_P]
         lib.fused_estep_round.argtypes = common + tail
         lib.fused_estep_r_window.argtypes = common + [_P, _I, _I] + tail
@@ -278,10 +318,11 @@ def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
 
 
 def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-            fast_ent, one, J_glob=None, out=None):
+            fast_ent, one, J_glob=None, out=None, lib=None):
     """Allocate the outputs and scratch and run one round through the
     library function `entry` (extra: its arguments between the common
-    pointers and the dimensions; one: the one-pass variant). out: the
+    pointers with the sync buffer (round_sync) and the dimensions; one: the
+    one-pass variant; lib: the library, default the variant's). out: the
     caller's (cache, ybuf, kbuf) to write into, else new ones. Returns (O,
     E, cache, ybuf, kbuf)."""
     nc1, _, CH = ZP3.shape
@@ -290,10 +331,9 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     nb, J = slots.shape
     dev, f32 = ZP3.device, torch.float32
     geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0), J_glob)
-    # Partials of S by block parity: a block's ybuf rows are summed while
-    # the next block runs.
-    part = torch.empty((2, *geo.part_shape), dtype=f32, device=dev)
-    kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
+    shapes = round_scratch(geo)
+    part = torch.empty(shapes["part"], dtype=f32, device=dev)
+    kpart = torch.empty(shapes["kpart"], dtype=f32, device=dev)
     bsum = torch.empty((K, B + 1), dtype=f32, device=dev)
     if out is None:
         # Only slotted chunks are written; every real chunk is in exactly
@@ -309,9 +349,10 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (ZP3, Y, sigma, theta, Pr_b, removal,
                                    slots, O0, E0, part, kpart, bsum, cache,
-                                   ybuf, kbuf, O1, E1)]
+                                   ybuf, kbuf, O1, E1,
+                                   round_sync(dev, stream))]
     with torch.cuda.device(dev):
-        err = getattr(_kernel_lib(one), entry)(
+        err = getattr(lib or _kernel_lib(one), entry)(
             *ptrs, *extra, K, B, d, CH, nb, J, geo.ng, nc1,
             int(bool(fast_ent)), stream)
     if err != 0:

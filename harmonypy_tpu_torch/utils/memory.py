@@ -34,7 +34,7 @@ import os
 import torch
 
 from ..config import EngineConfig, fused_geometry_ok
-from ..ops.cuda.fused_estep import kernel_geometry
+from ..ops.cuda.fused_estep import PART_COPIES, kernel_geometry
 from ..ops.partition import partition_geometry
 from ..ops.replay import INIT_ELEMS, window_width
 from ..parallel.mesh import Mesh
@@ -88,9 +88,10 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
             persistent["replay plan outputs"] = c * nc1 * 2 * (
                 K * (B + 1 + d) + 2) * _F
         slab = c * 2 * (1 + B + d) * Nl * _F  # ZP3 and the copy that builds it
-        # Unit partials: one round's two block parities on one device, one
-        # block's on each shard of a mesh.
-        partials = (c if mesh else 2) * units * K * (1 + B + d) * _F
+        # Unit partials: the one-launch round's PART_COPIES on one device
+        # (ops/cuda/fused_estep.round_scratch), one block's on each shard
+        # of a mesh.
+        partials = (c if mesh else PART_COPIES) * units * K * (1 + B + d) * _F
         # One window of r (ops/replay.windows), as float32. The init pass
         # holds dist, exp, r and their products per window of its own
         # (a quarter of the size), a stored fit one more for the store, and
