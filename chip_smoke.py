@@ -758,6 +758,58 @@ def phase_kernel2(ht_mods, cfg, geom, args):
 # Shapes of phase shapes: (N, d, K, B, CH). Every K in {7, 100, 200}, d in
 # {5, 30, 50}, B in {1, 3, 5} and CH in {128, 2048} appears; the last two
 # take the kernel's compact layout (operands split at each load).
+def block_shape_checks(fe, plain_mod, args, fast, prec, rnd, k1r):
+    """The per-block entry on block 0 of the one-device table, under each
+    tail its shape takes (the cluster tail where fe.block_tail picks it,
+    the ticket tail always), with no store, K2 fp32 and K2 bf16:
+    its block-removed O, E, its slots' rows and R bitwise the round's (rnd:
+    the round's outputs, k1r: its r of every real chunk, as K2 equals
+    K1); "float32" also against the plain per-block version at TOL.
+    Returns (ng, the tails, the worst tolerance ratio)."""
+    import torch
+    slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E = args
+    nc1, _, CH = ZP3.shape
+    d, Kc = Y.shape
+    B, J, nc = theta.shape[0], slots.shape[1], nc1 - 1
+    ng = fe.kernel_geometry(Kc, B, d, CH, J, fe._sm_count(0)).ng
+    tails = [t for t in fe.BLOCK_TAILS
+             if t != "cluster" or fe.block_tail(ng) == t]
+    sl = slots[0].long()
+    real = sl[sl < nc]
+    worst = 0.0
+
+    def outs():
+        return (torch.zeros((nc1, Kc, B + 1), device="cuda"),
+                torch.zeros((nc1, Kc, d), device="cuda"),
+                torch.zeros((nc1, 2), device="cuda"))
+    for tail in tails:
+        for dt in (None, torch.float32, torch.bfloat16):
+            tag = f"tail {tail}, R {dt}, fast_objective={fast}, {prec}"
+            out = outs()
+            R3 = (None if dt is None else torch.zeros(
+                (nc1, Kc, CH), dtype=dt, device="cuda"))
+            Ob, Eb = block_launch(fe, 0, *args, fast, out, J, R3=R3,
+                                  precision=prec, tail=tail)
+            check(_eq(Ob, O - removal[0][:, 1:])
+                  and _eq(Eb, E - removal[0][:, 0:1] * Pr_b[None, :]),
+                  f"per-block removed O/E ({tag})")
+            check(all(_eq(a[real], b[real]) for a, b in zip(out, rnd[2:5])),
+                  f"per-block rows differ from the round's ({tag})")
+            check(dt is None or (_eq(R3[real], k1r[real].to(dt))
+                                 and not bool(R3[nc].float().any())),
+                  f"per-block R differs from the round's r ({tag})")
+            if prec == "float32" and dt is None:
+                kp = outs()
+                p_ = plain_mod.fused_update_block(0, *args, fast, kp)
+                for name, a, b in zip(("O", "E", "cache", "ybuf", "kbuf"),
+                                      (Ob, Eb, *out), (*p_, *kp)):
+                    e = diff(a, b, *TOL[name])
+                    worst = max(worst, e[2])
+                    check(e[2] <= 1.0, f"per-block {name} vs plain beyond "
+                                       f"{TOL[name]} ({tag}): {e}")
+    return ng, tails, worst
+
+
 SHAPES = [(6_000, 5, 7, 1, 128), (6_000, 30, 100, 3, 128),
           (45_000, 5, 200, 1, 2048), (45_000, 50, 7, 3, 2048),
           (6_000, 5, 100, 5, 128), (45_000, 50, 200, 5, 2048),
@@ -768,7 +820,8 @@ def phase_shapes(ht_mods):
     """K1 (round and r window), K2 fp32 and K2 bf16 against their plain
     versions and each other at small N and odd shapes, both objective
     forms and both precisions, with the checks of phases kernel and
-    kernel2."""
+    kernel2; the per-block entry under each tail the shape takes
+    (block_shape_checks)."""
     import torch
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     out = []
@@ -790,6 +843,9 @@ def phase_shapes(ht_mods):
                 k1w = fe.fused_estep(*args, fast, lo=lo, width=width,
                                      precision=prec)[5]
                 w = max(w, *(e[2] for e in errs.values()))
+                ng, tails, wb = block_shape_checks(fe, plain_mod, args, fast,
+                                                   prec, rnd, k1r)
+                w = max(w, wb)
                 for dt in (torch.float32, torch.bfloat16):
                     e2 = check_k2(fe, plain_mod, args, fast, dt, rnd, k1r,
                                   k1w, lo, width, prec, plain_r)
@@ -802,14 +858,17 @@ def phase_shapes(ht_mods):
                             p == "default").fused_estep_smem(Kc, B, d)
                             for p in PRECISIONS},
                         worst_tolerance_ratio=worst,
-                        one_pass_bf16_r_flips=flips))
+                        one_pass_bf16_r_flips=flips,
+                        block=dict(units_per_slot=ng, tails=tails)))
         del args
     emit(dict(phase="shapes", tolerance=TOL, one_pass_rho=RHO,
               bf16_r_tolerance="1 bf16 ulp (float32); one pass: r's bound "
                                "+ 2^-8",
               checks="K1 round + r window, K2 fp32 and bf16 vs plain; "
                      "repeat, replay, K2 == K1 bitwise; both objective "
-                     "forms; both precisions", shapes=out))
+                     "forms; both precisions; the per-block entry under "
+                     "each tail bitwise the round (block 0) and, float32, "
+                     "vs its plain version", shapes=out))
 
 
 def timed_fit(ht, fe, X, meta, **kw):
@@ -2158,11 +2217,12 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         rnd = fe.fused_estep(*args, fast)
         rnd_w = fe.fused_estep(*args, fast, lo=lo, width=width)[5]
         tag = f"fast_objective={fast}"
-        # Block 0 of every shard: its rows are the one-launch round's.
-        for s in range(D):
+        # Block 0 of every shard, under each tail: its rows are the
+        # one-launch round's.
+        for s, tail in [(s, t) for s in range(D) for t in fe.BLOCK_TAILS]:
             out = outs(nc + 1)
             Ob, Eb = block_launch(fe, 0, tabs.slots[s], removal, ZP3s[s],
-                                  *consts, O, E, fast, out, J1)
+                                  *consts, O, E, fast, out, J1, tail=tail)
             sl = tabs.slots[s][0].long()
             n_real = sharding.shard_chunks(nc, geom.NC_real, s)[1]
             sl = sl[sl < n_real]
@@ -2170,10 +2230,10 @@ def mesh_kernel_checks(mods, X, batches, mesh):
             for name, a, b in zip(("cache", "ybuf", "kbuf"), out, rnd[2:5]):
                 check(_eq(a[sl], b[gid]), f"per-block {name} rows of shard "
                                           f"{s} differ from the round's "
-                                          f"({tag})")
+                                          f"({tag}, tail {tail})")
             check(_eq(Ob, O - removal[0][:, 1:])
                   and _eq(Eb, E - removal[0][:, 0:1] * Pr_b[None, :]),
-                  f"per-block removed O/E of shard {s} ({tag})")
+                  f"per-block removed O/E of shard {s} ({tag}, tail {tail})")
         # The same entry on the one-device table (J = 22 slots).
         out1 = outs(geom.nc_cap + 1)
         block_launch(fe, 0, slots1, removal, ZP3, *consts, O, E, fast, out1,
@@ -2181,20 +2241,20 @@ def mesh_kernel_checks(mods, X, batches, mesh):
         sl = slots1[0].long()
         check(all(_eq(a[sl], b[sl]) for a, b in zip(out1, rnd[2:5])),
               f"per-block rows on the one-device table differ ({tag})")
-        # The one-pass entry's block-0 rows of every shard: the one-pass
-        # round's rows.
+        # The one-pass entry's block-0 rows of every shard, under each
+        # tail: the one-pass round's rows.
         rnd1 = fe.fused_estep(*args, fast, precision="default")
-        for s in range(D):
+        for s, tail in [(s, t) for s in range(D) for t in fe.BLOCK_TAILS]:
             out = outs(nc + 1)
             block_launch(fe, 0, tabs.slots[s], removal, ZP3s[s], *consts, O,
-                         E, fast, out, J1, precision="default")
+                         E, fast, out, J1, precision="default", tail=tail)
             sl = tabs.slots[s][0].long()
             n_real = sharding.shard_chunks(nc, geom.NC_real, s)[1]
             sl = sl[sl < n_real]
             check(all(_eq(a[sl], b[s * nc + sl])
                       for a, b in zip(out, rnd1[2:5])),
                   f"one-pass per-block rows of shard {s} differ from the "
-                  f"one-pass round's ({tag})")
+                  f"one-pass round's ({tag}, tail {tail})")
         m1 = fe.fused_estep_mesh(tabs, ZP3s, *consts, O, E, fast, geom.J_fix,
                                  precision="default")
         check(_eq(m1[0], rnd1[0]) and _eq(m1[1], rnd1[1])
@@ -2472,9 +2532,12 @@ def mesh_kernel_checks(mods, X, batches, mesh):
     return dict(
         shape=dict(shards=D, N_shard_real=geomD.nc_cap * CHUNK,
                    nc_cap=geomD.nc_cap, J_shard=geomD.J_shard, J_glob=J1,
-                   units_per_slot=fe.kernel_geometry(
-                       K, N_BATCHES, N_PCS, CHUNK, geomD.J_shard, 132,
-                       J1).ng),
+                   units_per_slot=lns["k1"].n_units // J, tail=lns["k1"].tail,
+                   clusters_at_once={p: fe._block_lib(p == "default")
+                                     .fused_estep_block_clusters(
+                                         K, N_BATCHES, N_PCS,
+                                         lns["k1"].n_units // J)
+                                     for p in PRECISIONS}),
         rows_equal_round=True, repeat_bitwise=True, readd_bitwise=True,
         mesh_round_equals_round=True, max_abs=errs,
         folded_blocks_bitwise=folded, repeated_passes_bitwise=repeats,
@@ -3210,11 +3273,12 @@ def mp_worker(spec: dict) -> None:
 
 
 def run_workers(tag, backend, devices, fits, tmp, resume=False, env=None,
-                tasks=()):
+                tasks=(), script=None):
     """Start one worker per entry of `devices` (that rank's devices), with
     `env` added to the environment and `tasks` to run after the fits, wait
     for all (MP_WORKER_S), kill the rest if one fails or hangs; returns
-    their results by rank."""
+    their results by rank. script: the chip_smoke.py whose --mp-worker
+    runs (default this one; another checkout's runs its own package)."""
     import subprocess
     procs, logs = [], []
     try:
@@ -3225,9 +3289,10 @@ def run_workers(tag, backend, devices, fits, tmp, resume=False, env=None,
             log = open(os.path.join(tmp, f"{tag}_{rank}.log"), "w")
             logs.append(log)
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mp-worker",
-                 json.dumps(spec)], stdout=log, stderr=subprocess.STDOUT,
-                cwd=HERE, env=dict(os.environ, **(env or {}))))
+                [sys.executable, script or os.path.abspath(__file__),
+                 "--mp-worker", json.dumps(spec)], stdout=log,
+                stderr=subprocess.STDOUT, cwd=HERE,
+                env=dict(os.environ, **(env or {}))))
         deadline = time.time() + MP_WORKER_S
         while True:
             codes = [p.poll() for p in procs]
@@ -3715,8 +3780,9 @@ def round_timing(root: str) -> dict:
 
 def round_build(root: str) -> dict:
     """Build every kernel source of the checkout at `root` (the stamped
-    round too, where it has one), all at once; the ptxas report of its
-    one-launch round libraries (ptxas_kernels)."""
+    ones too, where it has them), all at once; the ptxas reports
+    (ptxas_kernels) of its one-launch round libraries and of its
+    per-block libraries."""
     sys.path.insert(0, root)
     from harmonypy_tpu_torch.ops.cuda import build
     names = sorted(f[:-3] for f in os.listdir(build.CSRC)
@@ -3728,8 +3794,10 @@ def round_build(root: str) -> dict:
         build.build_all()
     logs = {n: build.build_log.get(n, "") for n in names
             if n.startswith("fused_estep") and "block" not in n}
+    blocks = {n: build.build_log.get(n, "") for n in names
+              if n.startswith("fused_estep_block")}
     return dict(root=root, build_s=time.perf_counter() - t0,
-                ptxas=ptxas_kernels(logs))
+                ptxas=ptxas_kernels(logs), block_ptxas=ptxas_kernels(blocks))
 
 
 def round_sub(flag: str, root: str, timeout: int) -> dict:
@@ -3787,6 +3855,389 @@ def round_ab(parent: str) -> int:
               split=[r.get("split") for r in runs[1:3] + runs[5:]],
               ptxas={"parent": reports[0]["ptxas"],
                      "change": reports[1]["ptxas"]}))
+    return 0
+
+
+# --block-ab / --block-timing: the per-block entry of the mesh-858k pass,
+# one launch of shard 0 alone or of the four shards at once.
+BLOCK_REPS = 200
+BLOCK_ENTRIES = ("k1", "r_window", "k2_fp32", "k2_bf16")
+# Stamped launches decoded per case (the one of median span is kept).
+BLOCK_STAMPED = 5
+
+
+def import_checkout(root: str, extra=()):
+    """harmonypy_tpu_torch of the checkout at `root` and the modules a
+    round's inputs take (config, engine, layout, partition, fused_estep,
+    update_r_fused, state), its default kernels and the sources `extra`
+    built, all at once."""
+    sys.path.insert(0, root)
+    import harmonypy_tpu_torch as ht
+    check(os.path.dirname(os.path.abspath(ht.__file__))
+          == os.path.join(os.path.abspath(root), "harmonypy_tpu_torch"),
+          f"harmonypy_tpu_torch imported from {ht.__file__}, not {root}")
+    from harmonypy_tpu_torch import config, engine, layout, state
+    from harmonypy_tpu_torch.ops import partition, update_r_fused
+    from harmonypy_tpu_torch.ops.cuda import build
+    from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+    build.build_all(build.default_sources() + list(extra))
+    return ht, (config, engine, layout, partition, fe, update_r_fused, state)
+
+
+def mesh_block_inputs(mods, X, batches, shards=MESH_SHARDS):
+    """The 858k round's inputs cut into `shards` logical shards of cuda:0
+    (as phase mesh cuts them) and the block timed: shard 0's block b > 0
+    with the most real cells."""
+    import dataclasses
+
+    import torch
+    partition = mods[3]
+    from harmonypy_tpu_torch.parallel import sharding
+    geom, args, (cfg, blocks, st) = round_inputs(mods, X, batches,
+                                                 with_state=True)
+    geomD = partition.partition_geometry(
+        dataclasses.replace(cfg, n_devices=shards))
+    ZP3s = [sharding.extract_chunks(args[2], s, geomD).contiguous()
+            for s in range(shards)]
+    tabs = partition.mesh_round_tables(
+        blocks, [sharding.extract_chunks(st.cache, s, geomD)
+                 for s in range(shards)], geomD,
+        [torch.device("cuda:0")] * shards)
+    cells = ZP3s[0][tabs.slots[0].long(), 0, :].sum(dim=(1, 2))
+    return dict(J_fix=geom.J_fix, nc=geomD.nc_cap, tabs=tabs, ZP3s=ZP3s,
+                consts=args[3:7], O=args[7], E=args[8],
+                bt=1 + int(torch.argmax(cells[1:])),
+                J=int(tabs.slots[0].shape[1]))
+
+
+def block_launchers(fe, inp, entry, shards, make=None, **kw):
+    """Per-block launchers of `entry` (BLOCK_ENTRIES) for shards 0..shards-1
+    of `inp` (mesh_block_inputs), each with its outputs and store, sharing
+    one frame (every shard's rows by parity) as a mesh pass does; shard s >
+    0 on a stream of its own. make: the launcher's constructor (default
+    fe._BlockLaunch); kw: its further arguments. Returns [(launcher,
+    outputs, store)]."""
+    import torch
+    make = make or fe._BlockLaunch
+    tabs, ZP3s, nc = inp["tabs"], inp["ZP3s"], inp["nc"]
+    frame = torch.zeros((2, len(ZP3s), inp["J"], K, N_BATCHES + 1),
+                        device="cuda")
+    src = fe.rank_table(tabs.granks, inp["J_fix"], inp["J"], "cuda")
+    made = []
+    for s in range(shards):
+        out = tuple(torch.zeros(sh, device="cuda") for sh in (
+            (nc + 1, K, N_BATCHES + 1), (nc + 1, K, N_PCS), (nc + 1, 2)))
+        store, extra = None, {}
+        if entry == "r_window":
+            store = torch.zeros((nc, K, CHUNK), device="cuda")
+            extra = dict(Rw=store, lo=0)
+        elif entry.startswith("k2"):
+            store = torch.zeros((nc + 1, K, CHUNK), device="cuda",
+                                dtype=(torch.bfloat16 if entry == "k2_bf16"
+                                       else torch.float32))
+            extra = dict(R3=store)
+        ln = make(tabs.slots[s], tabs.removal, ZP3s[s], *inp["consts"],
+                  inp["O"], inp["E"], False, out, inp["J_fix"] + 1,
+                  stream=torch.cuda.Stream() if s else None,
+                  brows=frame[:, s], frame=frame, src=src,
+                  J_fix=inp["J_fix"], **extra, **kw)
+        made.append((ln, out, store))
+    return made
+
+
+def launch_together(made, fn):
+    """fn(launcher) for every launcher of `made` at once: the side streams
+    wait for the current stream, which then waits for them (a mesh
+    block's fork and join)."""
+    import torch
+    cur = torch.cuda.current_stream()
+    fork = torch.cuda.Event()
+    fork.record(cur)
+    for ln, _, _ in made[1:]:
+        ln.stream.wait_event(fork)
+    for ln, _, _ in made:
+        fn(ln)
+    for ln, _, _ in made[1:]:
+        done = torch.cuda.Event()
+        done.record(ln.stream)
+        cur.wait_event(done)
+
+
+def block_digests(made, inp):
+    """Digests of what launch bt of each launcher (shard s of `made`)
+    wrote: its block-removed O, E, its block rows, its slots' cache, ybuf
+    and kbuf rows and r."""
+    import torch
+    torch.cuda.synchronize()
+    out, bt = [], inp["bt"]
+    for s, (ln, rows, store) in enumerate(made):
+        sl = inp["tabs"].slots[s][bt].long()
+        got = [*ln.removed(bt), ln.brows[bt & 1], *(r[sl] for r in rows)]
+        if store is not None:
+            got.append(store[sl[sl < store.shape[0]]])
+        out.append([tensor_digest(t) for t in got])
+    return out
+
+
+def block_run(root: str) -> dict:
+    """The per-block entry of the checkout at `root` (its package and
+    kernels): for each of BLOCK_ENTRIES, both precisions, with and without
+    the folded re-add, shard 0's launch of block bt alone and the four
+    shards' launches at once: the digests of what each launch wrote and ms
+    per launch (or per four-shard block) by CUDA events over BLOCK_REPS.
+    Runs in a process of its own (`--block-run`), so two checkouts'
+    packages do not meet."""
+    import torch
+    ht, mods = import_checkout(root)
+    fe = mods[4]
+    X, batches, _ = synthetic()
+    inp = mesh_block_inputs(mods, X, batches)
+    bt = inp["bt"]
+    out = dict(root=root, block=bt, digests={}, ms={})
+    for entry in BLOCK_ENTRIES:
+        for prec in PRECISIONS:
+            made = block_launchers(fe, inp, entry, MESH_SHARDS,
+                                   precision=prec)
+            launch_together(made, lambda ln: ln.launch(bt - 1))
+            for fold in (False, True):
+                key = f"{entry},{prec},fold={fold}"
+                made[0][0].launch(bt, fold)
+                out["digests"][key + ",alone"] = block_digests(made[:1], inp)
+                out["ms"][key + ",alone"] = cuda_ms(
+                    lambda: made[0][0].launch(bt, fold), reps=BLOCK_REPS)
+                launch_together(made, lambda ln: ln.launch(bt, fold))
+                out["digests"][key + ",four"] = block_digests(made, inp)
+                out["ms"][key + ",four"] = cuda_ms(lambda: launch_together(
+                    made, lambda ln: ln.launch(bt, fold)),
+                    reps=BLOCK_REPS // 2)
+            del made
+    # The 4-shard K1 pass (every block, the folded re-adds, the last
+    # re-add) through one plan, as a fit runs it.
+    for prec in PRECISIONS:
+        def mesh_pass():
+            return fe.fused_estep_mesh(
+                inp["tabs"], inp["ZP3s"], *inp["consts"], inp["O"],
+                inp["E"], False, inp["J_fix"], precision=prec)
+        with fe.mesh_plans():
+            m = mesh_pass()
+            out["digests"][f"pass,{prec}"] = [tensor_digest(t) for t in (
+                m[0], m[1], *m[2], *m[3], *m[4])]
+            out["ms"][f"pass,{prec}"] = cuda_ms(mesh_pass, reps=30,
+                                                warmup=3)
+    return out
+
+
+def block_timing(root: str) -> dict:
+    """The stamped per-block entry (ops/cuda/block_timing.py) of the
+    checkout at `root`: K1 and K2 (fp32 R) one pass, with and without the
+    folded re-add, shard 0's launch of block bt alone and the four shards'
+    launches at once, under each tail the checkout has (fe.BLOCK_TAILS:
+    the cluster and the ticket tail); per case the decode
+    (block_timing.decode) of the stamped launch of median span of
+    BLOCK_STAMPED, and the spans of all; the stamped launches' outputs
+    equal to the unstamped ones' (digests); the stamps' cost (ms of a
+    stamped and an unstamped launch of the shape's own tail, in turns)."""
+    import torch
+    ht, mods = import_checkout(root, ["fused_estep_block_timed"])
+    fe = mods[4]
+    from harmonypy_tpu_torch.ops.cuda import block_timing as bt_mod
+    names = bt_mod.stamp_names()
+    X, batches, _ = synthetic()
+    inp = mesh_block_inputs(mods, X, batches)
+    bt = inp["bt"]
+    out = dict(root=root, block=bt, names=names, cases={})
+    tails = getattr(fe, "BLOCK_TAILS", (None,))
+    for entry, tail in [(e, t) for t in tails for e in ("k1", "k2_fp32")]:
+        kw = {} if tail is None else dict(tail=tail)
+        timed = block_launchers(fe, inp, entry, MESH_SHARDS,
+                                make=bt_mod.launcher, **kw)
+        plain = block_launchers(fe, inp, entry, MESH_SHARDS,
+                                precision="default")
+        stamps = [bt_mod.stamp_buffer(ln) for ln, _, _ in timed]
+        grid = stamps[0].numel() // (len(names) + bt_mod.N_SPAN)
+        ix = {id(ln): s for s, (ln, _, _) in enumerate(timed)}
+
+        def stamped(ln, b, fold):
+            bt_mod.launch(ln, b, fold, stamps[ix[id(ln)]])
+        launch_together(timed, lambda ln: stamped(ln, bt - 1, False))
+        launch_together(plain, lambda ln: ln.launch(bt - 1))
+        for fold in (False, True):
+            stamped(timed[0][0], bt, fold)
+            plain[0][0].launch(bt, fold)
+            check(block_digests(timed[:1], inp)
+                  == block_digests(plain[:1], inp),
+                  f"the stamped {entry} launch (fold {fold}) differs from "
+                  f"the unstamped one")
+            for mode, made in (("alone", timed[:1]), ("four", timed)):
+                runs = []
+                for _ in range(BLOCK_STAMPED + 1):
+                    for st in stamps:
+                        st.zero_()
+                    launch_together(made, lambda ln: stamped(ln, bt, fold))
+                    torch.cuda.synchronize()
+                    runs.append(bt_mod.decode(
+                        [st.cpu().numpy() for st in stamps[:len(made)]],
+                        grid, names))
+                runs = runs[1:]
+                order = sorted(range(len(runs)),
+                               key=lambda i: runs[i]["span_us"])
+                case = f"{entry},fold={fold},{mode}"
+                if tail is not None:
+                    case += f",tail={tail}"
+                out["cases"][case] = dict(
+                    spans_us=[r["span_us"] for r in runs],
+                    **runs[order[len(runs) // 2]])
+        if entry == "k1" and tail == tails[0]:
+            pair = [[], []]
+            for _ in range(3):
+                pair[0].append(cuda_ms(lambda: stamped(timed[0][0], bt,
+                                                       True),
+                                       reps=BLOCK_REPS))
+                pair[1].append(cuda_ms(lambda: plain[0][0].launch(bt, True),
+                                       reps=BLOCK_REPS))
+            out["stamp_cost"] = dict(timed_ms=pair[0], untimed_ms=pair[1])
+        del timed, plain
+    from harmonypy_tpu_torch.ops.cuda import build
+    out["ptxas"] = {k: v for k, v in ptxas_kernels(build.build_log).items()
+                    if "block" in k}
+    out["nvidia_smi"] = smi_line()
+    return out
+
+
+def ptxas_apart(roots, sources):
+    """ptxas_kernels of csrc/<source>.cu for each source of each checkout
+    in `roots`, each compiled apart into a temporary directory, all at
+    once (a checkout's build directory may hold libraries built earlier,
+    which leave no report). Returns one report per root."""
+    import shutil
+    import tempfile
+    from harmonypy_tpu_torch.ops.cuda import build
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    try:
+        comp = [[subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o",
+             os.path.join(tmp, f"{i}_{src}.so"),
+             os.path.join(root, "harmonypy_tpu_torch", "csrc", src + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sources] for i, root in enumerate(roots)]
+        reports = []
+        for procs in comp:
+            logs = {}
+            for src, c in zip(sources, procs):
+                logs[src] = c.communicate()[0]
+                check(c.returncode == 0, f"nvcc failed:\n{logs[src][-3000:]}")
+            reports.append(ptxas_kernels(logs))
+        return reports
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def block_ab(parent: str) -> int:
+    """The per-block entry of the parent checkout at `parent` and of this
+    one: both built at once, then block_run in the order parent, this,
+    this, parent, parent, this, each in a process of its own. Checks that
+    every digest of every run equals the first run's (the change keeps the
+    parent's bits); prints each run, each checkout's ms per case (mean and
+    turns), whether the change was faster in every turn, whether the
+    one-launch round's 48 instantiations (both variants, compiled apart)
+    have the parent's registers, stack and spills, and this checkout's
+    stamped split (block_timing)."""
+    sys.path.insert(0, HERE)
+    builds = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--round-build",
+         os.path.abspath(root)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE)
+        for root in (parent, HERE)]
+    round_ptxas = ptxas_apart((parent, HERE), ("fused_estep",
+                                               "fused_estep_one"))
+    reports = []
+    for b in builds:
+        o, e = b.communicate(timeout=900)
+        check(b.returncode == 0, f"build failed:\n{o[-2000:]}{e[-3000:]}")
+        reports.append(json.loads(o.strip().splitlines()[-1]))
+    emit(dict(phase="block_ab_build", builds=reports))
+    runs = []
+    for root in (parent, HERE, HERE, parent, parent, HERE):
+        runs.append(round_sub("--block-run", root, 600))
+        emit(dict(phase="block_ab_run", root=runs[-1]["root"],
+                  ms=runs[-1]["ms"]))
+    for r in runs[1:]:
+        check(r["digests"] == runs[0]["digests"],
+              f"per-block digests of {r['root']} differ from "
+              f"{runs[0]['root']}")
+    par, chg = runs[0::3] + runs[4:5], runs[1:3] + runs[5:]
+    keys = list(runs[0]["ms"])
+    emit(dict(phase="block_ab", nvidia_smi=smi_line(), block=runs[0]["block"],
+              digests_equal=True, digests=len(runs[0]["digests"]),
+              parent={k: [r["ms"][k] for r in par] for k in keys},
+              change={k: [r["ms"][k] for r in chg] for k in keys},
+              parent_mean={k: sum(r["ms"][k] for r in par) / 3 for k in keys},
+              change_mean={k: sum(r["ms"][k] for r in chg) / 3 for k in keys},
+              faster_every_turn={k: max(r["ms"][k] for r in chg)
+                                 < min(r["ms"][k] for r in par)
+                                 for k in keys},
+              round_ptxas_same=(round_ptxas[0] == round_ptxas[1]
+                                and len(round_ptxas[0]) == 48),
+              round_ptxas=round_ptxas[1]))
+    emit(dict(phase="block_timing",
+              **round_sub("--block-timing", HERE, 600)))
+    return 0
+
+
+def cards_pass(parent: str) -> int:
+    """`--cards-pass PARENT`, on a machine with several cards: one NCCL
+    rank per card (each checkout's own `chip_smoke.py --mp-worker`, its
+    own package and kernels, both built first), the 858k deferred fit and
+    a replayed mesh pass timed by CUDA events, in the order parent, this,
+    this, parent. Checks that every run's fit digests equal the first's;
+    prints each run (ms per pass per rank, the fit's wall s, the pass
+    profile of rank 0) and each checkout's means."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    check(cards >= 2, f"--cards-pass needs several CUDA cards, found {cards}")
+    builds = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--round-build",
+         os.path.abspath(root)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE)
+        for root in (parent, HERE)]
+    for b in builds:
+        o, e = b.communicate(timeout=900)
+        check(b.returncode == 0, f"build failed:\n{o[-2000:]}{e[-3000:]}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    runs = []
+    try:
+        X, batches, groups = synthetic()
+        np.savez(os.path.join(tmp, "data.npz"), X=X, batches=batches,
+                 groups=groups)
+        for i, root in enumerate((parent, HERE, HERE, parent)):
+            res = run_workers(f"cp{i}", "nccl", [[f"cuda:{c}"] for c in
+                                                 range(cards)], ["deferred"],
+                              tmp, script=os.path.join(
+                                  os.path.abspath(root), "chip_smoke.py"))
+            fit = [r["fits"]["deferred"] for r in res]
+            runs.append(dict(
+                root=root, ms_per_pass=[r["ms_per_pass"] for r in res],
+                fit_s=[f["wall_s"] for f in fit], passes=fit[0]["passes"],
+                digests=fit[0]["digests"],
+                pass_profile=res[0]["pass_profile"]))
+            emit(dict(phase="cards_pass_run", **runs[-1]))
+            check(all(f["digests"] == runs[0]["digests"] for f in fit),
+                  f"the ranks of {root} differ from the first run's fit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def mean(rs):
+        return dict(ms_per_pass=sum(max(r["ms_per_pass"]) for r in rs)
+                    / len(rs), fit_s=sum(max(r["fit_s"]) for r in rs)
+                    / len(rs))
+    emit(dict(phase="cards_pass", nvidia_smi=smi_line(), cards=cards,
+              digests_equal=True, parent=mean([runs[0], runs[3]]),
+              change=mean(runs[1:3]),
+              ms_turns=[max(r["ms_per_pass"]) for r in runs]))
     return 0
 
 
@@ -3999,6 +4450,17 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--round-ab":
         sys.exit(round_ab(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--block-run",
+                                              "--block-timing"):
+        import torch
+        check(torch.cuda.is_available(), "no CUDA device")
+        emit((block_run if sys.argv[1] == "--block-run"
+              else block_timing)(sys.argv[2]))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--block-ab":
+        sys.exit(block_ab(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cards-pass":
+        sys.exit(cards_pass(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--cards":
         sys.exit(cards_main())
     sys.exit(main())

@@ -136,16 +136,21 @@
 // kernel in-grid (:215-221); the re-add kernel runs once per pass, after
 // the last block. Rows, O' and E' are double-buffered by block parity: a
 // launch writes its block's while other shards' launches, and its own
-// CTAs, may still read the previous block's. A shard's block is small (8
+// CTAs, may still read the previous block's. A shard's block is small (7
 // slots x 12 units at 858k on 4 shards: ~12k cells, 0.16 GFLOP, a 2.4 us
-// bound), so the launch is an ordinary one of one CTA per unit, with no
-// grid barrier: each CTA runs its unit's tiles as above,
-// and the last of a slot's ng units to finish (an integer ticket, no float
-// atomics) sums the slot's unit partials in ascending unit order, as the
-// round does. `ng` comes from the one-device slots per block
-// (kernel_geometry's J_glob), so a shard's chunks are split into units,
-// and summed, as the one-device round splits them: the rows are the
-// round's bitwise.
+// bound), so the launch has one CTA per unit and no grid barrier: each CTA
+// runs its unit's tiles as above, then the slot's unit partials are summed
+// in ascending unit order, as the round sums them. Each slot's ng units
+// are one thread-block cluster (up to CLUSTER_MAX): every CTA keeps its
+// partial in shared memory and, after a cluster barrier, sums a share of
+// the slot's entries over distributed shared memory (cluster_tail). (The
+// earlier tail, kept for ng > CLUSTER_MAX: the last unit of a slot to
+// finish, found by an integer ticket, summed all of them from L2 on one
+// CTA, block_tail; at 858k 20 of the launch's 42 us, measured by the
+// stamped entry, ops/cuda/block_timing.py.) `ng` comes from the one-device
+// slots per block (kernel_geometry's J_glob), so a shard's chunks are
+// split into units, and summed, as the one-device round splits them: the
+// rows are the round's bitwise.
 // No float atomics: every sum has a fixed order, so the same inputs give the
 // same bits. `r_window` and `write_r` run the identical arithmetic and only
 // add the store, so a replay reproduces its round bitwise (the deferred-R
@@ -154,6 +159,7 @@
 // R with zeros. A slot id outside [0, nc1) traps, which fails the next
 // synchronise.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,6 +187,15 @@ enum {
   ST_START = 0, ST_WAIT = 1, ST_PRO = 2, ST_TILE = 3,
   ST_PART = ST_TILE + 4 * MAXT, ST_ARRIVE, ST_WINDOW, ST_UNITS, ST_REDUCE
 };
+// FOLD (the per-block entry, nb 1): the same NST stamps of its one block,
+// named BLOCK_STAMP_NAMES: setup (the shared memory cleared, Y^T's
+// fragments, sigma), the fold's frame sums, the prologue, the tiles and
+// the partial as above, then the wait for the slot's other units and the
+// slot's sums where the CTA does them: kbuf, cache and brows, ybuf on the
+// ticket's last unit; in a cluster (cluster_tail) the CTA's share of them
+// and rank 0's kbuf (SB_YBUF).
+enum { SB_SETUP = ST_START, SB_FOLD = ST_WAIT, SB_SLOT = ST_ARRIVE,
+       SB_KBUF, SB_CACHE, SB_YBUF };
 // One-launch round: the words of Args::sync.
 enum { SY_UNITS, SY_REDUCED, SY_EXITS, SY_GEN, SY_WORDS = SY_GEN + 3 };
 // One-launch round: copies of the unit partials of S (by block mod NPART)
@@ -729,6 +744,7 @@ __device__ void reduce_share(const Args& a, const Lay& L, int blk, int rank,
 // the next launch needs no memset. (Loads batched over several values
 // here took registers the tile phase needs: inlined, some instantiations
 // spilled and the one-launch round slowed by 4%; out of line, by 33%.)
+template <bool TIMED>
 __device__ void block_tail(const Args& a, const Lay& L, const float* sm) {
   const int K = a.K, B1 = L.B1, R = L.R, d = a.d, tid = threadIdx.x;
   const int j = blockIdx.x / a.ng;
@@ -741,10 +757,14 @@ __device__ void block_tail(const Args& a, const Lay& L, const float* sm) {
   __threadfence();
   int last = 0;
   if (tid == 0) last = atomicAdd(a.tickets + j, 1) == a.ng - 1;
-  if (!__syncthreads_or(last)) return;
+  const bool tail = __syncthreads_or(last);
+  stamp<TIMED>(a, 0, SB_SLOT);
+  if (!tail) return;
   __threadfence();
   if (tid == 0) a.tickets[j] = 0;
   slot_kbuf(a, L, 0, j, sm);
+  if constexpr (TIMED) __syncthreads();
+  stamp<TIMED>(a, 0, SB_KBUF);
   const size_t KR = (size_t)K * R, Kd = (size_t)K * d, nkb = (size_t)K * B1;
   const int slot = a.slots[j];
   for (int item = tid; item < (int)nkb; item += THREADS) {
@@ -753,20 +773,179 @@ __device__ void block_tail(const Args& a, const Lay& L, const float* sm) {
     a.cache[(size_t)slot * nkb + item] = v;
     a.brows[(size_t)j * nkb + item] = v;
   }
+  if constexpr (TIMED) __syncthreads();
+  stamp<TIMED>(a, 0, SB_CACHE);
   for (int i = tid; i < (int)Kd; i += THREADS)
     a.ybuf[(size_t)slot * Kd + i] =
         slot_sum(a, KR, 0, j, (size_t)(i / d) * R + B1 + i % d);
+  if constexpr (TIMED) __syncthreads();
+  stamp<TIMED>(a, 0, SB_YBUF);
 }
 
-// Prefetch the first tile of this CTA's first unit of block blk into ring
-// stage 0 (the slab is read-only, so this runs ahead of the prologue).
+// Per-block mode with each slot's ng units as one thread-block cluster (a
+// launch without tickets; ng <= CLUSTER_MAX), after the CTA's one unit:
+// its unit's partial of S stays in its S tile and (kerr, ent) in cs[0..1];
+// CTA 0 writes the block-removed O, E. After a cluster barrier (every
+// unit's tiles done) rank q of the slot sums rows [q K / ng, (q + 1) K /
+// ng) of the slot's S: each thread takes four adjacent entries of a row,
+// reads them from every unit's S tile over distributed shared memory as
+// one 16-byte load per unit (UB units' loads in flight at once) and adds
+// each entry's values in ascending unit order from zero, as slot_sum adds
+// them from L2; it writes the cache (and brows) and ybuf rows. Rank 0's
+// last two threads, which have no row entries, sum the units' kerr and
+// entropy partials the same way for the slot's kbuf, as slot_kbuf (under
+// the fast objective rank 0 also reads every unit's design columns for its
+// O-term). A second barrier keeps each S tile until every CTA of the slot
+// has read it. The same bits as the last unit's sums (block_tail), by ng
+// CTAs. (The stamped entry at 858k, on the CTA that ends last:
+// block_tail's sums 20 us, these 2.7; one 4-byte load per entry and unit,
+// 1.6-4.0 across builds, a launch no faster; each CTA storing its
+// partial's entries into the CTA that sums them, 6.9.)
+constexpr int CLUSTER_MAX = 16;  // the non-portable cluster size limit
+constexpr int UB = 8;            // units' 16-byte loads in flight at once
+
+template <bool TIMED>
+__device__ void cluster_tail(const Args& a, const Lay& L, float* sm) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int K = a.K, B = a.B, B1 = L.B1, R = L.R, d = a.d, ng = a.ng;
+  const int tid = threadIdx.x, q = blockIdx.x % ng, j = blockIdx.x / ng;
+  const float* S = sm + L.oSacc;
+  const float* cs = sm + L.oCs;
+  float* red = sm + L.oRed;
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < K * B; i += THREADS) {
+      a.O1[i] = sm[L.oOr + i];
+      a.E1[i] = sm[L.oEr + i];
+    }
+  }
+  cl.sync();
+  stamp<TIMED>(a, 0, SB_SLOT);
+  const int slot = a.slots[j];
+  const int nkb = K * B1, Kd = K * d, P4 = L.PSA / 4;
+  // The value at p of every unit's shared memory, added in ascending unit
+  // order from zero.
+  const auto unit_sum = [&](const float* p) {
+    float s = 0.0f;
+    for (int r = 0; r < ng; ++r) s = __fadd_rn(s, *cl.map_shared_rank(p, r));
+    return s;
+  };
+  // Rank 0: the units' kerr and entropy partials (its last two threads).
+  if (q == 0 && tid >= THREADS - 2)
+    red[tid - (THREADS - 2)] = unit_sum(cs + tid - (THREADS - 2));
+  // This rank's rows of S, four entries (one float4) per thread at a time.
+  const int k0 = q * K / ng, k1 = (q + 1) * K / ng;
+  for (int f = k0 * P4 + tid; f < k1 * P4; f += THREADS) {
+    const int k = f / P4, c = 4 * (f % P4);
+    const float4* p = reinterpret_cast<const float4*>(S) + f;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r0 = 0; r0 < ng; r0 += UB) {
+      float4 v[UB];
+#pragma unroll
+      for (int r = 0; r < UB; ++r)
+        if (r0 + r < ng) v[r] = *cl.map_shared_rank(p, r0 + r);
+#pragma unroll
+      for (int r = 0; r < UB; ++r) {
+        if (r0 + r < ng) {
+          acc.x = __fadd_rn(acc.x, v[r].x);
+          acc.y = __fadd_rn(acc.y, v[r].y);
+          acc.z = __fadd_rn(acc.z, v[r].z);
+          acc.w = __fadd_rn(acc.w, v[r].w);
+        }
+      }
+    }
+    const float e4[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int col = c + h;
+      if (col < B1) {
+        a.cache[(size_t)slot * nkb + k * B1 + col] = e4[h];
+        a.brows[(size_t)j * nkb + k * B1 + col] = e4[h];
+      } else if (col < R) {
+        a.ybuf[(size_t)slot * Kd + k * d + col - B1] = e4[h];
+      }
+    }
+  }
+  if (q == 0) {
+    __syncthreads();
+    const float kerr = red[0], second = red[1];
+    float ent = second;
+    if (a.fast_ent) {
+      float o = 0.0f;
+      for (int i = tid; i < K * B; i += THREADS) {
+        const int k = i / B, b = i % B;
+        const float coef =
+            __fmul_rn(__fmul_rn(sm[L.oSig + k], a.theta[b]),
+                      log_ratio(sm[L.oOr + i], sm[L.oEr + i]));
+        o = fmaf(coef, unit_sum(S + k * L.PSA + 1 + b), o);
+      }
+      const float stv = block_sum(o, red);
+      ent = __fsub_rn(__fadd_rn(-kerr, stv), second);
+    }
+    if (tid == 0) {
+      a.kbuf[(size_t)slot * 2] = kerr;
+      a.kbuf[(size_t)slot * 2 + 1] = ent;
+    }
+  }
+  if constexpr (TIMED) __syncthreads();
+  stamp<TIMED>(a, 0, SB_YBUF);
+  cl.sync();
+}
+
+// FOLD setup: YB values of the (Kp, nx) padded Y^T (zero past d and K)
+// per thread from entry i0 (entry i: cluster i % Kp, row i / Kp, so
+// consecutive threads read consecutive clusters of a row of Y, whole lines
+// from L2), all loads in flight at once; store(put) calls put(k, x, value)
+// for each. The round builds its fragments once for nb blocks, the
+// per-block entry at every launch (its setup 3.7 -> 2.5 us at 858k with
+// these reads issued before the shared memory is cleared).
+constexpr int YB = 16;
+
+struct YRows {
+  float v[YB];
+
+  // Entry i0 + q THREADS is (k, x) = (i % Kp, i / Kp), stepped without a
+  // division per entry.
+  template <typename F>
+  static __device__ __forceinline__ void walk(const Lay& L, int nx, int i0,
+                                              F f) {
+    const int sx = THREADS / L.Kp, sk = THREADS % L.Kp;
+    int x = i0 / L.Kp, k = i0 - x * L.Kp;
+#pragma unroll
+    for (int q = 0; q < YB; ++q) {
+      f(q, x < nx, k, x);
+      k += sk;
+      x += sx;
+      if (k >= L.Kp) {
+        k -= L.Kp;
+        ++x;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void load(const Args& a, const Lay& L, int nx,
+                                       int i0) {
+    walk(L, nx, i0, [&](int q, bool in, int k, int x) {
+      v[q] = (in && x < a.d && k < a.K) ? a.Y[x * a.K + k] : 0.0f;
+    });
+  }
+
+  template <typename Put>
+  __device__ __forceinline__ void store(const Lay& L, int nx, int i0,
+                                        Put put) const {
+    walk(L, nx, i0, [&](int q, bool in, int k, int x) {
+      if (in) put(k, x, v[q]);
+    });
+  }
+};
+
+// Per-block mode: prefetch the first tile of this CTA's unit, of chunk
+// `slot`, into ring stage 0 (the slab is read-only, so this runs ahead of
+// the prologue).
 __device__ __forceinline__ void prefetch_first(const Args& a, const Lay& L,
-                                               int blk, int T, float* ring) {
-  if ((int)blockIdx.x >= a.J * a.ng) return;
-  const int j = blockIdx.x / a.ng, run = blockIdx.x % a.ng;
-  const int slot = a.slots[(size_t)blk * a.J + j];
+                                               int T, float* ring, int slot) {
   if (slot < 0 || slot >= a.nc1) __trap();
-  issue_tile(a, L, ring, slot, run * T / a.ng * TILE);
+  issue_tile(a, L, ring, slot, (int)(blockIdx.x % a.ng) * T / a.ng * TILE);
   cp_commit();
 }
 
@@ -842,7 +1021,6 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   float* ring = sm + L.oRing;
   float* Sacc = sm + L.oSacc;
   float* cs = sm + L.oCs;
-  float* red = sm + L.oRed;
   const int T = (CH + TILE - 1) / TILE;  // tiles per slot
   const int U = J * a.ng;                // units per block
   const size_t KR = (size_t)K * R;
@@ -888,15 +1066,56 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     if (tid == 0)
       for (int c = 0; c < 3; ++c) gen[c] = ld_acquire(a.sync + SY_GEN + c);
   }
-  // Zero padding everywhere (ring rows >= R, W rows, pad rows and columns),
-  // then the round's constants: Y^T split once, sigma and 1/sigma.
-  for (int i = tid; i < L.total; i += THREADS) sm[i] = 0.0f;
-  __syncthreads();
-  if constexpr (FOLD)
-    prefetch_first(a, L, 0, T, ring);
-  else
+  // FOLD: the setup's reads (the first tile's slab, Y^T's first YB values
+  // per thread, sigma) go out before the shared memory is cleared, so
+  // that their latency passes behind it; the clearing leaves out the rows
+  // of ring stage 0 the first tile's copy writes, 16 bytes a store.
+  [[maybe_unused]] YRows yrows;
+  [[maybe_unused]] float sg[2] = {1.0f, 1.0f};
+  [[maybe_unused]] const int ynx = (ONE ? 16 : 8) * L.KSR;
+  if constexpr (FOLD) {
+    const int slot0 = a.slots[blockIdx.x / a.ng];
+    yrows.load(a, L, ynx, tid);
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      if (tid + c * THREADS < K) sg[c] = a.sigma[tid + c * THREADS];
+    prefetch_first(a, L, T, ring, slot0);
+    const int h0 = L.oRing / 4, h1 = (L.oRing + L.R * PT) / 4;
+    for (int i = tid; i < L.total / 4; i += THREADS)
+      if (i < h0 || i >= h1) smem4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncthreads();
+  } else {
+    // Zero padding everywhere (ring rows >= R, W rows, pad rows and
+    // columns), then the round's constants: Y^T split once, sigma and
+    // 1/sigma.
+    for (int i = tid; i < L.total; i += THREADS) sm[i] = 0.0f;
+    __syncthreads();
     prefetch_unit(a, L, 0, T, ring);
-  if constexpr (ONE) {
+  }
+  if constexpr (FOLD) {
+    const auto put = [&](int k, int x, float v) {
+      if constexpr (ONE)
+        put_frag16(Yh, (k >> 4) * L.KSR + (x >> 4), k & 15, x & 15, v);
+      else
+        put_frag(L, Yh, Yl,
+                 ((k >> 4) * L.KSR + (x >> 3)) * 128 + frag_pos(k & 15, x & 7),
+                 v);
+    };
+    yrows.store(L, ynx, tid, put);
+    for (int i0 = tid + YB * THREADS; i0 < L.Kp * ynx; i0 += YB * THREADS) {
+      YRows more;
+      more.load(a, L, ynx, i0);
+      more.store(L, ynx, i0, put);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int k = tid + c * THREADS;
+      if (k < K) {
+        sig[k] = sg[c];
+        rsig[k] = __frcp_rn(sg[c]);
+      }
+    }
+  } else if constexpr (ONE) {
     for (int i = tid; i < L.Kp * 16 * L.KSR; i += THREADS) {
       const int k = i / (16 * L.KSR), x = i % (16 * L.KSR);
       const float v = (x < a.d && k < K) ? a.Y[x * K + k] : 0.0f;
@@ -911,12 +1130,13 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       put_frag(L, Yh, Yl, o, v);
     }
   }
-  for (int k = tid; k < K; k += THREADS) {
+  for (int k = FOLD ? tid + 2 * THREADS : tid; k < K; k += THREADS) {
     sig[k] = a.sigma[k];
     rsig[k] = __frcp_rn(a.sigma[k]);
   }
 
   for (int blk = 0; blk < a.nb; ++blk) {
+    if constexpr (TIMED && FOLD) __syncthreads();
     stamp<TIMED>(a, blk, ST_START);
     // The round: wait for the previous block's sums (every reducing CTA
     // done), having done in the meantime what does not need them.
@@ -950,6 +1170,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         }
         __syncthreads();
       }
+      stamp<TIMED>(a, blk, SB_FOLD);
     }
     for (int i = tid; i < K * B; i += THREADS) {
       const int k = i / B, b = i % B;
@@ -1267,13 +1488,29 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
 
       const size_t pc = FOLD ? 0 : (size_t)(blk % NPART);
       const size_t kc = FOLD ? 0 : (size_t)(blk & 1);
-      float* P = a.part + (pc * U + u) * KR;
-      for (int i = tid; i < (int)KR; i += THREADS)
-        P[i] = Sacc[(i / R) * L.PSA + i % R];
+      // FOLD in a cluster (no tickets): the partial stays in Sacc.
+      if (!FOLD || a.tickets != nullptr) {
+        float* P = a.part + (pc * U + u) * KR;
+        for (int i = tid; i < (int)KR; i += THREADS)
+          P[i] = Sacc[(i / R) * L.PSA + i % R];
+      }
       float ke, en;
       if constexpr (FOLD) {
-        ke = block_sum(kerr_t, red);
-        en = block_sum(ent_t, red);
+        // The r stage is free: one tree for both, block_sum's.
+        const float2 v =
+            block_sum2(kerr_t, ent_t, reinterpret_cast<float2*>(Q));
+        ke = v.x;
+        en = v.y;
+        if (a.tickets == nullptr) {
+          if (tid == 0) {
+            cs[0] = ke;
+            cs[1] = en;
+          }
+          stamp<TIMED>(a, blk, ST_PART);
+          cluster_tail<TIMED>(a, L, sm);
+          stamp_span<TIMED>(a, 1);
+          return;
+        }
       } else {
         // The r stage is free until the next tile: one tree for both.
         const float2 v =
@@ -1285,6 +1522,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         a.kpart[(kc * U + u) * 2] = ke;
         a.kpart[(kc * U + u) * 2 + 1] = en;
       }
+      if constexpr (FOLD) stamp<TIMED>(a, blk, ST_PART);
       if constexpr (!FOLD) {
         const bool first = u == (int)blockIdx.x;
         if (first) stamp<TIMED>(a, blk, ST_PART);
@@ -1294,7 +1532,8 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     }
     // Per-block mode (one unit per CTA, nb 1): every FOLD launch.
     if constexpr (FOLD) {
-      block_tail(a, L, sm);
+      block_tail<TIMED>(a, L, sm);
+      stamp_span<TIMED>(a, 1);
       return;
     } else {
       // The round, before it waits for this block's sums: the next
@@ -1354,6 +1593,14 @@ constexpr const char* STAMP_NAMES =
     "t0_ready,t0_pass1,t0_pass2,t0_S,t1_ready,t1_pass1,t1_pass2,t1_S,"
     "t2_ready,t2_pass1,t2_pass2,t2_S,t3_ready,t3_pass1,t3_pass2,t3_S,"
     "partial,arrive,off_window,wait_units,off_reduce";
+
+// TIMED FOLD: the phase each stamp of the per-block entry ends; wait_slot
+// is its wait for the slot's other units, sum_* the slot's sums.
+constexpr const char* BLOCK_STAMP_NAMES =
+    "setup,fold,prologue,"
+    "t0_ready,t0_pass1,t0_pass2,t0_S,t1_ready,t1_pass1,t1_pass2,t1_S,"
+    "t2_ready,t2_pass1,t2_pass2,t2_S,t3_ready,t3_pass1,t3_pass2,t3_S,"
+    "partial,wait_slot,sum_kbuf,sum_cache,sum_ybuf";
 
 // Dynamic shared memory of one CTA for (K, B, d), in bytes (ONE: the
 // one-pass variant's).

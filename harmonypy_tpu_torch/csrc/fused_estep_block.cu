@@ -1,7 +1,9 @@
 // The per-block entry of the fused E-step for Hopper (sm_90a): block b of
-// the round alone, one ordinary launch of one CTA per unit, as a mesh runs
-// it on every shard (fused_estep.cuh, which holds the kernel and its design
-// notes; these are its FOLD instantiations). Its prologue may re-add the
+// the round alone, one launch of one CTA per unit, each slot's units one
+// thread-block cluster (or, above CLUSTER_MAX units, an ordinary launch
+// with tickets), as a mesh runs it on every shard (fused_estep.cuh, which
+// holds the kernel and its design notes; these are its FOLD
+// instantiations). Its prologue may re-add the
 // previous block across shards (frame_sum.cuh): the mesh pass then launches
 // the re-add kernel (frame_readd.cuh) once per pass, not once per block.
 // The whole pass is issued from here (mesh_plan_run, at the end): the host
@@ -27,35 +29,86 @@
 #ifndef ESTEP_ONE
 #define ESTEP_ONE false
 #endif
+// ESTEP_TIMED: the stamped instantiations (fused_estep_block_timed.cu),
+// whose launches write the stamps of the call record (its a.stamps, set by
+// fused_estep_block_set_stamps; a launch without them is refused).
+#ifndef ESTEP_TIMED
+#define ESTEP_TIMED false
+#endif
 
 namespace {
 
-// One block alone in per-block mode: an ordinary launch of J * ng CTAs, one
-// per unit (Args from block_args).
+// The launch of J * ng CTAs, one per unit, of a block whose slots' ng
+// units form a thread-block cluster each (ng > 0), or no clusters (ng 0).
+cudaLaunchConfig_t block_config(int J, int ng, size_t smem,
+                                cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(J * (ng > 0 ? ng : 1));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (ng > 0) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = ng;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+// One block alone in per-block mode (Args from block_args): J * ng CTAs,
+// one per unit; without tickets each slot's ng units are one cluster
+// (cluster_tail), with them an ordinary launch (block_tail).
 template <typename RT>
 int run_block(const Args& a, cudaStream_t stream) {
   const Lay L = layout<ESTEP_ONE>(a.K, a.B, a.d);
   const size_t smem = sizeof(float) * (size_t)L.total;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM || (ESTEP_TIMED && a.stamps == nullptr) ||
+      (a.tickets == nullptr && a.ng > CLUSTER_MAX))
+    return (int)cudaErrorInvalidValue;
   return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
-    estep_round<RT, decltype(nrg)::value, decltype(pre)::value, true,
-                ESTEP_ONE><<<a.J * a.ng, THREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
+    auto* kernel = estep_round<RT, decltype(nrg)::value, decltype(pre)::value,
+                               true, ESTEP_ONE, ESTEP_TIMED>;
+    if (a.tickets != nullptr) {
+      kernel<<<a.J * a.ng, THREADS, smem, stream>>>(a);
+      return (int)cudaGetLastError();
+    }
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = block_config(a.J, a.ng, smem, stream,
+                                                &attr);
+    return (int)cudaLaunchKernelEx(&cfg, kernel, a);
   });
 }
 
 // Allow the dynamic shared memory of (K, B, d) for the per-block
-// instantiations of estep_round<RT> on the current device.
+// instantiations of estep_round<RT> on the current device, and with
+// cluster = ng > 0 clusters of ng CTAs (above 8 a non-portable size);
+// then the number of such clusters the device holds at once into
+// *clusters (0 with cluster 0).
 template <typename RT>
-int allow_smem(int K, int B, int d) {
+int allow_smem(int K, int B, int d, int cluster, int* clusters) {
   const Lay L = layout<ESTEP_ONE>(K, B, d);
   const size_t smem = sizeof(float) * (size_t)L.total;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  *clusters = 0;
+  if (smem > MAX_SMEM || cluster < 0 || cluster > CLUSTER_MAX)
+    return (int)cudaErrorInvalidValue;
   return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
-    return (int)cudaFuncSetAttribute(
-        estep_round<RT, decltype(nrg)::value, decltype(pre)::value, true,
-                    ESTEP_ONE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto* kernel = estep_round<RT, decltype(nrg)::value, decltype(pre)::value,
+                               true, ESTEP_ONE, ESTEP_TIMED>;
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err || cluster == 0) return err;
+    if (cluster > 8 &&
+        (err = (int)cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
+      return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = block_config(1, cluster, smem, nullptr,
+                                                &attr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   });
 }
 
@@ -109,12 +162,30 @@ int launch_block(const BlockCall& c, int blk, int readd) {
 extern "C" {
 
 // Lets the per-block launches of (K, B, d) take their dynamic shared memory
-// on the current device: once per device and shape before them. Returns 0
-// or the CUDA error.
-int fused_estep_block_setup(int K, int B, int d) {
-  const int err = allow_smem<float>(K, B, d);
-  return err ? err : allow_smem<__nv_bfloat16>(K, B, d);
+// on the current device, and with cluster = ng > 0 run each slot's ng
+// units as one cluster: once per device and shape before them. Returns 0,
+// the CUDA error, or cudaErrorLaunchOutOfResources where the device cannot
+// hold one such cluster at once.
+int fused_estep_block_setup(int K, int B, int d, int cluster) {
+  int n[2] = {0, 0};
+  int err = allow_smem<float>(K, B, d, cluster, n);
+  if (!err) err = allow_smem<__nv_bfloat16>(K, B, d, cluster, n + 1);
+  if (!err && cluster > 0 && (n[0] < 1 || n[1] < 1))
+    err = (int)cudaErrorLaunchOutOfResources;
+  return err;
 }
+
+// Clusters of `cluster` CTAs of the per-block entry of (K, B, d) (K1's
+// instantiation) the current device holds at once, or a negative CUDA
+// error.
+int fused_estep_block_clusters(int K, int B, int d, int cluster) {
+  int n = 0;
+  const int err = allow_smem<float>(K, B, d, cluster, &n);
+  return err ? -err : n;
+}
+
+// Largest number of units per slot whose launches run as clusters.
+int fused_estep_block_cluster_max() { return CLUSTER_MAX; }
 
 // Bytes of the call record fused_estep_block_prepare writes.
 int fused_estep_block_call_size() { return (int)sizeof(BlockCall); }
@@ -126,7 +197,7 @@ int fused_estep_block_one_pass() { return ESTEP_ONE ? 1 : 0; }
 // of fused_estep_round (rw null), of fused_estep_r_window (lo may be
 // negative: rw holds the window's chunks lo..lo+width-1 in the shard's
 // chunk ids) or of fused_estep_write_r (rw = r3, lo 0, width nc1, r_bf16
-// its type), as one ordinary launch of J * ng CTAs. The same arithmetic as
+// its type), as one launch of J * ng CTAs. The same arithmetic as
 // the round: the slots' cache, ybuf and kbuf rows equal the round's
 // bitwise. Block 0 of a pass starts from O0, E0 (K, B). Each launch writes
 // the slots' cache rows into brows (J, K, B+1) in slot order, and
@@ -138,8 +209,10 @@ int fused_estep_block_one_pass() { return ESTEP_ONE ? 1 : 0; }
 // b held by shard s's slot j: s * J + j, or -1; column J_fix is scratch)
 // and J_fix, a launch may start block blk from block blk - 1's re-add
 // (fused_estep_block_launch's readd). tickets (J ints) must be zero before
-// the first launch and stay zero after each. part holds J * ng unit
-// partials (one block's).
+// the first launch and stay zero after each; tickets null: each slot's ng
+// units run as one cluster (ng <= CLUSTER_MAX; fused_estep_block_setup
+// with cluster ng first) and part and kpart are not used. part holds
+// J * ng unit partials (one block's).
 // prepare writes the call record once per pass into `call` (host memory
 // of fused_estep_block_call_size() bytes; bsum unused); launch issues
 // block blk of it, so the host converts three arguments per launch.
@@ -148,8 +221,8 @@ int fused_estep_block_prepare(ESTEP_PTRS, int* tickets, float* brows,
                               int frame_pstride, const int* src, int J_fix,
                               void* rw, int r_bf16, int lo, int width,
                               ESTEP_DIMS, int device, void* call) {
-  if (tickets == nullptr || brows == nullptr || call == nullptr ||
-      brows_pstride < 0 || frame_pstride < 0 ||
+  if ((tickets == nullptr && ng > CLUSTER_MAX) || brows == nullptr ||
+      call == nullptr || brows_pstride < 0 || frame_pstride < 0 ||
       (frame != nullptr && (src == nullptr || J_fix < 1)))
     return (int)cudaErrorInvalidValue;
   BlockCall* c = static_cast<BlockCall*>(call);
@@ -183,6 +256,22 @@ int fused_estep_block_launch(const void* call, int blk, int readd) {
   }
   return err;
 }
+
+#if ESTEP_TIMED
+// Stamps per CTA and the phase each ends (BLOCK_STAMP_NAMES).
+int fused_estep_block_stamps_per_block() { return NST; }
+const char* fused_estep_block_stamp_names() { return BLOCK_STAMP_NAMES; }
+
+// Point a prepared call record's launches at a stamp buffer: (grid, NST)
+// clock64 values, then (grid, 4) globaltimer and clock64 at each CTA's
+// start and end. Returns 0 or cudaErrorInvalidValue.
+int fused_estep_block_set_stamps(void* call, unsigned long long* stamps) {
+  if (call == nullptr || stamps == nullptr)
+    return (int)cudaErrorInvalidValue;
+  static_cast<BlockCall*>(call)->a.stamps = stamps;
+  return 0;
+}
+#endif
 
 // Largest number of shards a re-add launch takes.
 int frame_readd_max_shards() { return readd::MAX_SHARDS; }

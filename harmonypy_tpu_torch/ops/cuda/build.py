@@ -28,9 +28,10 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Sources that no fit runs (the stamped round, ops/cuda/round_timing.py):
-# left out of build_all's default set.
-ON_DEMAND = ("fused_estep_timed",)
+# Sources that no fit runs (the stamped round, ops/cuda/round_timing.py,
+# and the stamped per-block entry, ops/cuda/block_timing.py): left out of
+# build_all's default set.
+ON_DEMAND = ("fused_estep_timed", "fused_estep_block_timed")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -12,8 +12,9 @@ plain version (`ops.update_r_fused.fused_update_nor` / `fused_update_r`).
 
 `fused_estep_mesh` is the round on a mesh of several shards: for each
 block, the kernel's per-block entry on every shard (`_BlockLaunch`: block b
-of K1, of its r window or of K2, an ordinary launch of one CTA per unit,
-csrc/fused_estep_block.cu), whose prologue re-adds block b - 1 across the
+of K1, of its r window or of K2, a launch of one CTA per unit, each slot's
+units one cluster (`block_tail`), csrc/fused_estep_block.cu), whose
+prologue re-adds block b - 1 across the
 shards from every shard's rows of it; after the last block, the re-add
 kernel (csrc/frame_readd.cuh, `_Readd`) on the lead device, once per pass.
 A plan (`_MeshPlan`) made once per pass geometry (`plan_key`) while a
@@ -216,37 +217,66 @@ def _block_lib(one: bool = False):
     lib = _blocks.get(one)
     if lib is None:
         name = "fused_estep_block_one" if one else "fused_estep_block"
-        lib = build.load(name)
-        lib.fused_estep_block_prepare.argtypes = (
-            [_P] * 17 + [_P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 3
-            + [_I] * 9 + [_P, _I, _P])
-        lib.fused_estep_block_launch.argtypes = [_P, _I, _I]
-        lib.fused_estep_block_setup.argtypes = [_I, _I, _I]
-        lib.frame_readd_prepare.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P,
-                                            _P, _P, _I, _I, _I, _P, _P]
-        lib.frame_readd_launch.argtypes = [_P, _I]
-        lib.mesh_plan_create.argtypes = [_I, _P, _P, _P, _P, _I, _P, _P]
-        lib.mesh_plan_run.argtypes = [_P, _P, _I, _P, _I, _I]
-        lib.mesh_plan_destroy.argtypes = [_P]
-        lib.mesh_plan_layout.argtypes = [_P]
-        lib.mesh_plan_layout.restype = None
-        for fn in (lib.fused_estep_block_prepare, lib.fused_estep_block_launch,
-                   lib.fused_estep_block_call_size,
-                   lib.fused_estep_block_setup, lib.frame_readd_prepare,
-                   lib.frame_readd_launch, lib.frame_readd_max_shards,
-                   lib.frame_readd_call_size, lib.mesh_plan_create,
-                   lib.mesh_plan_run, lib.mesh_plan_destroy,
-                   lib.fused_estep_block_one_pass):
-            fn.restype = _I
-        layout = (ctypes.c_int * 3)()
-        lib.mesh_plan_layout(layout)
-        want = (_OP_WIDTH, len(BLOCK_FIELDS), len(READD_FIELDS))
-        if tuple(layout) != want:
-            raise RuntimeError(f"{name}.cu's mesh plan layout "
-                               f"{tuple(layout)}, the wrapper's {want}")
-        if lib.fused_estep_block_one_pass() != one:
-            raise RuntimeError(f"{name}.cu holds the wrong variant")
-        _blocks[one] = lib
+        lib = _blocks[one] = block_signatures(build.load(name), name, one)
+    return lib
+
+
+# How a per-block launch sums each slot's ng unit partials: "cluster", the
+# slot's units as one thread-block cluster, each CTA summing a share of the
+# slot's rows over distributed shared memory (csrc/fused_estep.cuh
+# cluster_tail); or "ticket", the last unit to finish summing them all
+# from L2 (block_tail). Both add every value in ascending unit order: the
+# same bits.
+BLOCK_TAILS = ("cluster", "ticket")
+CLUSTER_MAX = 16     # units per slot a cluster takes (csrc CLUSTER_MAX)
+
+
+def block_tail(ng: int) -> str:
+    """The tail a per-block launch of ng units per slot takes: a cluster up
+    to CLUSTER_MAX units (16, the largest cluster Hopper schedules), else
+    tickets."""
+    return "cluster" if ng <= CLUSTER_MAX else "ticket"
+
+
+def block_signatures(lib, name: str, one: bool):
+    """Set the C signatures of a per-block library's entries (csrc/
+    fused_estep_block.cu, built as `name`) and check its table layout and
+    variant; returns lib."""
+    lib.fused_estep_block_prepare.argtypes = (
+        [_P] * 17 + [_P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 3
+        + [_I] * 9 + [_P, _I, _P])
+    lib.fused_estep_block_launch.argtypes = [_P, _I, _I]
+    lib.fused_estep_block_setup.argtypes = [_I] * 4
+    lib.fused_estep_block_clusters.argtypes = [_I] * 4
+    lib.frame_readd_prepare.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P,
+                                        _P, _P, _I, _I, _I, _P, _P]
+    lib.frame_readd_launch.argtypes = [_P, _I]
+    lib.mesh_plan_create.argtypes = [_I, _P, _P, _P, _P, _I, _P, _P]
+    lib.mesh_plan_run.argtypes = [_P, _P, _I, _P, _I, _I]
+    lib.mesh_plan_destroy.argtypes = [_P]
+    lib.mesh_plan_layout.argtypes = [_P]
+    lib.mesh_plan_layout.restype = None
+    for fn in (lib.fused_estep_block_prepare, lib.fused_estep_block_launch,
+               lib.fused_estep_block_call_size,
+               lib.fused_estep_block_setup, lib.frame_readd_prepare,
+               lib.frame_readd_launch, lib.frame_readd_max_shards,
+               lib.frame_readd_call_size, lib.mesh_plan_create,
+               lib.mesh_plan_run, lib.mesh_plan_destroy,
+               lib.fused_estep_block_one_pass, lib.fused_estep_block_clusters,
+               lib.fused_estep_block_cluster_max):
+        fn.restype = _I
+    if lib.fused_estep_block_cluster_max() != CLUSTER_MAX:
+        raise RuntimeError(f"{name}.cu takes clusters of up to "
+                           f"{lib.fused_estep_block_cluster_max()} units, "
+                           f"the wrapper {CLUSTER_MAX}")
+    layout = (ctypes.c_int * 3)()
+    lib.mesh_plan_layout(layout)
+    want = (_OP_WIDTH, len(BLOCK_FIELDS), len(READD_FIELDS))
+    if tuple(layout) != want:
+        raise RuntimeError(f"{name}.cu's mesh plan layout "
+                           f"{tuple(layout)}, the wrapper's {want}")
+    if lib.fused_estep_block_one_pass() != one:
+        raise RuntimeError(f"{name}.cu holds the wrong variant")
     return lib
 
 
@@ -384,12 +414,17 @@ class _BlockLaunch:
     pair is one buffer), default a new pair. frame: (2, S, J, K, B+1), every
     shard's block rows stacked shard-major, by parity; src: the pass's
     `rank_table` (codes s * J + j) on the shard's device; without them no
-    launch starts from a re-add. precision: the products' variant."""
+    launch starts from a re-add. precision: the products' variant. tail:
+    how a slot's unit partials are summed (`block_tail`; default its rule
+    for the shape). lib: the library whose entries prepare and launch
+    (default the variant's; ops/cuda/block_timing.py passes the stamped
+    one)."""
 
     def __init__(self, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                  fast_ent: bool, out, J_glob: int, Rw=None, lo: int = 0,
                  R3=None, stream=None, brows=None, frame=None, src=None,
-                 J_fix: int = 0, precision: str = "float32"):
+                 J_fix: int = 0, precision: str = "float32", tail=None,
+                 lib=None):
         nc1, K, B, d, CH = _check_round(slots, removal, ZP3, Y, sigma,
                                         theta, Pr_b, O, E, precision)
         self.one = one_pass(precision)
@@ -414,17 +449,31 @@ class _BlockLaunch:
             _check("src", src, (nb, J_fix + 1), torch.int32, dev)
         if dev.type == "cpu":
             return
-        lib = _block_lib(self.one)
+        lib = lib or _block_lib(self.one)
         geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0),
                               J_glob)
+        self.tail = tail or block_tail(geo.ng)
+        if self.tail not in BLOCK_TAILS or (
+                self.tail == "cluster" and geo.ng > CLUSTER_MAX):
+            raise ValueError(f"tail {self.tail!r}: one of {BLOCK_TAILS}, "
+                             f"a cluster of at most {CLUSTER_MAX} units "
+                             f"(ng {geo.ng})")
+        cluster = self.tail == "cluster"
         with torch.cuda.device(dev):
-            err = lib.fused_estep_block_setup(K, B, d)
+            err = lib.fused_estep_block_setup(K, B, d,
+                                              geo.ng if cluster else 0)
         if err != 0:
-            raise RuntimeError(f"fused_estep_block: shared memory of K={K},"
-                               f" B={B}, d={d} refused: CUDA error {err}")
-        self.part = torch.empty(geo.part_shape, dtype=f32, device=dev)
-        self.kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
-        self.tickets = torch.zeros((J,), dtype=torch.int32, device=dev)
+            raise RuntimeError(
+                f"fused_estep_block: K={K}, B={B}, d={d}"
+                f"{f' in clusters of {geo.ng} CTAs' if cluster else ''} "
+                f"refused on {dev}: CUDA error {err}")
+        self.n_units = geo.n_units
+        # A ticketed launch's scratch: unit partials and tickets.
+        self.part = self.kpart = self.tickets = None
+        if not cluster:
+            self.part = torch.empty(geo.part_shape, dtype=f32, device=dev)
+            self.kpart = torch.empty(geo.kpart_shape, dtype=f32, device=dev)
+            self.tickets = torch.zeros((J,), dtype=torch.int32, device=dev)
         if brows is None:
             brows = torch.empty((2, J, K, B + 1), dtype=f32, device=dev)
         _check_pair("brows", brows, (J, K, B + 1), dev)
@@ -449,11 +498,11 @@ class _BlockLaunch:
         self._call = ctypes.create_string_buffer(
             lib.fused_estep_block_call_size())
         err = lib.fused_estep_block_prepare(
-            *[t.data_ptr() for t in (
+            *[None if t is None else t.data_ptr() for t in (
                 ZP3, Y, sigma, theta, Pr_b, removal, slots, self.O0, self.E0,
-                self.part, self.kpart)], None, *[t.data_ptr() for t in (
-                    out[0], out[1], out[2], self.O1, self.E1, self.tickets,
-                    brows)], brows.stride(0), *fold, *store, K, B, d, CH, nb,
+                self.part, self.kpart, None, out[0], out[1], out[2], self.O1,
+                self.E1, self.tickets, brows)], brows.stride(0), *fold,
+            *store, K, B, d, CH, nb,
             J, geo.ng, nc1, int(bool(fast_ent)), stream.cuda_stream,
             dev.index or 0, self._call)
         if err != 0:
