@@ -23,6 +23,12 @@ shards; the cells-first properties (Z_corr, Z_orig, Z_cos, R, Phi,
 Phi_moe, result()) are collectives that every rank calls, and every rank
 gets the whole (N, .) array, as the JAX package's process_allgather
 gives it.
+
+Profiler ranges (utils/profiling.span) split a call's host work:
+api::design (run_harmony's layout, one-hot and broadcasting, then
+Harmony's configuration and preflight: two ranges a run_harmony call),
+api::upload (padding and the host-to-device copies) and api::readback
+(the cells-first properties' copies back to the host).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from .state import HarmonyData, HarmonyParams, HarmonyState
 from .utils.checkpoint import load_state, state_to, validate_state
 from .utils.logging import logger
 from .utils.memory import check_capacity
+from .utils.profiling import span
 
 # Above this N a per-cell fit warns that the fused path would be faster.
 _SLOW_PATH_WARN_N = 65536
@@ -114,103 +121,105 @@ def run_harmony(
     each difference). `_init_Y` and `_blocks_fn` are test hooks (see
     engine.py).
     """
-    N = meta_data.shape[0]
-    data_mat = np.asarray(data_mat.values if hasattr(data_mat, "values")
-                          else data_mat)
-    if data_mat.shape[1] != N:
-        data_mat = data_mat.T
-    assert data_mat.shape[1] == N, \
-        "data_mat and meta_data do not have the same number of cells"
+    with span("api::design"):
+        N = meta_data.shape[0]
+        data_mat = np.asarray(data_mat.values if hasattr(data_mat, "values")
+                              else data_mat)
+        if data_mat.shape[1] != N:
+            data_mat = data_mat.T
+        assert data_mat.shape[1] == N, \
+            "data_mat and meta_data do not have the same number of cells"
 
-    if nclust is None:
-        nclust = default_nclust(N)
+        if nclust is None:
+            nclust = default_nclust(N)
 
-    sigma = np.asarray(sigma, dtype=np.float32).reshape(-1)
-    if sigma.size == 1 and nclust > 1:
-        sigma = np.repeat(sigma, nclust)
-    if sigma.size != nclust:
-        raise ValueError(f"sigma must be a scalar or have nclust={nclust} "
-                         f"entries, got {sigma.size}")
+        sigma = np.asarray(sigma, dtype=np.float32).reshape(-1)
+        if sigma.size == 1 and nclust > 1:
+            sigma = np.repeat(sigma, nclust)
+        if sigma.size != nclust:
+            raise ValueError(f"sigma must be a scalar or have nclust={nclust} "
+                             f"entries, got {sigma.size}")
 
-    if isinstance(vars_use, str):
-        vars_use = [vars_use]
+        if isinstance(vars_use, str):
+            vars_use = [vars_use]
 
-    # One-hot design (reference harmony.py:133-134); phi_n counts declared
-    # categories, as pd.get_dummies emits a column for each.
-    cats = meta_data[vars_use].astype("category")
-    phi = pd.get_dummies(cats).to_numpy().T.astype(np.float32)
-    phi_n = np.asarray([len(cats[c].cat.categories) for c in cats.columns],
-                       dtype=int)
+        # One-hot design (reference harmony.py:133-134); phi_n counts declared
+        # categories, as pd.get_dummies emits a column for each.
+        cats = meta_data[vars_use].astype("category")
+        phi = pd.get_dummies(cats).to_numpy().T.astype(np.float32)
+        phi_n = np.asarray([len(cats[c].cat.categories) for c in cats.columns],
+                           dtype=int)
 
-    # Theta broadcasting (reference harmony.py:136-147).
-    if theta is None:
-        theta = np.repeat([2] * len(phi_n), phi_n).astype(np.float32)
-    elif isinstance(theta, (float, int)):
-        theta = np.repeat([theta] * len(phi_n), phi_n).astype(np.float32)
-    elif len(theta) == len(phi_n):
-        theta = np.repeat([theta], phi_n).astype(np.float32)
-    else:
-        theta = np.asarray(theta, dtype=np.float32)
-    assert len(theta) == np.sum(phi_n), "each batch variable must have a theta"
+        # Theta broadcasting (reference harmony.py:136-147).
+        if theta is None:
+            theta = np.repeat([2] * len(phi_n), phi_n).astype(np.float32)
+        elif isinstance(theta, (float, int)):
+            theta = np.repeat([theta] * len(phi_n), phi_n).astype(np.float32)
+        elif len(theta) == len(phi_n):
+            theta = np.repeat([theta], phi_n).astype(np.float32)
+        else:
+            theta = np.asarray(theta, dtype=np.float32)
+        assert len(theta) == np.sum(phi_n), \
+            "each batch variable must have a theta"
 
-    # Lambda broadcasting (reference harmony.py:149-166).
-    lambda_estimation = False
-    if lamb is None:
-        lamb = np.repeat([1] * len(phi_n), phi_n).astype(np.float32)
-        lamb = np.insert(lamb, 0, 0).astype(np.float32)
-    elif np.isscalar(lamb) and lamb == -1:
-        lambda_estimation = True
-        lamb = np.zeros(1, dtype=np.float32)
-    elif isinstance(lamb, (float, int)):
-        lamb = np.repeat([lamb] * len(phi_n), phi_n).astype(np.float32)
-        lamb = np.insert(lamb, 0, 0).astype(np.float32)
-    elif len(lamb) == len(phi_n):
-        lamb = np.repeat([lamb], phi_n).astype(np.float32)
-        lamb = np.insert(lamb, 0, 0).astype(np.float32)
-    else:
-        lamb = np.asarray(lamb, dtype=np.float32)
-        if len(lamb) == np.sum(phi_n):
+        # Lambda broadcasting (reference harmony.py:149-166).
+        lambda_estimation = False
+        if lamb is None:
+            lamb = np.repeat([1] * len(phi_n), phi_n).astype(np.float32)
+            lamb = np.insert(lamb, 0, 0).astype(np.float32)
+        elif np.isscalar(lamb) and lamb == -1:
+            lambda_estimation = True
+            lamb = np.zeros(1, dtype=np.float32)
+        elif isinstance(lamb, (float, int)):
+            lamb = np.repeat([lamb] * len(phi_n), phi_n).astype(np.float32)
+            lamb = np.insert(lamb, 0, 0).astype(np.float32)
+        elif len(lamb) == len(phi_n):
+            lamb = np.repeat([lamb], phi_n).astype(np.float32)
             lamb = np.insert(lamb, 0, 0).astype(np.float32)
         else:
+            lamb = np.asarray(lamb, dtype=np.float32)
+            if len(lamb) == np.sum(phi_n):
+                lamb = np.insert(lamb, 0, 0).astype(np.float32)
+            else:
+                raise ValueError(
+                    f"lamb has length {len(lamb)}; expected one entry per "
+                    f"batch variable ({len(phi_n)}) or per batch level "
+                    f"({int(np.sum(phi_n))})")
+        if not lambda_estimation and np.any(np.asarray(lamb)[1:] <= 0):
+            # A zero ridge makes the per-cluster system exactly singular.
             raise ValueError(
-                f"lamb has length {len(lamb)}; expected one entry per batch "
-                f"variable ({len(phi_n)}) or per batch level "
-                f"({int(np.sum(phi_n))})")
-    if not lambda_estimation and np.any(np.asarray(lamb)[1:] <= 0):
-        # A zero ridge makes the per-cluster system exactly singular.
-        raise ValueError(
-            "lamb entries must be positive (use lamb=-1 for dynamic "
-            "estimation); a zero ridge penalty makes the per-cluster "
-            "system singular")
+                "lamb entries must be positive (use lamb=-1 for dynamic "
+                "estimation); a zero ridge penalty makes the per-cluster "
+                "system singular")
 
-    # Batch proportions + tau discount (reference harmony.py:169-173).
-    N_b = phi.sum(axis=1)
-    Pr_b = (N_b / N).astype(np.float32)
-    if tau > 0:
-        theta = theta * (1 - np.exp(-(N_b / (nclust * tau)) ** 2))
-        theta = theta.astype(np.float32)
+        # Batch proportions + tau discount (reference harmony.py:169-173).
+        N_b = phi.sum(axis=1)
+        Pr_b = (N_b / N).astype(np.float32)
+        if tau > 0:
+            theta = theta * (1 - np.exp(-(N_b / (nclust * tau)) ** 2))
+            theta = theta.astype(np.float32)
 
-    mesh = resolve_mesh(mesh, device)
-    if verbose:
-        logger.info(f"Running Harmony (PyTorch on {mesh.size} "
-                    f"{mesh.lead.type} device(s))")
-        logger.info("  Parameters:")
-        logger.info(f"    max_iter_harmony: {max_iter_harmony}")
-        logger.info(f"    max_iter_kmeans: {max_iter_kmeans}")
-        logger.info(f"    epsilon_cluster: {epsilon_cluster}")
-        logger.info(f"    epsilon_harmony: {epsilon_harmony}")
-        logger.info(f"    nclust: {nclust}")
-        logger.info(f"    block_size: {block_size}")
-        if lambda_estimation:
-            logger.info(f"    lamb: dynamic (alpha={alpha})")
-        else:
-            logger.info(f"    lamb: {lamb[1:]}")
-        logger.info(f"    theta: {theta}")
-        logger.info(f"    sigma: {sigma[:5]}..." if len(sigma) > 5
-                    else f"    sigma: {sigma}")
-        logger.info(f"    random_state: {random_state}")
-        logger.info(f"  Data: {data_mat.shape[0]} PCs × {N} cells")
-        logger.info(f"  Batch variables: {vars_use}")
+        mesh = resolve_mesh(mesh, device)
+        if verbose:
+            logger.info(f"Running Harmony (PyTorch on {mesh.size} "
+                        f"{mesh.lead.type} device(s))")
+            logger.info("  Parameters:")
+            logger.info(f"    max_iter_harmony: {max_iter_harmony}")
+            logger.info(f"    max_iter_kmeans: {max_iter_kmeans}")
+            logger.info(f"    epsilon_cluster: {epsilon_cluster}")
+            logger.info(f"    epsilon_harmony: {epsilon_harmony}")
+            logger.info(f"    nclust: {nclust}")
+            logger.info(f"    block_size: {block_size}")
+            if lambda_estimation:
+                logger.info(f"    lamb: dynamic (alpha={alpha})")
+            else:
+                logger.info(f"    lamb: {lamb[1:]}")
+            logger.info(f"    theta: {theta}")
+            logger.info(f"    sigma: {sigma[:5]}..." if len(sigma) > 5
+                        else f"    sigma: {sigma}")
+            logger.info(f"    random_state: {random_state}")
+            logger.info(f"  Data: {data_mat.shape[0]} PCs × {N} cells")
+            logger.info(f"  Batch variables: {vars_use}")
 
     return Harmony(
         np.asarray(data_mat, dtype=np.float32), phi, Pr_b,
@@ -237,124 +246,130 @@ class Harmony:
                  resume_from=None, use_pallas=None, chunk_size=None,
                  matmul_precision="default", low_memory=False, defer_r=None,
                  fast_objective=False, _init_Y=None, _blocks_fn=None):
-        Z = np.asarray(Z, dtype=np.float32)
-        Phi = np.asarray(Phi, dtype=np.float32)
-        self.N, self.d, self.B = Z.shape[1], Z.shape[0], Phi.shape[0]
-        # Exactly-one-hot columns (one covariate) allow the log-free
-        # entropy partials under fast_objective.
-        single_onehot = bool(
-            Phi.size and np.all(Phi.sum(axis=0) == 1.0)
-            and np.all((Phi != 0).sum(axis=0) == 1))
-        self.n_covariates = 1 if single_onehot else 2
-        self.K = K
-        self.window_size = 3
-        self.epsilon_kmeans = epsilon_kmeans
-        self.epsilon_harmony = epsilon_harmony
-        self.block_size = block_size
-        self.alpha = alpha
-        self.lambda_estimation = lambda_estimation
-        self.max_iter_harmony = max_iter_harmony
-        self.max_iter_kmeans = max_iter_kmeans
-        self.verbose = verbose
+        with span("api::design"):
+            Z = np.asarray(Z, dtype=np.float32)
+            Phi = np.asarray(Phi, dtype=np.float32)
+            self.N, self.d, self.B = Z.shape[1], Z.shape[0], Phi.shape[0]
+            # Exactly-one-hot columns (one covariate) allow the log-free
+            # entropy partials under fast_objective.
+            single_onehot = bool(
+                Phi.size and np.all(Phi.sum(axis=0) == 1.0)
+                and np.all((Phi != 0).sum(axis=0) == 1))
+            self.n_covariates = 1 if single_onehot else 2
+            self.K = K
+            self.window_size = 3
+            self.epsilon_kmeans = epsilon_kmeans
+            self.epsilon_harmony = epsilon_harmony
+            self.block_size = block_size
+            self.alpha = alpha
+            self.lambda_estimation = lambda_estimation
+            self.max_iter_harmony = max_iter_harmony
+            self.max_iter_kmeans = max_iter_kmeans
+            self.verbose = verbose
 
-        mesh = resolve_mesh(mesh, device)
-        n_devices = mesh.size
-        chunk_size = auto_chunk_size(self.N, float(block_size), chunk_size)
-        fused_ok = fused_geometry_ok(self.N, n_devices, float(block_size),
-                                     int(chunk_size))
-        if defer_r and not fused_ok:
-            raise ValueError(
-                f"defer_r requires the fused chunk geometry "
-                f"(>= {int(np.ceil(1 / block_size))} chunks of "
-                f"{chunk_size} cells; N={self.N} has too few). Use a "
-                f"smaller chunk_size.")
-        zero_iters = min(int(max_iter_harmony), int(max_iter_kmeans)) < 1
-        if defer_r and zero_iters:
-            raise ValueError(
-                "defer_r requires max_iter_harmony >= 1 and "
-                "max_iter_kmeans >= 1: the deferred .R/ridge replay "
-                "reproduces the last completed k-means round, which a "
-                "zero-iteration fit never runs. Pass defer_r=False to keep "
-                "the initial assignments materialized.")
-        if matmul_precision not in ("default", "float32"):
-            raise ValueError(f"matmul_precision must be 'default' or "
-                             f"'float32', got {matmul_precision!r}")
-        # As the JAX package resolves them (api.py:290-309): deferred-R is
-        # the fused default; use_pallas=True keeps R stored. Both fused
-        # flags run the hand-written kernels here: the one-launch round on
-        # one device, its per-block entry on a mesh.
-        if defer_r is None:
-            defer_r = fused_ok and use_pallas is not True and not zero_iters
-        use_pallas = bool(use_pallas)
-        use_fused_xla = (not use_pallas) and fused_ok
+            mesh = resolve_mesh(mesh, device)
+            n_devices = mesh.size
+            chunk_size = auto_chunk_size(self.N, float(block_size), chunk_size)
+            fused_ok = fused_geometry_ok(self.N, n_devices, float(block_size),
+                                         int(chunk_size))
+            if defer_r and not fused_ok:
+                raise ValueError(
+                    f"defer_r requires the fused chunk geometry "
+                    f"(>= {int(np.ceil(1 / block_size))} chunks of "
+                    f"{chunk_size} cells; N={self.N} has too few). Use a "
+                    f"smaller chunk_size.")
+            zero_iters = min(int(max_iter_harmony), int(max_iter_kmeans)) < 1
+            if defer_r and zero_iters:
+                raise ValueError(
+                    "defer_r requires max_iter_harmony >= 1 and "
+                    "max_iter_kmeans >= 1: the deferred .R/ridge replay "
+                    "reproduces the last completed k-means round, which a "
+                    "zero-iteration fit never runs. Pass defer_r=False to "
+                    "keep the initial assignments materialized.")
+            if matmul_precision not in ("default", "float32"):
+                raise ValueError(f"matmul_precision must be 'default' or "
+                                 f"'float32', got {matmul_precision!r}")
+            # As the JAX package resolves them (api.py:290-309): deferred-R is
+            # the fused default; use_pallas=True keeps R stored. Both fused
+            # flags run the hand-written kernels here: the one-launch round on
+            # one device, its per-block entry on a mesh.
+            if defer_r is None:
+                defer_r = (fused_ok and use_pallas is not True
+                           and not zero_iters)
+            use_pallas = bool(use_pallas)
+            use_fused_xla = (not use_pallas) and fused_ok
 
-        self.mesh = mesh
-        self.device = mesh.lead
-        cfg = EngineConfig(
-            N=self.N, d=self.d, K=K, B=self.B, n_devices=n_devices,
-            use_pallas=use_pallas, use_fused_xla=use_fused_xla,
-            defer_r=bool(defer_r), chunk_size=int(chunk_size),
-            max_iter_harmony=max_iter_harmony,
-            max_iter_kmeans=max_iter_kmeans,
-            epsilon_kmeans=float(epsilon_kmeans),
-            epsilon_harmony=float(epsilon_harmony),
-            window_size=self.window_size, block_size=float(block_size),
-            alpha=float(alpha), lambda_estimation=bool(lambda_estimation),
-            matmul_precision=str(matmul_precision),
-            r_dtype="bfloat16" if low_memory else "float32",
-            n_covariates=self.n_covariates,
-            fast_objective=bool(fast_objective))
-        if not cfg.fused_estep:
-            G, cap = cell_tile_geom(cfg.n_blocks)
-            frac = expected_skip_fraction(cfg.n_blocks)
-            emit = logger.warning if frac > 1e-4 else logger.debug
-            emit(f"per-cell E-step: the iid block partition's tile-capacity "
-                 f"rule (tile={G} cells, cap={cap} per block) skips an "
-                 f"expected {frac:.2e} of cells per round; those cells keep "
-                 f"their previous assignment for one round.")
-            logger.info(
-                "per-cell E-step: results are mesh-invariant to reduction-"
-                "order tolerance, not bitwise; a smaller chunk_size (e.g. "
-                "chunk_size=128) selects the fused path, which is bitwise "
-                "the same on every mesh.")
-            if self.N > _SLOW_PATH_WARN_N:
-                logger.warning(
-                    f"N={self.N}: chunk geometry (chunk_size={chunk_size}) "
-                    f"disables the fused E-step; falling back to the "
-                    f"per-cell update, which is several times slower at "
-                    f"this scale. A smaller chunk_size usually restores the "
-                    f"fused path.")
-        self.cfg = cfg
-        # Capacity preflight (JAX package api.py:362-370): fail before the
-        # first upload, with remedies, rather than out of memory midway.
-        if not os.environ.get("HARMONYPY_SKIP_CAPACITY_CHECK"):
-            check_capacity(cfg, mesh)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(random_state))
-        resume = None
-        if resume_from is not None:
-            state, rng = load_state(resume_from)
-            validate_state(state, cfg, resume_from, rng, self.device)
-            gen.set_state(rng.gen_state)
-            resume = (state_to(state, mesh, cfg), rng)
+            self.mesh = mesh
+            self.device = mesh.lead
+            cfg = EngineConfig(
+                N=self.N, d=self.d, K=K, B=self.B, n_devices=n_devices,
+                use_pallas=use_pallas, use_fused_xla=use_fused_xla,
+                defer_r=bool(defer_r), chunk_size=int(chunk_size),
+                max_iter_harmony=max_iter_harmony,
+                max_iter_kmeans=max_iter_kmeans,
+                epsilon_kmeans=float(epsilon_kmeans),
+                epsilon_harmony=float(epsilon_harmony),
+                window_size=self.window_size, block_size=float(block_size),
+                alpha=float(alpha), lambda_estimation=bool(lambda_estimation),
+                matmul_precision=str(matmul_precision),
+                r_dtype="bfloat16" if low_memory else "float32",
+                n_covariates=self.n_covariates,
+                fast_objective=bool(fast_objective))
+            if not cfg.fused_estep:
+                G, cap = cell_tile_geom(cfg.n_blocks)
+                frac = expected_skip_fraction(cfg.n_blocks)
+                emit = logger.warning if frac > 1e-4 else logger.debug
+                emit(f"per-cell E-step: the iid block partition's "
+                     f"tile-capacity rule (tile={G} cells, cap={cap} per "
+                     f"block) skips an expected {frac:.2e} of cells per "
+                     f"round; those cells keep their previous assignment "
+                     f"for one round.")
+                logger.info(
+                    "per-cell E-step: results are mesh-invariant to reduction-"
+                    "order tolerance, not bitwise; a smaller chunk_size (e.g. "
+                    "chunk_size=128) selects the fused path, which is bitwise "
+                    "the same on every mesh.")
+                if self.N > _SLOW_PATH_WARN_N:
+                    logger.warning(
+                        f"N={self.N}: chunk geometry "
+                        f"(chunk_size={chunk_size}) disables the fused "
+                        f"E-step; falling back to the per-cell update, which "
+                        f"is several times slower at this scale. A smaller "
+                        f"chunk_size usually restores the fused path.")
+            self.cfg = cfg
+            # Capacity preflight (JAX package api.py:362-370): fail before the
+            # first upload, with remedies, rather than out of memory midway.
+            if not os.environ.get("HARMONYPY_SKIP_CAPACITY_CHECK"):
+                check_capacity(cfg, mesh)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(random_state))
+            resume = None
+            if resume_from is not None:
+                state, rng = load_state(resume_from)
+                validate_state(state, cfg, resume_from, rng, self.device)
+                gen.set_state(rng.gen_state)
+                resume = (state_to(state, mesh, cfg), rng)
 
-        lamb_arr = np.atleast_1d(np.asarray(lamb, dtype=np.float32))
-        if not lambda_estimation and len(lamb_arr) != self.B + 1:
-            raise ValueError(
-                f"lamb must have {self.B + 1} entries (intercept + one per "
-                f"batch level), got {len(lamb_arr)}")
+            lamb_arr = np.atleast_1d(np.asarray(lamb, dtype=np.float32))
+            if not lambda_estimation and len(lamb_arr) != self.B + 1:
+                raise ValueError(
+                    f"lamb must have {self.B + 1} entries (intercept + one "
+                    f"per batch level), got {len(lamb_arr)}")
 
-        def t(x):
-            return torch.as_tensor(np.asarray(x, np.float32),
-                                   device=self.device)
+            def t(x):
+                with span("sync::upload"):
+                    return torch.as_tensor(np.asarray(x, np.float32),
+                                           device=self.device)
 
-        self._params = HarmonyParams(
-            theta=t(theta), sigma=t(sigma),
-            lamb=t(np.zeros(self.B + 1) if lambda_estimation else lamb_arr),
-            Pr_b=t(Pr_b))
-        self._data = shard_inputs(Z, Phi, cfg, mesh)
+        with span("api::upload"):
+            self._params = HarmonyParams(
+                theta=t(theta), sigma=t(sigma),
+                lamb=t(np.zeros(self.B + 1) if lambda_estimation
+                       else lamb_arr),
+                Pr_b=t(Pr_b))
+            self._data = shard_inputs(Z, Phi, cfg, mesh)
+            init_Y = None if _init_Y is None else t(_init_Y)
         self._lamb_raw = np.asarray(lamb, dtype=np.float32)
-        init_Y = None if _init_Y is None else t(_init_Y)
         if checkpoint_dir is not None:
             os.makedirs(checkpoint_dir, exist_ok=True)
         self.state: HarmonyState = engine.fit(
@@ -391,6 +406,7 @@ class Harmony:
         return list(self.state.kmeans_rounds)
 
     # ---- NumPy-view properties (reference harmony.py:288-355) -----------
+    @span("api::readback")
     def _cells(self, t) -> np.ndarray:
         return unpad_cells(gather_cells(t, self.cfg).numpy(), self.cfg).T
 
@@ -466,6 +482,7 @@ class Harmony:
         return self.Z_corr
 
 
+@span("api::readback")
 def stored_r(cfg: EngineConfig, state: HarmonyState) -> np.ndarray:
     """A stored-R fit's soft assignments as float32 cells-first (N x K),
     from the chunk-major (fused) or (K, N_local) (per-cell) stored R of
@@ -476,6 +493,7 @@ def stored_r(cfg: EngineConfig, state: HarmonyState) -> np.ndarray:
     return unpad_cells(gather_cells(Rs, cfg).numpy(), cfg).T
 
 
+@span("api::readback")
 def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
                   params: HarmonyParams) -> np.ndarray:
     """Page a deferred-R fit's soft assignments to the host (N x K):

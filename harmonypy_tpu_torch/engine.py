@@ -53,11 +53,19 @@ fit / HarmonyStep / init_defer / init_stored makes that choice (None:
 runs_one_pass of cfg and the data's device); the functions below them take
 it as `one`. True on the CPU runs the torch products' plain version.
 
-Profiler ranges (torch.profiler.record_function, no cost without a
-profiler beyond a few microseconds per call): harmony::init,
+Profiler ranges (utils/profiling.span: a record_function while a
+profiler records, one flag check otherwise): harmony::init,
 harmony::kmeans_init, harmony::cluster, harmony::estep (the per-cell
 E-step's block loop), harmony::ridge_replay (deferred), harmony::ridge
-(stored).
+(stored); inside them harmony::tables (each round's and each replay's slot
+tables and removal stats), harmony::k1 (each fused round's kernel launch:
+K1, or K2 on the stored path; on a mesh its per-block entries and re-add)
+and, in the replay, harmony::normal_eq, harmony::solve and
+harmony::apply. Each statement at which the host waits for the card
+has a sync::<site> range of its own: sync::conv_kmeans and
+sync::conv_harmony here, sync::tables (ops/partition.py), sync::kmeans_seed
+and sync::lloyd (ops/kmeans.py), sync::cholesky (ops/ridge.py). api.py
+adds api::design, api::upload and api::readback around the engine.
 
 Test hooks: `init_Y` replaces the k-means centroids, and `blocks_fn(i)`
 returns the assignment of the i-th round of the fit (counted from 0 across
@@ -72,7 +80,6 @@ import os
 from typing import Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
 from .config import EngineConfig
 from .ops.cuda.fused_estep import (fused_estep, fused_estep_mesh,
@@ -97,6 +104,7 @@ from .state import (HarmonyData, HarmonyParams, HarmonyState, append,
                     defer_placeholders, empty_histories)
 from .utils.checkpoint import RngState, save_state
 from .utils.logging import logger
+from .utils.profiling import span
 
 
 def check_conv_kmeans(obj_buf, n: int, cfg: EngineConfig) -> bool:
@@ -107,8 +115,9 @@ def check_conv_kmeans(obj_buf, n: int, cfg: EngineConfig) -> bool:
         return False
     obj_old = torch.sum(obj_buf[n - w - 1: n - 1])
     obj_new = torch.sum(obj_buf[n - w: n])
-    return bool(torch.abs(obj_old - obj_new) / torch.abs(obj_old)
-                < cfg.epsilon_kmeans)
+    with span("sync::conv_kmeans"):
+        return bool(torch.abs(obj_old - obj_new) / torch.abs(obj_old)
+                    < cfg.epsilon_kmeans)
 
 
 def check_conv_harmony(obj_h, n: int, cfg: EngineConfig) -> bool:
@@ -117,8 +126,9 @@ def check_conv_harmony(obj_h, n: int, cfg: EngineConfig) -> bool:
     if n < 2:
         return False
     obj_old, obj_new = obj_h[n - 2], obj_h[n - 1]
-    return bool((obj_old - obj_new) / torch.abs(obj_old)
-                < cfg.epsilon_harmony)
+    with span("sync::conv_harmony"):
+        return bool((obj_old - obj_new) / torch.abs(obj_old)
+                    < cfg.epsilon_harmony)
 
 
 def fast_ent(cfg: EngineConfig) -> bool:
@@ -217,7 +227,7 @@ def _one(one_pass: Optional[bool], cfg: EngineConfig,
     return bool(one_pass)
 
 
-@record_function("harmony::init")
+@span("harmony::init")
 def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
                gen: torch.Generator, init_Y=None,
                one_pass: Optional[bool] = None) -> HarmonyState:
@@ -228,7 +238,7 @@ def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     geom = partition_geometry(cfg)
     one = _one(one_pass, cfg, data)
     Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
-    with record_function("harmony::kmeans_init"):
+    with span("harmony::kmeans_init"):
         Y = kmeans_init(gen, Z_cos, cfg, one) if init_Y is None else init_Y
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev = Y.device
@@ -246,7 +256,7 @@ def init_defer(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     return st
 
 
-@record_function("harmony::init")
+@span("harmony::init")
 def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
                 gen: torch.Generator, init_Y=None,
                 one_pass: Optional[bool] = None) -> HarmonyState:
@@ -259,7 +269,7 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     partials summed in shard order (O and E packed into one)."""
     one = _one(one_pass, cfg, data)
     Z_cos = normalize_cells(data.Z_orig)                         # harmony.py:238
-    with record_function("harmony::kmeans_init"):
+    with span("harmony::kmeans_init"):
         Y = kmeans_init(gen, Z_cos, cfg, one) if init_Y is None else init_Y
     Y = l2_normalize_cols(Y)                                     # harmony.py:377
     dev, K = Y.device, cfg.K
@@ -304,17 +314,18 @@ def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
     round (K1's per-block entry) on a mesh, in the kernels' variant of
     `precision`. Returns (O, E, caches, ybufs, kbufs) with the per-chunk
     buffers per shard."""
-    if geom.n_devices == 1:
-        O, E, cache, ybuf, kbuf, _ = fused_estep(
-            tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
-            params.theta, params.Pr_b, O, E, fast, precision=precision)
-        return O, E, [cache], [ybuf], [kbuf]
-    return fused_estep_mesh(tables, ZP3s, Y, params.sigma, params.theta,
-                            params.Pr_b, O, E, fast, geom.J_fix,
-                            precision=precision)[:5]
+    with span("harmony::k1"):
+        if geom.n_devices == 1:
+            O, E, cache, ybuf, kbuf, _ = fused_estep(
+                tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
+                params.theta, params.Pr_b, O, E, fast, precision=precision)
+            return O, E, [cache], [ybuf], [kbuf]
+        return fused_estep_mesh(tables, ZP3s, Y, params.sigma, params.theta,
+                                params.Pr_b, O, E, fast, geom.J_fix,
+                                precision=precision)[:5]
 
 
-@record_function("harmony::cluster")
+@span("harmony::cluster")
 def cluster(st: HarmonyState, ZP3s, params: HarmonyParams, cfg: EngineConfig,
             draw_blocks: Callable[[], torch.Tensor]) -> int:
     """Deferred-R k-means loop (harmony.py:437-462): every round runs the
@@ -328,7 +339,8 @@ def cluster(st: HarmonyState, ZP3s, params: HarmonyParams, cfg: EngineConfig,
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443
         blocks = draw_blocks()
-        tables = mesh_round_tables(blocks, parts(st.cache), geom, devs)
+        with span("harmony::tables"):
+            tables = mesh_round_tables(blocks, parts(st.cache), geom, devs)
         st.rep_Y, st.rep_O, st.rep_E = Y, st.O, st.E
         st.rep_cache, st.rep_blocks = st.cache, blocks
         O, E, caches, ybufs, kbufs = _k1_round(tables, ZP3s, Y, params,
@@ -365,15 +377,19 @@ def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
     st.n_harmony = append(st.obj_harmony, st.n_harmony,
                           st.obj_kmeans[st.n_kmeans - 1])
 
-    with record_function("harmony::ridge_replay"):
-        tables = mesh_round_tables(st.rep_blocks, parts(st.rep_cache), geom,
-                                   [z.device for z in ZP3s])
+    with span("harmony::ridge_replay"):
+        with span("harmony::tables"):
+            tables = mesh_round_tables(st.rep_blocks, parts(st.rep_cache),
+                                       geom, [z.device for z in ZP3s])
         rep = (st.rep_Y, params.sigma, params.theta, params.Pr_b, st.rep_O,
                st.rep_E)
-        S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast, one=one)
-        W = solve_w(S, st.E, params, cfg)
-        Zc3s, Zs3s, st.Ysum0 = replay_apply(tables, ZP3s, ZO3s, W, rep, cfg,
-                                            fast, one=one)
+        with span("harmony::normal_eq"):
+            S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast, one=one)
+        with span("harmony::solve"):
+            W = solve_w(S, st.E, params, cfg)
+        with span("harmony::apply"):
+            Zc3s, Zs3s, st.Ysum0 = replay_apply(tables, ZP3s, ZO3s, W, rep,
+                                                cfg, fast, one=one)
         st.n_passes += 2 * len(windows(one_device(cfg)))
     st.rep_Zcos = st.Z_cos
     st.Z_corr = pack(z.permute(1, 0, 2).reshape(cfg.d, -1) for z in Zc3s)
@@ -388,7 +404,7 @@ def _round_end(st: HarmonyState, i: int, terms, cfg: EngineConfig) -> bool:
                                                      st.n_kmeans, cfg)
 
 
-@record_function("harmony::cluster")
+@span("harmony::cluster")
 def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
                   cfg: EngineConfig, draw_blocks, one: bool) -> int:
     """Stored-R fused k-means loop (JAX package engine.py:391-511): every
@@ -413,18 +429,21 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
     Ysum = frame_sum(y_cs, geom)
     for i in range(cfg.max_iter_kmeans):
         Y = l2_normalize_cols(Ysum).contiguous()                # harmony.py:443
-        tables = mesh_round_tables(draw_blocks(), parts(st.cache), geom, devs)
-        if geom.n_devices == 1:
-            _, O, E, cache, ybuf, kbuf = fused_estep_r(
-                tables.slots[0], tables.removal, ZP3s[0], st.R, Y,
-                params.sigma, params.theta, params.Pr_b, st.O, st.E, fast,
-                precision=cfg.matmul_precision)
-            caches, ybufs, kbufs = [cache], [ybuf], [kbuf]
-        else:
-            O, E, caches, ybufs, kbufs, _ = fused_estep_mesh(
-                tables, ZP3s, Y, params.sigma, params.theta, params.Pr_b,
-                st.O, st.E, fast, geom.J_fix, R3s=parts(st.R),
-                precision=cfg.matmul_precision)
+        blocks = draw_blocks()
+        with span("harmony::tables"):
+            tables = mesh_round_tables(blocks, parts(st.cache), geom, devs)
+        with span("harmony::k1"):
+            if geom.n_devices == 1:
+                _, O, E, cache, ybuf, kbuf = fused_estep_r(
+                    tables.slots[0], tables.removal, ZP3s[0], st.R, Y,
+                    params.sigma, params.theta, params.Pr_b, st.O, st.E,
+                    fast, precision=cfg.matmul_precision)
+                caches, ybufs, kbufs = [cache], [ybuf], [kbuf]
+            else:
+                O, E, caches, ybufs, kbufs, _ = fused_estep_mesh(
+                    tables, ZP3s, Y, params.sigma, params.theta, params.Pr_b,
+                    st.O, st.E, fast, geom.J_fix, R3s=parts(st.R),
+                    precision=cfg.matmul_precision)
         st.n_passes += 1
         st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
         Ysum = frame_sum(ybufs, geom).T
@@ -445,7 +464,7 @@ def percell_slot_tables(blocks, cfg: EngineConfig, devices) -> list:
             for s, dev in zip(local_shards(cfg.n_devices), devices)]
 
 
-@record_function("harmony::cluster")
+@span("harmony::cluster")
 def cluster_percell(st: HarmonyState, data: HarmonyData,
                     params: HarmonyParams, cfg: EngineConfig,
                     draw_blocks, one: bool) -> int:
@@ -466,7 +485,7 @@ def cluster_percell(st: HarmonyState, data: HarmonyData,
         tables = percell_slot_tables(draw_blocks(), cfg, devs)
         dists = [2.0 * (1.0 - matmul(Y.to(z.device).T, z, one))  # :447
                  for z in parts(st.Z_cos)]
-        with record_function("harmony::estep"):
+        with span("harmony::estep"):
             st.R, st.E, st.O = update_r(pack(tables), st.R, pack(dists),
                                         data.Phi, st.E, st.O, params, cfg,
                                         data.mask, one)
@@ -494,7 +513,7 @@ def iterate_stored(st: HarmonyState, data: HarmonyData,
     st.n_rounds += 1
     st.n_harmony = append(st.obj_harmony, st.n_harmony,
                           st.obj_kmeans[st.n_kmeans - 1])
-    with record_function("harmony::ridge"):
+    with span("harmony::ridge"):
         st.Z_corr = moe_correct_ridge(data.Z_orig, data.Phi, st.R, st.E,
                                       params, cfg, data.mask, one)
     st.Z_cos = normalize_cells(st.Z_corr)                        # :569

@@ -14,8 +14,13 @@ certificate cannot prove.
 
 compute_lisi computes in float64 on every device, as the reference does;
 the kNN functions work in the dtype of their input, float32 products in
-full float32. Profiler ranges: lisi::build_index, lisi::scan,
-lisi::fallback, lisi::brute, lisi::simpson.
+full float32. Profiler ranges (utils/profiling.span): lisi::build_index,
+lisi::scan, lisi::fallback, lisi::brute, lisi::simpson, and one
+sync::lisi_<site> range around each statement at which the host waits for
+the card: sync::lisi_index and sync::lisi_scan (the index's sizes, each
+scan batch's selections), sync::lisi_probe, sync::lisi_owner
+(ops/knn_pruned.py), sync::lisi_fallback, sync::lisi_upload and
+sync::lisi_result (here).
 
 On a device mesh (JAX package lisi.py:207-270, ops/knn_pruned.py:337-480)
 the brute force splits the queries over the shards, each against the whole
@@ -37,11 +42,11 @@ from typing import Iterable
 import numpy as np
 import pandas as pd
 import torch
-from torch.profiler import record_function
 
 from .ops.knn_pruned import (_DEFAULT_VISIT, default_n_clusters,
                              full_precision_matmul, mesh_index, pruned_knn)
 from .parallel.mesh import all_gather_packed
+from .utils.profiling import span
 
 _KNN_TILE = 131_072  # reference-set tile (memory cap ~ chunk x tile values)
 _KNN_BATCH = 65_536  # queries per host batch
@@ -174,7 +179,7 @@ def _knn_batched(Q, X, n_neighbors: int, chunk: int = _KNN_CHUNK, qid=None,
         a = min(s * n + lo, M)
         return a, max(0, min(s * n + lo + w, (s + 1) * n, M) - a)
 
-    with full_precision_matmul(), record_function("lisi::brute"):
+    with full_precision_matmul(), span("lisi::brute"):
         refs = {}
         for lo in range(0, n, _KNN_BATCH):
             w = min(_KNN_BATCH, n - lo)
@@ -226,14 +231,14 @@ def _knn_pruned(X, n_neighbors: int, qid, visit: int | None = None,
     fallback run on its shards; across processes rank 0 builds the index
     and broadcasts it, so every rank prunes with the same bits."""
     visit = _DEFAULT_VISIT if visit is None else visit
-    with record_function("lisi::build_index"):
+    with span("lisi::build_index"):
         index = mesh_index(X, default_n_clusters(X.shape[0],
                                                  n_neighbors + 1), mesh)
     V = min(visit, index.starts.shape[0])
     if (V * index.p_max * index.p_max * 4 > _SLAB_CAP_BYTES
             or n_neighbors + 1 > V * index.p_max):
         return None
-    with record_function("lisi::scan"):
+    with span("lisi::scan"):
         res = pruned_knn(X, n_neighbors, visit=visit, index=index,
                          stats=stats, mesh=mesh)
     if res is None:                                   # probe bail
@@ -248,8 +253,9 @@ def _fallback(X, dist, idx, cert, n_neighbors: int, stats=None, mesh=None):
     query count padded to a power-of-two bucket (at least 256). Across
     processes `cert` is the gathered certificate, the same on every rank,
     so every rank re-answers the same rows."""
-    with record_function("lisi::fallback"):
-        fail = torch.nonzero(~cert).flatten()
+    with span("lisi::fallback"):
+        with span("sync::lisi_fallback"):
+            fail = torch.nonzero(~cert).flatten()
         n = int(fail.numel())
         if stats is not None:
             stats.update(cert_rate=1.0 - n / X.shape[0], n_fallback=n)
@@ -315,7 +321,7 @@ def _simpson_label(dist, idx, codes, n_categories: int, perplexity: float,
                    tol: float = 1e-5):
     """Simpson index of every query for one label column: codes (N,) label
     code of every cell, on the device of dist."""
-    with record_function("lisi::simpson"):
+    with span("lisi::simpson"):
         return _simpson(dist, codes[idx], n_categories,
                         float(np.log(perplexity)), tol)
 
@@ -388,7 +394,8 @@ def compute_lisi(
     else:
         mesh = resolve_mesh(mesh, device)
         X = np.asarray(X.values if hasattr(X, "values") else X)
-        Xd = torch.tensor(X, dtype=torch.float64, device=mesh.lead)
+        with span("sync::lisi_upload"):
+            Xd = torch.tensor(X, dtype=torch.float64, device=mesh.lead)
     dev = Xd.device
     n_cells = metadata.shape[0]
     label_colnames = list(label_colnames)
@@ -421,11 +428,13 @@ def compute_lisi(
     lisi_df = np.zeros((dist.shape[0], len(label_colnames)))
     for i, label in enumerate(label_colnames):
         labels = pd.Categorical(metadata[label])
-        codes = torch.as_tensor(np.asarray(labels.codes, np.int64),
-                                device=dev)
+        with span("sync::lisi_upload"):
+            codes = torch.as_tensor(np.asarray(labels.codes, np.int64),
+                                    device=dev)
         simpson = _simpson_label(dist, idx, codes, len(labels.categories),
                                  perplexity)
-        lisi_df[:, i] = 1 / simpson.cpu().numpy()
+        with span("sync::lisi_result"):
+            lisi_df[:, i] = 1 / simpson.cpu().numpy()
     if query_idx is not None:
         return lisi_df, query_idx
     return lisi_df

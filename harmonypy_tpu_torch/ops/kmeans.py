@@ -25,6 +25,7 @@ import torch
 
 from ..config import EngineConfig
 from ..parallel.sharding import gather_cols, parts
+from ..utils.profiling import span
 from .products import matmul
 
 
@@ -61,8 +62,10 @@ def _greedy(X, w, centers, d2, gen, cfg: EngineConfig, one: bool):
         nd2 = torch.minimum(d2[None, :], torch.clamp_min(cand, 0.0))
         pots = torch.sum(nd2 if w is None else nd2 * w[None, :], dim=1)
         best = torch.argmin(pots)
-        centers[:, t] = C[:, best]
-        d2 = nd2[best]
+        with span("sync::kmeans_seed"):
+            centers[:, t] = C[:, best]
+        with span("sync::kmeans_seed"):
+            d2 = nd2[best]
     return centers
 
 
@@ -73,7 +76,8 @@ def _first(X, w, gen, cfg: EngineConfig, one: bool):
     score = _gumbel(gen, (S,))
     if w is not None:
         score = _safe_log(w) + score
-    c0 = X[:, torch.argmax(score)]
+    with span("sync::kmeans_seed"):
+        c0 = X[:, torch.argmax(score)]
     centers = torch.zeros((d, cfg.K), dtype=X.dtype, device=X.device)
     centers[:, 0] = c0
     d2 = torch.clamp_min(_sq_norms(X) + torch.sum(c0 ** 2)
@@ -100,7 +104,8 @@ def kmeansbb_seed(gen, X, cfg: EngineConfig, one: bool):
             _sq_norms(C)[:, None] + xsq[None, :] - 2.0 * matmul(C.T, X, one),
             0.0)
 
-    c0 = X[:, torch.argmax(_gumbel(gen, (S,)))][:, None]
+    with span("sync::kmeans_seed"):
+        c0 = X[:, torch.argmax(_gumbel(gen, (S,)))][:, None]
     cands = [c0]
     d2 = cand_d2(c0)[0]
     for _ in range(cfg.kmeansbb_rounds):
@@ -114,7 +119,8 @@ def kmeansbb_seed(gen, X, cfg: EngineConfig, one: bool):
     # Candidate weights: nearest-candidate counts over the sample.
     nearest = torch.argmin(_sq_norms(C)[:, None] - 2.0 * matmul(C.T, X, one),
                            dim=0)
-    w = torch.bincount(nearest, minlength=C.shape[1]).to(X.dtype)
+    with span("sync::kmeans_seed"):
+        w = torch.bincount(nearest, minlength=C.shape[1]).to(X.dtype)
     centers, cd2 = _first(C, w, gen, cfg, one)
     return _greedy(C, w, centers, cd2, gen, cfg, one)
 
@@ -138,8 +144,9 @@ def lloyd(centers, X, cfg: EngineConfig, one: bool):
                             sums / torch.clamp_min(counts, 1.0)[None, :], C)
         shift = torch.sum((C_new - C) ** 2)
         C = C_new
-        if bool(shift <= tol):
-            break
+        with span("sync::lloyd"):
+            if bool(shift <= tol):
+                break
     return C
 
 

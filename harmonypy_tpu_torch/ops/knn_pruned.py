@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import all_gather_packed, all_gather_rows, broadcast
+from ..utils.profiling import span
 
 # Certificate slack: distances enter via two different products (query x
 # candidate vs query x centroid), and the absolute error of a squared
@@ -151,7 +152,8 @@ def _build(X, C: int, seed: int, iters: int):
     cent = X[torch.randint(0, N, (C,), generator=gen, device=X.device)]
     for _ in range(iters):
         a, _ = _assign(X, sq, cent)
-        cnt = torch.bincount(a, minlength=C).to(X.dtype)
+        with span("sync::lisi_index"):
+            cnt = torch.bincount(a, minlength=C).to(X.dtype)
         tot = _cluster_sums(X, a, C)
         cent = torch.where(cnt[:, None] > 0,
                            tot / torch.clamp_min(cnt[:, None], 1), cent)
@@ -160,7 +162,8 @@ def _build(X, C: int, seed: int, iters: int):
     radii = torch.zeros((C,), dtype=X.dtype, device=X.device).scatter_reduce(
         0, a, dist, reduce="amax")
     radii = radii * (1.0 + 1e-6) + 1e-6          # absorb assignment rounding
-    counts = torch.bincount(a, minlength=C)
+    with span("sync::lisi_index"):
+        counts = torch.bincount(a, minlength=C)
     starts = torch.cumsum(counts, 0) - counts
     perm = torch.sort(a, stable=True).indices    # stable cluster-major layout
     return X[perm], sq[perm], perm, starts, counts, cent, radii, scale
@@ -219,7 +222,8 @@ def _balance_split_host(Xs, sqs, perm, counts, cent, radii, cap: int):
 def _padded_index(Xs, sqs, perm, starts, counts, cent, radii, scale):
     """PrunedIndex with P_max pad rows, so every window [start, start +
     P_max) is in bounds."""
-    p_max = int(torch.max(counts))
+    with span("sync::lisi_index"):
+        p_max = int(torch.max(counts))
     d = Xs.shape[1]
     Xs = torch.cat([Xs, torch.zeros((p_max, d), dtype=Xs.dtype,
                                     device=Xs.device)])
@@ -242,14 +246,16 @@ def build_index(X: torch.Tensor, n_clusters: int | None = None,
     with full_precision_matmul():
         parts = _build(X, C, seed, _LLOYD_ITERS)
     Xs, sqs, perm, starts, counts, cent, radii, scale = parts
-    counts_h = counts.cpu().numpy()
+    with span("sync::lisi_index"):
+        counts_h = counts.cpu().numpy()
     cap = max(_BALANCE_MIN_CAP, int(np.ceil(_BALANCE_FACTOR * N / C)))
     if balance and int(counts_h.max()) > cap:
-        host = [t.cpu().numpy() for t in (Xs, sqs, perm)]
-        split = _balance_split_host(*host, counts_h, cent.cpu().numpy(),
-                                    radii.cpu().numpy(), cap)
-        Xs, sqs, perm, starts, counts, cent, radii = (
-            torch.as_tensor(a, device=X.device) for a in split)
+        with span("sync::lisi_index"):
+            host = [t.cpu().numpy() for t in (Xs, sqs, perm, cent, radii)]
+        split = _balance_split_host(*host[:3], counts_h, *host[3:], cap)
+        with span("sync::lisi_index"):
+            Xs, sqs, perm, starts, counts, cent, radii = (
+                torch.as_tensor(a, device=X.device) for a in split)
     return _padded_index(Xs, sqs, perm, starts, counts, cent, radii, scale)
 
 
@@ -299,8 +305,9 @@ def _merge_by_owner(out, index: PrunedIndex, owner_rank, mesh) -> None:
     row_owner = torch.repeat_interleave(owner_rank.to(index.counts.device),
                                         index.counts)             # (N,)
     rank = mesh.process
-    rows = [torch.nonzero(row_owner == r).squeeze(1)
-            for r in range(mesh.n_processes)]
+    with span("sync::lisi_owner"):
+        rows = [torch.nonzero(row_owner == r).squeeze(1)
+                for r in range(mesh.n_processes)]
     width = max(1, max(int(r.numel()) for r in rows))
     dev = out[0].device
     send = []
@@ -384,13 +391,17 @@ def _scan_clusters(index: PrunedIndex, cids, nbrs, k: int, out):
     cert = row_valid & enough[:, None] & (
         lb_min > d_k + _CERT_TOL * (index.scale + d_k))
 
-    at = rows[row_valid]          # each row belongs to one cluster: unique
+    with span("sync::lisi_scan"):
+        at = rows[row_valid]      # each row belongs to one cluster: unique
     dist_o, idx_o, cert_o = out
     dev_o = dist_o.device
     at = at.to(dev_o)
-    dist_o[at] = kdist[row_valid].to(dev_o)
-    idx_o[at] = kidx[row_valid].to(dev_o)
-    cert_o[at] = cert[row_valid].to(dev_o)
+    with span("sync::lisi_scan"):
+        dist_o[at] = kdist[row_valid].to(dev_o)
+    with span("sync::lisi_scan"):
+        idx_o[at] = kidx[row_valid].to(dev_o)
+    with span("sync::lisi_scan"):
+        cert_o[at] = cert[row_valid].to(dev_o)
 
 
 def index_to(index: PrunedIndex, device) -> PrunedIndex:
@@ -477,8 +488,10 @@ def pruned_knn(X: torch.Tensor, n_neighbors: int,
                 n_cert = torch.sum(out[2])
                 if multi:      # every rank's rows: one branch on every rank
                     n_cert = torch.sum(all_gather_rows(n_cert[None]))
-                n_cert = float(n_cert)
-                n_probe = float(torch.sum(index.counts[:cb]))
+                with span("sync::lisi_probe"):
+                    n_cert = float(n_cert)
+                with span("sync::lisi_probe"):
+                    n_probe = float(torch.sum(index.counts[:cb]))
                 if n_probe > 0 and n_cert / n_probe < probe_min_cert:
                     return None
         if multi:

@@ -36,6 +36,7 @@ import torch
 
 from ..config import EngineConfig, cdiv, cell_tile_geom, round_up
 from ..parallel.mesh import all_gather_rows, local_shards, spans_processes
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +151,13 @@ def global_slot_table(blocks, ranks, geom: PartitionGeometry) -> torch.Tensor:
     return tbl
 
 
+def _selected(x, keep):
+    """x[keep] for a boolean keep: its length is read back from the card,
+    a host wait of its own (sync::tables)."""
+    with span("sync::tables"):
+        return x[keep]
+
+
 def group_by_block(my_blocks, nb: int, width: int, fill: int,
                    extra=None, extra_fill: int = 0):
     """Group item ids by block: (n,) block ids (sentinel == nb) -> (nb, width)
@@ -160,16 +168,18 @@ def group_by_block(my_blocks, nb: int, width: int, fill: int,
     n = my_blocks.shape[0]
     order = torch.argsort(my_blocks, stable=True)
     sb = my_blocks[order]
-    cnt = torch.bincount(my_blocks, minlength=nb + 1)
+    with span("sync::tables"):      # on a card it reads its min and max
+        cnt = torch.bincount(my_blocks, minlength=nb + 1)
     offs = torch.cumsum(cnt, dim=0) - cnt
     pos = torch.arange(n, device=dev) - offs[sb]
     keep = (sb < nb) & (pos < width)
     slots = torch.full((nb, width), fill, dtype=torch.int64, device=dev)
-    slots[sb[keep], pos[keep]] = order[keep]
+    slots[_selected(sb, keep), _selected(pos, keep)] = _selected(order, keep)
     if extra is None:
         return slots
     ex = torch.full((nb, width), extra_fill, dtype=torch.int64, device=dev)
-    ex[sb[keep], pos[keep]] = extra[order][keep]
+    ex[_selected(sb, keep), _selected(pos, keep)] = _selected(extra[order],
+                                                              keep)
     return slots, ex
 
 

@@ -32,6 +32,7 @@ from ..parallel.sharding import (cells_window, holds_window, one_device,
                                  pack, parts, put_cells, put_window,
                                  window_of)
 from ..state import HarmonyParams
+from ..utils.profiling import span
 from .objective import shard_sum
 from .partition import frame_sum, partition_geometry
 from .products import einsum
@@ -83,7 +84,8 @@ def solve_w(S, E, params: HarmonyParams, cfg: EngineConfig) -> torch.Tensor:
     else:
         lamb_k = params.lamb[None, :].expand(K, B1)
     cov = cov + torch.diag_embed(lamb_k)
-    L = torch.linalg.cholesky(cov)                              # (K, B1, B1)
+    with span("sync::cholesky"):    # the factorization's status is read
+        L = torch.linalg.cholesky(cov)                          # (K, B1, B1)
     W = torch.cholesky_solve(rhs, L)                            # (K, B1, d)
     W[:, 0, :] = 0.0                                            # keep intercept
     return W

@@ -42,6 +42,7 @@ import torch
 
 from ..config import EngineConfig
 from ..state import HarmonyData
+from ..utils.profiling import span
 from .mesh import all_gather_cat, all_gather_rows, local_shards, \
     spans_processes
 
@@ -108,7 +109,8 @@ def split_cells(t: torch.Tensor, cfg: EngineConfig, mesh, axis: int = -1):
 def cat_cells(x, axis: int = -1) -> torch.Tensor:
     """The shards of a sharded quantity held by this process, concatenated
     on the CPU (the global padded array in one process)."""
-    return torch.cat([p.detach().cpu() for p in parts(x)], dim=axis)
+    with span("sync::readback"):
+        return torch.cat([p.detach().cpu() for p in parts(x)], dim=axis)
 
 
 def gather_cells(x, cfg: EngineConfig, axis: int = -1) -> torch.Tensor:
@@ -148,8 +150,9 @@ def shard_local_inputs(Z: np.ndarray, Phi: np.ndarray, cfg: EngineConfig,
 
     def up(a):
         a = torch.as_tensor(a)
-        return pack(a[..., i * Nl: (i + 1) * Nl].to(dev).contiguous()
-                    for i, dev in enumerate(mesh.devices))
+        with span("sync::upload"):
+            return pack(a[..., i * Nl: (i + 1) * Nl].to(dev).contiguous()
+                        for i, dev in enumerate(mesh.devices))
     return HarmonyData(Z_orig=up(pad_cells(Z, cfg, ids)),
                        Phi=up(pad_cells(Phi, cfg, ids)), mask=up(mask))
 

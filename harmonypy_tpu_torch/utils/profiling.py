@@ -1,5 +1,8 @@
 """Profiling and tracing helpers (JAX package utils/profiling.py).
 
+  span(name)        the port's profiler range: a torch.profiler
+                    record_function while a profiler records, else a
+                    shared no-op; a `with` block or a decorator.
   trace(dir)        context manager around torch.profiler.profile: writes a
                     TensorBoard-readable trace of everything inside (CPU
                     activity, and the card's kernels when there is one).
@@ -17,14 +20,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 
 import torch
+from torch.profiler import record_function
 
-from ..ops.partition import partition_geometry
 from ..ops.products import runs_one_pass
-from ..parallel.sharding import one_device
 
 # H100 SXM published peaks (NVIDIA H100 datasheet, dense): fp32 on the CUDA
 # cores, TF32 and bf16 on the tensor cores, HBM3 bandwidth.
@@ -32,6 +35,60 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+
+_recording = torch._C._autograd._profiler_enabled
+
+
+def _spanned(name: str, fn):
+    """fn with span(name) opened around each call."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+    return call
+
+
+class _Idle:
+    """span(name) while no profiler records: enters nothing. One per name,
+    shared."""
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return _spanned(self.name, fn)
+
+
+class _Range(record_function):
+    """span(name) while a profiler records."""
+
+    def __call__(self, fn):
+        return _spanned(self.name, fn)
+
+
+_IDLE: dict = {}
+
+
+def span(name: str):
+    """The profiler range `name` (a torch.profiler.record_function) while
+    a profiler records; otherwise a shared no-op context, so the range
+    costs one flag check (a record_function entered and left with no
+    profiler costs microseconds). Use `with span(name):`, or `@span(name)`
+    on a function: the decorator decides at each call, whatever recorded
+    when it was applied."""
+    if _recording():
+        return _Range(name)
+    idle = _IDLE.get(name)
+    if idle is None:
+        idle = _IDLE[name] = _Idle(name)
+    return idle
 
 
 @contextlib.contextmanager
@@ -150,6 +207,10 @@ def round_bound(cfg, r_bytes: int = 0, one_pass: bool = False) -> dict:
     """estep_bound of one round of cfg's fit on one device: every real
     cell once, one row per chunk of the one-device geometry (the dummy
     chunk included); one_pass: the one-pass variant's."""
+    # Imported here: ops/partition.py and parallel/sharding.py import span
+    # from this module.
+    from ..ops.partition import partition_geometry
+    from ..parallel.sharding import one_device
     geom = partition_geometry(one_device(cfg))
     return estep_bound(cfg.N, geom.nc_cap + 1, cfg.d, cfg.K, cfg.B, geom.CH,
                        r_bytes, one_pass)
