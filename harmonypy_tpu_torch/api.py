@@ -27,8 +27,9 @@ gives it.
 Profiler ranges (utils/profiling.span) split a call's host work:
 api::design (run_harmony's layout, one-hot and broadcasting, then
 Harmony's configuration and preflight: two ranges a run_harmony call),
-api::upload (padding and the host-to-device copies) and api::readback
-(the cells-first properties' copies back to the host).
+api::upload (the host-to-device copies, and inside it api::layout: the
+padded embedding, one-hot design and mask built on the device) and
+api::readback (the cells-first properties' copies back to the host).
 """
 
 from __future__ import annotations
@@ -48,8 +49,9 @@ from .ops.partition import mesh_round_tables, partition_geometry
 from .ops.replay import round_r_windows, windows
 from .ops.update_r_fused import make_zp3
 from .parallel.mesh import local_shards, resolve_mesh
-from .parallel.sharding import (gather_cells, one_device, parts,
-                                shard_inputs, unpad_cells, window_rows)
+from .parallel.sharding import (OneHotCodes, gather_cells, one_device,
+                                parts, shard_inputs, unpad_cells,
+                                window_rows)
 from .state import HarmonyData, HarmonyParams, HarmonyState
 from .utils.checkpoint import load_state, state_to, validate_state
 from .utils.logging import logger
@@ -143,12 +145,15 @@ def run_harmony(
         if isinstance(vars_use, str):
             vars_use = [vars_use]
 
-        # One-hot design (reference harmony.py:133-134); phi_n counts declared
+        # One-hot design (reference harmony.py:133-134), held as its
+        # category codes and built on the device; phi_n counts declared
         # categories, as pd.get_dummies emits a column for each.
         cats = meta_data[vars_use].astype("category")
-        phi = pd.get_dummies(cats).to_numpy().T.astype(np.float32)
         phi_n = np.asarray([len(cats[c].cat.categories) for c in cats.columns],
                            dtype=int)
+        phi = OneHotCodes(np.stack([cats[c].cat.codes.to_numpy()
+                                    for c in cats.columns]),
+                          tuple(int(n) for n in phi_n))
 
         # Theta broadcasting (reference harmony.py:136-147).
         if theta is None:
@@ -193,7 +198,7 @@ def run_harmony(
                 "system singular")
 
         # Batch proportions + tau discount (reference harmony.py:169-173).
-        N_b = phi.sum(axis=1)
+        N_b = phi.counts()
         Pr_b = (N_b / N).astype(np.float32)
         if tau > 0:
             theta = theta * (1 - np.exp(-(N_b / (nclust * tau)) ** 2))
@@ -237,7 +242,8 @@ def run_harmony(
 class Harmony:
     """Eagerly fitted Harmony result (reference class Harmony,
     harmony.py:218-355): the constructor runs the fit; results are read
-    through NumPy-returning, cells-first properties."""
+    through NumPy-returning, cells-first properties. Z is (d, N); Phi the
+    (B, N) one-hot design, or run_harmony's OneHotCodes of it."""
 
     def __init__(self, Z, Phi, Pr_b, sigma, theta, lamb, alpha,
                  lambda_estimation, max_iter_harmony, max_iter_kmeans,
@@ -248,13 +254,16 @@ class Harmony:
                  fast_objective=False, _init_Y=None, _blocks_fn=None):
         with span("api::design"):
             Z = np.asarray(Z, dtype=np.float32)
-            Phi = np.asarray(Phi, dtype=np.float32)
-            self.N, self.d, self.B = Z.shape[1], Z.shape[0], Phi.shape[0]
             # Exactly-one-hot columns (one covariate) allow the log-free
             # entropy partials under fast_objective.
-            single_onehot = bool(
-                Phi.size and np.all(Phi.sum(axis=0) == 1.0)
-                and np.all((Phi != 0).sum(axis=0) == 1))
+            if isinstance(Phi, OneHotCodes):
+                single_onehot = Phi.single_onehot()
+            else:
+                Phi = np.asarray(Phi, dtype=np.float32)
+                single_onehot = bool(
+                    Phi.size and np.all(Phi.sum(axis=0) == 1.0)
+                    and np.all((Phi != 0).sum(axis=0) == 1))
+            self.N, self.d, self.B = Z.shape[1], Z.shape[0], Phi.shape[0]
             self.n_covariates = 1 if single_onehot else 2
             self.K = K
             self.window_size = 3

@@ -36,6 +36,7 @@ put_window slice, and cells_window copies the window like a shard's.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -131,30 +132,120 @@ def cell_range(cfg: EngineConfig, mesh) -> tuple[int, int]:
     return min(ids[0] * q, cfg.N), min((ids[-1] + 1) * q, cfg.N)
 
 
-def shard_inputs(Z: np.ndarray, Phi: np.ndarray, cfg: EngineConfig,
-                 mesh) -> HarmonyData:
-    """Upload (d, N) Z and (B, N) Phi, padded per shard, each of this
-    process's shards to its device."""
+@dataclasses.dataclass(frozen=True)
+class OneHotCodes:
+    """A one-hot design (B, N) held as its covariates' category codes:
+    codes (V, N) integers, -1 where a cell's value is missing; covariate
+    v's rows start at sum(n_cats[:v]). Row r of the design is 1.0 where
+    the cell's code of r's covariate picks r, as pd.get_dummies lays out
+    the categorical columns (a missing value leaves the column zero)."""
+
+    codes: np.ndarray
+    n_cats: tuple
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return sum(self.n_cats), self.codes.shape[1]
+
+    def cells(self, lo: int, hi: int) -> "OneHotCodes":
+        return OneHotCodes(self.codes[:, lo:hi], self.n_cats)
+
+    def counts(self) -> np.ndarray:
+        """(B,) float32 cells per row, the design's row sums."""
+        return np.concatenate([
+            np.bincount(c[c >= 0], minlength=n) for c, n in
+            zip(self.codes, self.n_cats)]).astype(np.float32)
+
+    def single_onehot(self) -> bool:
+        """Whether every column holds exactly one 1.0."""
+        return bool(self.codes.shape[1] and np.all(
+            np.sum(self.codes >= 0, axis=0) == 1))
+
+
+def shard_inputs(Z: np.ndarray, Phi, cfg: EngineConfig, mesh) -> HarmonyData:
+    """Upload (d, N) Z and the (B, N) design Phi (an array or OneHotCodes),
+    padded per shard, each of this process's shards to its device."""
     lo, hi = cell_range(cfg, mesh)
-    return shard_local_inputs(np.asarray(Z)[:, lo:hi],
-                              np.asarray(Phi)[:, lo:hi], cfg, mesh)
+    Phi = (Phi.cells(lo, hi) if isinstance(Phi, OneHotCodes)
+           else np.asarray(Phi)[:, lo:hi])
+    return shard_local_inputs(np.asarray(Z)[:, lo:hi], Phi, cfg, mesh)
 
 
-def shard_local_inputs(Z: np.ndarray, Phi: np.ndarray, cfg: EngineConfig,
+def shard_local_inputs(Z: np.ndarray, Phi, cfg: EngineConfig,
                        mesh) -> HarmonyData:
     """shard_inputs from this process's cells alone: Z (d, n) and Phi (B,
     n) the cells of cell_range(cfg, mesh), so a process reads and uploads
-    only its range (JAX package io/loader.py:218-247)."""
-    ids, Nl = mesh.shard_ids, cfg.N_local
-    mask = shard_mask(cfg)[ids[0] * Nl: (ids[-1] + 1) * Nl]
+    only its range (JAX package io/loader.py:218-247).
 
-    def up(a):
-        a = torch.as_tensor(a)
-        with span("sync::upload"):
-            return pack(a[..., i * Nl: (i + 1) * Nl].to(dev).contiguous()
-                        for i, dev in enumerate(mesh.devices))
-    return HarmonyData(Z_orig=up(pad_cells(Z, cfg, ids)),
-                       Phi=up(pad_cells(Phi, cfg, ids)), mask=up(mask))
+    Each shard's cells cross to its device as the caller holds them, and
+    the padded layout is built there (api::layout): an array whose
+    transpose is C-contiguous (cells first, as run_harmony's transposed
+    (N, d) embedding) goes as the shard's (n, x) rows and is transposed
+    on the device; any other array goes as its (x, n) columns. A
+    OneHotCodes design goes as its codes, and the ones are scattered on
+    the device. The values are copies, so every tensor is bitwise
+    pad_cells' and shard_mask's."""
+    ids, q, Nl = mesh.shard_ids, cfg.N_shard_real, cfg.N_local
+    base = ids[0] * q
+    Z = np.asarray(Z, dtype=np.float32)
+    coded = isinstance(Phi, OneHotCodes)
+    if not coded:
+        Phi = np.asarray(Phi, dtype=np.float32)
+    Zs, Phis, masks = [], [], []
+    for s, dev in zip(ids, mesh.devices):
+        lo = min(s * q, cfg.N) - base
+        n = min((s + 1) * q, cfg.N) - base - lo
+        Zs.append(_padded(Z, lo, n, Nl, dev))
+        Phis.append(_one_hot(Phi, lo, n, Nl, dev) if coded
+                    else _padded(Phi, lo, n, Nl, dev))
+        with span("api::layout"):
+            masks.append((torch.arange(Nl, device=dev) < n).to(
+                torch.float32))
+    return HarmonyData(Z_orig=pack(Zs), Phi=pack(Phis), mask=pack(masks))
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """a as a CPU tensor sharing its memory (read only here: a read-only
+    array's warning says nothing)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(a)
+
+
+def _padded(a: np.ndarray, lo: int, n: int, Nl: int, dev) -> torch.Tensor:
+    """Columns [lo, lo + n) of the float32 (x, n_all) array a, as (x, Nl)
+    on dev, zero past n: uploaded in a's own layout, laid out there."""
+    rows = a.T.flags.c_contiguous and not a.flags.c_contiguous
+    with span("sync::upload"):
+        raw = _host_tensor(a.T[lo: lo + n] if rows else
+                           np.ascontiguousarray(a[:, lo: lo + n])).to(dev)
+    with span("api::layout"):
+        out = torch.empty((a.shape[0], Nl), dtype=torch.float32, device=dev)
+        out[:, :n] = raw.T if rows else raw
+        out[:, n:] = 0.0
+    return out
+
+
+def _one_hot(design: OneHotCodes, lo: int, n: int, Nl: int,
+             dev) -> torch.Tensor:
+    """Cells [lo, lo + n) of a OneHotCodes design, as its (B, Nl) float32
+    one-hot on dev, zero past n: the codes uploaded, the ones scattered.
+    A missing code writes 0.0 into its covariate's first row, which no
+    other write of that cell touches."""
+    with span("sync::upload"):
+        codes = _host_tensor(np.ascontiguousarray(
+            design.codes[:, lo: lo + n])).to(dev)
+    with span("api::layout"):
+        out = torch.zeros(design.shape[0], Nl, dtype=torch.float32,
+                          device=dev)
+        flat, cols = out.view(-1), torch.arange(n, device=dev)
+        row0 = 0
+        for c, m in zip(codes.long(), design.n_cats):
+            if m:
+                flat.scatter_(0, (c.clamp(min=0) + row0) * Nl + cols,
+                              (c >= 0).to(torch.float32))
+            row0 += m
+    return out
 
 
 def one_device(cfg: EngineConfig) -> EngineConfig:

@@ -74,8 +74,13 @@ def test_api_ranges_split_the_call(traced):
                           if k.startswith("harmony::")])
     assert r["api::design"][-1, 1] <= r["api::upload"][0, 0] <= fit.min()
     assert fit.max() <= r["api::readback"][0, 0]
-    assert r["sync::upload"].shape[0] == 7     # 4 parameters, Z, Phi, mask
+    # 4 parameters, Z and the design's codes: the mask is made on the device.
+    assert r["sync::upload"].shape[0] == 6
     assert _inside(r["sync::upload"], r["api::upload"]).all()
+    # Z's, Phi's and the mask's layout on the device, each after its copy.
+    assert r["api::layout"].shape[0] == 3
+    assert _inside(r["api::layout"], r["api::upload"]).all()
+    assert not _inside(r["api::layout"], r["sync::upload"]).any()
     assert _inside(r["sync::readback"], r["api::readback"]).all()
 
 
