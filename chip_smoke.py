@@ -814,24 +814,56 @@ SHAPES = [(6_000, 5, 7, 1, 128), (6_000, 30, 100, 3, 128),
           (45_000, 5, 200, 1, 2048), (45_000, 50, 7, 3, 2048),
           (6_000, 5, 100, 5, 128), (45_000, 50, 200, 5, 2048),
           (6_000, 30, 280, 3, 128)]
+# Wide designs at the atlas widths d = 50, K = 100: B = 49 (O, E, wdiv and
+# S in shared memory under "default", the wide plan under "float32"), 64,
+# 128 and 486 (the HLCA's individuals) in the wide plan under both
+# (csrc/fused_estep.cuh layout_wide). The last has units enough for every
+# CTA of the wide plan's grid (192 at 132 SMs), each with its own scratch
+# slab, as an atlas-sized round launches.
+WIDE_SHAPES = [(45_000, 50, 100, 49, 2048), (45_000, 50, 100, 64, 2048),
+               (45_000, 50, 100, 128, 2048), (45_000, 50, 100, 486, 2048),
+               (200_000, 50, 100, 486, 2048)]
 
 
-def phase_shapes(ht_mods):
+def block_refused(fe, args, fast, prec) -> str:
+    """The per-block entry at a shape only the wide plan takes: it raises
+    ValueError (it has no wide plan); returns the message."""
+    import torch
+    slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E = args
+    nc1, _, CH = ZP3.shape
+    d, Kc = Y.shape
+    B = theta.shape[0]
+    out = (torch.zeros((nc1, Kc, B + 1), device="cuda"),
+           torch.zeros((nc1, Kc, d), device="cuda"),
+           torch.zeros((nc1, 2), device="cuda"))
+    try:
+        block_launch(fe, 0, *args, fast, out, slots.shape[1], precision=prec)
+    except ValueError as e:
+        return str(e)
+    check(False, f"the per-block entry ran at K={Kc}, B={B}, d={d}, "
+                 f"{prec}, which only the wide plan takes")
+
+
+def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
     """K1 (round and r window), K2 fp32 and K2 bf16 against their plain
     versions and each other at small N and odd shapes, both objective
     forms and both precisions, with the checks of phases kernel and
     kernel2; the per-block entry under each tail the shape takes
-    (block_shape_checks)."""
+    (block_shape_checks), or its ValueError where the shape takes the wide
+    plan. Each shape's shared memory against the card's limit, and the
+    wide plan's where it takes that."""
     import torch
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     out = []
-    for i, (N, d, Kc, B, CH) in enumerate(SHAPES):
+    for i, (N, d, Kc, B, CH) in enumerate(shapes):
         X, batches, _ = synthetic(seed=i + 1, N=N, d=d, B=B)
         geom, args = round_inputs(ht_mods, X, batches, n_clusters=Kc,
                                   chunk=CH)
         nc = geom.nc_cap
         lo, width = nc // 3, max(1, min(5, nc - nc // 3))
-        worst, flips = {}, 0
+        worst, flips, refused = {}, 0, None
+        wide = {p: fe.wide_plan(Kc, B, d, p == "default") for p in PRECISIONS}
+        wide0 = fe.launches_wide
         for prec in PRECISIONS:
             w = 0.0
             for fast in (False, True):
@@ -843,8 +875,12 @@ def phase_shapes(ht_mods):
                 k1w = fe.fused_estep(*args, fast, lo=lo, width=width,
                                      precision=prec)[5]
                 w = max(w, *(e[2] for e in errs.values()))
-                ng, tails, wb = block_shape_checks(fe, plain_mod, args, fast,
-                                                   prec, rnd, k1r)
+                if wide[prec]:
+                    ng, tails, wb = None, [], 0.0
+                    refused = block_refused(fe, args, fast, prec)
+                else:
+                    ng, tails, wb = block_shape_checks(
+                        fe, plain_mod, args, fast, prec, rnd, k1r)
                 w = max(w, wb)
                 for dt in (torch.float32, torch.bfloat16):
                     e2 = check_k2(fe, plain_mod, args, fast, dt, rnd, k1r,
@@ -857,9 +893,28 @@ def phase_shapes(ht_mods):
                         smem_bytes={p: fe._kernel_lib(
                             p == "default").fused_estep_smem(Kc, B, d)
                             for p in PRECISIONS},
+                        smem_limit=fe._kernel_lib(False)
+                        .fused_estep_smem_limit(),
+                        wide_plan=wide,
+                        wide_smem_bytes={p: fe._kernel_lib(
+                            p == "default").fused_estep_smem_wide(Kc, B, d)
+                            for p in PRECISIONS if wide[p]},
+                        wide_scratch_floats_per_cta={p: fe._kernel_lib(
+                            p == "default").fused_estep_wide_floats(Kc, B, d)
+                            for p in PRECISIONS if wide[p]},
+                        launches_wide=fe.launches_wide - wide0,
+                        units=fe.kernel_geometry(
+                            Kc, B, d, CH, args[0].shape[1],
+                            fe._sm_count(0)).n_units,
+                        wide_ctas=(fe.wide_ctas if any(wide.values())
+                                   else None),
                         worst_tolerance_ratio=worst,
                         one_pass_bf16_r_flips=flips,
-                        block=dict(units_per_slot=ng, tails=tails)))
+                        block=dict(units_per_slot=ng, tails=tails,
+                                   refused=refused)))
+        check(any(wide.values()) == (fe.launches_wide > wide0),
+              f"wide plan {wide} but {fe.launches_wide - wide0} wide "
+              f"launches at K={Kc}, B={B}, d={d}")
         del args
     emit(dict(phase="shapes", tolerance=TOL, one_pass_rho=RHO,
               bf16_r_tolerance="1 bf16 ulp (float32); one pass: r's bound "
@@ -4314,6 +4369,25 @@ def cards_main() -> int:
     return 0
 
 
+def shapes_main(which: str) -> int:
+    """Phase shapes alone (`--shapes all|wide`: every shape, or the wide
+    designs), after building the round's and the per-block libraries."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from harmonypy_tpu_torch import config, engine, layout, state
+    from harmonypy_tpu_torch.ops import partition, update_r_fused
+    from harmonypy_tpu_torch.ops.cuda import build
+    from harmonypy_tpu_torch.ops.cuda import fused_estep as fe
+    build.build_all()
+    emit(dict(phase="ptxas", kernels=ptxas_kernels(build.build_log)))
+    mods = (config, engine, layout, partition, fe, update_r_fused, state)
+    phase_shapes(mods, WIDE_SHAPES if which == "wide"
+                 else SHAPES + WIDE_SHAPES)
+    emit({"ok": True, "device": torch.cuda.get_device_name(0)})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4463,4 +4537,6 @@ if __name__ == "__main__":
         sys.exit(cards_pass(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--cards":
         sys.exit(cards_main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--shapes":
+        sys.exit(shapes_main(sys.argv[2]))
     sys.exit(main())

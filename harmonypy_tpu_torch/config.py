@@ -109,8 +109,13 @@ class EngineConfig:
     use_fused_xla: bool = False
     chunk_size: int = 2048
 
-    # Number of covariates whose one-hot blocks Phi concatenates; with one,
-    # `fast_objective` may use the log-free entropy partials.
+    # Number of covariates whose one-hot blocks Phi concatenates: 1 when
+    # every real cell is in exactly one batch level, else 2 (Harmony and
+    # io/loader.load_sharded_data set it from the design; a configuration
+    # made by hand for another design has to). With 1, `fast_objective`
+    # may use the log-free entropy partials and the ridge takes its
+    # one-hot forms (ops/replay.py); other values keep the dense forms,
+    # which hold for any Phi.
     n_covariates: int = 1
     fast_objective: bool = False
 

@@ -21,11 +21,13 @@
 
 namespace {
 
-// CTAs of estep_round<RT, NRG, PRE> (of this library's variant) that fit on
-// the current device at once, or a negative CUDA error.
-template <typename RT, int NRG, bool PRE>
+// CTAs of estep_round<RT, NRG, PRE> (of this library's variant; WIDE: in
+// the wide plan) that fit on the current device at once, or a negative CUDA
+// error.
+template <typename RT, int NRG, bool PRE, bool WIDE = false>
 int grid_size(size_t smem) {
-  auto* kernel = estep_round<RT, NRG, PRE, false, ESTEP_ONE, ESTEP_TIMED>;
+  auto* kernel =
+      estep_round<RT, NRG, PRE, false, ESTEP_ONE, ESTEP_TIMED, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -40,11 +42,37 @@ int grid_size(size_t smem) {
   return per * nsm;
 }
 
+// The round in the wide plan (layout_wide), for shapes whose plan exceeds
+// shared memory: at most a.wide_ctas CTAs, each with its slab of a.wide.
+// The stamped library has no wide instantiation.
+template <typename RT>
+int run_wide(const Args& a, cudaStream_t stream) {
+#if ESTEP_TIMED
+  return (int)cudaErrorInvalidValue;
+#else
+  const Lay L = layout_wide<ESTEP_ONE>(a.K, a.B, a.d);
+  const size_t smem = sizeof(float) * (size_t)L.total;
+  if (smem > MAX_SMEM || a.wide == nullptr || a.wide_ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  int grid = grid_size<RT, NRG_MAX, false, true>(smem);
+  if (grid < 0) return -grid;
+  if (grid > a.J * a.ng) grid = a.J * a.ng;
+  if (grid > a.wide_ctas) grid = a.wide_ctas;
+  Args arg = a;
+  void* params[] = {&arg};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)estep_round<RT, NRG_MAX, false, false, ESTEP_ONE, false,
+                               true>,
+      dim3(grid), dim3(THREADS), params, smem, stream);
+#endif
+}
+
 template <typename RT>
 int run(const Args& a, cudaStream_t stream) {
   const Lay L = layout<ESTEP_ONE>(a.K, a.B, a.d);
   const size_t smem = sizeof(float) * (size_t)L.total;
-  if (smem > MAX_SMEM || a.sync == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.sync == nullptr) return (int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM) return run_wide<RT>(a, stream);
   return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     constexpr int NRG = decltype(nrg)::value;
     constexpr bool PRE = decltype(pre)::value;
@@ -66,7 +94,16 @@ template <typename RT>
 int grid_of(int K, int B, int d) {
   const Lay L = layout<ESTEP_ONE>(K, B, d);
   const size_t smem = sizeof(float) * (size_t)L.total;
-  if (smem > MAX_SMEM) return -(int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM) {
+#if ESTEP_TIMED
+    return -(int)cudaErrorInvalidValue;
+#else
+    const size_t wide =
+        sizeof(float) * (size_t)layout_wide<ESTEP_ONE>(K, B, d).total;
+    if (wide > MAX_SMEM) return -(int)cudaErrorInvalidValue;
+    return grid_size<RT, NRG_MAX, false, true>(wide);
+#endif
+  }
   return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     return grid_size<RT, decltype(nrg)::value, decltype(pre)::value>(smem);
   });
@@ -76,9 +113,19 @@ int grid_of(int K, int B, int d) {
 
 extern "C" {
 
-// Dynamic shared memory one CTA needs for (K, B, d), in bytes.
+// Dynamic shared memory one CTA needs for (K, B, d), in bytes: of the
+// plan that keeps O, E, wdiv and S in it; where that exceeds
+// fused_estep_smem_limit, the round takes the wide plan, which needs
+// fused_estep_smem_wide and fused_estep_wide_floats of global memory per
+// CTA.
 int fused_estep_smem(int K, int B, int d) {
   return (int)smem_bytes<ESTEP_ONE>(K, B, d);
+}
+int fused_estep_smem_wide(int K, int B, int d) {
+  return (int)(sizeof(float) * (size_t)layout_wide<ESTEP_ONE>(K, B, d).total);
+}
+int fused_estep_wide_floats(int K, int B, int d) {
+  return layout_wide<ESTEP_ONE>(K, B, d).gtotal;
 }
 
 // Whether this library holds the one-pass variant (1) or 3xTF32 (0).
@@ -111,36 +158,47 @@ int fused_estep_round_timed(ESTEP_PTRS, unsigned* sync,
 }
 #else
 // The grid of one round's launch (K1's and K2's instantiation: r_bf16
-// picks), or a negative CUDA error.
+// picks; of the wide plan where the shape takes it), or a negative CUDA
+// error.
 int fused_estep_grid(int K, int B, int d, int r_bf16) {
   return r_bf16 ? grid_of<__nv_bfloat16>(K, B, d) : grid_of<float>(K, B, d);
 }
 
 // One round over nb blocks: one cooperative launch on `stream`. sync: the
 // stream's sync buffer (SY_WORDS words, Args::sync), zero before its first
-// launch; each launch leaves it fit for the next. Returns 0 or the CUDA
-// error of the launch.
-int fused_estep_round(ESTEP_PTRS, unsigned* sync, ESTEP_DIMS) {
+// launch; each launch leaves it fit for the next. wide: where the shape
+// takes the wide plan, wide_ctas x fused_estep_wide_floats floats of
+// scratch (the launch takes at most wide_ctas CTAs); else null. Returns 0
+// or the CUDA error of the launch.
+int fused_estep_round(ESTEP_PTRS, unsigned* sync, float* wide, int wide_ctas,
+                      ESTEP_DIMS) {
   Args a = ESTEP_ARGS(nullptr, 0, 0);
   a.sync = sync;
+  a.wide = wide;
+  a.wide_ctas = wide_ctas;
   return run<float>(a, (cudaStream_t)stream);
 }
 
 // The same round, also writing r of chunks lo..lo+width-1 into rw
 // (width, K, CH).
 int fused_estep_r_window(ESTEP_PTRS, unsigned* sync, float* rw, int lo,
-                         int width, ESTEP_DIMS) {
+                         int width, float* wide, int wide_ctas,
+                         ESTEP_DIMS) {
   Args a = ESTEP_ARGS(rw, lo, width);
   a.sync = sync;
+  a.wide = wide;
+  a.wide_ctas = wide_ctas;
   return run<float>(a, (cudaStream_t)stream);
 }
 
 // K2: the same round, also writing r of every slotted chunk into the
 // chunk-major r3 (nc1, K, CH), as float (r_bf16 == 0) or bf16.
 int fused_estep_write_r(ESTEP_PTRS, unsigned* sync, void* r3, int r_bf16,
-                        ESTEP_DIMS) {
+                        float* wide, int wide_ctas, ESTEP_DIMS) {
   Args a = ESTEP_ARGS(r3, 0, nc1);
   a.sync = sync;
+  a.wide = wide;
+  a.wide_ctas = wide_ctas;
   return r_bf16 ? run<__nv_bfloat16>(a, (cudaStream_t)stream)
                 : run<float>(a, (cudaStream_t)stream);
 }

@@ -236,6 +236,9 @@ struct Args {
                          // reducing CTAs done, CTAs done), then their
                          // values when the last launch ended: the
                          // generation this launch counts from; else null
+  float* wide;           // the wide plan (layout_wide): (wide_ctas, gtotal)
+                         // per-CTA scratch; else null
+  int wide_ctas;
   int* tickets;          // (J) one block alone (per-block mode), else null:
                          // units of each slot done, back to 0 at the end
   float* brows;          // (J, K, B+1) per-block mode: the slots' cache
@@ -259,18 +262,20 @@ struct Lay {
              // pass they are stored once, in bf16 (PRE false)
   int oYh, oYl, oWh, oWl, oSig, oRsig, oOr, oEr, oQ, oRing, oSacc, oCs, oRed,
       total;
+  // The wide plan (layout_wide): oWh, oWl, oOr, oEr and oSacc are offsets
+  // into the CTA's gtotal floats of global memory, not shared memory.
+  int gtotal;
 };
 
 __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int up8(int x) { return (x + 7) & ~7; }
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// ONE: the one-pass variant's plan, whose k-steps are 16 deep (KS, KSR,
-// KB count them) and whose Y^T and wdiv fragments hold bf16: a fragment's
-// 256 values take the 128 floats of a TF32 one.
-template <bool ONE = false>
-__host__ __device__ inline Lay layout(int K, int B, int d) {
-  Lay L;
+// The padded sizes of (K, B, d) common to both plans, S run in n-tile
+// groups of at most nrg_max.
+template <bool ONE>
+__host__ __device__ inline void lay_dims(Lay& L, int K, int B, int d,
+                                     int nrg_max) {
   L.B1 = B + 1;
   L.R = 1 + B + d;
   L.Kp = (K + 15) & ~15;           // rows of dist, the r stage and S
@@ -285,12 +290,22 @@ __host__ __device__ inline Lay layout(int K, int B, int d) {
     L.KB = cdiv(L.B1, 8);            // w k-steps over the design rows
   }
   L.NR = up8(L.R) / 8;             // S n-tiles over [mask; Phi; Z]
-  L.NRG = L.NR < NRG_MAX ? L.NR : NRG_MAX;
+  L.NRG = L.NR < nrg_max ? L.NR : nrg_max;
   L.NRp = cdiv(L.NR, L.NRG) * L.NRG;
   const int dist_rows = L.B1 + (ONE ? 16 : 8) * L.KSR, s_rows = 8 * L.NRp;
   L.RR = up8(dist_rows > s_rows ? dist_rows : s_rows);  // ring rows
   // Pitch = 8 or 24 mod 32 words: conflict-free float2 accumulator access.
   L.PSA = 8 * L.NRp + ((L.NRp & 1) ? 0 : 8);
+  L.gtotal = 0;
+}
+
+// ONE: the one-pass variant's plan, whose k-steps are 16 deep (KS, KSR,
+// KB count them) and whose Y^T and wdiv fragments hold bf16: a fragment's
+// 256 values take the 128 floats of a TF32 one.
+template <bool ONE = false>
+__host__ __device__ inline Lay layout(int K, int B, int d) {
+  Lay L;
+  lay_dims<ONE>(L, K, B, d, NRG_MAX);
   const int kb = K * B;
   // Y and wdiv are kept split (hi and lo) where that fits, else whole.
   for (int pre = ONE ? 0 : 1; pre >= 0; --pre) {
@@ -312,6 +327,40 @@ __host__ __device__ inline Lay layout(int K, int B, int d) {
     L.total = o;
     if (sizeof(float) * (size_t)o <= MAX_SMEM) break;
   }
+  return L;
+}
+
+// The wide plan, for designs whose plan above exceeds a CTA's shared
+// memory (at d = 50, K = 100 from B = 50 on; B = 486 needs 1.1 MB there:
+// O and E alone 2 x 194 KB). O', E', the diversity weights' A fragments
+// and the S accumulator move to gtotal floats of global memory per CTA
+// (Args::wide; ~0.76 MB at B = 486, read back from L2); shared memory
+// keeps Y^T, sigma, the r stage and one ring stage of the (1+B+d, 64)
+// slab tile, whose next tile is copied after the current one's S product
+// (two stages do not fit: one is 157 KB at B = 486). Y^T and wdiv are
+// split at each load (PRE false) and S runs NRG_MAX n-tiles per A
+// fragment. The arithmetic and every sum's order are the plan above's.
+template <bool ONE = false>
+__host__ __device__ inline Lay layout_wide(int K, int B, int d) {
+  Lay L;
+  lay_dims<ONE>(L, K, B, d, NRG_MAX);
+  L.PRE = false;
+  int o = 0;
+  L.oYh = L.oYl = o; o += L.MT * L.KSR * 128;
+  L.oSig = o; o += up4(L.Kp);
+  L.oRsig = o; o += up4(L.Kp);
+  L.oQ = o; o += L.Kp * PT;
+  L.oRing = o; o += L.RR * PT;
+  L.oCs = o; o += TILE;
+  L.oRed = o; o += THREADS;
+  L.total = o;
+  const int kb = K * B;
+  int g = 0;
+  L.oOr = g; g += up4(kb);
+  L.oEr = g; g += up4(kb);
+  L.oWh = L.oWl = g; g += L.MT * L.KB * 128;
+  L.oSacc = g; g += up4(L.Kp * L.PSA);
+  L.gtotal = g;
   return L;
 }
 
@@ -608,15 +657,16 @@ __device__ void ybuf_share(const Args& a, const Lay& L, int blk, int rank,
 // kbuf of slot j of block blk: the kerr and entropy partials of its units
 // in ascending unit order, and under the fast objective the O-term
 // sum_kb sigma_k theta_b logratio_kb O_chunk[k, b] from the block-removed
-// O/E and the slot's stats. Every thread of the CTA takes part.
+// O/E (at big: sm, or the wide plan's global scratch) and the slot's
+// stats. Every thread of the CTA takes part.
 __device__ void slot_kbuf(const Args& a, const Lay& L, int blk, int j,
-                          const float* sm) {
+                          const float* sm, const float* big) {
   const int K = a.K, B = a.B, R = L.R;
   const int tid = threadIdx.x, lane = tid & 31;
   const size_t KR = (size_t)K * R;
   const float* sig = sm + L.oSig;
-  const float* Or = sm + L.oOr;
-  const float* Er = sm + L.oEr;
+  const float* Or = big + L.oOr;
+  const float* Er = big + L.oEr;
   float* red = const_cast<float*>(sm) + L.oRed;
   // One unit per lane; thread 0 holds the sums.
   float kerr = 0.0f, second = 0.0f;
@@ -762,7 +812,7 @@ __device__ void block_tail(const Args& a, const Lay& L, const float* sm) {
   if (!tail) return;
   __threadfence();
   if (tid == 0) a.tickets[j] = 0;
-  slot_kbuf(a, L, 0, j, sm);
+  slot_kbuf(a, L, 0, j, sm, sm);
   if constexpr (TIMED) __syncthreads();
   stamp<TIMED>(a, 0, SB_KBUF);
   const size_t KR = (size_t)K * R, Kd = (size_t)K * d, nkb = (size_t)K * B1;
@@ -949,16 +999,18 @@ __device__ __forceinline__ void prefetch_first(const Args& a, const Lay& L,
   cp_commit();
 }
 
-// One-launch round: the first two tiles of this CTA's first unit of block
-// blk into ring stages 0 and 1, one commit group each (the slab is
-// read-only: this runs before the CTA waits for the previous block).
+// One-launch round: the first pf tiles (two; the wide plan's one ring
+// stage: one) of this CTA's first unit of block blk into ring stages 0
+// and 1, one commit group each (the slab is read-only: this runs before
+// the CTA waits for the previous block).
 __device__ __forceinline__ void prefetch_unit(const Args& a, const Lay& L,
-                                              int blk, int T, float* ring) {
+                                              int blk, int T, float* ring,
+                                              int pf) {
   const int j = blockIdx.x / a.ng, run = blockIdx.x % a.ng;
   const int t0 = run * T / a.ng, t1 = (run + 1) * T / a.ng;
   const int slot = a.slots[(size_t)blk * a.J + j];
   if (slot < 0 || slot >= a.nc1) __trap();
-  for (int tt = t0; tt < t1 && tt < t0 + 2; ++tt) {
+  for (int tt = t0; tt < t1 && tt < t0 + pf; ++tt) {
     issue_tile(a, L, ring + (tt - t0) * L.RR * PT, slot, tt * TILE);
     cp_commit();
   }
@@ -999,27 +1051,31 @@ __device__ __forceinline__ float pass2(float* Q, const float* cs,
 // (a.readd); the one-launch round's instantiations (FOLD false) do not
 // compile that path, so its registers stay as they were. ONE: the one-pass
 // bf16 products (PRE false); the 3xTF32 instantiations (ONE false) do not
-// compile them.
+// compile them. WIDE: the one-launch round in the wide plan (layout_wide;
+// NRG_MAX, PRE false, FOLD and TIMED false): O', E', wdiv and S at the
+// CTA's global scratch `big`, one ring stage.
 template <typename RT, int NRG, bool PRE, bool FOLD = false, bool ONE = false,
-          bool TIMED = false>
+          bool TIMED = false, bool WIDE = false>
 __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Lay L = layout<ONE>(a.K, a.B, a.d);
+  const Lay L = WIDE ? layout_wide<ONE>(a.K, a.B, a.d)
+                     : layout<ONE>(a.K, a.B, a.d);
+  float* big = WIDE ? a.wide + (size_t)blockIdx.x * L.gtotal : sm;
   const int K = a.K, B = a.B, B1 = L.B1, R = L.R, J = a.J, CH = a.CH;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3, cw = 8 * w;
   float* Yh = sm + L.oYh;  // Y^T and wdiv, split, in A-fragment order
   float* Yl = sm + L.oYl;
-  float* Wh = sm + L.oWh;
-  float* Wl = sm + L.oWl;
+  float* Wh = big + L.oWh;
+  float* Wl = big + L.oWl;
   float* sig = sm + L.oSig;
   float* rsig = sm + L.oRsig;
-  float* Or = sm + L.oOr;
-  float* Er = sm + L.oEr;
+  float* Or = big + L.oOr;
+  float* Er = big + L.oEr;
   float* Q = sm + L.oQ;
   float* ring = sm + L.oRing;
-  float* Sacc = sm + L.oSacc;
+  float* Sacc = big + L.oSacc;
   float* cs = sm + L.oCs;
   const int T = (CH + TILE - 1) / TILE;  // tiles per slot
   const int U = J * a.ng;                // units per block
@@ -1089,8 +1145,10 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     // columns), then the round's constants: Y^T split once, sigma and
     // 1/sigma.
     for (int i = tid; i < L.total; i += THREADS) sm[i] = 0.0f;
+    if constexpr (WIDE)
+      for (int i = tid; i < L.gtotal; i += THREADS) big[i] = 0.0f;
     __syncthreads();
-    prefetch_unit(a, L, 0, T, ring);
+    prefetch_unit(a, L, 0, T, ring, WIDE ? 1 : 2);
   }
   if constexpr (FOLD) {
     const auto put = [&](int k, int x, float v) {
@@ -1232,12 +1290,15 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
           stamp<TIMED>(a, blk, ST_TILE + 4 * (tt - t0) + k);
       };
       // Tiles of the CTA's first unit already in flight: the round
-      // prefetches two (prefetch_unit), the per-block entry one.
+      // prefetches two (prefetch_unit), the per-block entry one. The wide
+      // plan's one stage takes the next tile once this one's S is done.
       constexpr int PF = FOLD ? 1 : 2;
       for (int tt = t0; tt < t1; ++tt) {
         const int c0 = tt * TILE;
-        const float* rg = ring + ((tt - t0) & 1) * L.RR * PT;
-        if (tt + 1 < t1) {
+        const float* rg = ring + (WIDE ? 0 : ((tt - t0) & 1) * L.RR * PT);
+        if constexpr (WIDE) {
+          cp_wait<0>();
+        } else if (tt + 1 < t1) {
           if (u != (int)blockIdx.x || tt + 1 - t0 >= PF) {
             issue_tile(a, L, ring + ((tt + 1 - t0) & 1) * L.RR * PT, slot,
                        c0 + TILE);
@@ -1484,6 +1545,12 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         }
         __syncthreads();
         if constexpr (TIMED) tstamp(tt, 3);
+        if constexpr (WIDE) {
+          if (tt + 1 < t1) {
+            issue_tile(a, L, ring, slot, c0 + TILE);
+            cp_commit();
+          }
+        }
       }
 
       const size_t pc = FOLD ? 0 : (size_t)(blk % NPART);
@@ -1542,7 +1609,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       // tiles) wait for every unit of the block, reduce their share (the S
       // tile as scratch) and arrive, then write their slots' kbuf. The
       // first unit's S tile is cleared.
-      if (blk + 1 < a.nb) prefetch_unit(a, L, blk + 1, T, ring);
+      if (blk + 1 < a.nb) prefetch_unit(a, L, blk + 1, T, ring, WIDE ? 1 : 2);
       if (blk > 0) ybuf_share(a, L, blk - 1, yrank, yhelp);
       if constexpr (TIMED) __syncthreads();
       stamp<TIMED>(a, blk, ST_WINDOW);
@@ -1552,7 +1619,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         reduce_share(a, L, blk, yrank, yhelp, Sacc);
         arrive(a.sync + SY_REDUCED);
         for (int j = yhelp - 1 - yrank; j < J; j += yhelp)
-          slot_kbuf(a, L, blk, j, sm);
+          slot_kbuf(a, L, blk, j, sm, big);
       }
       __syncthreads();
       for (int i = tid; i < L.Kp * L.PSA; i += THREADS) Sacc[i] = 0.0f;
@@ -1649,6 +1716,7 @@ inline Args make_args(const float* zp3, const float* Y, const float* sigma,
   a.nb = nb; a.J = J; a.ng = ng; a.nc1 = nc1; a.fast_ent = fast_ent;
   a.tickets = nullptr; a.brows = nullptr; a.stamps = nullptr;
   a.sync = nullptr;
+  a.wide = nullptr; a.wide_ctas = 0;
   a.frame = nullptr; a.src = nullptr; a.J_fix = 0; a.readd = 0;
   return a;
 }

@@ -21,6 +21,7 @@ the compiler's message is logged once and pandas parses every file.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gzip
 import hashlib
 import os
@@ -199,8 +200,8 @@ def load_sharded_data(pcs_path: str, meta_data, vars_use, mesh, cfg=None):
     (Pr_b, phi_n)): data a HarmonyData of this process's per-shard tensors
     (a tensor per field for one shard), cfg the JAX package's default for
     this mesh when none is given (fused with the default chunk size where
-    the geometry allows it), Pr_b and phi_n for the hyper-parameter
-    broadcasting."""
+    the geometry allows it), its n_covariates set from the design either
+    way, Pr_b and phi_n for the hyper-parameter broadcasting."""
     import pandas as pd
 
     from ..config import EngineConfig, default_nclust, fused_geometry_ok
@@ -213,11 +214,17 @@ def load_sharded_data(pcs_path: str, meta_data, vars_use, mesh, cfg=None):
     phi = pd.get_dummies(cats).to_numpy().T.astype(np.float32)   # (B, N)
     phi_n = np.asarray([len(cats[c].cat.categories) for c in cats.columns],
                        dtype=int)
+    # As Harmony.__init__: one covariate only where every cell has exactly
+    # one level (no second covariate, no missing value).
+    n_cov = 1 if (phi.size and np.all(phi.sum(axis=0) == 1.0)) else 2
     if cfg is None:
         d = load_matrix(pcs_path, rows=(0, 1)).shape[1]
         cfg = EngineConfig(N=N, d=d, K=default_nclust(N),
                            B=phi.shape[0], n_devices=mesh.size,
-                           use_fused_xla=fused_geometry_ok(N, mesh.size))
+                           use_fused_xla=fused_geometry_ok(N, mesh.size),
+                           n_covariates=n_cov)
+    else:
+        cfg = dataclasses.replace(cfg, n_covariates=n_cov)
     lo, hi = cell_range(cfg, mesh)
     X = load_matrix(pcs_path, rows=(lo, hi))
     n = (np.load(pcs_path, mmap_mode="r").shape[0]

@@ -44,6 +44,16 @@ those of K1, K2 and their per-block entries.
 
 The kernel's static work split is `kernel_geometry`: the padded sizes, the
 units (runs of 64-cell tiles of one slot) and the shapes of the partials.
+
+Its memory plan is chosen by shape (`wide_plan`): O, E, the diversity
+weights and the S accumulator in shared memory where they fit, else the
+one-launch round's wide plan, which keeps them in a per-CTA scratch of
+global memory that the wrapper allocates (csrc/fused_estep.cuh
+layout_wide: at d = 50, K = 100 from B = 51 under "default", B = 33 under
+"float32"). The round, its r window and K2
+take it (`launches_wide` counts those launches, each inside a
+`harmony::k1_wide` range); the per-block entry of a mesh has no wide plan
+and raises for such shapes.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import torch
 from ...parallel.mesh import gatherer, spans_processes
 from ..partition import rank_table
 from ..products import PRECISIONS, one_pass
+from ...utils.profiling import span
 from ..update_r_fused import fused_update_nor, fused_update_r, mesh_round
 from . import build
 
@@ -68,6 +79,8 @@ launches_write_r = 0
 launches_block = 0
 launches_block_write_r = 0
 launches_readd = 0
+launches_wide = 0    # one-launch rounds (K1, r window, K2) in the wide plan
+wide_ctas = 0        # CTAs (scratch slabs) of the last such launch
 native_calls = 0     # mesh_plan_run calls (the native mesh pass)
 plans_made = 0       # mesh pass plans (_MeshPlan) made
 # The one-pass launches among the counts above.
@@ -189,16 +202,21 @@ def _kernel_lib(one: bool = False):
         name = "fused_estep_one" if one else "fused_estep"
         lib = build.load(name)
         common = [_P] * N_PTRS + [_P]        # ... and the sync buffer
+        wide = [_P, _I]                      # the wide plan's scratch
         tail = [_I] * 9 + [_P]
-        lib.fused_estep_round.argtypes = common + tail
-        lib.fused_estep_r_window.argtypes = common + [_P, _I, _I] + tail
-        lib.fused_estep_write_r.argtypes = common + [_P, _I] + tail
+        lib.fused_estep_round.argtypes = common + wide + tail
+        lib.fused_estep_r_window.argtypes = (common + [_P, _I, _I] + wide
+                                             + tail)
+        lib.fused_estep_write_r.argtypes = common + [_P, _I] + wide + tail
         for fn in (lib.fused_estep_round, lib.fused_estep_r_window,
                    lib.fused_estep_write_r):
             fn.restype = _I
-        lib.fused_estep_smem.argtypes = [_I, _I, _I]
+        for fn in (lib.fused_estep_smem, lib.fused_estep_smem_wide,
+                   lib.fused_estep_wide_floats):
+            fn.argtypes = [_I, _I, _I]
         lib.fused_estep_grid.argtypes = [_I, _I, _I, _I]
-        for fn in (lib.fused_estep_smem, lib.fused_estep_smem_limit,
+        for fn in (lib.fused_estep_smem, lib.fused_estep_smem_wide,
+                   lib.fused_estep_wide_floats, lib.fused_estep_smem_limit,
                    lib.fused_estep_tile, lib.fused_estep_grid,
                    lib.fused_estep_one_pass):
             fn.restype = _I
@@ -292,6 +310,26 @@ def launch_grid(K: int, B: int, d: int, r_bf16: bool = False,
     return grid
 
 
+@functools.lru_cache(maxsize=None)
+def wide_plan(K: int, B: int, d: int, one: bool) -> bool:
+    """Whether a round of (K, B, d) takes the wide plan on a card (one:
+    the one-pass variant's): its plan with O, E, wdiv and S in shared
+    memory exceeds the card's limit. Raises ValueError where even the wide
+    plan does not fit."""
+    lib = _kernel_lib(one)
+    limit = lib.fused_estep_smem_limit()
+    smem = lib.fused_estep_smem(K, B, d)
+    if smem <= limit:
+        return False
+    wide = lib.fused_estep_smem_wide(K, B, d)
+    if wide > limit:
+        raise ValueError(
+            f"fused_estep: K={K}, B={B}, d={d} needs {smem} bytes of shared "
+            f"memory per CTA, above the card's {limit}, and {wide} in the "
+            f"wide plan")
+    return True
+
+
 def _check(name, t, shape, dtype, device, contiguous=True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -333,13 +371,7 @@ def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
             raise ValueError(f"slot ids must lie in [0, {nc1}), got "
                              f"[{int(lo_s)}, {int(hi_s)}]")
     else:
-        lib = _kernel_lib(one)
-        smem = lib.fused_estep_smem(K, B, d)
-        if smem > lib.fused_estep_smem_limit():
-            raise ValueError(
-                f"fused_estep: K={K}, B={B}, d={d} needs {smem} bytes of "
-                f"shared memory per CTA, above the card's "
-                f"{lib.fused_estep_smem_limit()}")
+        wide_plan(K, B, d, one)
         if CH % 4 or ZP3.data_ptr() % 16:
             raise ValueError(f"fused_estep copies the slab in 16-byte pieces:"
                              f" chunk size {CH} must be a multiple of 4 and "
@@ -352,9 +384,10 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     """Allocate the outputs and scratch and run one round through the
     library function `entry` (extra: its arguments between the common
     pointers with the sync buffer (round_sync) and the dimensions; one: the
-    one-pass variant; lib: the library, default the variant's). out: the
-    caller's (cache, ybuf, kbuf) to write into, else new ones. Returns (O,
-    E, cache, ybuf, kbuf)."""
+    one-pass variant; lib: the library, default the variant's, whose round
+    entries also take the wide plan's scratch, allocated here where the
+    shape takes it). out: the caller's (cache, ybuf, kbuf) to write into,
+    else new ones. Returns (O, E, cache, ybuf, kbuf)."""
     nc1, _, CH = ZP3.shape
     d, K = Y.shape
     B = theta.shape[0]
@@ -381,13 +414,34 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                                    slots, O0, E0, part, kpart, bsum, cache,
                                    ybuf, kbuf, O1, E1,
                                    round_sync(dev, stream))]
-    with torch.cuda.device(dev):
-        err = getattr(lib or _kernel_lib(one), entry)(
+    wide = lib is None and wide_plan(K, B, d, one)
+    if lib is None:
+        lib = _kernel_lib(one)
+        scratch, ctas = None, 0
+        if wide:
+            # One slab per CTA of the launch (at most one per unit).
+            with torch.cuda.device(dev):
+                ctas = min(lib.fused_estep_grid(K, B, d, 0), geo.n_units)
+            if ctas < 1:
+                raise RuntimeError(f"fused_estep occupancy query failed: "
+                                   f"CUDA error {-ctas}")
+            scratch = torch.empty(
+                (ctas, lib.fused_estep_wide_floats(K, B, d)), dtype=f32,
+                device=dev)
+        extra = [*extra, None if scratch is None else scratch.data_ptr(),
+                 ctas]
+    ranged = span("harmony::k1_wide") if wide else contextlib.nullcontext()
+    with torch.cuda.device(dev), ranged:
+        err = getattr(lib, entry)(
             *ptrs, *extra, K, B, d, CH, nb, J, geo.ng, nc1,
             int(bool(fast_ent)), stream)
     if err != 0:
         raise RuntimeError(f"{entry} cooperative launch failed: CUDA error "
                            f"{err}")
+    if wide:
+        global launches_wide, wide_ctas
+        launches_wide += 1
+        wide_ctas = ctas
     return O1, E1, cache, ybuf, kbuf
 
 
@@ -449,6 +503,13 @@ class _BlockLaunch:
             _check("src", src, (nb, J_fix + 1), torch.int32, dev)
         if dev.type == "cpu":
             return
+        if wide_plan(K, B, d, self.one):
+            smem = _kernel_lib(self.one).fused_estep_smem(K, B, d)
+            raise ValueError(
+                f"fused_estep_block: K={K}, B={B}, d={d} needs {smem} bytes "
+                f"of shared memory per CTA, above the card's "
+                f"{_kernel_lib(self.one).fused_estep_smem_limit()}; the "
+                f"per-block entry of a mesh has no wide plan")
         lib = lib or _block_lib(self.one)
         geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0),
                               J_glob)
@@ -1097,27 +1158,30 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
     re-add, which every rank launches from the gathered rows, so no rank
     broadcasts O, E. Under NCCL the all-gather orders itself on the lead
     card's current stream and the host does not wait; under gloo the rows
-    are staged through the host (parallel.mesh.gatherer)."""
-    lead = O.device
-    one_pass(precision)
-    if lead.type == "cpu":
-        for s, ZP3 in enumerate(ZP3s):
-            _check_round(tables.slots[s], tables.removal, ZP3, Y, sigma,
-                         theta, Pr_b, O, E)
-        return mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
-                          fast_ent, J_fix, windows, R3s)
-    src = tables.src
-    if src is None or src.device != lead:
-        src = rank_table(tables.granks, J_fix, tables.slots[0].shape[1],
-                         lead)
-    plan = plan_for(
-        plan_key(tables, ZP3s, Y, theta, O, fast_ent, J_fix, windows, R3s,
-                 precision),
-        lambda: _MeshPlan(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
-                          fast_ent, J_fix, windows, R3s, src,
-                          precision=precision))
-    return plan.run(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows, R3s,
-                    src)
+    are staged through the host (parallel.mesh.gatherer).
+
+    Each pass is one `harmony::mesh_pass` range."""
+    with span("harmony::mesh_pass"):
+        lead = O.device
+        one_pass(precision)
+        if lead.type == "cpu":
+            for s, ZP3 in enumerate(ZP3s):
+                _check_round(tables.slots[s], tables.removal, ZP3, Y, sigma,
+                             theta, Pr_b, O, E)
+            return mesh_round(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
+                              fast_ent, J_fix, windows, R3s)
+        src = tables.src
+        if src is None or src.device != lead:
+            src = rank_table(tables.granks, J_fix, tables.slots[0].shape[1],
+                             lead)
+        plan = plan_for(
+            plan_key(tables, ZP3s, Y, theta, O, fast_ent, J_fix, windows,
+                     R3s, precision),
+            lambda: _MeshPlan(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
+                              fast_ent, J_fix, windows, R3s, src,
+                              precision=precision))
+        return plan.run(tables, ZP3s, Y, sigma, theta, Pr_b, O, E, windows,
+                        R3s, src)
 
 
 def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,

@@ -36,7 +36,9 @@ from ..utils.profiling import span
 from .objective import shard_sum
 from .partition import frame_sum, partition_geometry
 from .products import einsum
-from .replay import window_apply, window_normal_eq, windows
+from .replay import (dense_normal_eq, normal_eq_rows, onehot_design,
+                     window_apply, window_apply_onehot, window_design_sums,
+                     window_normal_eq, windows)
 
 # Cap per-window stacked-feature temporaries at 64M floats (256 MB).
 _CHUNK_BUDGET_ELEMS = 64 * 1024 * 1024
@@ -135,14 +137,16 @@ def _fused_shard(z, p, m, R3, s: int, cfg: EngineConfig, one: bool,
     replays (ops/replay.windows) that hold its chunks, each window's design
     rows and Z_orig copied into new chunk-major arrays of the window's
     shape (parallel.sharding.cells_window) and computed by the replays' own
-    window_normal_eq / window_apply, so a stored fit's ridge is the
-    deferred fit's bit for bit for the same r: with W None its per-chunk
-    normal equations (nc1, B1*(B1+d), K), else its Z_corr (d, N_local) =
-    Z_orig - the correction (zero on chunks no window holds)."""
+    window functions (the one-hot forms for a one-hot design), so a stored
+    fit's ridge is the deferred fit's bit for bit for the same r: with W
+    None its per-chunk normal equations (nc1, normal_eq_rows, K), else its
+    Z_corr (d, N_local) = Z_orig - the correction (zero on chunks no window
+    holds)."""
     geom = partition_geometry(cfg)
+    onehot = onehot_design(cfg)
     A = torch.cat([m[None, :], p], dim=0)                       # Phi_moe
     if W is None:
-        out = torch.zeros((R3.shape[0], cfg.B1 * (cfg.B1 + cfg.d), cfg.K),
+        out = torch.zeros((R3.shape[0], normal_eq_rows(cfg), cfg.K),
                           dtype=torch.float32, device=z.device)
     else:
         out = torch.zeros_like(z)
@@ -153,9 +157,11 @@ def _fused_shard(z, p, m, R3, s: int, cfg: EngineConfig, one: bool,
         zo = cells_window(z, s, geom, lo, n)                    # (n, d, CH)
         r = window_of(R3, s, geom, lo, n).to(torch.float32)
         if W is None:
-            put_window(out, window_normal_eq(a, zo, r, one), s, geom, lo, n)
+            put_window(out, (window_design_sums if onehot else
+                             window_normal_eq)(a, zo, r, one), s, geom, lo, n)
         else:
-            put_cells(out, window_apply(a, zo, r, W, one), s, geom, lo, n)
+            put_cells(out, (window_apply_onehot if onehot else
+                            window_apply)(a, zo, r, W, one), s, geom, lo, n)
     return out
 
 
@@ -178,6 +184,8 @@ def moe_correct_ridge(Z_orig, Phi, R, E, params: HarmonyParams,
         S = frame_sum([_fused_shard(*sh, s, cfg, one)
                        for s, sh in zip(ids, shards)],
                       partition_geometry(cfg))
+        if onehot_design(cfg):
+            S = dense_normal_eq(S, cfg)
         W = solve_w(S, E, params, cfg)
         return pack(_fused_shard(*sh, s, cfg, one, W.to(sh[0].device))
                     for s, sh in zip(ids, shards))

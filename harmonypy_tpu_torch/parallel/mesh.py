@@ -166,10 +166,12 @@ def default_mesh(device=None) -> Mesh:
     of one shard per process: the process's device for None and "cuda".
 
     Every card from one process is the JAX package's meaning, not the
-    fastest way to run there: on four H100s at 858k cells its mesh pass
-    (one native call) takes 2.11 ms against 1.23 ms with one process per
-    card (initialize_distributed) and 0.89 ms for one card's round, its
-    deferred fit 0.54 s against 0.35 s and 0.32-0.37 s (PERF.md §5)."""
+    fastest way to run there: on four H100s at 2.4M cells x 50 PCs over 49
+    batches (the benchmark's hlca-2400k-4card.fit) a default fit takes
+    4.98-5.31 s against 2.32-2.52 s on one card (a mesh pass 4.06 ms
+    traced), and the host waits 28.8 times a k-means round against 7.8;
+    one process per card (initialize_distributed) took 0.83-1.06 ms a pass
+    at 858k cells against 0.61 ms for one card's round (PERF.md §6)."""
     if device is None or str(device) == "cuda":
         if not spans_processes():
             resolve_device(device)      # raises when there is no card

@@ -36,7 +36,8 @@ import torch
 from ..config import EngineConfig, fused_geometry_ok
 from ..ops.cuda.fused_estep import PART_COPIES, kernel_geometry
 from ..ops.partition import partition_geometry
-from ..ops.replay import INIT_ELEMS, window_width
+from ..ops.replay import (INIT_ELEMS, normal_eq_rows, onehot_design,
+                          window_width)
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import one_device
 
@@ -81,7 +82,7 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         nc1, CH, J = geom.nc_cap + 1, geom.CH, geom.J_shard
         units = kernel_geometry(K, B, d, CH, J, _SMS, geom.J_fix + 1).n_units
         persistent["chunk caches"] = c * nc1 * K * (
-            2 * (B + 1) + 2 * d + 2 + (B + 1) * (B + 1 + d)) * _F
+            2 * (B + 1) + 2 * d + 2 + normal_eq_rows(cfg)) * _F
         if mesh and cfg.defer_r:
             # The replays' mesh plan holds two output sets of its own
             # (ops/cuda/fused_estep._MeshPlan).
@@ -92,6 +93,9 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         # (ops/cuda/fused_estep.round_scratch), one block's on each shard
         # of a mesh.
         partials = (c if mesh else PART_COPIES) * units * K * (1 + B + d) * _F
+        # The wide plan's per-CTA scratch (O', E', wdiv, S; csrc/
+        # fused_estep.cuh layout_wide), counted at every shape.
+        partials += _SMS * (3 * K * (1 + B + d) + 2 * K * B) * _F
         # One window of r (ops/replay.windows), as float32. The init pass
         # holds dist, exp, r and their products per window of its own
         # (a quarter of the size), a stored fit one more for the store, and
@@ -99,6 +103,16 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         wcells = window_width(one) * CH
         win = wcells * K * _F
         icells = window_width(one, INIT_ELEMS) * CH
+        # The ridge's window temporaries: the dense form's (w, B1^2, CH)
+        # design products, or the one-hot form's steps (ops/replay.py
+        # onehot_step: at most a window of zo) and, on a mesh or from a
+        # stored R, a window of its per-chunk rows.
+        if onehot_design(cfg):
+            ridge_tmp = wcells * d + (
+                window_width(one) * normal_eq_rows(cfg) * K
+                if mesh or not cfg.defer_r else 0)
+        else:
+            ridge_tmp = wcells * (B + 1) ** 2
         phases["init chunk pass"] = (
             (6 + (not cfg.defer_r)) * icells * K + icells * (1 + B + d)) * _F
     if cfg.defer_r:
@@ -106,7 +120,7 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         # A replayed round's r windows live on every shard at once.
         phases["harmony iteration"] = (
             slab + partials + (c + 1) * win + 2 * c * d * Nl * _F
-            + wcells * (3 * d + (B + 1) ** 2) * _F)
+            + (wcells * 3 * d + ridge_tmp) * _F)
     elif cfg.fused_estep:
         persistent["Z_corr, Z_cos"] = c * 2 * d * Nl * _F
         persistent["R (chunk-major)"] = c * K * Nl * r_bytes
@@ -116,7 +130,7 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         # a window of the shard's R and slab in the one-device layout.
         phases["harmony iteration"] = (
             slab + partials + 2 * win
-            + wcells * (3 * d + (B + 1) ** 2 + B + 1 + d) * _F
+            + (wcells * (3 * d + B + 1 + d) + ridge_tmp) * _F
             + (win + wcells * (1 + B + d) * _F if mesh else 0))
     else:
         KNl = K * Nl * _F
