@@ -817,12 +817,14 @@ SHAPES = [(6_000, 5, 7, 1, 128), (6_000, 30, 100, 3, 128),
 # Wide designs at the atlas widths d = 50, K = 100: B = 49 (O, E, wdiv and
 # S in shared memory under "default", the wide plan under "float32"), 64,
 # 128 and 486 (the HLCA's individuals) in the wide plan under both
-# (csrc/fused_estep.cuh layout_wide). The last has units enough for every
+# (csrc/fused_estep.cuh layout_wide). The fifth has units enough for every
 # CTA of the wide plan's grid (192 at 132 SMs), each with its own scratch
-# slab, as an atlas-sized round launches.
+# slab, as an atlas-sized round launches. The last, K = 300 at B = 128,
+# takes the dense wide plan under both, whose codes plan exceeds shared
+# memory (layout_codes keeps S's dense accumulator and two ring stages).
 WIDE_SHAPES = [(45_000, 50, 100, 49, 2048), (45_000, 50, 100, 64, 2048),
                (45_000, 50, 100, 128, 2048), (45_000, 50, 100, 486, 2048),
-               (200_000, 50, 100, 486, 2048)]
+               (200_000, 50, 100, 486, 2048), (45_000, 50, 300, 128, 2048)]
 
 
 def block_refused(fe, args, fast, prec) -> str:
@@ -844,6 +846,127 @@ def block_refused(fe, args, fast, prec) -> str:
                  f"{prec}, which only the wide plan takes")
 
 
+def codes_refused(fe, args, fast, prec) -> str:
+    """A round given codes at a shape whose codes plan exceeds shared
+    memory: it raises ValueError (the fit passes none there); returns the
+    message."""
+    import torch
+    from harmonypy_tpu_torch.ops.replay import window_levels
+    ZP3, B = args[2], args[5].shape[0]
+    codes = (window_levels(ZP3[:, :B + 1]) - 1).to(torch.int32).contiguous()
+    try:
+        fe.fused_estep(*args, fast, precision=prec, codes=codes)
+    except ValueError as e:
+        return str(e)
+    check(False, f"a round took codes at K={args[3].shape[1]}, B={B}, "
+                 f"{prec}, whose codes plan does not fit")
+
+
+def plan_sizes(fe, Kc, B, d) -> dict:
+    """fused_estep.plan_floats of each precision, checked against the
+    library's sizes of the plans the shape can take (the memory model's
+    mirror of csrc/fused_estep.cuh)."""
+    out = {}
+    for p in PRECISIONS:
+        lib = fe._kernel_lib(p == "default")
+        mine = fe.plan_floats(Kc, B, d, p == "default")
+        lib_sizes = dict(
+            narrow=lib.fused_estep_smem(Kc, B, d) // 4,
+            wide=lib.fused_estep_smem_wide(Kc, B, d) // 4,
+            codes=lib.fused_estep_smem_codes(Kc, B, d) // 4,
+            codes_scratch=lib.fused_estep_codes_floats(Kc, B, d),
+            codes_shared=lib.fused_estep_codes_shared_floats(Kc, B, d))
+        check(mine == lib_sizes, f"plan_floats {mine} is not the library's "
+                                 f"{lib_sizes} at K={Kc}, B={B}, d={d}, {p}")
+        out[p] = mine
+    return out
+
+
+def codes_checks(fe, args, fast, prec, lo, width):
+    """The codes plan against the dense wide plan on the same inputs, in
+    the same library: K1's round, its r window and K2 (fp32 and bf16 R),
+    bitwise (tensor_digest of every output), and both plans' ms per round.
+    The codes are the slab's window_levels less one. Returns the
+    launches_codes of the codes calls, the round's digest and the ms."""
+    import torch
+    from harmonypy_tpu_torch.ops.replay import window_levels
+    slots, removal, ZP3, Y = args[:4]
+    nc1, _, CH = ZP3.shape
+    Kc, B = Y.shape[1], args[5].shape[0]
+    codes = (window_levels(ZP3[:, :B + 1]) - 1).to(torch.int32).contiguous()
+    tag = f"K={Kc}, B={B}, fast_objective={fast}, {prec}"
+
+    def runs(**kw):
+        rnd = fe.fused_estep(*args, fast, precision=prec, **kw)
+        win = fe.fused_estep(*args, fast, lo=lo, width=width,
+                             precision=prec, **kw)
+        k2 = [fe.fused_estep_r(slots, removal, ZP3, torch.empty(
+            (nc1, Kc, CH), dtype=dt, device="cuda"), *args[3:], fast,
+            precision=prec, **kw) for dt in (torch.float32, torch.bfloat16)]
+        return [[tensor_digest(t) for t in out if t is not None]
+                for out in (rnd, win, *k2)]
+
+    n0, c0 = fe.launches_wide, fe.launches_codes
+    dense = runs()
+    check(fe.launches_codes == c0 and fe.launches_wide == n0 + 4,
+          f"the dense wide plan took the codes plan ({tag})")
+    coded = runs(codes=codes)
+    n_codes = fe.launches_codes - c0
+    check(n_codes == 4, f"{n_codes} codes-plan launches of 4 ({tag})")
+    for what, a, b in zip(("round", "r window", "K2 fp32", "K2 bf16"),
+                          dense, coded):
+        check(a == b, f"codes plan {what} not the dense wide plan's "
+                      f"bitwise ({tag}): {a} vs {b}")
+    ms = {plan: cuda_ms(lambda kw=kw: fe.fused_estep(
+        *args, fast, precision=prec, **kw), reps=3)
+        for plan, kw in (("dense", {}), ("codes", dict(codes=codes)))}
+    return dict(launches_codes=n_codes, round_digest=dense[0][0], ms=ms)
+
+
+def two_covariate_fits(ht, fe) -> dict:
+    """Wide designs fitted on the card (45,000 x 50, one harmony iteration
+    of two rounds, the default precision): of one covariate of 70 levels
+    at K 100, every wide launch in the codes plan; of two covariates of 40
+    and 30 levels (B = 70), none; of one covariate of 128 levels at K 300,
+    whose codes plan exceeds shared memory, none, and the fit runs in the
+    dense wide plan. Returns the launches of each."""
+    import numpy as np
+    import pandas as pd
+    rng = np.random.default_rng(11)
+    N = 45_000
+    one, x, y, wide = (rng.integers(0, n, N) for n in (70, 40, 30, 128))
+    X = (rng.standard_normal((N, 50)) + (one % 7)[:, None]).astype(
+        np.float32)
+    out = {}
+    for name, meta, K in (
+            ("one_covariate", pd.DataFrame({"a": pd.Categorical(one)}), 100),
+            ("two_covariates", pd.DataFrame({"a": pd.Categorical(x),
+                                             "b": pd.Categorical(y)}), 100),
+            ("one_covariate_k300",
+             pd.DataFrame({"a": pd.Categorical(wide)}), 300)):
+        n0, c0 = fe.launches_wide, fe.launches_codes
+        ho = ht.run_harmony(X, meta, list(meta.columns), device="cuda:0",
+                            verbose=False, max_iter_harmony=1,
+                            max_iter_kmeans=2, epsilon_cluster=0.0,
+                            nclust=K)
+        out[name] = dict(B=ho.cfg.B, K=K, n_covariates=ho.cfg.n_covariates,
+                         launches_wide=fe.launches_wide - n0,
+                         launches_codes=fe.launches_codes - c0,
+                         finite=bool(np.isfinite(ho.Z_corr).all()))
+    one, two, k300 = (out[k] for k in ("one_covariate", "two_covariates",
+                                       "one_covariate_k300"))
+    check(k300["launches_wide"] > 0 and k300["launches_codes"] == 0
+          and k300["finite"],
+          f"a one-covariate fit whose codes plan does not fit: {k300}")
+    check(one["launches_wide"] > 0
+          and one["launches_codes"] == one["launches_wide"],
+          f"a one-covariate wide fit not in the codes plan: {one}")
+    check(two["n_covariates"] == 2 and two["launches_wide"] > 0
+          and two["launches_codes"] == 0,
+          f"a two-covariate wide fit took the codes plan: {two}")
+    return out
+
+
 def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
     """K1 (round and r window), K2 fp32 and K2 bf16 against their plain
     versions and each other at small N and odd shapes, both objective
@@ -851,8 +974,13 @@ def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
     kernel2; the per-block entry under each tail the shape takes
     (block_shape_checks), or its ValueError where the shape takes the wide
     plan. Each shape's shared memory against the card's limit, and the
-    wide plan's where it takes that."""
+    wide plan's where it takes that. Where the wide plan takes a shape,
+    its codes plan (a one-covariate design's batch codes) bitwise the
+    dense wide plan's (codes_checks); then a one-covariate and a
+    two-covariate wide fit (two_covariate_fits: only the first in the
+    codes plan)."""
     import torch
+    import harmonypy_tpu_torch as ht
     (config, engine, layout, partition, fe, plain_mod, state_mod) = ht_mods
     out = []
     for i, (N, d, Kc, B, CH) in enumerate(shapes):
@@ -863,7 +991,7 @@ def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
         lo, width = nc // 3, max(1, min(5, nc - nc // 3))
         worst, flips, refused = {}, 0, None
         wide = {p: fe.wide_plan(Kc, B, d, p == "default") for p in PRECISIONS}
-        wide0 = fe.launches_wide
+        wide0, codes = fe.launches_wide, {}
         for prec in PRECISIONS:
             w = 0.0
             for fast in (False, True):
@@ -886,6 +1014,12 @@ def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
                     e2 = check_k2(fe, plain_mod, args, fast, dt, rnd, k1r,
                                   k1w, lo, width, prec, plain_r)
                     w = max(w, *(e[2] for e in e2.values()))
+                if wide[prec] and fe.codes_fit(Kc, B, d, prec == "default"):
+                    codes[f"{prec},fast_objective={fast}"] = codes_checks(
+                        fe, args, fast, prec, lo, width)
+                elif wide[prec]:
+                    codes[f"{prec},fast_objective={fast}"] = dict(
+                        refused=codes_refused(fe, args, fast, prec))
             worst[prec] = w
         out.append(dict(N=N, d=d, K=Kc, B=B, CH=CH, chunks=nc, J=geom.J_shard,
                         grid={p: fe.launch_grid(Kc, B, d, precision=p)
@@ -903,6 +1037,10 @@ def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
                             p == "default").fused_estep_wide_floats(Kc, B, d)
                             for p in PRECISIONS if wide[p]},
                         launches_wide=fe.launches_wide - wide0,
+                        codes_plan=codes,
+                        codes_fit={p: fe.codes_fit(Kc, B, d, p == "default")
+                                   for p in PRECISIONS if wide[p]},
+                        plan_floats=plan_sizes(fe, Kc, B, d),
                         units=fe.kernel_geometry(
                             Kc, B, d, CH, args[0].shape[1],
                             fe._sm_count(0)).n_units,
@@ -916,7 +1054,10 @@ def phase_shapes(ht_mods, shapes=SHAPES + WIDE_SHAPES):
               f"wide plan {wide} but {fe.launches_wide - wide0} wide "
               f"launches at K={Kc}, B={B}, d={d}")
         del args
+    fits = two_covariate_fits(ht, fe) if any(
+        fe.wide_plan(Kc, B, d, True) for _, d, Kc, B, _ in shapes) else None
     emit(dict(phase="shapes", tolerance=TOL, one_pass_rho=RHO,
+              wide_fits=fits,
               bf16_r_tolerance="1 bf16 ulp (float32); one pass: r's bound "
                                "+ 2^-8",
               checks="K1 round + r window, K2 fp32 and bf16 vs plain; "

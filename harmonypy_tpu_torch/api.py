@@ -522,12 +522,13 @@ def materialize_r(cfg: EngineConfig, state: HarmonyState, data: HarmonyData,
     rep = (state.rep_Y, params.sigma, params.theta, params.Pr_b, state.rep_O,
            state.rep_E)
     fast = engine.fast_ent(cfg)
+    codes = engine.fit_codes(data, cfg)      # the replays run the round's plan
     ids = local_shards(cfg.n_devices)
     out = torch.zeros((K, len(ids) * cfg.N_local))     # this process's cells
     with mesh_plans():      # the replays' plans, for these windows only
         for lo, w in windows(one_device(cfg), budget=64 * 1024 * 1024):
             Rws = round_r_windows(tables, ZP3s, rep, fast, geom, lo, w,
-                                  cfg.matmul_precision)
+                                  cfg.matmul_precision, codes)
             for i, (s, Rw) in enumerate(zip(ids, Rws)):
                 if Rw is None:
                     continue

@@ -22,12 +22,13 @@
 namespace {
 
 // CTAs of estep_round<RT, NRG, PRE> (of this library's variant; WIDE: in
-// the wide plan) that fit on the current device at once, or a negative CUDA
-// error.
-template <typename RT, int NRG, bool PRE, bool WIDE = false>
+// the wide plan, CODES: the codes plan) that fit on the current device at
+// once, or a negative CUDA error.
+template <typename RT, int NRG, bool PRE, bool WIDE = false,
+          bool CODES = false>
 int grid_size(size_t smem) {
   auto* kernel =
-      estep_round<RT, NRG, PRE, false, ESTEP_ONE, ESTEP_TIMED, WIDE>;
+      estep_round<RT, NRG, PRE, false, ESTEP_ONE, ESTEP_TIMED, WIDE, CODES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -67,12 +68,39 @@ int run_wide(const Args& a, cudaStream_t stream) {
 #endif
 }
 
+// The round in the codes plan (layout_codes), for a one-covariate design
+// (a.codes) whose narrow plan exceeds shared memory: as run_wide, with the
+// codes plan's scratch.
+template <typename RT>
+int run_codes(const Args& a, cudaStream_t stream) {
+#if ESTEP_TIMED
+  return (int)cudaErrorInvalidValue;
+#else
+  const Lay L = layout_codes<ESTEP_ONE>(a.K, a.B, a.d);
+  const size_t smem = sizeof(float) * (size_t)L.total;
+  if (smem > MAX_SMEM || a.wide == nullptr || a.wide_ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  int grid = grid_size<RT, CG, false, true, true>(smem);
+  if (grid < 0) return -grid;
+  if (grid > a.J * a.ng) grid = a.J * a.ng;
+  if (grid > a.wide_ctas) grid = a.wide_ctas;
+  Args arg = a;
+  void* params[] = {&arg};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)estep_round<RT, CG, false, false, ESTEP_ONE, false, true,
+                               true>,
+      dim3(grid), dim3(THREADS), params, smem, stream);
+#endif
+}
+
 template <typename RT>
 int run(const Args& a, cudaStream_t stream) {
   const Lay L = layout<ESTEP_ONE>(a.K, a.B, a.d);
   const size_t smem = sizeof(float) * (size_t)L.total;
   if (a.sync == nullptr) return (int)cudaErrorInvalidValue;
-  if (smem > MAX_SMEM) return run_wide<RT>(a, stream);
+  if (smem > MAX_SMEM)
+    return a.codes != nullptr ? run_codes<RT>(a, stream)
+                              : run_wide<RT>(a, stream);
   return with_variant<ESTEP_ONE>(L, [&](auto nrg, auto pre) {
     constexpr int NRG = decltype(nrg)::value;
     constexpr bool PRE = decltype(pre)::value;
@@ -91,13 +119,19 @@ int run(const Args& a, cudaStream_t stream) {
 }
 
 template <typename RT>
-int grid_of(int K, int B, int d) {
+int grid_of(int K, int B, int d, bool codes = false) {
   const Lay L = layout<ESTEP_ONE>(K, B, d);
   const size_t smem = sizeof(float) * (size_t)L.total;
   if (smem > MAX_SMEM) {
 #if ESTEP_TIMED
     return -(int)cudaErrorInvalidValue;
 #else
+    if (codes) {
+      const size_t c =
+          sizeof(float) * (size_t)layout_codes<ESTEP_ONE>(K, B, d).total;
+      if (c > MAX_SMEM) return -(int)cudaErrorInvalidValue;
+      return grid_size<RT, CG, false, true, true>(c);
+    }
     const size_t wide =
         sizeof(float) * (size_t)layout_wide<ESTEP_ONE>(K, B, d).total;
     if (wide > MAX_SMEM) return -(int)cudaErrorInvalidValue;
@@ -126,6 +160,20 @@ int fused_estep_smem_wide(int K, int B, int d) {
 }
 int fused_estep_wide_floats(int K, int B, int d) {
   return layout_wide<ESTEP_ONE>(K, B, d).gtotal;
+}
+
+// The codes plan (a one-covariate design past the shared memory): its
+// shared memory per CTA, its scratch floats per CTA and those its CTAs
+// share (after wide_ctas per-CTA scratches).
+int fused_estep_smem_codes(int K, int B, int d) {
+  return (int)(sizeof(float) *
+               (size_t)layout_codes<ESTEP_ONE>(K, B, d).total);
+}
+int fused_estep_codes_floats(int K, int B, int d) {
+  return layout_codes<ESTEP_ONE>(K, B, d).gtotal;
+}
+int fused_estep_codes_shared_floats(int K, int B, int d) {
+  return layout_codes<ESTEP_ONE>(K, B, d).gshared;
 }
 
 // Whether this library holds the one-pass variant (1) or 3xTF32 (0).
@@ -164,18 +212,29 @@ int fused_estep_grid(int K, int B, int d, int r_bf16) {
   return r_bf16 ? grid_of<__nv_bfloat16>(K, B, d) : grid_of<float>(K, B, d);
 }
 
+// The same in the codes plan (for a shape past the shared memory).
+int fused_estep_grid_codes(int K, int B, int d, int r_bf16) {
+  return r_bf16 ? grid_of<__nv_bfloat16>(K, B, d, true)
+                : grid_of<float>(K, B, d, true);
+}
+
 // One round over nb blocks: one cooperative launch on `stream`. sync: the
 // stream's sync buffer (SY_WORDS words, Args::sync), zero before its first
 // launch; each launch leaves it fit for the next. wide: where the shape
 // takes the wide plan, wide_ctas x fused_estep_wide_floats floats of
-// scratch (the launch takes at most wide_ctas CTAs); else null. Returns 0
-// or the CUDA error of the launch.
+// scratch (the launch takes at most wide_ctas CTAs); else null. codes: a
+// one-covariate design's (nc1, CH) batch levels (-1: padding), or null;
+// where the shape takes the wide plan, with codes the round takes the
+// codes plan and wide holds wide_ctas x fused_estep_codes_floats floats,
+// then fused_estep_codes_shared_floats.
+// Returns 0 or the CUDA error of the launch.
 int fused_estep_round(ESTEP_PTRS, unsigned* sync, float* wide, int wide_ctas,
-                      ESTEP_DIMS) {
+                      const int* codes, ESTEP_DIMS) {
   Args a = ESTEP_ARGS(nullptr, 0, 0);
   a.sync = sync;
   a.wide = wide;
   a.wide_ctas = wide_ctas;
+  a.codes = codes;
   return run<float>(a, (cudaStream_t)stream);
 }
 
@@ -183,22 +242,25 @@ int fused_estep_round(ESTEP_PTRS, unsigned* sync, float* wide, int wide_ctas,
 // (width, K, CH).
 int fused_estep_r_window(ESTEP_PTRS, unsigned* sync, float* rw, int lo,
                          int width, float* wide, int wide_ctas,
-                         ESTEP_DIMS) {
+                         const int* codes, ESTEP_DIMS) {
   Args a = ESTEP_ARGS(rw, lo, width);
   a.sync = sync;
   a.wide = wide;
   a.wide_ctas = wide_ctas;
+  a.codes = codes;
   return run<float>(a, (cudaStream_t)stream);
 }
 
 // K2: the same round, also writing r of every slotted chunk into the
 // chunk-major r3 (nc1, K, CH), as float (r_bf16 == 0) or bf16.
 int fused_estep_write_r(ESTEP_PTRS, unsigned* sync, void* r3, int r_bf16,
-                        float* wide, int wide_ctas, ESTEP_DIMS) {
+                        float* wide, int wide_ctas, const int* codes,
+                        ESTEP_DIMS) {
   Args a = ESTEP_ARGS(r3, 0, nc1);
   a.sync = sync;
   a.wide = wide;
   a.wide_ctas = wide_ctas;
+  a.codes = codes;
   return r_bf16 ? run<__nv_bfloat16>(a, (cudaStream_t)stream)
                 : run<float>(a, (cudaStream_t)stream);
 }

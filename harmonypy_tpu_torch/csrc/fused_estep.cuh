@@ -236,9 +236,11 @@ struct Args {
                          // reducing CTAs done, CTAs done), then their
                          // values when the last launch ended: the
                          // generation this launch counts from; else null
-  float* wide;           // the wide plan (layout_wide): (wide_ctas, gtotal)
-                         // per-CTA scratch; else null
+  float* wide;           // the wide plan (layout_wide, layout_codes):
+                         // (wide_ctas, gtotal) per-CTA scratch; else null
   int wide_ctas;
+  const int* codes;      // the codes plan: (nc1, CH) each cell's batch
+                         // level, -1 for padding; else null
   int* tickets;          // (J) one block alone (per-block mode), else null:
                          // units of each slot done, back to 0 at the end
   float* brows;          // (J, K, B+1) per-block mode: the slots' cache
@@ -265,6 +267,18 @@ struct Lay {
   // The wide plan (layout_wide): oWh, oWl, oOr, oEr and oSacc are offsets
   // into the CTA's gtotal floats of global memory, not shared memory.
   int gtotal;
+  // The codes plan (layout_codes): in shared memory the two ring stages'
+  // codes (TILE ints each), the tile's levels (oLev: TILE levels, TILE
+  // first-touch flags, their count) and each level's last unit (oSeen);
+  // the diversity weights by (level, cluster) at oWd, in shared memory
+  // where they fit (WSM), else in the scratch; S's design columns by
+  // (level, cluster) at oSd of the scratch, as are oOr and oEr.
+  int oCode, oLev, oSeen, oWd, oSd;
+  bool WSM;
+  // The codes plan's region shared by the launch's CTAs (after the
+  // wide_ctas per-CTA scratches): by block parity, pstride floats each,
+  // O' and E' at oOr and oEr, the diversity weights' table at oPW.
+  int pstride, oPW, gshared;
 };
 
 __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
@@ -297,6 +311,9 @@ __host__ __device__ inline void lay_dims(Lay& L, int K, int B, int d,
   // Pitch = 8 or 24 mod 32 words: conflict-free float2 accumulator access.
   L.PSA = 8 * L.NRp + ((L.NRp & 1) ? 0 : 8);
   L.gtotal = 0;
+  L.oCode = L.oLev = L.oSeen = L.oWd = L.oSd = 0;
+  L.WSM = false;
+  L.pstride = L.oPW = L.gshared = 0;
 }
 
 // ONE: the one-pass variant's plan, whose k-steps are 16 deep (KS, KSR,
@@ -360,6 +377,81 @@ __host__ __device__ inline Lay layout_wide(int K, int B, int d) {
   L.oEr = g; g += up4(kb);
   L.oWh = L.oWl = g; g += L.MT * L.KB * 128;
   L.oSacc = g; g += up4(L.Kp * L.PSA);
+  L.gtotal = g;
+  return L;
+}
+
+// The codes plan, the wide plan of a one-covariate design: the round reads
+// each cell's batch level (Args::codes, -1 for padding) instead of its B
+// design rows. A ring stage holds the tile's [mask; Z] rows (1 + d, not 1
+// + B + d) and its 64 codes, so two stages fit and the copy overlaps the
+// compute again (~20 KB a stage at B = 486, d = 50). w = wdiv Phi is
+// wdiv[:, level] as the product's operand holds it (bf16, or the 3xTF32
+// split's hi + lo as the mma reads lo), gathered from a (B, Kp) table in
+// shared memory where it fits (one pass: 109 KB at B = 486), else in the
+// CTA's scratch. S's mask and Z columns are the dense product (shared
+// memory, CG n-tiles per A fragment); its design columns are only those
+// of the levels the tile holds (at most 64): their columns of the unit's
+// (B, Kp) accumulator in the scratch are loaded, run through the same mma
+// over the same cells in the same order, with B generated as (code ==
+// level), and stored back. A level's first touch in a unit starts from
+// zero (oSeen stamps the unit), so the accumulator is never cleared, and
+// the unit's partial has zeros for the levels it never held. Each element
+// of w and S sees the operands and accumulator it sees in the dense plan
+// (a one-hot column adds exact zeros), so the round's bits are the dense
+// wide plan's.
+// The CTAs share O', E' and the table (by block parity) instead of each
+// forming all K x B of them in every prologue: the reducers of block b
+// form block b + 1's for their share of the entries (codes_reduce), and a
+// CTA's prologue copies the table in from L2; block 0's every CTA forms
+// itself. Measured at the donors' round (2.4M cells, B = 486, one pass;
+// H100, clock64 per CTA): the prologue 6.0 -> 0.6 Mcycles a launch, the
+// launch 13.1 -> 9.3 ms; the reduce's partial reads coalesced (items, not
+// slots, along the threads) 9.3 -> 6.5 ms; the dense wide plan 34.2 ms.
+constexpr int CG = 4;  // the codes plan's S n-tiles per A fragment
+
+template <bool ONE = false>
+__host__ __device__ inline Lay layout_codes(int K, int B, int d) {
+  Lay L;
+  lay_dims<ONE>(L, K, B, d, CG);
+  L.PRE = false;
+  L.KB = 0;
+  L.NR = up8(1 + d) / 8;           // S's dense n-tiles: [mask; Z]
+  L.NRG = CG;
+  L.NRp = cdiv(L.NR, CG) * CG;
+  const int dist_rows = 1 + (ONE ? 16 : 8) * L.KSR, s_rows = 8 * L.NRp;
+  L.RR = up8(dist_rows > s_rows ? dist_rows : s_rows);
+  L.PSA = 8 * L.NRp + ((L.NRp & 1) ? 0 : 8);
+  int o = 0;
+  L.oYh = L.oYl = o; o += L.MT * L.KSR * 128;
+  L.oSig = o; o += up4(L.Kp);
+  L.oRsig = o; o += up4(L.Kp);
+  L.oQ = o; o += L.Kp * PT;
+  L.oRing = o; o += 2 * L.RR * PT;
+  L.oSacc = o; o += up4(L.Kp * L.PSA);
+  L.oCs = o; o += TILE;
+  L.oRed = o; o += THREADS;
+  L.oCode = o; o += 2 * TILE;
+  L.oLev = o; o += 2 * TILE + 4;
+  L.oSeen = o; o += up4(B);
+  const int wd = up4(ONE ? B * L.Kp / 2 : B * L.Kp);
+  L.WSM = sizeof(float) * (size_t)(o + wd) <= MAX_SMEM;
+  int g = 0;
+  L.oSd = g; g += up4(B * L.Kp);
+  // The CTA's table (block 0's its own, later ones copied in): in shared
+  // memory, or here.
+  if (L.WSM) {
+    L.oWd = o; o += wd;
+  } else {
+    L.oWd = g; g += wd;
+  }
+  L.oOr = 0;
+  L.oEr = up4(K * B);
+  L.oPW = 2 * up4(K * B);
+  L.pstride = L.oPW + wd;
+  L.gshared = 2 * L.pstride;
+  L.oWh = L.oWl = 0;
+  L.total = o;
   L.gtotal = g;
   return L;
 }
@@ -601,6 +693,72 @@ __device__ __forceinline__ void issue_tile(const Args& a, const Lay& L,
   }
 }
 
+// The codes plan: the tile's [mask; Z] rows (rows 0 and B1.. of the slab)
+// into rows 0..d of a ring stage and its TILE codes into cst; past CH the
+// rows are zero-filled and the codes read as padding (tile_code).
+__device__ __forceinline__ void issue_tile_codes(const Args& a, const Lay& L,
+                                                 float* stage, int* cst,
+                                                 int slot, int c0) {
+  const float* src = a.zp3 + (size_t)slot * L.R * a.CH;
+  const int* csrc = a.codes + (size_t)slot * a.CH;
+  const int rows = 1 + a.d;
+  for (int i = threadIdx.x; i < (rows + 1) * (TILE / 4); i += THREADS) {
+    const int x = i / (TILE / 4), q = i % (TILE / 4);
+    const int c = c0 + 4 * q;
+    const bool in = c < a.CH;
+    if (x < rows) {
+      const int row = x == 0 ? 0 : L.B1 + x - 1;
+      cp16(stage + x * PT + 4 * q, src + (size_t)row * a.CH + (in ? c : 0),
+           in ? 16 : 0);
+    } else {
+      cp16(reinterpret_cast<float*>(cst + 4 * q),
+           reinterpret_cast<const float*>(csrc + (in ? c : 0)), in ? 16 : 0);
+    }
+  }
+}
+
+// The codes plan: the level of cell i of the tile at c0 (-1 past CH).
+__device__ __forceinline__ int tile_code(const int* cst, int c0, int i,
+                                         int CH) {
+  return c0 + i < CH ? cst[i] : -1;
+}
+
+// The codes plan, warp 0 of a tile: the distinct levels of its 64 cells in
+// order of first occurrence into lev[0, n) (lev[TILE + j]: whether the
+// unit stamped `us` touches level lev[j] first here), lev[n, TILE) -2 (no
+// cell's), lev[2 TILE] = n; each level's stamp set to us.
+__device__ __forceinline__ void tile_levels(const int* cst, int c0, int CH,
+                                            int* lev, int* seen, int us,
+                                            int lane) {
+  const unsigned full = 0xffffffffu, lt = (1u << lane) - 1u;
+  const int x = tile_code(cst, c0, lane, CH);
+  const int y = tile_code(cst, c0, 32 + lane, CH);
+  const unsigned mx = __match_any_sync(full, x);
+  const unsigned my = __match_any_sync(full, y);
+  const bool fx = x >= 0 && !(mx & lt);
+  bool fy = y >= 0 && !(my & lt);
+  for (int l = 0; l < 32; ++l) {
+    const int v = __shfl_sync(full, x, l);
+    fy = fy && v != y;
+  }
+  const unsigned bx = __ballot_sync(full, fx), by = __ballot_sync(full, fy);
+  const int nx = __popc(bx), n = nx + __popc(by);
+  if (fx) {
+    const int j = __popc(bx & lt);
+    lev[j] = x;
+    lev[TILE + j] = seen[x] != us;
+    seen[x] = us;
+  }
+  if (fy) {
+    const int j = nx + __popc(by & lt);
+    lev[j] = y;
+    lev[TILE + j] = seen[y] != us;
+    seen[y] = us;
+  }
+  for (int j = n + lane; j < TILE; j += 32) lev[j] = -2;
+  if (lane == 0) lev[2 * TILE] = n;
+}
+
 // Data written by other CTAs in this launch (partials, block sums) is read
 // with __ldcg, from L2, after the counter (the round) or ticket (the
 // per-block entry) that orders it.
@@ -657,8 +815,10 @@ __device__ void ybuf_share(const Args& a, const Lay& L, int blk, int rank,
 // kbuf of slot j of block blk: the kerr and entropy partials of its units
 // in ascending unit order, and under the fast objective the O-term
 // sum_kb sigma_k theta_b logratio_kb O_chunk[k, b] from the block-removed
-// O/E (at big: sm, or the wide plan's global scratch) and the slot's
-// stats. Every thread of the CTA takes part.
+// O/E (at big: sm, or the wide plan's global scratch; L2: the codes
+// plan's region other CTAs wrote, read from L2) and the slot's stats.
+// Every thread of the CTA takes part.
+template <bool L2 = false>
 __device__ void slot_kbuf(const Args& a, const Lay& L, int blk, int j,
                           const float* sm, const float* big) {
   const int K = a.K, B = a.B, R = L.R;
@@ -686,8 +846,10 @@ __device__ void slot_kbuf(const Args& a, const Lay& L, int blk, int j,
     float v = 0.0f;
     for (int i = tid; i < K * B; i += THREADS) {
       const int k = i / B, b = i % B;
-      const float coef = __fmul_rn(__fmul_rn(sig[k], a.theta[b]),
-                                   log_ratio(Or[i], Er[i]));
+      const float o = L2 ? __ldcg(Or + i) : Or[i];
+      const float e = L2 ? __ldcg(Er + i) : Er[i];
+      const float coef =
+          __fmul_rn(__fmul_rn(sig[k], a.theta[b]), log_ratio(o, e));
       v = fmaf(coef, slot_sum(a, KR, blk, j, (size_t)k * R + 1 + b), v);
     }
     const float stv = block_sum(v, red);
@@ -780,6 +942,131 @@ __device__ void reduce_share(const Args& a, const Lay& L, int blk, int rank,
         acc = __fadd_rn(acc, v);
       }
       a.bsum[item] = acc;
+    }
+  }
+}
+
+// The codes plan: entry idx of a diversity weights' table, as the dense
+// product's operand holds wd: bf16, or the 3xTF32 split's hi plus lo as
+// the mma reads it (lo's TF32 bits).
+template <bool ONE>
+__device__ __forceinline__ void put_wd(float* tab, int idx, float wd) {
+  if constexpr (ONE) {
+    reinterpret_cast<__nv_bfloat16*>(tab)[idx] = __float2bfloat16_rn(wd);
+  } else {
+    float hi, lo;
+    split(wd, hi, lo);
+    tab[idx] = __fadd_rn(hi, __uint_as_float(__float_as_uint(lo) &
+                                             0xffffe000u));
+  }
+}
+
+// The codes plan's share of block blk's reduce: reduce_share's values (the
+// slots' cache design columns and bsum of items [ib, ie) of (K, B+1), each
+// sum in reduce_share's order), with RQ slot sums per thread in flight and
+// consecutive threads on consecutive items (coalesced partial reads);
+// then, for the share's (k, b) entries, what every CTA's prologue computed
+// in the dense plans: the next block's O', E' (the block-removed O, E) and
+// diversity weights into the shared region's other parity (shb: its
+// start), or, after the last block, the round's O, E into O1, E1. The
+// mask column bsum[k, 0] of each of the share's rows is summed again by a
+// warp, in the same order. ss: the S tile as scratch; Q: the r stage.
+constexpr int RQ = 4;  // slot sums in flight per thread
+constexpr int UQ = 4;  // ... each over UQ units' loads at a time
+
+template <bool ONE>
+__device__ void codes_reduce(const Args& a, const Lay& L, int blk, int rank,
+                             int n, float* ss, float* Q, float* shb) {
+  const int K = a.K, B = a.B, B1 = L.B1, R = L.R, J = a.J, ng = a.ng;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const size_t KR = (size_t)K * R;
+  const int* slots = a.slots + (size_t)blk * J;
+  const int nkb = K * B1;
+  const int per = (nkb + n - 1) / n;
+  const int ib = rank * per, ie = min(nkb, ib + per);
+  if (ib >= ie) return;
+  const float* part = a.part + (size_t)(blk % NPART) * J * ng * KR;
+  const int cap = max(1, min(per, (L.Kp * L.PSA) / J));
+  for (int r0 = ib; r0 < ie; r0 += cap) {
+    const int m = min(cap, ie - r0);
+    __syncthreads();
+    for (int x0 = tid; x0 < m * J; x0 += RQ * THREADS) {
+      const float* p[RQ];
+      float s[RQ];
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const int x = min(x0 + q * THREADS, m * J - 1);
+        const int item = r0 + x % m, j = x / m;
+        p[q] = part + (size_t)j * ng * KR + (size_t)(item / B1) * R +
+               item % B1;
+        s[q] = 0.0f;
+      }
+      for (int u0 = 0; u0 < ng; u0 += UQ) {
+        float v[RQ][UQ];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+#pragma unroll
+          for (int u = 0; u < UQ; ++u)
+            v[q][u] = u0 + u < ng ? __ldcg(p[q] + (size_t)(u0 + u) * KR)
+                                  : 0.0f;
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+#pragma unroll
+          for (int u = 0; u < UQ; ++u)
+            if (u0 + u < ng) s[q] = __fadd_rn(s[q], v[q][u]);
+      }
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const int x = x0 + q * THREADS;
+        if (x < m * J) {
+          const int it = x % m, j = x / m;
+          ss[it * J + j] = s[q];
+          a.cache[(size_t)slots[j] * nkb + r0 + it] = s[q];
+        }
+      }
+    }
+    __syncthreads();
+    for (int it = tid; it < m; it += THREADS) {
+      float acc = 0.0f;
+      for (int j = 0; j < J; ++j) acc = __fadd_rn(acc, ss[it * J + j]);
+      a.bsum[r0 + it] = acc;
+    }
+  }
+  // bsum[k, 0] of the share's rows, into Q[k]: a warp per row, its lanes'
+  // slot sums added in ascending slot order.
+  const int k0 = ib / B1, k1 = (ie - 1) / B1;
+  for (int k = k0 + w; k <= k1; k += WARPS) {
+    float acc = 0.0f;
+    for (int j0 = 0; j0 < J; j0 += 32) {
+      const float v = j0 + lane < J
+                          ? slot_sum(a, KR, blk, j0 + lane, (size_t)k * R)
+                          : 0.0f;
+      acc = lane_sum(acc, v, min(32, J - j0));
+    }
+    if (lane == 0) Q[k] = acc;
+  }
+  __syncthreads();
+  const float* cur = shb + (size_t)(blk & 1) * L.pstride;
+  float* nxt = shb + (size_t)((blk + 1) & 1) * L.pstride;
+  const bool last = blk + 1 == a.nb;
+  const float* rem = a.removal + (size_t)(blk + 1) * K * B1;
+  for (int item = ib + tid; item < ie; item += THREADS) {
+    const int k = item / B1, col = item % B1;
+    if (col == 0) continue;
+    const int b = col - 1, i = k * B + b;
+    float E = __fadd_rn(__ldcg(cur + L.oEr + i), __fmul_rn(Q[k], a.prb[b]));
+    float O = __fadd_rn(__ldcg(cur + L.oOr + i), __ldcg(a.bsum + item));
+    if (last) {
+      a.E1[i] = E;
+      a.O1[i] = O;
+    } else {
+      const float* rk = rem + (size_t)k * B1;
+      E = __fsub_rn(E, __fmul_rn(rk[0], a.prb[b]));
+      O = __fsub_rn(O, rk[col]);
+      nxt[L.oEr + i] = E;
+      nxt[L.oOr + i] = O;
+      put_wd<ONE>(nxt + L.oPW, b * L.Kp + k,
+                  expf(__fmul_rn(a.theta[b], log_ratio(O, E))));
     }
   }
 }
@@ -1003,15 +1290,20 @@ __device__ __forceinline__ void prefetch_first(const Args& a, const Lay& L,
 // stage: one) of this CTA's first unit of block blk into ring stages 0
 // and 1, one commit group each (the slab is read-only: this runs before
 // the CTA waits for the previous block).
+// cring: the codes plan's codes stages (else null).
 __device__ __forceinline__ void prefetch_unit(const Args& a, const Lay& L,
                                               int blk, int T, float* ring,
-                                              int pf) {
+                                              int pf, int* cring = nullptr) {
   const int j = blockIdx.x / a.ng, run = blockIdx.x % a.ng;
   const int t0 = run * T / a.ng, t1 = (run + 1) * T / a.ng;
   const int slot = a.slots[(size_t)blk * a.J + j];
   if (slot < 0 || slot >= a.nc1) __trap();
   for (int tt = t0; tt < t1 && tt < t0 + pf; ++tt) {
-    issue_tile(a, L, ring + (tt - t0) * L.RR * PT, slot, tt * TILE);
+    if (cring != nullptr)
+      issue_tile_codes(a, L, ring + (tt - t0) * L.RR * PT,
+                       cring + (tt - t0) * TILE, slot, tt * TILE);
+    else
+      issue_tile(a, L, ring + (tt - t0) * L.RR * PT, slot, tt * TILE);
     cp_commit();
   }
 }
@@ -1047,20 +1339,105 @@ __device__ __forceinline__ float pass2(float* Q, const float* cs,
   return ent;
 }
 
+// The codes plan: S's design columns of the tile's levels lev[j0, j0 + 8
+// CG) for m-tile mt, as the dense plan computes them: the columns of the
+// unit's (B, Kp) accumulator Sd where the unit touched the level before
+// (else zero), the same mma over the tile's cells in the same order, A the
+// r stage Q, B (code == level) generated in registers from this lane's
+// cells' codes cc (sgroup's cells), stored back. Columns past the tile's
+// levels (-2) are neither loaded nor stored.
+template <bool ONE>
+__device__ __forceinline__ void design_group(const Lay& L, const float* Q,
+                                             float* Sd, const int* lev,
+                                             const int (&cc)[TILE / 4],
+                                             int mt, int j0, int g, int t) {
+  const int r0 = mt * 16 + g;
+  float acc[CG][4], acx[CG][4];
+  int lb[CG], lc[CG][2];
+#pragma unroll
+  for (int n = 0; n < CG; ++n) {
+    lb[n] = lev[j0 + n * 8 + g];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + n * 8 + 2 * t + h, lv = lev[j];
+      const bool old = lv >= 0 && !lev[TILE + j];
+      const float* sp = Sd + (size_t)(old ? lv : 0) * L.Kp + r0;
+      lc[n][h] = lv;
+      acc[n][h] = old ? sp[0] : 0.0f;
+      acc[n][2 + h] = old ? sp[8] : 0.0f;
+      acx[n][h] = acx[n][2 + h] = 0.0f;
+    }
+  }
+  const auto one = [](bool on) { return on ? 1.0f : 0.0f; };
+  if constexpr (ONE) {
+    const float* qa = Q + r0 * PT + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < TILE / 16; ++ks) {
+      const int c = ks * 16;
+      const uint32_t af[4] = {
+          pack2(*reinterpret_cast<const float2*>(qa + c)),
+          pack2(*reinterpret_cast<const float2*>(qa + 8 * PT + c)),
+          pack2(*reinterpret_cast<const float2*>(qa + c + 8)),
+          pack2(*reinterpret_cast<const float2*>(qa + 8 * PT + c + 8))};
+#pragma unroll
+      for (int n = 0; n < CG; ++n) {
+        const uint32_t bf[2] = {pack2(one(cc[4 * ks] == lb[n]),
+                                      one(cc[4 * ks + 1] == lb[n])),
+                                pack2(one(cc[4 * ks + 2] == lb[n]),
+                                      one(cc[4 * ks + 3] == lb[n]))};
+        mma16(acc[n], af, bf);
+      }
+    }
+  } else {
+    const float* q0 = Q + r0 * PT + t;
+#pragma unroll
+    for (int ks = 0; ks < TILE / 8; ++ks) {
+      float ah[4], al[4];
+      const int c = ks * 8;
+      split(q0[c], ah[0], al[0]);
+      split(q0[8 * PT + c], ah[1], al[1]);
+      split(q0[c + 4], ah[2], al[2]);
+      split(q0[8 * PT + c + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < CG; ++n) {
+        float bh[2], bl[2];
+        split(one(cc[2 * ks] == lb[n]), bh[0], bl[0]);
+        split(one(cc[2 * ks + 1] == lb[n]), bh[1], bl[1]);
+        mma3(acc[n], acx[n], ah, al, bh, bl);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < CG; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (lc[n][h] >= 0) {
+        float* sp = Sd + (size_t)lc[n][h] * L.Kp + r0;
+        sp[0] = ONE ? acc[n][h] : fin(acc[n][h], acx[n][h]);
+        sp[8] = ONE ? acc[n][2 + h] : fin(acc[n][2 + h], acx[n][2 + h]);
+      }
+    }
+  }
+}
+
 // FOLD: the per-block entry, whose prologue may re-add the previous block
 // (a.readd); the one-launch round's instantiations (FOLD false) do not
 // compile that path, so its registers stay as they were. ONE: the one-pass
 // bf16 products (PRE false); the 3xTF32 instantiations (ONE false) do not
 // compile them. WIDE: the one-launch round in the wide plan (layout_wide;
 // NRG_MAX, PRE false, FOLD and TIMED false): O', E', wdiv and S at the
-// CTA's global scratch `big`, one ring stage.
+// CTA's global scratch `big`, one ring stage. CODES (with WIDE): the codes
+// plan (layout_codes; NRG = CG): a.codes for the design rows, O', E' and
+// S's design columns at `big`, two ring stages.
 template <typename RT, int NRG, bool PRE, bool FOLD = false, bool ONE = false,
-          bool TIMED = false, bool WIDE = false>
-__global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
+          bool TIMED = false, bool WIDE = false, bool CODES = false>
+__global__ void __launch_bounds__(THREADS, CODES ? 1 : 2)
+    estep_round(Args a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Lay L = WIDE ? layout_wide<ONE>(a.K, a.B, a.d)
-                     : layout<ONE>(a.K, a.B, a.d);
+  const Lay L = CODES  ? layout_codes<ONE>(a.K, a.B, a.d)
+                : WIDE ? layout_wide<ONE>(a.K, a.B, a.d)
+                       : layout<ONE>(a.K, a.B, a.d);
   float* big = WIDE ? a.wide + (size_t)blockIdx.x * L.gtotal : sm;
   const int K = a.K, B = a.B, B1 = L.B1, R = L.R, J = a.J, CH = a.CH;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -1075,8 +1452,21 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
   float* Er = big + L.oEr;
   float* Q = sm + L.oQ;
   float* ring = sm + L.oRing;
-  float* Sacc = big + L.oSacc;
+  float* Sacc = (WIDE && !CODES ? big : sm) + L.oSacc;
   float* cs = sm + L.oCs;
+  // The codes plan: the ring stages' codes, the tile's levels, each
+  // level's last unit, the diversity weights' table and S's design
+  // columns (both (B, Kp)).
+  [[maybe_unused]] int* cring = reinterpret_cast<int*>(sm + L.oCode);
+  [[maybe_unused]] int* lev = reinterpret_cast<int*>(sm + L.oLev);
+  [[maybe_unused]] int* seen = reinterpret_cast<int*>(sm + L.oSeen);
+  [[maybe_unused]] float* const Wd = (L.WSM ? sm : big) + L.oWd;
+  [[maybe_unused]] float* Sd = big + L.oSd;
+  // ... and the region the CTAs share (O', E' and the table by parity).
+  [[maybe_unused]] float* shb =
+      CODES ? a.wide + (size_t)a.wide_ctas * L.gtotal : nullptr;
+  // The round's B rows of Z in a ring stage.
+  const int zr = CODES ? 1 : B1;
   const int T = (CH + TILE - 1) / TILE;  // tiles per slot
   const int U = J * a.ng;                // units per block
   const size_t KR = (size_t)K * R;
@@ -1145,10 +1535,23 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     // columns), then the round's constants: Y^T split once, sigma and
     // 1/sigma.
     for (int i = tid; i < L.total; i += THREADS) sm[i] = 0.0f;
-    if constexpr (WIDE)
+    if constexpr (CODES) {
+      // The tables' padding rows (clusters K..Kp) stay zero: this CTA's
+      // own and its share of the shared ones'. S's design columns are
+      // read only after their unit's first write (seen).
+      if (!L.WSM)
+        for (int i = tid; i < (ONE ? B * L.Kp / 2 : B * L.Kp); i += THREADS)
+          Wd[i] = 0.0f;
+      for (int b = blockIdx.x; b < B; b += gridDim.x)
+        for (int k = K + tid; k < L.Kp; k += THREADS)
+          for (int par = 0; par < 2; ++par)
+            put_wd<ONE>(shb + par * L.pstride + L.oPW, b * L.Kp + k, 0.0f);
+    } else if constexpr (WIDE) {
       for (int i = tid; i < L.gtotal; i += THREADS) big[i] = 0.0f;
+    }
     __syncthreads();
-    prefetch_unit(a, L, 0, T, ring, WIDE ? 1 : 2);
+    prefetch_unit(a, L, 0, T, ring, WIDE && !CODES ? 1 : 2,
+                  CODES ? cring : nullptr);
   }
   if constexpr (FOLD) {
     const auto put = [&](int k, int x, float v) {
@@ -1230,37 +1633,66 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       }
       stamp<TIMED>(a, blk, SB_FOLD);
     }
-    for (int i = tid; i < K * B; i += THREADS) {
-      const int k = i / B, b = i % B;
-      float O, E;
+    if constexpr (CODES) {
+      // The codes plan: block 0's every CTA forms itself (its share of O',
+      // E' into the shared region); a later block's the previous block's
+      // reducers formed (codes_reduce): its table is copied from L2 into
+      // the CTA's own (in shared memory, or its scratch).
+      const float* cur = shb + (size_t)(blk & 1) * L.pstride;
       if (blk == 0) {
-        O = a.O0[i];
-        E = a.E0[i];
-        if constexpr (FOLD) {
-          if (a.readd) {
-            const float* fs = sm + L.oQ + k * B1;
-            O = __fadd_rn(O, fs[1 + b]);
-            E = __fadd_rn(E, __fmul_rn(fs[0], a.prb[b]));
+#pragma unroll 4
+        for (int i = tid; i < K * B; i += THREADS) {
+          const int k = i / B, b = i % B;
+          const float* rem = a.removal + (size_t)k * B1;
+          const float E = __fsub_rn(a.E0[i], __fmul_rn(rem[0], a.prb[b]));
+          const float O = __fsub_rn(a.O0[i], rem[1 + b]);
+          if (i % (int)gridDim.x == (int)blockIdx.x) {
+            shb[L.oEr + i] = E;
+            shb[L.oOr + i] = O;
           }
+          put_wd<ONE>(Wd, b * L.Kp + k,
+                      expf(__fmul_rn(a.theta[b], log_ratio(O, E))));
         }
       } else {
-        const float* bs = a.bsum + (size_t)k * B1;
-        E = __fadd_rn(Er[i], __fmul_rn(__ldcg(bs), a.prb[b]));
-        O = __fadd_rn(Or[i], __ldcg(bs + 1 + b));
+        const uint4* src = reinterpret_cast<const uint4*>(cur + L.oPW);
+        uint4* dst = reinterpret_cast<uint4*>(Wd);
+        const int n4 = (ONE ? B * L.Kp / 2 : B * L.Kp) / 4;
+#pragma unroll 8
+        for (int i = tid; i < n4; i += THREADS) dst[i] = __ldcg(src + i);
       }
-      const float* rem = a.removal + ((size_t)blk * K + k) * B1;
-      E = __fsub_rn(E, __fmul_rn(rem[0], a.prb[b]));
-      O = __fsub_rn(O, rem[1 + b]);
-      Er[i] = E;
-      Or[i] = O;
-      const float wd = expf(__fmul_rn(a.theta[b], log_ratio(O, E)));
-      if constexpr (ONE) {
-        put_frag16(Wh, (k >> 4) * L.KB + ((1 + b) >> 4), k & 15, (1 + b) & 15,
-                   wd);
-      } else {
-        const int o = ((k >> 4) * L.KB + ((1 + b) >> 3)) * 128 +
-                      frag_pos(k & 15, (1 + b) & 7);
-        put_frag(L, Wh, Wl, o, wd);
+    } else {
+      for (int i = tid; i < K * B; i += THREADS) {
+        const int k = i / B, b = i % B;
+        float O, E;
+        if (blk == 0) {
+          O = a.O0[i];
+          E = a.E0[i];
+          if constexpr (FOLD) {
+            if (a.readd) {
+              const float* fs = sm + L.oQ + k * B1;
+              O = __fadd_rn(O, fs[1 + b]);
+              E = __fadd_rn(E, __fmul_rn(fs[0], a.prb[b]));
+            }
+          }
+        } else {
+          const float* bs = a.bsum + (size_t)k * B1;
+          E = __fadd_rn(Er[i], __fmul_rn(__ldcg(bs), a.prb[b]));
+          O = __fadd_rn(Or[i], __ldcg(bs + 1 + b));
+        }
+        const float* rem = a.removal + ((size_t)blk * K + k) * B1;
+        E = __fsub_rn(E, __fmul_rn(rem[0], a.prb[b]));
+        O = __fsub_rn(O, rem[1 + b]);
+        Er[i] = E;
+        Or[i] = O;
+        const float wd = expf(__fmul_rn(a.theta[b], log_ratio(O, E)));
+        if constexpr (ONE) {
+          put_frag16(Wh, (k >> 4) * L.KB + ((1 + b) >> 4), k & 15,
+                     (1 + b) & 15, wd);
+        } else {
+          const int o = ((k >> 4) * L.KB + ((1 + b) >> 3)) * 128 +
+                        frag_pos(k & 15, (1 + b) & 7);
+          put_frag(L, Wh, Wl, o, wd);
+        }
       }
     }
     __syncthreads();
@@ -1279,9 +1711,19 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       if (FOLD || u != (int)blockIdx.x)
         for (int i = tid; i < L.Kp * L.PSA; i += THREADS) Sacc[i] = 0.0f;
       float kerr_t = 0.0f, ent_t = 0.0f;
+      // The tile at cells c0 into ring stage st.
+      const auto issue = [&](int st, int c0) {
+        if constexpr (CODES)
+          issue_tile_codes(a, L, ring + st * L.RR * PT, cring + st * TILE,
+                           slot, c0);
+        else
+          issue_tile(a, L, ring + st * L.RR * PT, slot, c0);
+      };
+      // The codes plan: this unit's stamp of the levels it touches.
+      [[maybe_unused]] const int us = blk * U + u + 1;
 
       if (u != (int)blockIdx.x) {
-        issue_tile(a, L, ring, slot, t0 * TILE);
+        issue(0, t0 * TILE);
         cp_commit();
       }
       // TIMED: stamp k of this tile (the CTA's first unit, first MAXT).
@@ -1295,13 +1737,15 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       constexpr int PF = FOLD ? 1 : 2;
       for (int tt = t0; tt < t1; ++tt) {
         const int c0 = tt * TILE;
-        const float* rg = ring + (WIDE ? 0 : ((tt - t0) & 1) * L.RR * PT);
-        if constexpr (WIDE) {
+        constexpr bool ONE_STAGE = WIDE && !CODES;
+        const float* rg =
+            ring + (ONE_STAGE ? 0 : ((tt - t0) & 1) * L.RR * PT);
+        [[maybe_unused]] const int* cst = cring + ((tt - t0) & 1) * TILE;
+        if constexpr (ONE_STAGE) {
           cp_wait<0>();
         } else if (tt + 1 < t1) {
           if (u != (int)blockIdx.x || tt + 1 - t0 >= PF) {
-            issue_tile(a, L, ring + ((tt + 1 - t0) & 1) * L.RR * PT, slot,
-                       c0 + TILE);
+            issue((tt + 1 - t0) & 1, c0 + TILE);
             cp_commit();
           }
           cp_wait<1>();
@@ -1310,6 +1754,11 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         }
         __syncthreads();
         if constexpr (TIMED) tstamp(tt, 0);
+        // The codes plan: warp 0 lists the tile's levels for S (read after
+        // pass 1's barrier).
+        if constexpr (CODES) {
+          if (w == 0) tile_levels(cst, c0, CH, lev, seen, us, lane);
+        }
 
         // Pass 1, per warp: dist = Y^T z and w = wdiv Phi on the tensor
         // cores for the warp's 8 cells (one n-tile) and all K rows, two
@@ -1322,15 +1771,31 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
           if constexpr (ONE) {
 #pragma unroll
             for (int ks = 0; ks < KSC1; ++ks)
-              load_b16_slab(rg + (B1 + ks * 16) * PT + cw, t, g, yb[ks]);
-            load_b16_slab(rg + cw, t, g, wb);
+              load_b16_slab(rg + (zr + ks * 16) * PT + cw, t, g, yb[ks]);
+            if constexpr (!CODES) load_b16_slab(rg + cw, t, g, wb);
           } else {
 #pragma unroll
             for (int ks = 0; ks < KSC; ++ks)
-              load_b_slab(rg + (B1 + ks * 8) * PT + cw, t, g, bh[ks],
+              load_b_slab(rg + (zr + ks * 8) * PT + cw, t, g, bh[ks],
                           bl[ks]);
-            load_b_slab(rg + cw, t, g, wbh, wbl);
+            if constexpr (!CODES) load_b_slab(rg + cw, t, g, wbh, wbl);
           }
+          // The codes plan: the levels of this thread's cells 2t, 2t + 1.
+          [[maybe_unused]] int cc1[2] = {0, 0};
+          if constexpr (CODES) {
+            cc1[0] = tile_code(cst, c0, cw + 2 * t, CH);
+            cc1[1] = tile_code(cst, c0, cw + 2 * t + 1, CH);
+          }
+          // w[k, cell] of the codes plan: wdiv[k, level] as the dense
+          // product's operand holds it, 0 for padding.
+          [[maybe_unused]] const auto wgather = [&](int k, int code) {
+            if (code < 0) return 0.0f;
+            if constexpr (ONE)
+              return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                  Wd)[code * L.Kp + k]);
+            else
+              return Wd[code * L.Kp + k];
+          };
           float den[2] = {0.0f, 0.0f}, qs[2] = {0.0f, 0.0f};
           float qd[2] = {0.0f, 0.0f}, qg[2] = {0.0f, 0.0f};
           auto mtiles = [&](auto np_c, int mt0) {
@@ -1349,13 +1814,14 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
               }
               for (int ks = KSC1; ks < L.KSR; ++ks) {
                 uint32_t xb[2];
-                load_b16_slab(rg + (B1 + ks * 16) * PT + cw, t, g, xb);
+                load_b16_slab(rg + (zr + ks * 16) * PT + cw, t, g, xb);
 #pragma unroll
                 for (int p = 0; p < NP; ++p) {
                   load_a16(Yh, (mt0 + p) * L.KSR + ks, lane, af);
                   mma16(acc[p], af, xb);
                 }
               }
+              if constexpr (!CODES) {
 #pragma unroll
               for (int p = 0; p < NP; ++p) {
                 load_a16(Wh, (mt0 + p) * L.KB, lane, af);
@@ -1370,6 +1836,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
                   mma16(wac[p], af, xb);
                 }
               }
+              }
             } else {
             float ah[4], al[4];
 #pragma unroll
@@ -1382,13 +1849,14 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
             }
             for (int ks = KSC; ks < L.KSR; ++ks) {
               float xh[2], xl[2];
-              load_b_slab(rg + (B1 + ks * 8) * PT + cw, t, g, xh, xl);
+              load_b_slab(rg + (zr + ks * 8) * PT + cw, t, g, xh, xl);
 #pragma unroll
               for (int p = 0; p < NP; ++p) {
                 load_a_frag<PRE>(Yh, Yl, (mt0 + p) * L.KSR + ks, lane, ah, al);
                 mma3(acc[p], acx[p], ah, al, xh, xl);
               }
             }
+            if constexpr (!CODES) {
 #pragma unroll
             for (int p = 0; p < NP; ++p) {
               load_a_frag<PRE>(Wh, Wl, (mt0 + p) * L.KB, lane, ah, al);
@@ -1404,6 +1872,7 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
               }
             }
             }
+            }
             // Accumulator e of m-tile mt: cluster mt*16 + g + 8 (e >> 1),
             // cell 2t + (e & 1) of the warp's 8. Rows >= K get s = 0.
 #pragma unroll
@@ -1412,7 +1881,9 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
               for (int e = 0; e < 4; ++e) {
                 const int k = (mt0 + p) * 16 + g + 8 * (e >> 1), h = e & 1;
                 const float yz = ONE ? acc[p][e] : fin(acc[p][e], acx[p][e]);
-                const float wq = ONE ? wac[p][e] : fin(wac[p][e], wax[p][e]);
+                const float wq = CODES ? wgather(k, cc1[h])
+                                 : ONE ? wac[p][e]
+                                       : fin(wac[p][e], wax[p][e]);
                 const float dist = __fmul_rn(2.0f, __fsub_rn(1.0f, yz));
                 const float ex = expf(__fmul_rn(-dist, rsig[k]));
                 const float s = k < K ? ex : 0.0f;
@@ -1467,12 +1938,12 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
         __syncthreads();
         if constexpr (TIMED) tstamp(tt, 2);
 
-        // S += r slab^T over the tile's 64 cells: warp w owns m-tiles w,
-        // w + WARPS, ... and runs NRG n-tiles per A fragment.
-        for (int mt = w; mt < L.MT; mt += WARPS) {
+        // S += r slab^T over the tile's 64 cells: NRG n-tiles n0.. of
+        // m-tile mt (the rows of the ring stage's slab rows) per A fragment.
+        const auto sgroup = [&](int mt, int n0) {
           const float* q0 = Q + (mt * 16 + g) * PT + t;
           float* s0 = Sacc + (mt * 16 + g) * L.PSA + 2 * t;
-          for (int n0 = 0; n0 < L.NRp; n0 += NRG) {
+          {
             float acc[NRG][4], acx[NRG][4];
 #pragma unroll
             for (int n = 0; n < NRG; ++n) {
@@ -1542,10 +2013,37 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
             }
             }
           }
+        };
+        if constexpr (CODES) {
+          // The codes plan: per m-tile the dense groups, then the design
+          // groups of the tile's levels (CG n-tiles, 8 CG levels each),
+          // dealt to the warps in turn.
+          const int nl = lev[2 * TILE];
+          const int ndg = L.NRp / CG, per = ndg + cdiv(nl, 8 * CG);
+          int cc[TILE / 4];
+#pragma unroll
+          for (int i = 0; i < TILE / 4; ++i)
+            cc[i] = tile_code(cst, c0,
+                              ONE ? (i >> 2) * 16 + 2 * t + (i & 1) +
+                                        8 * ((i >> 1) & 1)
+                                  : (i >> 1) * 8 + t + 4 * (i & 1),
+                              CH);
+          for (int it = w; it < L.MT * per; it += WARPS) {
+            const int mt = it / per, grp = it % per;
+            if (grp < ndg)
+              sgroup(mt, grp * CG);
+            else
+              design_group<ONE>(L, Q, Sd, lev, cc, mt, (grp - ndg) * 8 * CG,
+                                g, t);
+          }
+        } else {
+          // Warp w owns m-tiles w, w + WARPS, ...
+          for (int mt = w; mt < L.MT; mt += WARPS)
+            for (int n0 = 0; n0 < L.NRp; n0 += NRG) sgroup(mt, n0);
         }
         __syncthreads();
         if constexpr (TIMED) tstamp(tt, 3);
-        if constexpr (WIDE) {
+        if constexpr (WIDE && !CODES) {
           if (tt + 1 < t1) {
             issue_tile(a, L, ring, slot, c0 + TILE);
             cp_commit();
@@ -1556,7 +2054,45 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       const size_t pc = FOLD ? 0 : (size_t)(blk % NPART);
       const size_t kc = FOLD ? 0 : (size_t)(blk & 1);
       // FOLD in a cluster (no tickets): the partial stays in Sacc.
-      if (!FOLD || a.tickets != nullptr) {
+      if constexpr (CODES) {
+        // The dense columns (mask, Z) from the S tile; the design columns
+        // of the levels this unit touched from Sd (zero elsewhere), TILE
+        // levels at a time through the r stage, so that both the reads
+        // and the writes run along rows.
+        float* P = a.part + (pc * U + u) * KR;
+        const int d1 = 1 + a.d;
+        for (int i = tid; i < K * d1; i += THREADS) {
+          const int k = i / d1, x = i % d1;
+          P[(size_t)k * R + (x == 0 ? 0 : B1 + x - 1)] =
+              Sacc[k * L.PSA + x];
+        }
+        constexpr int TP = TILE + 1;  // the transposition's pitch
+        constexpr int TQ = 16;        // loads in flight per thread
+        for (int b0 = 0; b0 < B; b0 += TILE) {
+          __syncthreads();
+          for (int e0 = tid; e0 < TILE * K; e0 += TQ * THREADS) {
+            float v[TQ];
+            int at[TQ];
+#pragma unroll
+            for (int q = 0; q < TQ; ++q) {
+              const int e = e0 + q * THREADS, bi = e / K, k = e - bi * K;
+              const int b = b0 + bi;
+              v[q] = e < TILE * K && b < B && seen[b] == us
+                         ? Sd[(size_t)b * L.Kp + k]
+                         : 0.0f;
+              at[q] = k * TP + bi;
+            }
+#pragma unroll
+            for (int q = 0; q < TQ; ++q)
+              if (e0 + q * THREADS < TILE * K) Q[at[q]] = v[q];
+          }
+          __syncthreads();
+          for (int i = tid; i < K * TILE; i += THREADS) {
+            const int k = i / TILE, bi = i % TILE;
+            if (b0 + bi < B) P[(size_t)k * R + 1 + b0 + bi] = Q[k * TP + bi];
+          }
+        }
+      } else if (!FOLD || a.tickets != nullptr) {
         float* P = a.part + (pc * U + u) * KR;
         for (int i = tid; i < (int)KR; i += THREADS)
           P[i] = Sacc[(i / R) * L.PSA + i % R];
@@ -1609,17 +2145,23 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
       // tiles) wait for every unit of the block, reduce their share (the S
       // tile as scratch) and arrive, then write their slots' kbuf. The
       // first unit's S tile is cleared.
-      if (blk + 1 < a.nb) prefetch_unit(a, L, blk + 1, T, ring, WIDE ? 1 : 2);
+      if (blk + 1 < a.nb)
+        prefetch_unit(a, L, blk + 1, T, ring, WIDE && !CODES ? 1 : 2,
+                      CODES ? cring : nullptr);
       if (blk > 0) ybuf_share(a, L, blk - 1, yrank, yhelp);
       if constexpr (TIMED) __syncthreads();
       stamp<TIMED>(a, blk, ST_WINDOW);
       if (yrank >= 0) {
         wait_count(a.sync + SY_UNITS, gen[0] + (unsigned)((blk + 1) * U));
         stamp<TIMED>(a, blk, ST_UNITS);
-        reduce_share(a, L, blk, yrank, yhelp, Sacc);
+        if constexpr (CODES)
+          codes_reduce<ONE>(a, L, blk, yrank, yhelp, Sacc, Q, shb);
+        else
+          reduce_share(a, L, blk, yrank, yhelp, Sacc);
         arrive(a.sync + SY_REDUCED);
         for (int j = yhelp - 1 - yrank; j < J; j += yhelp)
-          slot_kbuf(a, L, blk, j, sm, big);
+          slot_kbuf<CODES>(a, L, blk, j, sm,
+                           CODES ? shb + (size_t)(blk & 1) * L.pstride : big);
       }
       __syncthreads();
       for (int i = tid; i < L.Kp * L.PSA; i += THREADS) Sacc[i] = 0.0f;
@@ -1631,7 +2173,8 @@ __global__ void __launch_bounds__(THREADS, 2) estep_round(Args a) {
     wait_count(a.sync + SY_REDUCED, gen[1] + (unsigned)(a.nb * yhelp));
     ybuf_share(a, L, a.nb - 1, blockIdx.x, gridDim.x);
   }
-  if (blockIdx.x == 0) {
+  // (The codes plan's last reducers wrote O1, E1.)
+  if (!CODES && blockIdx.x == 0) {
     for (int i = tid; i < K * B; i += THREADS) {
       const int k = i / B, b = i % B;
       const float* bs = a.bsum + (size_t)k * B1;
@@ -1716,7 +2259,7 @@ inline Args make_args(const float* zp3, const float* Y, const float* sigma,
   a.nb = nb; a.J = J; a.ng = ng; a.nc1 = nc1; a.fast_ent = fast_ent;
   a.tickets = nullptr; a.brows = nullptr; a.stamps = nullptr;
   a.sync = nullptr;
-  a.wide = nullptr; a.wide_ctas = 0;
+  a.wide = nullptr; a.wide_ctas = 0; a.codes = nullptr;
   a.frame = nullptr; a.src = nullptr; a.J_fix = 0; a.readd = 0;
   return a;
 }

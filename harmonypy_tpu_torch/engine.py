@@ -82,8 +82,9 @@ from typing import Callable, Optional
 import torch
 
 from .config import EngineConfig
-from .ops.cuda.fused_estep import (fused_estep, fused_estep_mesh,
-                                   fused_estep_r, mesh_plans)
+from .ops.cuda.fused_estep import (codes_plan, fused_estep,
+                                   fused_estep_mesh, fused_estep_r,
+                                   mesh_plans)
 from .ops.kmeans import kmeans_init
 from .ops.normalize import l2_normalize_cells, l2_normalize_cols
 from .ops.objective import (chunk_objective_partials,
@@ -93,7 +94,8 @@ from .ops.partition import (cell_partition_len, cell_slot_table, frame_sum,
                             iid_blocks, mesh_round_tables, partition_geometry,
                             stripe_blocks)
 from .ops.products import einsum, matmul, runs_one_pass
-from .ops.replay import INIT_ELEMS, replay_apply, replay_normal_eq, windows
+from .ops.replay import (INIT_ELEMS, replay_apply, replay_normal_eq,
+                         round_codes, windows)
 from .ops.ridge import moe_correct_ridge, solve_w
 from .ops.update_r import compute_scale_dist, update_r
 from .ops.update_r_fused import chunk_stats, make_zp3
@@ -308,17 +310,32 @@ def init_stored(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,
     return st
 
 
+def fit_codes(data: HarmonyData, cfg: EngineConfig):
+    """The codes a fit's rounds and replays pass to the one-launch kernel
+    (ops/replay.round_codes, once per fit), where they take its codes
+    plan: one card, the fused path, a shape in the kernel's codes plan and
+    one covariate (codes_plan); else None (the CPU runs the plain round,
+    which reads the design rows)."""
+    dev = _devices(data)[0]
+    if (dev.type != "cuda" or cfg.n_devices != 1 or not cfg.fused_estep
+            or not codes_plan(cfg.K, cfg.B, cfg.d, cfg.matmul_precision,
+                              cfg.n_covariates)):
+        return None
+    return round_codes(data.Phi, data.mask, cfg)
+
+
 def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
-              geom, precision: str):
+              geom, precision: str, codes=None):
     """One deferred-R round: the one-launch K1 on one device, the mesh
     round (K1's per-block entry) on a mesh, in the kernels' variant of
-    `precision`. Returns (O, E, caches, ybufs, kbufs) with the per-chunk
-    buffers per shard."""
+    `precision`; codes: fit_codes'. Returns (O, E, caches, ybufs, kbufs)
+    with the per-chunk buffers per shard."""
     with span("harmony::k1"):
         if geom.n_devices == 1:
             O, E, cache, ybuf, kbuf, _ = fused_estep(
                 tables.slots[0], tables.removal, ZP3s[0], Y, params.sigma,
-                params.theta, params.Pr_b, O, E, fast, precision=precision)
+                params.theta, params.Pr_b, O, E, fast, precision=precision,
+                codes=codes)
             return O, E, [cache], [ybuf], [kbuf]
         return fused_estep_mesh(tables, ZP3s, Y, params.sigma, params.theta,
                                 params.Pr_b, O, E, fast, geom.J_fix,
@@ -327,10 +344,11 @@ def _k1_round(tables, ZP3s, Y, params: HarmonyParams, O, E, fast: bool,
 
 @span("harmony::cluster")
 def cluster(st: HarmonyState, ZP3s, params: HarmonyParams, cfg: EngineConfig,
-            draw_blocks: Callable[[], torch.Tensor]) -> int:
+            draw_blocks: Callable[[], torch.Tensor], codes=None) -> int:
     """Deferred-R k-means loop (harmony.py:437-462): every round runs the
     fused E-step and keeps its start-of-round inputs for the replays.
-    Updates `st` in place; returns the number of rounds run."""
+    Updates `st` in place; returns the number of rounds run. codes:
+    fit_codes'."""
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
     nc = 2000.0 / cfg.N
@@ -345,7 +363,7 @@ def cluster(st: HarmonyState, ZP3s, params: HarmonyParams, cfg: EngineConfig,
         st.rep_cache, st.rep_blocks = st.cache, blocks
         O, E, caches, ybufs, kbufs = _k1_round(tables, ZP3s, Y, params,
                                                st.O, st.E, fast, geom,
-                                               cfg.matmul_precision)
+                                               cfg.matmul_precision, codes)
         st.n_passes += 1
         st.Y, st.O, st.E, st.cache = Y, O, E, pack(caches)
         Ysum = frame_sum(ybufs, geom).T
@@ -363,15 +381,17 @@ def _zp3s(st: HarmonyState, data: HarmonyData, cfg: EngineConfig) -> list:
 
 
 def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
-            cfg: EngineConfig, draw_blocks, ZO3s, one: bool) -> None:
+            cfg: EngineConfig, draw_blocks, ZO3s, one: bool,
+            codes=None) -> None:
     """One harmony iteration (harmony.py:421-428): cluster, then the ridge
     correction by replaying the final round twice (normal equations;
     apply), then the type-1 convergence check. Updates `st` in place; one:
-    the ridge's products as one bf16 pass."""
+    the ridge's products as one bf16 pass; codes: fit_codes', for the
+    rounds and their replays."""
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
     ZP3s = _zp3s(st, data, cfg)
-    rounds = cluster(st, ZP3s, params, cfg, draw_blocks)
+    rounds = cluster(st, ZP3s, params, cfg, draw_blocks, codes)
     st.kmeans_rounds.append(rounds)
     st.n_rounds += 1
     st.n_harmony = append(st.obj_harmony, st.n_harmony,
@@ -384,12 +404,14 @@ def iterate(st: HarmonyState, data: HarmonyData, params: HarmonyParams,
         rep = (st.rep_Y, params.sigma, params.theta, params.Pr_b, st.rep_O,
                st.rep_E)
         with span("harmony::normal_eq"):
-            S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast, one=one)
+            S = replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg, fast, one=one,
+                                 codes=codes)
         with span("harmony::solve"):
             W = solve_w(S, st.E, params, cfg)
         with span("harmony::apply"):
             Zc3s, Zs3s, st.Ysum0 = replay_apply(tables, ZP3s, ZO3s, W, rep,
-                                                cfg, fast, one=one)
+                                                cfg, fast, one=one,
+                                                codes=codes)
         st.n_passes += 2 * len(windows(one_device(cfg)))
     st.rep_Zcos = st.Z_cos
     st.Z_corr = pack(z.permute(1, 0, 2).reshape(cfg.d, -1) for z in Zc3s)
@@ -406,12 +428,13 @@ def _round_end(st: HarmonyState, i: int, terms, cfg: EngineConfig) -> bool:
 
 @span("harmony::cluster")
 def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
-                  cfg: EngineConfig, draw_blocks, one: bool) -> int:
+                  cfg: EngineConfig, draw_blocks, one: bool,
+                  codes=None) -> int:
     """Stored-R fused k-means loop (JAX package engine.py:391-511): every
     round runs K2, which rewrites the chunk-major R3 in place in its
     storage dtype. The first centroid numerator comes from the stored R by
     a per-chunk product, window by window, and frame_sum (one: as one bf16
-    pass). Returns the rounds run."""
+    pass). codes: fit_codes'. Returns the rounds run."""
     geom = partition_geometry(cfg)
     fast = fast_ent(cfg)
     nc = 2000.0 / cfg.N
@@ -437,7 +460,8 @@ def cluster_fused(st: HarmonyState, ZP3s, params: HarmonyParams,
                 _, O, E, cache, ybuf, kbuf = fused_estep_r(
                     tables.slots[0], tables.removal, ZP3s[0], st.R, Y,
                     params.sigma, params.theta, params.Pr_b, st.O, st.E,
-                    fast, precision=cfg.matmul_precision)
+                    fast, precision=cfg.matmul_precision,
+                    codes=codes)
                 caches, ybufs, kbufs = [cache], [ybuf], [kbuf]
             else:
                 O, E, caches, ybufs, kbufs, _ = fused_estep_mesh(
@@ -499,14 +523,14 @@ def cluster_percell(st: HarmonyState, data: HarmonyData,
 
 def iterate_stored(st: HarmonyState, data: HarmonyData,
                    params: HarmonyParams, cfg: EngineConfig,
-                   draw_blocks, one: bool) -> None:
+                   draw_blocks, one: bool, codes=None) -> None:
     """One stored-R harmony iteration (JAX package engine.py:685-719):
     cluster, moe_correct_ridge on the stored R, normalize, the type-1
     convergence check. Updates `st` in place; one: the products outside
-    the kernels as one bf16 pass."""
+    the kernels as one bf16 pass; codes: fit_codes'."""
     if cfg.fused_estep:
         rounds = cluster_fused(st, _zp3s(st, data, cfg), params, cfg,
-                               draw_blocks, one)
+                               draw_blocks, one, codes)
     else:
         rounds = cluster_percell(st, data, params, cfg, draw_blocks, one)
     st.kmeans_rounds.append(rounds)
@@ -539,6 +563,7 @@ class HarmonyStep:
         self.one = _one(one_pass, cfg, data)
         self.dev = _devices(data)[0]
         self.ZO3s = None        # the deferred ridge's chunk-major Z_orig
+        self.codes = fit_codes(data, cfg)   # the kernel's codes plan
 
     def draw_blocks(self) -> torch.Tensor:
         cfg = self.cfg
@@ -566,10 +591,10 @@ class HarmonyStep:
                                  .permute(1, 0, 2).contiguous()
                                  for z in parts(self.data.Z_orig)]
                 iterate(st, self.data, self.params, cfg, self.draw_blocks,
-                        self.ZO3s, self.one)
+                        self.ZO3s, self.one, self.codes)
             else:
                 iterate_stored(st, self.data, self.params, cfg,
-                               self.draw_blocks, self.one)
+                               self.draw_blocks, self.one, self.codes)
 
 
 def fit(data: HarmonyData, params: HarmonyParams, cfg: EngineConfig,

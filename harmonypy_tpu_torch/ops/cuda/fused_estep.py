@@ -53,7 +53,13 @@ layout_wide: at d = 50, K = 100 from B = 51 under "default", B = 33 under
 "float32"). The round, its r window and K2
 take it (`launches_wide` counts those launches, each inside a
 `harmony::k1_wide` range); the per-block entry of a mesh has no wide plan
-and raises for such shapes.
+and raises for such shapes. Given `codes`, a one-covariate design's batch
+level of each cell (chunk-major (nc1, CH) int32, -1 for padding; the fit
+passes them where `codes_plan` holds), a round in the wide plan takes its
+codes plan instead (csrc/fused_estep.cuh layout_codes): the slab's [mask;
+Z] rows and the codes, not the B design rows, the same bits
+(`launches_codes` counts those launches, each also inside a
+`harmony::k1_codes` range).
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ launches_block = 0
 launches_block_write_r = 0
 launches_readd = 0
 launches_wide = 0    # one-launch rounds (K1, r window, K2) in the wide plan
+launches_codes = 0   # ... of those, in its codes plan
 wide_ctas = 0        # CTAs (scratch slabs) of the last such launch
 native_calls = 0     # mesh_plan_run calls (the native mesh pass)
 plans_made = 0       # mesh pass plans (_MeshPlan) made
@@ -202,7 +209,7 @@ def _kernel_lib(one: bool = False):
         name = "fused_estep_one" if one else "fused_estep"
         lib = build.load(name)
         common = [_P] * N_PTRS + [_P]        # ... and the sync buffer
-        wide = [_P, _I]                      # the wide plan's scratch
+        wide = [_P, _I, _P]                  # the wide plan's scratch, codes
         tail = [_I] * 9 + [_P]
         lib.fused_estep_round.argtypes = common + wide + tail
         lib.fused_estep_r_window.argtypes = (common + [_P, _I, _I] + wide
@@ -211,13 +218,16 @@ def _kernel_lib(one: bool = False):
         for fn in (lib.fused_estep_round, lib.fused_estep_r_window,
                    lib.fused_estep_write_r):
             fn.restype = _I
-        for fn in (lib.fused_estep_smem, lib.fused_estep_smem_wide,
-                   lib.fused_estep_wide_floats):
+        sizes = (lib.fused_estep_smem, lib.fused_estep_smem_wide,
+                 lib.fused_estep_wide_floats, lib.fused_estep_smem_codes,
+                 lib.fused_estep_codes_floats,
+                 lib.fused_estep_codes_shared_floats)
+        for fn in sizes:
             fn.argtypes = [_I, _I, _I]
-        lib.fused_estep_grid.argtypes = [_I, _I, _I, _I]
-        for fn in (lib.fused_estep_smem, lib.fused_estep_smem_wide,
-                   lib.fused_estep_wide_floats, lib.fused_estep_smem_limit,
-                   lib.fused_estep_tile, lib.fused_estep_grid,
+        for fn in (lib.fused_estep_grid, lib.fused_estep_grid_codes):
+            fn.argtypes = [_I, _I, _I, _I]
+        for fn in (*sizes, lib.fused_estep_smem_limit, lib.fused_estep_tile,
+                   lib.fused_estep_grid, lib.fused_estep_grid_codes,
                    lib.fused_estep_one_pass):
             fn.restype = _I
         if lib.fused_estep_tile() != TILE:
@@ -330,6 +340,72 @@ def wide_plan(K: int, B: int, d: int, one: bool) -> bool:
     return True
 
 
+def codes_fit(K: int, B: int, d: int, one: bool) -> bool:
+    """Whether the codes plan of (K, B, d) fits a CTA's shared memory (one:
+    the one-pass variant's). Its S keeps the dense [mask; Z] accumulator and
+    two ring stages there, which the dense wide plan does not: past K ~ 270
+    at d = 50, or d > 120 under "float32", only the dense wide plan fits."""
+    lib = _kernel_lib(one)
+    return lib.fused_estep_smem_codes(K, B, d) <= lib.fused_estep_smem_limit()
+
+
+def codes_plan(K: int, B: int, d: int, precision: str,
+               n_covariates: int) -> bool:
+    """Whether a fit's rounds on a card take the codes plan: the shape
+    takes the wide plan (`wide_plan`, in the variant of `precision`), the
+    codes plan fits (`codes_fit`) and the design has one covariate
+    (cfg.n_covariates == 1, as ops/replay.onehot_design decides for the
+    ridge), so that each cell's design rows are one level. A design of
+    several covariates keeps the dense wide plan: its cells have several
+    ones, whose sum's order the dense product sets."""
+    one = one_pass(precision)
+    return (n_covariates == 1 and wide_plan(K, B, d, one)
+            and codes_fit(K, B, d, one))
+
+
+# csrc/fused_estep.cuh's constants that size its memory plans.
+_THREADS, _PT, _KSC, _KSC1, _NRG_MAX, _CG = 256, TILE + 4, 4, 2, 8, 4
+MAX_SMEM = 232448    # bytes of shared memory a CTA may take (MAX_SMEM)
+
+
+def plan_floats(K: int, B: int, d: int, one: bool) -> dict:
+    """The round's memory plans of (K, B, d) in floats, as csrc/
+    fused_estep.cuh's layout, layout_wide and layout_codes size them (one:
+    the one-pass variant's): the shared memory of each ("narrow", "wide",
+    "codes"), the codes plan's scratch per CTA ("codes_scratch", gtotal)
+    and the region its CTAs share ("codes_shared", gshared). For the
+    memory model, which has no library to ask; chip_smoke.py holds these
+    to the library's sizes."""
+    def up4(x):
+        return _up(x, 4)
+
+    def ring(dist_rows, nr, nrg):      # (ring rows RR, S pitch PSA)
+        nrp = _up(nr, nrg)
+        return (_up(max(dist_rows, 8 * nrp), 8),
+                8 * nrp + (0 if nrp & 1 else 8))
+
+    Kp, step = _up(K, 16), 16 if one else 8
+    ksr = max(-(-d // step), _KSC1 if one else _KSC)
+    yw = Kp // 16 * 128                # floats of one Y^T or wdiv k-step
+    common = 2 * up4(Kp) + Kp * _PT + TILE + _THREADS
+    nr = _up(1 + B + d, 8) // 8
+    rr, psa = ring(B + 1 + step * ksr, nr, min(nr, _NRG_MAX))
+    for pre in (0,) if one else (1, 0):   # operands split ahead if they fit
+        narrow = ((yw * ksr + yw * -(-(B + 1) // step)) * (1 + pre) + common
+                  + 2 * up4(K * B) + 2 * rr * _PT + up4(Kp * psa))
+        if 4 * narrow <= MAX_SMEM:
+            break
+    wide = yw * ksr + common + rr * _PT
+    rr, psa = ring(1 + step * ksr, _up(1 + d, 8) // 8, _CG)
+    codes = (yw * ksr + common + 2 * rr * _PT + up4(Kp * psa)
+             + 4 * TILE + 4 + up4(B))
+    table = up4(B * Kp // 2 if one else B * Kp)
+    in_smem = 4 * (codes + table) <= MAX_SMEM
+    return dict(narrow=narrow, wide=wide, codes=codes + table * in_smem,
+                codes_scratch=up4(B * Kp) + table * (not in_smem),
+                codes_shared=2 * (2 * up4(K * B) + table))
+
+
 def _check(name, t, shape, dtype, device, contiguous=True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -379,18 +455,35 @@ def _check_round(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
     return nc1, K, B, d, CH
 
 
+def _check_codes(codes, ZP3):
+    """codes: None, or the (nc1, CH) int32 batch levels beside ZP3."""
+    if codes is not None:
+        _check("codes", codes, (ZP3.shape[0], ZP3.shape[2]), torch.int32,
+               ZP3.device)
+        if ZP3.device.type == "cuda" and codes.data_ptr() % 16:
+            raise ValueError("fused_estep copies the codes in 16-byte "
+                             "pieces: codes must be 16-byte aligned")
+
+
 def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-            fast_ent, one, J_glob=None, out=None, lib=None):
+            fast_ent, one, J_glob=None, out=None, lib=None, codes=None):
     """Allocate the outputs and scratch and run one round through the
     library function `entry` (extra: its arguments between the common
     pointers with the sync buffer (round_sync) and the dimensions; one: the
     one-pass variant; lib: the library, default the variant's, whose round
     entries also take the wide plan's scratch, allocated here where the
-    shape takes it). out: the caller's (cache, ybuf, kbuf) to write into,
-    else new ones. Returns (O, E, cache, ybuf, kbuf)."""
+    shape takes it, and the codes, which make a wide round take the codes
+    plan). out: the caller's (cache, ybuf, kbuf) to write into, else new
+    ones. Returns (O, E, cache, ybuf, kbuf)."""
     nc1, _, CH = ZP3.shape
     d, K = Y.shape
     B = theta.shape[0]
+    wide = lib is None and wide_plan(K, B, d, one)
+    by_codes = wide and codes is not None
+    if by_codes and not codes_fit(K, B, d, one):
+        raise ValueError(f"fused_estep: the codes plan of K={K}, B={B}, "
+                         f"d={d} exceeds a CTA's shared memory; pass codes "
+                         f"only where codes_plan holds")
     nb, J = slots.shape
     dev, f32 = ZP3.device, torch.float32
     geo = kernel_geometry(K, B, d, CH, J, _sm_count(dev.index or 0), J_glob)
@@ -414,24 +507,29 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                                    slots, O0, E0, part, kpart, bsum, cache,
                                    ybuf, kbuf, O1, E1,
                                    round_sync(dev, stream))]
-    wide = lib is None and wide_plan(K, B, d, one)
     if lib is None:
         lib = _kernel_lib(one)
         scratch, ctas = None, 0
         if wide:
             # One slab per CTA of the launch (at most one per unit).
             with torch.cuda.device(dev):
-                ctas = min(lib.fused_estep_grid(K, B, d, 0), geo.n_units)
+                ctas = min((lib.fused_estep_grid_codes if by_codes else
+                            lib.fused_estep_grid)(K, B, d, 0), geo.n_units)
             if ctas < 1:
                 raise RuntimeError(f"fused_estep occupancy query failed: "
                                    f"CUDA error {-ctas}")
-            scratch = torch.empty(
-                (ctas, lib.fused_estep_wide_floats(K, B, d)), dtype=f32,
-                device=dev)
+            # The codes plan's CTAs also share a region after theirs.
+            floats = ctas * (lib.fused_estep_codes_floats if by_codes else
+                             lib.fused_estep_wide_floats)(K, B, d)
+            if by_codes:
+                floats += lib.fused_estep_codes_shared_floats(K, B, d)
+            scratch = torch.empty((floats,), dtype=f32, device=dev)
         extra = [*extra, None if scratch is None else scratch.data_ptr(),
-                 ctas]
+                 ctas, codes.data_ptr() if by_codes else None]
     ranged = span("harmony::k1_wide") if wide else contextlib.nullcontext()
-    with torch.cuda.device(dev), ranged:
+    coded = span("harmony::k1_codes") if by_codes else \
+        contextlib.nullcontext()
+    with torch.cuda.device(dev), ranged, coded:
         err = getattr(lib, entry)(
             *ptrs, *extra, K, B, d, CH, nb, J, geo.ng, nc1,
             int(bool(fast_ent)), stream)
@@ -439,8 +537,9 @@ def _launch(entry, extra, slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
         raise RuntimeError(f"{entry} cooperative launch failed: CUDA error "
                            f"{err}")
     if wide:
-        global launches_wide, wide_ctas
+        global launches_wide, launches_codes, wide_ctas
         launches_wide += 1
+        launches_codes += by_codes
         wide_ctas = ctas
     return O1, E1, cache, ybuf, kbuf
 
@@ -1186,12 +1285,16 @@ def fused_estep_mesh(tables, ZP3s, Y, sigma, theta, Pr_b, O, E,
 
 def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                 fast_ent: bool, lo: int = 0, width: int = 0,
-                precision: str = "float32"):
+                precision: str = "float32", codes=None):
     """One fused E-step round (K1); see `ops.update_r_fused.fused_update_nor`
     for the arguments and results. precision: the products' variant on a
-    card (CPU tensors: fp32 under either)."""
+    card (CPU tensors: fp32 under either). codes: a one-covariate design's
+    (nc1, CH) int32 batch levels (-1: padding), which a wide round on a
+    card takes the codes plan with (the plain version reads the design
+    rows)."""
     _, K, _, _, CH = _check_round(slots, removal, ZP3, Y, sigma, theta,
                                   Pr_b, O, E, precision)
+    _check_codes(codes, ZP3)
     if width < 0 or lo < 0:
         raise ValueError(f"bad r window lo={lo} width={width}")
     if ZP3.device.type == "cpu":
@@ -1205,24 +1308,25 @@ def fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
                          device=ZP3.device)
         out = _launch("fused_estep_r_window", [Rw.data_ptr(), lo, width],
                       slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                      fast_ent, one)
+                      fast_ent, one, codes=codes)
     else:
         Rw = None
         out = _launch("fused_estep_round", [], slots, removal, ZP3, Y,
-                      sigma, theta, Pr_b, O, E, fast_ent, one)
+                      sigma, theta, Pr_b, O, E, fast_ent, one, codes=codes)
     launches += 1
     launches_one_pass += one
     return (*out, Rw)
 
 
 def fused_estep_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
-                  fast_ent: bool, precision: str = "float32"):
+                  fast_ent: bool, precision: str = "float32", codes=None):
     """One stored-R E-step round (K2), writing r into the caller's
     chunk-major R3 (nc1, K, CH), whose dtype (float32 or bfloat16) picks
-    the store; see `ops.update_r_fused.fused_update_r`. precision: as
-    fused_estep's. Returns (R3, O, E, cache, ybuf, kbuf)."""
+    the store; see `ops.update_r_fused.fused_update_r`. precision, codes:
+    as fused_estep's. Returns (R3, O, E, cache, ybuf, kbuf)."""
     nc1, K, _, _, CH = _check_round(slots, removal, ZP3, Y, sigma, theta,
                                     Pr_b, O, E, precision)
+    _check_codes(codes, ZP3)
     _check("R3", R3, (nc1, K, CH), (torch.float32, torch.bfloat16),
            ZP3.device)
     if ZP3.device.type == "cpu":
@@ -1234,7 +1338,7 @@ def fused_estep_r(slots, removal, ZP3, R3, Y, sigma, theta, Pr_b, O, E,
     out = _launch("fused_estep_write_r",
                   [R3.data_ptr(), int(R3.dtype == torch.bfloat16)],
                   slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent,
-                  one)
+                  one, codes=codes)
     launches_write_r += 1
     launches_write_r_one_pass += one
     return (R3, *out)

@@ -90,25 +90,30 @@ def windows(cfg: EngineConfig, budget: int = WINDOW_ELEMS):
 
 
 def replay_r(tables, ZP3, Y, sigma, theta, Pr_b, O, E, fast_ent: bool,
-             lo: int, width: int, precision: str = "float32") -> torch.Tensor:
+             lo: int, width: int, precision: str = "float32",
+             codes=None) -> torch.Tensor:
     """r (width, K, CH) of chunks lo..lo+width-1 in the replayed round on
     one device; `tables` = (slots, removal) of that round; precision: the
-    round's (cfg.matmul_precision)."""
+    round's (cfg.matmul_precision); codes: the round's (round_codes), so
+    that the replay runs the round's plan."""
     slots, removal = tables
     return fused_estep(slots, removal, ZP3, Y, sigma, theta, Pr_b, O, E,
-                       fast_ent, lo, width, precision=precision)[5]
+                       fast_ent, lo, width, precision=precision,
+                       codes=codes)[5]
 
 
 def round_r_windows(tables, ZP3s, rep, fast_ent: bool, geom, lo: int,
-                    width: int, precision: str = "float32") -> list:
+                    width: int, precision: str = "float32",
+                    codes=None) -> list:
     """r of the global chunk window [lo, lo + width) in the replayed round,
     per shard of this process: a (width, K, CH) tensor holding the shard's
     chunks of the window (zero elsewhere), or None for a shard that holds
     none. tables: MeshTables of the round; rep = (Y, sigma, theta, Pr_b, O,
-    E); precision: the round's."""
+    E); precision: the round's; codes: the one-device round's codes
+    (round_codes), or None."""
     if geom.n_devices == 1:
         return [replay_r((tables.slots[0], tables.removal), ZP3s[0], *rep,
-                         fast_ent, lo, width, precision)]
+                         fast_ent, lo, width, precision, codes)]
     wins = [(lo - s * geom.nc_cap, width)
             if window_rows(geom, s, lo, width)[2] else None
             for s in local_shards(geom.n_devices)]
@@ -145,6 +150,18 @@ def window_levels(a) -> torch.Tensor:
     design rows a (w, B1, CH), 1 + its batch, and 0 (the intercept's) for
     a padding cell (mask 0)."""
     return torch.where(a[:, 0] > 0, torch.argmax(a[:, 1:], dim=1) + 1, 0)
+
+
+def round_codes(Phi, mask, cfg: EngineConfig) -> torch.Tensor:
+    """(nc1, CH) int32, chunk-major as the slab (ops/update_r_fused.
+    make_zp3): each cell's batch level of a one-covariate design (Phi (B,
+    N_local) one-hot, mask (N_local,)), -1 for a padding cell: the slab's
+    window_levels less one, taken from the design the slab is built from.
+    The codes plan of the round's kernel reads these instead of the B
+    design rows."""
+    geom = partition_geometry(cfg)
+    lev = torch.where(mask > 0, torch.argmax(Phi, dim=0), -1)
+    return lev.to(torch.int32).reshape(geom.nc_cap + 1, geom.CH).contiguous()
 
 
 def window_design_sums(a, zo, r, one: bool, out=None) -> torch.Tensor:
@@ -226,20 +243,20 @@ def window_apply(a, zo, r, W, one: bool) -> torch.Tensor:
 
 def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
                      fast_ent: bool, budget: int = WINDOW_ELEMS, *,
-                     one: bool):
+                     one: bool, codes=None):
     """Ridge normal equations from the replayed r: S (B1*(B1+d), K), rows
     b*B1+c for cov[., b, c] and B1*B1 + b*d + x for rhs[., b, x], from
     per-chunk rows of the dense or, for a one-hot design, the one-hot form
     (normal_eq_rows). The design rows a = [mask; Phi] are the leading B1
     rows of the slab; ZO3s are the shards' (nc1, d, CH) chunk-major
-    Z_orig."""
+    Z_orig; codes: the round's (round_r_windows)."""
     B1, onehot = cfg.B1, onehot_design(cfg)
     geom = partition_geometry(cfg)
     Sbufs = [torch.zeros((Z.shape[0], normal_eq_rows(cfg), cfg.K),
                          dtype=torch.float32, device=Z.device) for Z in ZP3s]
     for lo, w in windows(one_device(cfg), budget):
         rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w,
-                             cfg.matmul_precision)
+                             cfg.matmul_precision, codes)
         for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue
@@ -260,11 +277,12 @@ def replay_normal_eq(tables, ZP3s, ZO3s, rep, cfg: EngineConfig,
 
 def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
                  fast_ent: bool, budget: int = WINDOW_ELEMS, *,
-                 one: bool):
+                 one: bool, codes=None):
     """Apply the ridge correction with the replayed r (harmony.py:559-569):
     returns per shard (Zc3, Zs3) (nc1, d, CH) — the corrected embedding and
     its L2-normalization, zero on the dummy chunk — and Ysum0 (d, K), the
-    next cluster loop's initial centroid numerator Z_cos_new r^T."""
+    next cluster loop's initial centroid numerator Z_cos_new r^T. codes:
+    the round's (round_r_windows)."""
     B1, d = cfg.B1, cfg.d
     geom = partition_geometry(cfg)
     Zc3s, Zs3s, ybufs = [], [], []
@@ -277,7 +295,7 @@ def replay_apply(tables, ZP3s, ZO3s, W, rep, cfg: EngineConfig,
                                  device=Z.device))
     for lo, w in windows(one_device(cfg), budget):
         rs = round_r_windows(tables, ZP3s, rep, fast_ent, geom, lo, w,
-                             cfg.matmul_precision)
+                             cfg.matmul_precision, codes)
         for i, (s, r) in enumerate(zip(local_shards(cfg.n_devices), rs)):
             if r is None:
                 continue

@@ -34,8 +34,10 @@ import os
 import torch
 
 from ..config import EngineConfig, fused_geometry_ok
-from ..ops.cuda.fused_estep import PART_COPIES, kernel_geometry
+from ..ops.cuda.fused_estep import (MAX_SMEM, PART_COPIES, kernel_geometry,
+                                    plan_floats)
 from ..ops.partition import partition_geometry
+from ..ops.products import one_pass
 from ..ops.replay import (INIT_ELEMS, normal_eq_rows, onehot_design,
                           window_width)
 from ..parallel.mesh import Mesh
@@ -63,6 +65,29 @@ def _kmeans_init_bytes(cfg: EngineConfig) -> int:
     if S < cfg.N and S >= cfg.kmeansbb_oversample * cfg.K:
         n_cand = 1 + cfg.kmeansbb_rounds * cfg.kmeansbb_oversample * cfg.K
     return S * (cfg.d + 2 * T + 3 * cfg.K + 2 * n_cand) * _F
+
+
+def codes_plan_holds(cfg: EngineConfig) -> bool:
+    """Whether a fit's rounds on a card take the one-launch round's codes
+    plan (ops/cuda/fused_estep.codes_plan, sized here by plan_floats): one
+    device, one covariate, a shape whose plan with O, E, wdiv and S in
+    shared memory does not fit and whose codes plan does."""
+    p = plan_floats(cfg.K, cfg.B, cfg.d, one_pass(cfg.matmul_precision))
+    return (cfg.n_devices == 1 and onehot_design(cfg)
+            and _F * p["narrow"] > MAX_SMEM >= _F * p["codes"])
+
+
+def wide_scratch_bytes(cfg: EngineConfig) -> int:
+    """The scratch of the one-launch round's wide plan on a card: of a
+    one-covariate design whose codes plan fits, that plan's (csrc/
+    fused_estep.cuh layout_codes: gtotal floats for each of _SMS CTAs and
+    the gshared floats they share), else the dense wide plan's (layout_wide:
+    O', E', wdiv's fragments and the S accumulator a CTA)."""
+    K, B, d = cfg.K, cfg.B, cfg.d
+    p = plan_floats(K, B, d, one_pass(cfg.matmul_precision))
+    if onehot_design(cfg) and _F * p["codes"] <= MAX_SMEM:
+        return (_SMS * p["codes_scratch"] + p["codes_shared"]) * _F
+    return _SMS * (3 * K * (1 + B + d) + 2 * K * B) * _F
 
 
 def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
@@ -93,9 +118,11 @@ def memory_envelope(cfg: EngineConfig, shards: int = 1) -> dict:
         # (ops/cuda/fused_estep.round_scratch), one block's on each shard
         # of a mesh.
         partials = (c if mesh else PART_COPIES) * units * K * (1 + B + d) * _F
-        # The wide plan's per-CTA scratch (O', E', wdiv, S; csrc/
-        # fused_estep.cuh layout_wide), counted at every shape.
-        partials += _SMS * (3 * K * (1 + B + d) + 2 * K * B) * _F
+        # The wide plan's scratch, counted at every shape, and the cells'
+        # codes (ops/replay.round_codes) where the codes plan reads them.
+        partials += wide_scratch_bytes(cfg)
+        if codes_plan_holds(cfg):
+            persistent["batch codes"] = Nl * _F
         # One window of r (ops/replay.windows), as float32. The init pass
         # holds dist, exp, r and their products per window of its own
         # (a quarter of the size), a stored fit one more for the store, and
